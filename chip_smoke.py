@@ -22,13 +22,27 @@ raises on failure; nothing is caught):
    the kernel; checks tokens, finite logits and the kernel's launch count;
 5. dense equivalence: tensor-parallel decode with every packet delivered
    against the dense decode, same tokens, 4 steps, logits within a bf16
-   tolerance.
+   tolerance;
+6. RWKV-6 kernel against its plain version on the card: a sweep of
+   sequence lengths, head widths and dtypes within the JAX package's
+   kernel-test tolerances (2e-4 f32, 0.1 bf16), the final state within
+   2e-4 (f32); then its time at the slice shape (8, 512, 32, 64) bf16
+   beside its plain version and the card's bound;
+7. slice: rwkv6-1.6b at full width (random bf16 weights) served by the
+   static-batch engine, 8 prompts of 512 tokens, 32 new tokens, greedy;
+   checks the tokens, finite logits at every step and one kernel launch
+   per layer per prefill;
+8. prefill against decode at full width: the last logits of a prefill of
+   prompt + 4 tokens against a prefill of the prompt and 4 teacher-forced
+   decode steps, with the bf16 weights (a bf16 tolerance) and an f32 copy
+   of them (a tight one).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,10 +58,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import masked_avg as K  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rwkv6 as RK  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.netsim import request_trace  # noqa: E402
 from repro_torch.serve import (ContinuousEngine, PagedCache,  # noqa: E402
-                               TPDecodeConfig, make_requests,
+                               ServeEngine, TPDecodeConfig, make_requests,
                                make_tp_context)
 
 # Full-precision f32 matmuls and convolutions on the card (no TF32), set
@@ -62,6 +77,18 @@ F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 
 SERVE_SHAPE = (4, 4, 2304)     # (B, n, d) of one TP combine at gemma3-1b
 SITES_PER_STEP = 52            # 2 collective sites × 26 layers
+RWKV_BATCH, RWKV_PROMPT, RWKV_NEW = 8, 512, 32
+RWKV_SHAPE = (RWKV_BATCH, RWKV_PROMPT, 32, 64)   # (B, S, h, dk = dv)
+RWKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 0.1}
+RWKV_STATE_TOL = 2e-4          # the state is f32 whatever the input dtype
+# relative RMS error of the logits, prefill against decode (phase 8)
+PREFILL_DECODE_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+
+
+def reset_counts() -> None:
+    """Zero every kernel's launch count (before a path is driven)."""
+    K.masked_avg_grid.launches = 0
+    RK.rwkv6.launches = 0
 
 
 def card_line() -> str:
@@ -223,7 +250,7 @@ def serve_slice(model, params) -> dict:
     reqs = smoke_requests(cfg)
     eng = smoke_engine(model, params, reqs)
     torch.cuda.synchronize()
-    K.masked_avg_grid.launches = 0
+    reset_counts()
     rep = eng.run(reqs, drain=True)
     launches = K.masked_avg_grid.launches
     torch.cuda.synchronize()
@@ -304,6 +331,181 @@ def dense_equivalence(model, params, steps: int = 4) -> dict:
             "max_abs": worst_abs, "tol_rel_rms": 5e-2}
 
 
+def rwkv_inputs(gen: torch.Generator, B: int, S: int, h: int, dk: int,
+                dv: int, dtype: torch.dtype) -> list:
+    """The JAX kernel tests' input distribution on the card: r, k, v
+    normal × 0.5, w uniform in (0.05, 0.995), u normal × 0.1 (f32)."""
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    r = normal((B, S, h, dk), 0.5)
+    k = normal((B, S, h, dk), 0.5)
+    v = normal((B, S, h, dv), 0.5)
+    w = 0.05 + 0.945 * torch.rand((B, S, h, dk), generator=gen,
+                                  device="cuda")
+    u = normal((h, dk), 0.1)
+    return [x.to(dtype) for x in (r, k, v, w)] + [u]
+
+
+def check_rwkv6(gen: torch.Generator) -> dict:
+    """Phase 6a: the RWKV-6 kernel against its plain version over the
+    sweep, and at the slice shape. Returns the slice shape's errors."""
+    cases = [(2, S, 3, dk, dv) for S in (1, 16, 33, 130, 512)
+             for dk, dv in ((8, 8), (16, 32), (64, 64))]
+    cases.append(RWKV_SHAPE + (64,))
+    errs = {}
+    for B, S, h, dk, dv in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            args = rwkv_inputs(gen, B, S, h, dk, dv, dt)
+            o, state = ops.rwkv6(*args)
+            o_ref, s_ref = ops.rwkv6(*args, backend="ref")
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_s = (state - s_ref).abs().max().item()
+            tol = RWKV_TOL[dt]
+            if o.dtype != dt or not torch.allclose(
+                    o.float(), o_ref.float(), atol=tol, rtol=tol):
+                raise AssertionError(f"rwkv6 {(B, S, h, dk, dv)} {dt}: "
+                                     f"output max abs err {err_o} > {tol}")
+            if not torch.allclose(state, s_ref, atol=RWKV_STATE_TOL,
+                                  rtol=RWKV_STATE_TOL):
+                raise AssertionError(f"rwkv6 {(B, S, h, dk, dv)} {dt}: "
+                                     f"state max abs err {err_s} > "
+                                     f"{RWKV_STATE_TOL}")
+            if (B, S, h, dk) == RWKV_SHAPE:
+                errs[str(dt).replace("torch.", "")] = {"o": err_o,
+                                                       "state": err_s}
+    print(f"rwkv6 sweep: {2 * len(cases)} cases agree with the plain "
+          f"version", flush=True)
+    return errs
+
+
+def time_rwkv6(gen: torch.Generator) -> dict:
+    """Phase 6b: times at the slice shape, bf16. The plain version is a
+    512-step Python loop, so its graph holds few calls."""
+    B, S, h, dk = RWKV_SHAPE
+    args = rwkv_inputs(gen, B, S, h, dk, dk, torch.bfloat16)
+
+    def kernel():
+        return RK.rwkv6(*args)
+
+    def plain():
+        return ops.rwkv6(*args, backend="ref")
+
+    el = args[0].element_size()
+    nbytes = (4 * B * S * h * dk * el          # r, k, v, w
+              + h * dk * 4                     # u
+              + B * S * h * dk * el            # out
+              + B * h * dk * dk * 4)           # final state
+    flops = 6 * B * S * h * dk * dk
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return {"ms": device_ms(kernel, calls=20, reps=10),
+            "plain_ms": device_ms(plain, calls=2, reps=3),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def serve_rwkv(model, params, gen: torch.Generator) -> dict:
+    """Phase 7: the static-batch engine on rwkv6-1.6b at full width. One
+    short warm-up run at the same prompt shape (two new tokens), then
+    the checked run: prefill and every decode step timed on the host
+    clock between synchronisations."""
+    cfg = model.cfg
+    prefill, decode = model.prefill, model.decode_step
+    finite = torch.ones((), dtype=torch.bool, device=model.device)
+    times = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            nonlocal finite
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args, **kwargs)
+            finite = finite & torch.isfinite(logits).all()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return logits, cache
+        return call
+
+    eng = ServeEngine(model, params, max_len=RWKV_PROMPT + RWKV_NEW)
+    prompts = torch.randint(0, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT),
+                            generator=gen, device="cuda")
+    eng.generate(prompts, 2)          # warm-up at the prompt's shapes
+    model.prefill = timed("prefill", prefill)
+    model.decode_step = timed("decode", decode)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, RWKV_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = RK.rwkv6.launches
+    model.prefill, model.decode_step = prefill, decode
+    if tuple(out.shape) != (RWKV_BATCH, RWKV_NEW):
+        raise AssertionError(f"generated {tuple(out.shape)}, want "
+                             f"{(RWKV_BATCH, RWKV_NEW)}")
+    if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError("token out of range")
+    if not bool(finite):
+        raise AssertionError("non-finite logits")
+    prefills = len(times["prefill"])
+    if len(times["decode"]) != RWKV_NEW:
+        raise AssertionError(f"{len(times['decode'])} decode calls, want "
+                             f"{RWKV_NEW}")
+    if launches != cfg.n_layers * prefills:
+        raise AssertionError(f"rwkv6 launches {launches} != {cfg.n_layers} "
+                             f"layers × {prefills} prefills")
+    return {"batch": RWKV_BATCH, "prompt_len": RWKV_PROMPT,
+            "new_tokens": RWKV_NEW, "wall_s": wall,
+            "tokens_per_s": RWKV_BATCH * RWKV_NEW / wall,
+            "prefill_ms": times["prefill"][0] * 1e3,
+            "decode_ms_per_step": sum(times["decode"]) * 1e3 / RWKV_NEW,
+            "prefills": prefills, "rwkv6_launches": launches}
+
+
+def prefill_vs_decode(model, params, gen: torch.Generator,
+                      steps: int = 4) -> dict:
+    """Phase 8: the last logits of prefill(prompt + steps tokens) against
+    prefill(prompt) and ``steps`` teacher-forced decode steps, for the
+    slice's bf16 weights and for an f32 copy of them. In bf16 the two
+    routes round at different places (the prefill's matrix products over
+    all positions against the decode's over one, the kernel's output
+    against the plain decode step's), so they agree to a relative RMS
+    error on the logits; in f32 only the order of the f32 sums differs,
+    and the tolerance is tight enough to catch a fault of the
+    recurrence."""
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab_size, (2, RWKV_PROMPT + steps),
+                         generator=gen, device="cuda")
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                          device="cuda")
+    params32 = {"embed": {k: v.float() for k, v in params["embed"].items()},
+                "layers": [{k: v.float() for k, v in layer.items()}
+                           for layer in params["layers"]]}
+    out = {"steps": steps, "prompt_len": RWKV_PROMPT}
+    for name, m, p in (("bfloat16", model, params),
+                       ("float32", model32, params32)):
+        want, _ = m.prefill(p, {"tokens": toks})
+        got, cache = m.prefill(p, {"tokens": toks[:, :RWKV_PROMPT]})
+        for t in range(steps):
+            pos = RWKV_PROMPT + t
+            got, cache = m.decode_step(p, cache,
+                                       {"token": toks[:, pos:pos + 1]}, pos)
+        g, w = got.float(), want.float()
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{name}: non-finite logits")
+        rel = ((g - w).norm() / w.norm()).item()
+        tol = PREFILL_DECODE_TOL[name]
+        if rel > tol:
+            raise AssertionError(f"{name} prefill vs decode logits: "
+                                 f"relative RMS error {rel} > {tol}")
+        out[name] = {"rel_rms": rel, "max_abs": (g - w).abs().max().item(),
+                     "argmax_equal": bool((g.argmax(-1)
+                                           == w.argmax(-1)).all()),
+                     "tol_rel_rms": tol}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -334,6 +536,24 @@ def main() -> int:
     print(json.dumps({"slice": slice_, "card": card}), flush=True)
     equiv = dense_equivalence(model, params)
     print(json.dumps({"dense_equivalence": equiv}), flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    rwkv_err = check_rwkv6(gen)
+    rwkv_timing = time_rwkv6(gen)
+    print(json.dumps({"rwkv6_errors": rwkv_err, "rwkv6_timing": rwkv_timing,
+                      "card": card}), flush=True)
+
+    cfg = get_config("rwkv6-1.6b")
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    print(f"init_s {time.perf_counter() - t0:.3f}", flush=True)
+    rwkv_slice = serve_rwkv(model, params, gen)
+    print(json.dumps({"rwkv6_slice": rwkv_slice, "card": card}), flush=True)
+    pvd = prefill_vs_decode(model, params, gen)
+    print(json.dumps({"rwkv6_prefill_vs_decode": pvd}), flush=True)
 
     kernel = {"name": "masked_avg_grid", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
@@ -344,7 +564,16 @@ def main() -> int:
               "bound_ms": timing["bound_ms"],
               "bound_by": timing["bound_by"],
               "library_ms": timing["library_ms"], "ok": True}
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    rwkv = {"name": "rwkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan.py:71",
+            "launches": rwkv_slice["rwkv6_launches"],
+            "max_abs_err": rwkv_err["bfloat16"]["o"],
+            "ms": rwkv_timing["ms"], "plain_ms": rwkv_timing["plain_ms"],
+            "bound_ms": rwkv_timing["bound_ms"],
+            "bound_by": rwkv_timing["bound_by"],
+            "library_ms": None, "ok": True}
+    print(json.dumps({"kernels": [kernel, rwkv]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

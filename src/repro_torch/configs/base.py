@@ -1,12 +1,12 @@
 """Architecture config (port of :mod:`repro.configs.base`).
 
-Only the dense-family fields the serving path reads are kept; the other
-families land with their models.
+Only the fields the ported families (dense, ssm) read are kept; the
+other families' fields land with their models.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -16,8 +16,9 @@ _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """Dense decoder-only transformer hyper-parameters (GQA, RoPE,
-    optional sliding window with a local:global pattern)."""
+    """Architecture hyper-parameters. ``family`` selects the model:
+    "dense" (decoder-only transformer: GQA, RoPE, optional sliding window
+    with a local:global pattern) or "ssm" (RWKV-6, attention-free)."""
     name: str
     family: str
     n_layers: int
@@ -31,6 +32,10 @@ class ArchConfig:
     # every `global_every`-th layer is full attention (gemma3: 6)
     global_every: Optional[int] = None
     n_experts: int = 0
+    # hybrid (RecurrentGemma): repeating unit, e.g. ("rec", "rec", "attn")
+    block_pattern: Optional[Tuple[str, ...]] = None
+    # rwkv6 / rglru recurrence width
+    d_state: Optional[int] = None
     max_seq: int = 131_072
     rope_theta: float = 10_000.0
     dtype: str = "bfloat16"
@@ -60,16 +65,18 @@ class ArchConfig:
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
             n_kv -= 1
+        pattern = self.block_pattern
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
-            n_layers=2,
+            n_layers=2 if pattern is None else max(2, len(pattern)),
             d_model=min(self.d_model, 256),
             n_heads=n_heads,
             n_kv_heads=n_kv,
             head_dim=64,
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512),
+            d_state=min(self.d_state, 64) if self.d_state else None,
             window=min(self.window, 64) if self.window else None,
             max_seq=4096,
             dtype="float32",

@@ -5,7 +5,8 @@ The JAX package stacks each layer kind's parameters along a leading axis
 port keeps one dict per layer, in faithful order. :func:`params_from_jax`
 scatters every kind's group back to its layer indices by the same
 first-appearance rule the JAX package stacks them by (``group_layout``).
-The tests use it to run both packages on the same weights.
+The tests use it to run both packages on the same weights, for every
+ported family (gemma3's dense kinds, RWKV-6's rwkv kind).
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.registry import kind_sequence
 from repro_torch.models.stack import group_layout
-from repro_torch.models.transformer import dense_kind_sequence
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -36,7 +37,7 @@ def _map(fn, tree):
 def params_from_jax(np_params: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The port's parameters from the JAX package's tree of numpy arrays."""
     device = resolve_device(device)
-    layout = group_layout(dense_kind_sequence(cfg))
+    layout = group_layout(kind_sequence(cfg))
     layers = [None] * cfg.n_layers
     for kind, idxs in layout.items():
         stacked = np_params["layers"][kind]

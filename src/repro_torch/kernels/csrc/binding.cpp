@@ -1,0 +1,146 @@
+// Binds the port's CUDA kernels to PyTorch as
+//   torch.ops.repro_torch.masked_avg_grid(blocks, mask, out, tile)
+//   torch.ops.repro_torch.rwkv6_fwd(r, k, v, w, u, out, state)
+// The only file of the build that includes PyTorch's headers; it registers
+// the ops through torch/library.h rather than torch/extension.h and
+// pybind11, which keeps its compile short. The Python wrappers
+// (repro_torch/kernels/masked_avg.py, rwkv6.py) check devices, dtypes and
+// contiguity first; the launch limits are checked here.
+
+#include <ATen/core/Tensor.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <torch/library.h>
+
+#include <initializer_list>
+
+#include "kernels.h"
+
+namespace {
+
+constexpr int64_t kMaxWorkers = 8192;
+constexpr int64_t kMaxGridX = 2147483647;
+constexpr int64_t kMaxGridY = 65535;
+
+repro_torch::DType dtype_code(c10::ScalarType t) {
+  switch (t) {
+    case c10::ScalarType::Float:
+      return repro_torch::DType::kF32;
+    case c10::ScalarType::BFloat16:
+      return repro_torch::DType::kBF16;
+    case c10::ScalarType::Half:
+      return repro_torch::DType::kF16;
+    case c10::ScalarType::Bool:
+      return repro_torch::DType::kBool;
+    case c10::ScalarType::Byte:
+      return repro_torch::DType::kU8;
+    case c10::ScalarType::Char:
+      return repro_torch::DType::kI8;
+    case c10::ScalarType::Int:
+      return repro_torch::DType::kI32;
+    case c10::ScalarType::Long:
+      return repro_torch::DType::kI64;
+    default:
+      TORCH_CHECK(false, "masked_avg_grid: unsupported dtype ", t);
+  }
+}
+
+void masked_avg_grid(const at::Tensor& blocks, const at::Tensor& mask,
+                     at::Tensor& out, int64_t tile) {
+  TORCH_CHECK(blocks.is_cuda() && mask.is_cuda() && out.is_cuda(),
+              "masked_avg_grid: tensors must be on a CUDA device");
+  TORCH_CHECK(blocks.is_contiguous() && mask.is_contiguous() &&
+                  out.is_contiguous(),
+              "masked_avg_grid: tensors must be contiguous");
+  TORCH_CHECK(blocks.dim() == 3 && mask.dim() == 2 && out.dim() == 2,
+              "masked_avg_grid: want blocks (B, n, d), mask (B, n), "
+              "out (B, d)");
+  const int64_t B = blocks.size(0), n = blocks.size(1), d = blocks.size(2);
+  TORCH_CHECK(mask.size(0) == B && mask.size(1) == n && out.size(0) == B &&
+                  out.size(1) == d,
+              "masked_avg_grid: shape mismatch");
+  TORCH_CHECK(out.scalar_type() == blocks.scalar_type(),
+              "masked_avg_grid: out dtype must equal blocks dtype");
+  const repro_torch::DType bt = dtype_code(blocks.scalar_type());
+  TORCH_CHECK(bt == repro_torch::DType::kF32 ||
+                  bt == repro_torch::DType::kBF16 ||
+                  bt == repro_torch::DType::kF16,
+              "masked_avg_grid: blocks must be float32, bfloat16 or "
+              "float16");
+  TORCH_CHECK(tile >= 1 && tile <= 1024, "masked_avg_grid: bad tile ", tile);
+  // the mask row lives in 32 KiB of shared memory; B and the column tiles
+  // are grid.x and grid.y
+  TORCH_CHECK(n >= 1 && n <= kMaxWorkers, "masked_avg_grid: n = ", n,
+              " workers, want 1..", kMaxWorkers);
+  TORCH_CHECK(B >= 1 && B <= kMaxGridX && d >= 1,
+              "masked_avg_grid: need 1 <= B <= ", kMaxGridX, " and d >= 1");
+  TORCH_CHECK((d + tile - 1) / tile <= kMaxGridY, "masked_avg_grid: d = ", d,
+              " needs more than ", kMaxGridY, " column tiles of ", tile);
+  const c10::cuda::CUDAGuard guard(blocks.device());
+  repro_torch::masked_avg_grid_launch(
+      blocks.data_ptr(), bt, mask.data_ptr(), dtype_code(mask.scalar_type()),
+      out.data_ptr(), B, n, d, tile,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void rwkv6_fwd(const at::Tensor& r, const at::Tensor& k, const at::Tensor& v,
+               const at::Tensor& w, const at::Tensor& u, at::Tensor& out,
+               at::Tensor& state) {
+  for (const at::Tensor* t : std::initializer_list<const at::Tensor*>{
+           &r, &k, &v, &w, &u, &out, &state}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == r.device(),
+                "rwkv6_fwd: tensors must be on one CUDA device");
+    TORCH_CHECK(t->is_contiguous(), "rwkv6_fwd: tensors must be contiguous");
+  }
+  TORCH_CHECK(r.dim() == 4 && k.dim() == 4 && v.dim() == 4 && w.dim() == 4 &&
+                  u.dim() == 2 && out.dim() == 4 && state.dim() == 4,
+              "rwkv6_fwd: want r, k, w (B, S, H, dk), v and out "
+              "(B, S, H, dv), u (H, dk), state (B, H, dk, dv)");
+  const int64_t B = r.size(0), S = r.size(1), H = r.size(2), dk = r.size(3);
+  const int64_t dv = v.size(3);
+  TORCH_CHECK(k.sizes() == r.sizes() && w.sizes() == r.sizes() &&
+                  v.size(0) == B && v.size(1) == S && v.size(2) == H &&
+                  out.sizes() == v.sizes() && u.size(0) == H &&
+                  u.size(1) == dk && state.size(0) == B &&
+                  state.size(1) == H && state.size(2) == dk &&
+                  state.size(3) == dv,
+              "rwkv6_fwd: shape mismatch");
+  const c10::ScalarType st = r.scalar_type();
+  TORCH_CHECK(st == c10::ScalarType::Float || st == c10::ScalarType::BFloat16 ||
+                  st == c10::ScalarType::Half,
+              "rwkv6_fwd: r, k, v, w must be float32, bfloat16 or float16");
+  TORCH_CHECK(k.scalar_type() == st && v.scalar_type() == st &&
+                  w.scalar_type() == st && out.scalar_type() == st,
+              "rwkv6_fwd: r, k, v, w and out must share one dtype");
+  TORCH_CHECK(u.scalar_type() == c10::ScalarType::Float &&
+                  state.scalar_type() == c10::ScalarType::Float,
+              "rwkv6_fwd: u and state must be float32");
+  TORCH_CHECK(dk >= 1 && dk <= repro_torch::kRwkv6MaxDim && dv >= 1 &&
+                  dv <= repro_torch::kRwkv6MaxDim,
+              "rwkv6_fwd: dk = ", dk, ", dv = ", dv, "; the kernel takes 1..",
+              repro_torch::kRwkv6MaxDim);
+  // the grid is one block per (b, h); S and H are passed as int
+  TORCH_CHECK(S >= 1 && S <= kMaxGridX && B >= 1 && H >= 1 &&
+                  B * H <= kMaxGridX,
+              "rwkv6_fwd: need S >= 1 and 1 <= B * H <= ", kMaxGridX);
+  const c10::cuda::CUDAGuard guard(r.device());
+  repro_torch::rwkv6_fwd_launch(
+      r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+      static_cast<const float*>(u.data_ptr()), dtype_code(st), out.data_ptr(),
+      static_cast<float*>(state.data_ptr()), B, S, H, dk, dv,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+TORCH_LIBRARY(repro_torch, m) {
+  m.def("masked_avg_grid(Tensor blocks, Tensor mask, Tensor(a!) out, "
+        "int tile) -> ()",
+        &masked_avg_grid);
+  m.def("rwkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+        "Tensor(a!) out, Tensor(b!) state) -> ()",
+        &rwkv6_fwd);
+}

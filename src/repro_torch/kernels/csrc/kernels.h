@@ -1,0 +1,49 @@
+// Plain C++ interface of the port's CUDA kernels, shared by the CUDA
+// sources and their PyTorch binding (binding.cpp). No PyTorch header is
+// included here, so nvcc compiles the .cu files without them.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime_api.h>
+
+namespace repro_torch {
+
+// Element types the kernels read. masked_avg blocks and rwkv6 inputs:
+// kF32, kBF16, kF16. masked_avg mask: any.
+enum class DType : int {
+  kF32 = 0,
+  kBF16 = 1,
+  kF16 = 2,
+  kBool = 3,
+  kU8 = 4,
+  kI8 = 5,
+  kI32 = 6,
+  kI64 = 7,
+};
+
+// Enqueues out[b] = sum_i mask[b,i] * blocks[b,i] / max(sum_i mask[b,i], 1)
+// for a contiguous (B, n, d) stack and a contiguous (B, n) mask on `stream`,
+// one thread block per (b, tile of `tile` columns). Does not synchronise;
+// the caller checks cudaGetLastError() right after.
+void masked_avg_grid_launch(const void* blocks, DType blocks_dtype,
+                            const void* mask, DType mask_dtype, void* out,
+                            int64_t B, int64_t n, int64_t d, int64_t tile,
+                            cudaStream_t stream);
+
+// The largest dk and dv the RWKV-6 kernel takes (one thread per state
+// column, the (dk, dv) state in registers).
+constexpr int64_t kRwkv6MaxDim = 64;
+
+// Enqueues the RWKV-6 recurrence from a zero state over contiguous
+// r, k, w (B, S, H, dk) and v (B, S, H, dv), all of type `dtype`, with the
+// f32 bonus u (H, dk): writes out (B, S, H, dv) in `dtype` and the final
+// f32 state (B, H, dk, dv), one thread block per (b, h). Needs
+// 1 <= dk, dv <= kRwkv6MaxDim and S >= 1. Does not synchronise; the caller
+// checks cudaGetLastError() right after.
+void rwkv6_fwd_launch(const void* r, const void* k, const void* v,
+                      const void* w, const float* u, DType dtype, void* out,
+                      float* state, int64_t B, int64_t S, int64_t H,
+                      int64_t dk, int64_t dv, cudaStream_t stream);
+
+}  // namespace repro_torch

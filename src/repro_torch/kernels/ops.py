@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import masked_avg as _kernel
-from repro_torch.kernels.ref import masked_avg_ref
+from repro_torch.kernels import rwkv6 as _rwkv6
+from repro_torch.kernels.ref import masked_avg_ref, rwkv6_ref, rwkv6_step_ref
 
 
 def masked_avg_grid(blocks: torch.Tensor, mask: torch.Tensor, *,
@@ -31,3 +32,24 @@ def masked_avg(blocks: torch.Tensor, mask: torch.Tensor, *,
     """(n, d) stack, (n,) mask -> (d,)."""
     return masked_avg_grid(blocks[None], mask.reshape(1, -1),
                            backend=backend)[0]
+
+
+def rwkv6(r, k, v, w, u, *, backend: str = "auto"):
+    """RWKV-6 over a sequence from a zero state: r, k, w (B, S, h, dk),
+    v (B, S, h, dv), u (h, dk) -> (o (B, S, h, dv) in ``r.dtype``, final
+    state (B, h, dk, dv) f32)."""
+    if backend == "auto":
+        return _rwkv6.rwkv6(r, k, v, w, u)
+    if backend == "ref":
+        _rwkv6.check_shapes(r, k, v, w, u)
+        return rwkv6_ref(r, k, v, w, u)
+    raise ValueError(f"backend={backend!r}, want 'auto' or 'ref'")
+
+
+def rwkv6_step(r, k, v, w, u, state):
+    """One decode step, plain PyTorch on every device (in the JAX package
+    too it is the reference step, not a kernel): r, k, w (B, h, dk),
+    v (B, h, dv), state (B, h, dk, dv) -> (o (B, h, dv) in ``r.dtype``,
+    new state f32)."""
+    o, new_state = rwkv6_step_ref(r, k, v, w, u, state)
+    return o.to(r.dtype), new_state

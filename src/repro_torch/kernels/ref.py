@@ -19,3 +19,40 @@ def masked_avg_ref(blocks: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     s = torch.einsum("...n,...nd->...d", m, blocks.to(torch.float32))
     c = m.sum(-1).clamp_min(1.0)
     return (s / c[..., None]).to(blocks.dtype)
+
+
+def rwkv6_ref(r, k, v, w, u):
+    """Sequential RWKV-6 recurrence from ``S_0 = 0``, in f32.
+
+    r, k, w: (B, S, h, dk); v: (B, S, h, dv); u: (h, dk).
+      o_t = r_t · (S_{t-1} + diag(u) k_t ⊗ v_t)
+      S_t = diag(w_t) S_{t-1} + k_t ⊗ v_t
+    Returns (o: (B, S, h, dv) in ``r.dtype``, S_S: (B, h, dk, dv) f32).
+    The final state is the one the JAX package's prefill folds over the
+    sequence (``repro/models/rwkv6.py``): the same f32 update, step by
+    step, so it equals that fold exactly.
+    """
+    B, S, h, dk = r.shape
+    dv = v.shape[-1]
+    f32 = torch.float32
+    rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
+    uf = u.to(f32)
+    state = torch.zeros((B, h, dk, dv), dtype=f32, device=r.device)
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # (B,h,dk,dv)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t],
+                                 state + uf[..., :, None] * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    return torch.stack(outs, dim=1).to(r.dtype), state
+
+
+def rwkv6_step_ref(r, k, v, w, u, state):
+    """One decode step. r, k, w: (B, h, dk); v: (B, h, dv); state:
+    (B, h, dk, dv). Returns (o: (B, h, dv) f32, new_state f32)."""
+    f32 = torch.float32
+    r, k, v, w, state = (x.to(f32) for x in (r, k, v, w, state))
+    kv = k[..., :, None] * v[..., None, :]
+    o = torch.einsum("bhk,bhkv->bhv", r,
+                     state + u.to(f32)[..., :, None] * kv)
+    return o, w[..., :, None] * state + kv

@@ -1,28 +1,37 @@
-"""Serving launcher (port of :mod:`repro.launch.serve`): continuous
-batching with the paged KV cache and optional drop-masked
-tensor-parallel decode, on the GPU unless ``--device cpu``.
+"""Serving launcher (port of :mod:`repro.launch.serve`): legacy static
+batching, or continuous batching with the paged KV cache and optional
+drop-masked tensor-parallel decode, on the GPU unless ``--device cpu``.
+
+  # rwkv6-1.6b at full width, static batch, greedy
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve legacy \
+      --arch rwkv6-1.6b --full --batch 8 --prompt-len 512 --new-tokens 32
+
+  # the same path at smoke-test size on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve legacy \
+      --arch rwkv6-1.6b --device cpu
 
   # gemma3-1b at full width, lossy TP decode over 4 shards
   PYTHONPATH=src python -m repro_torch.launch.serve --serve continuous \
       --full --tp-shards 4 -p 0.1
 
-  # the same path at smoke-test size on the CPU
-  PYTHONPATH=src python -m repro_torch.launch.serve --serve continuous \
-      --reduced --tp-shards 4 -p 0.1 --device cpu
-
-The flags are the JAX launcher's; ``--serve legacy`` and
-``--telemetry-dir`` are not ported yet and raise.
+The flags are the JAX launcher's. ``--serve legacy`` serves the ssm
+family (RWKV-6); for a dense arch it raises ``NotImplementedError``
+naming the kinds whose contiguous-cache decode is not ported yet.
+``--telemetry-dir`` is not ported yet and raises.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
 from repro_torch.netsim import request_trace
-from repro_torch.serve import ContinuousEngine, TPDecodeConfig, make_requests
+from repro_torch.serve import (ContinuousEngine, ServeEngine, TPDecodeConfig,
+                               make_requests)
 
 
 def main(argv=None):
@@ -67,10 +76,6 @@ def main(argv=None):
                     help="torch device; the default needs a GPU")
     args = ap.parse_args(argv)
 
-    if args.serve == "legacy":
-        raise NotImplementedError("--serve legacy (the static-batch "
-                                  "ServeEngine) is not ported yet; use "
-                                  "--serve continuous")
     if args.telemetry_dir:
         raise NotImplementedError("--telemetry-dir is not ported yet")
 
@@ -81,6 +86,11 @@ def main(argv=None):
     gen = torch.Generator(device=model.device)
     gen.manual_seed(0)
     params = model.init(gen)
+    where = (torch.cuda.get_device_name(model.device)
+             if model.device.type == "cuda" else "cpu")
+
+    if args.serve == "legacy":
+        return _serve_legacy(args, model, params, where)
 
     tp = None
     if args.tp_shards:
@@ -99,8 +109,6 @@ def main(argv=None):
                           seed=0)
     reqs = make_requests(trace, cfg.vocab_size)
     rep = eng.run(reqs, drain=args.drain)
-    where = (torch.cuda.get_device_name(model.device)
-             if model.device.type == "cuda" else "cpu")
     print(f"arch={cfg.name} on {where}: served {len(rep.requests)} "
           f"requests / {rep.tokens} tokens in {rep.wall_s:.2f}s "
           f"({rep.tokens_per_s:.1f} tok/s, {rep.rounds} rounds, "
@@ -109,6 +117,37 @@ def main(argv=None):
           f"p99={rep.latency_quantile(0.99):.1f}ms  "
           f"preempts={sum(r.n_preempt for r in rep.requests)}")
     return rep
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serve_legacy(args, model, params, where: str) -> torch.Tensor:
+    """Static-batch generation (the reference's legacy path): a random
+    (batch, prompt_len) prompt batch, ``new_tokens`` greedy or sampled
+    tokens each. Returns the (batch, new_tokens) tokens."""
+    cfg = model.cfg
+    eng = ServeEngine(model=model, params=params,
+                      max_len=args.prompt_len + args.new_tokens,
+                      temperature=args.temperature)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(args.batch, args.prompt_len)),
+        device=model.device)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(1)
+    _sync(model.device)
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, args.new_tokens, gen=gen)
+    _sync(model.device)
+    dt = time.perf_counter() - t0
+    tps = args.batch * args.new_tokens / dt
+    print(f"arch={cfg.name} on {where}: generated {tuple(out.shape)} in "
+          f"{dt:.2f}s ({tps:.1f} tok/s)")
+    print(out[:2].cpu().numpy())
+    return out
 
 
 if __name__ == "__main__":

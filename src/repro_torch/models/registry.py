@@ -1,14 +1,22 @@
-"""Top-level model API (port of :mod:`repro.models.registry`), dense
-family only.
+"""Top-level model API (port of :mod:`repro.models.registry`) for the
+dense family (gemma3) and the ssm family (RWKV-6).
 
 ``build_model(cfg, device=...)`` returns a :class:`Model` whose methods
 work on plain parameter dicts:
 
   init(gen)                                   -> params
-  prefill(params, {"tokens": (B,S)}, paged=True) -> (last_logits, cache)
+  prefill(params, {"tokens": (B,S)}, max_len=None, paged=False)
+                                              -> (last_logits, cache)
+  decode_step(params, cache, {"token": (B,1)}, pos) -> (logits, cache)
+  init_cache(batch_size, max_len)             -> cache
   decode_paged(params, pool, {"token": (B,1)}, pos, bt, page=...)
                                               -> (logits, pool)
   init_paged(n_slots)                         -> pool
+
+The contiguous cache (``paged=False``, ``decode_step``, ``init_cache``)
+serves the rwkv kind; the paged pool serves the dense kinds. A dense
+model asked for the contiguous path raises ``NotImplementedError``: its
+ring-buffer KV cache is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +30,16 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import stack as S
 from repro_torch.models.transformer import dense_kind_sequence
+
+
+def kind_sequence(cfg: ArchConfig) -> List[str]:
+    """Per-layer kind names in faithful order."""
+    if cfg.family == "dense":
+        return dense_kind_sequence(cfg)
+    if cfg.family == "ssm":
+        return ["rwkv"] * cfg.n_layers
+    raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
+                              f"ported yet")
 
 
 @dataclasses.dataclass
@@ -39,18 +57,39 @@ class Model:
         return {"embed": L.init_embed(gen, self.cfg),
                 "layers": S.init_stack(gen, self.cfg, self.kinds)}
 
-    def prefill(self, params, inputs, paged: bool = True):
+    def check_contiguous(self) -> None:
+        """Raise ``NotImplementedError`` if a layer kind of this model has
+        no contiguous-cache path in the port (the dense kinds)."""
+        S.check_contiguous(self.kinds)
+
+    def prefill(self, params, inputs, max_len=None, paged: bool = False):
         """Prompt pass. Returns the last position's logits (B, vocab) and
-        the per-layer K/V of every position (the paged prefill)."""
-        if not paged:
-            raise NotImplementedError("the contiguous-cache prefill is not "
-                                      "ported yet; use paged=True")
+        the per-layer cache: with ``paged`` the K/V of every position
+        (dense kinds, for the slot pool), else the contiguous decode
+        cache (rwkv: final state and token shifts). ``max_len`` sizes the
+        dense ring buffer in the reference; no ported kind reads it."""
         x = L.embed(params["embed"], inputs["tokens"])
         x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
-                                 mode="prefill")
+                                 mode="prefill", paged=paged)
         vocab = self.cfg.vocab_size
         last = L.lm_head(params["embed"], x[:, -1:], vocab)[:, 0, :vocab]
         return last, cache
+
+    def decode_step(self, params, cache, inputs, pos):
+        """One decode step against the contiguous cache. ``pos`` (the new
+        token's position) is the reference's argument; no ported
+        contiguous kind reads it. Returns (logits (B, vocab), new cache)."""
+        x = L.embed(params["embed"], inputs["token"])
+        x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
+                                 mode="decode", cache=cache, pos=pos)
+        vocab = self.cfg.vocab_size
+        logits = L.lm_head(params["embed"], x, vocab)[:, 0, :vocab]
+        return logits, cache
+
+    def init_cache(self, batch_size: int, max_len: int) -> list:
+        """Empty contiguous decode cache (``max_len`` as in
+        :meth:`prefill`)."""
+        return S.init_cache(self.cfg, self.kinds, batch_size, self.device)
 
     def decode_paged(self, params, pool, inputs, pos, bt, *, page: int,
                      masks=None, tp=None):
@@ -75,9 +114,9 @@ class Model:
 
 
 def build_model(cfg: ArchConfig, *, device="cuda") -> Model:
-    """The dense model on ``device`` (CUDA unless the caller asks for the
-    CPU; raises when CUDA is asked for and absent)."""
-    if cfg.family != "dense" or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} "
-                                  f"(moe={cfg.is_moe}) is not ported yet")
-    return Model(cfg, dense_kind_sequence(cfg), resolve_device(device))
+    """The model on ``device`` (CUDA unless the caller asks for the CPU;
+    raises when CUDA is asked for and absent)."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
+                                  f"yet")
+    return Model(cfg, kind_sequence(cfg), resolve_device(device))

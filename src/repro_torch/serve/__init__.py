@@ -1,5 +1,6 @@
 from repro_torch.serve.engine import (ContinuousEngine,  # noqa: F401
-                                     ServeReport, make_requests)
+                                     ServeEngine, ServeReport,
+                                     make_requests, make_serve_steps)
 from repro_torch.serve.kvcache import (BlockAllocator,  # noqa: F401
                                        PagedCache, n_pages)
 from repro_torch.serve.scheduler import Request, Scheduler  # noqa: F401

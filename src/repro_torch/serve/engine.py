@@ -1,4 +1,11 @@
-"""Continuous-batching serving engine (port of :mod:`repro.serve.engine`).
+"""Serving engines (port of :mod:`repro.serve.engine`): the legacy
+static-batch sampler and the continuous-batching engine.
+
+``make_serve_steps`` builds the prefill and decode closures, and
+:class:`ServeEngine` is a batched greedy / temperature sampler on top:
+one static batch, a prefill, then one decode step per token against the
+contiguous cache (the rwkv kind; the dense kinds' ring-buffer cache is
+not ported yet).
 
 :class:`ContinuousEngine` serves requests with per-request admission and
 iteration-level join/evict (``serve.scheduler``), a paged KV cache
@@ -6,8 +13,7 @@ iteration-level join/evict (``serve.scheduler``), a paged KV cache
 (``serve.tp``). A decode round is a Python loop of ``chunk`` decode steps
 on the device with on-device sampling; the host copies the round's tokens
 once. (The JAX package fuses the round into one ``lax.scan``; capturing
-it as a CUDA graph is later work.) The legacy static-batch ``ServeEngine``
-is not ported yet.
+it as a CUDA graph is later work.)
 """
 from __future__ import annotations
 
@@ -22,6 +28,66 @@ from repro_torch.models.registry import Model
 from repro_torch.serve.kvcache import PagedCache, n_pages
 from repro_torch.serve.scheduler import FINISHED, RUNNING, Request, Scheduler
 from repro_torch.serve.tp import TPDecodeConfig, make_tp_context
+
+
+def make_serve_steps(model: Model, max_len: Optional[int] = None):
+    """The (prefill, decode) closures of the static-batch path:
+    ``prefill(params, inputs) -> (last_logits, cache)`` and
+    ``decode(params, cache, token, pos) -> (logits, cache)``. (The JAX
+    package jits them; the port runs them eagerly.)"""
+    def prefill(params, inputs):
+        return model.prefill(params, inputs, max_len=max_len)
+
+    def decode(params, cache, token, pos):
+        return model.decode_step(params, cache, {"token": token}, pos)
+
+    return prefill, decode
+
+
+@dataclasses.dataclass
+class ServeEngine:
+    """Static-batch sampler: ``generate`` prefills a (B, S) batch of
+    prompts and decodes ``n_new`` tokens for all of them, greedy
+    (``temperature`` 0) or sampled at ``temperature`` from the caller's
+    ``torch.Generator``, on ``model.device``."""
+    model: Model
+    params: Any
+    max_len: int = 512
+    temperature: float = 0.0
+
+    def __post_init__(self):
+        self.model.check_contiguous()
+        self._prefill, self._decode = make_serve_steps(self.model,
+                                                       self.max_len)
+
+    def generate(self, prompts: torch.Tensor, n_new: int,
+                 gen: Optional[torch.Generator] = None,
+                 extra_inputs: Optional[Dict[str, Any]] = None
+                 ) -> torch.Tensor:
+        """prompts: (B, S) int -> (B, n_new) int64 generated tokens.
+        Sampling needs ``temperature > 0`` and a generator on the model's
+        device; otherwise decoding is greedy."""
+        B, S = prompts.shape
+        if S + n_new > self.max_len:
+            raise ValueError(
+                f"prompt_len {S} + n_new {n_new} = {S + n_new} exceeds "
+                f"ServeEngine.max_len {self.max_len}")
+        inputs = {"tokens": prompts, **(extra_inputs or {})}
+        last, cache = self._prefill(self.params, inputs)
+        out = []
+        tok = torch.argmax(last, dim=-1)[:, None]
+        pos = S
+        for _ in range(n_new):
+            out.append(tok)
+            logits, cache = self._decode(self.params, cache, tok, pos)
+            if self.temperature > 0 and gen is not None:
+                probs = torch.softmax(
+                    logits.to(torch.float32) / self.temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=gen)
+            else:
+                tok = torch.argmax(logits, dim=-1)[:, None]
+            pos += 1
+        return torch.cat(out, dim=1)
 
 
 @dataclasses.dataclass

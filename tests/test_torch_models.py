@@ -127,7 +127,8 @@ def test_prefill_logits_and_cache(gemma, S):
     toks = RNG.integers(0, cfg_t.vocab_size, size=(1, S))
     last_j, cache_j = _jax_prefill(model_j, params_j, toks)
     last_t, cache_t = model_t.prefill(params_t,
-                                      {"tokens": torch.from_numpy(toks)})
+                                      {"tokens": torch.from_numpy(toks)},
+                                      paged=True)
     _close(last_t, last_j)
     for li, kind in enumerate(model_t.kinds):
         j = model_j.kinds[:li].count(kind)
@@ -149,7 +150,8 @@ def prefilled(gemma):
     for b, S in enumerate(LENS):
         toks = RNG.integers(0, cfg_t.vocab_size, size=(1, S))
         _, cj = _jax_prefill(model_j, params_j, toks)
-        _, ct = model_t.prefill(params_t, {"tokens": torch.from_numpy(toks)})
+        _, ct = model_t.prefill(params_t, {"tokens": torch.from_numpy(toks)},
+                                paged=True)
         blocks = pc_j.alloc.alloc(-(-(S + STEPS) // PAGE))
         assert pc_t.alloc.alloc(len(blocks)) == blocks
         pc_j.write_prefill(cj, blocks, S)

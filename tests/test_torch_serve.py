@@ -213,7 +213,7 @@ def test_paged_prefill_matches_contiguous_view(served):
     _, _, model_t, params_t = served
     S = 10
     toks = torch.arange(1, S + 1)[None, :]
-    _, cache = model_t.prefill(params_t, {"tokens": toks})
+    _, cache = model_t.prefill(params_t, {"tokens": toks}, paged=True)
     pc = PagedCache(model_t, page=4, n_blocks=9)
     blocks = pc.alloc.alloc(n_pages(S, 4))
     pc.write_prefill(cache, blocks, S)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's serving path, on one GPU.
+"""Where the time goes in the PyTorch port's serving paths, on one GPU.
 
-Serves chip_smoke.py's phase-4 load with its engine (``smoke_requests``,
+``--slice gemma3`` (the default) serves chip_smoke.py's phase-4 load with its engine (``smoke_requests``,
 ``smoke_engine``: gemma3-1b at full width, random bf16 weights,
 continuous batching, 4-shard lossy TP decode at p = 0.1, 8 requests)
 three times with one engine, on the same seeds, so each session does the
@@ -14,12 +14,20 @@ launches per decode step, device busy time and idle share (busy time
 over the timed session's wall; the profiled session's wall is inflated
 by the profiler), and the kernels with the most device time.
 
-    python3 tools/profile_torch_serve.py
+``--slice rwkv6`` runs chip_smoke.py's phase-7 load (rwkv6-1.6b at full
+width, random bf16 weights, the static-batch engine: 8 prompts of 512
+tokens, 32 new tokens, greedy) the same way: a warm-up, a timed
+``generate`` (host time of the prefill and of each decode step), then
+one prefill and one whole ``generate`` under the profiler, so the
+device time splits into prefill and decode.
+
+    python3 tools/profile_torch_serve.py [--slice gemma3|rwkv6]
 
 Needs a CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -32,10 +40,13 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa
 
-from chip_smoke import card_line, smoke_engine, smoke_requests  # noqa: E402
+from chip_smoke import (RWKV_BATCH, RWKV_NEW, RWKV_PROMPT,  # noqa: E402
+                        card_line, smoke_engine, smoke_requests)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import masked_avg as K  # noqa: E402
+from repro_torch.kernels import rwkv6 as RK  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -61,11 +72,92 @@ def _timed(fn, acc: list):
     return wrapped
 
 
+def _device_kernels(prof) -> list:
+    """(device µs, count, name) of every kernel, most time first; the GPU
+    ranges of the labels are not kernels."""
+    kernels = [(a.self_device_time_total, a.count, a.key)
+               for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA and a.key not in LABELS]
+    return sorted(kernels, reverse=True)
+
+
+def _top(kernels: list, busy_s: float, n: int = 10) -> list:
+    return [{"name": k[2][:90], "device_ms": k[0] / 1e3, "count": k[1],
+             "share_of_busy": k[0] / 1e6 / busy_s} for k in kernels[:n]]
+
+
+def profile_rwkv6(card: str) -> dict:
+    """The static-batch rwkv6-1.6b slice (chip_smoke.py phase 7)."""
+    cfg = get_config("rwkv6-1.6b")
+    model = build_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    eng = ServeEngine(model, params, max_len=RWKV_PROMPT + RWKV_NEW)
+    prompts = torch.randint(0, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT),
+                            generator=gen, device="cuda")
+    eng.generate(prompts, RWKV_NEW)                   # warm-up
+    prefill, decode = model.prefill, model.decode_step
+    host = {"serve.prefill": [], "serve.decode_step": []}
+    model.prefill = _timed(prefill, host["serve.prefill"])
+    model.decode_step = _timed(decode, host["serve.decode_step"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, RWKV_NEW)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    model.prefill, model.decode_step = prefill, decode
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_p:
+        model.prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+    RK.rwkv6.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_g:
+        eng.generate(prompts, RWKV_NEW)
+        torch.cuda.synchronize()
+    launches = RK.rwkv6.launches
+    pre, gen_k = _device_kernels(prof_p), _device_kernels(prof_g)
+    pre_busy_s = sum(k[0] for k in pre) / 1e6
+    busy_s = sum(k[0] for k in gen_k) / 1e6
+    rw = [k for k in gen_k if "rwkv6_fwd_kernel" in k[2]]
+    n_pre = sum(k[1] for k in pre)
+    n_all = sum(k[1] for k in gen_k)
+    return {
+        "card": card, "slice": "rwkv6", "batch": RWKV_BATCH,
+        "prompt_len": RWKV_PROMPT, "new_tokens": RWKV_NEW,
+        "wall_s": wall_s,
+        "tokens_per_s": RWKV_BATCH * RWKV_NEW / wall_s,
+        "host_ms_prefill": 1e3 * host["serve.prefill"][0],
+        "host_ms_per_decode_step":
+            1e3 * sum(host["serve.decode_step"]) / RWKV_NEW,
+        "device_busy_s": busy_s,
+        "device_idle_share": 1.0 - busy_s / wall_s,
+        "prefill_device_ms": pre_busy_s * 1e3,
+        "decode_device_ms_per_step": (busy_s - pre_busy_s) * 1e3 / RWKV_NEW,
+        "kernel_launches_prefill": n_pre,
+        "kernel_launches_per_decode_step": (n_all - n_pre) / RWKV_NEW,
+        "rwkv6_launches": launches,
+        "rwkv6_device_ms": rw[0][0] / 1e3 if rw else None,
+        "rwkv6_share_of_prefill_busy":
+            rw[0][0] / 1e6 / pre_busy_s if rw else None,
+        "top_kernels_prefill": _top(pre, pre_busy_s),
+        "top_kernels_generate": _top(gen_k, busy_s)}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--slice", choices=("gemma3", "rwkv6"),
+                    default="gemma3")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
+    if args.slice == "rwkv6":
+        print(json.dumps(profile_rwkv6(card), indent=1))
+        return 0
     cfg = get_config("gemma3-1b")
     model = build_model(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
@@ -95,13 +187,9 @@ def main() -> int:
         prof_wall_s = time.perf_counter() - t0
     launches = K.masked_avg_grid.launches
     steps = eng.chunk * rep.rounds
-    # device-side events: kernels, plus the GPU ranges of the labels
-    kernels = [(a.self_device_time_total, a.count, a.key)
-               for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA and a.key not in LABELS]
+    kernels = _device_kernels(prof)
     busy_s = sum(k[0] for k in kernels) / 1e6
     n_kernels = sum(k[1] for k in kernels)
-    kernels.sort(reverse=True)
     mavg = [k for k in kernels if "masked_avg_grid" in k[2]]
     print(json.dumps({
         "card": card, "warmup_wall_s": warm.wall_s,
@@ -124,9 +212,7 @@ def main() -> int:
         "masked_avg_grid_device_ms": mavg[0][0] / 1e3 if mavg else None,
         "masked_avg_grid_share_of_busy":
             mavg[0][0] / 1e6 / busy_s if mavg else None,
-        "top_kernels": [{"name": k[2][:90], "device_ms": k[0] / 1e3,
-                         "count": k[1], "share_of_busy": k[0] / 1e6 / busy_s}
-                        for k in kernels[:10]]}, indent=1))
+        "top_kernels": _top(kernels, busy_s)}, indent=1))
     return 0
 
 
