@@ -35,7 +35,23 @@ raises on failure; nothing is caught):
 8. prefill against decode at full width: the last logits of a prefill of
    prompt + 4 tokens against a prefill of the prompt and 4 teacher-forced
    decode steps, with the bf16 weights (a bf16 tolerance) and an f32 copy
-   of them (a tight one).
+   of them (a tight one);
+9. RG-LRU kernel against its plain version on the card: sequence lengths
+   S in {1, 16, 33, 130, 2048} x widths d in {8, 70, 4096}, x in f32 and
+   bf16 with f32 a, plus the slice shape (8, 2048, 4096): h within 1e-5
+   in f32 (the JAX kernel tests' tolerance) and within one bf16 ulp of
+   the plain version's f32 h rounded to bf16 in bf16, the final carry
+   within 1e-5;
+10. its time at the slice shape (bf16 x, f32 a) beside its plain version
+   and the card's bound;
+11. slice: recurrentgemma-9b at full width and depth (random bf16
+   weights) served by the static-batch engine, 8 prompts of 2048 tokens
+   (= the window, where the reference's ring buffer is right), 32 new
+   tokens, greedy; checks the tokens, finite logits at every step and
+   26 kernel launches (one per RG-LRU layer) per prefill;
+12. prefill against decode as in 8, at a 2048-token prompt: the bf16
+   model at full depth, and an f32 copy of its first repeating unit
+   (3 layers, full width).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -58,6 +74,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import masked_avg as K  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rglru as GK  # noqa: E402
 from repro_torch.kernels import rwkv6 as RK  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.netsim import request_trace  # noqa: E402
@@ -77,11 +94,31 @@ F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 
 SERVE_SHAPE = (4, 4, 2304)     # (B, n, d) of one TP combine at gemma3-1b
 SITES_PER_STEP = 52            # 2 collective sites × 26 layers
-RWKV_BATCH, RWKV_PROMPT, RWKV_NEW = 8, 512, 32
-RWKV_SHAPE = (RWKV_BATCH, RWKV_PROMPT, 32, 64)   # (B, S, h, dk = dv)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticLoad:
+    """A static-batch slice's load: ``batch`` random prompts of
+    ``prompt`` tokens, ``new`` greedy tokens each, and the kernel
+    wrapper that its prefill launches ``per_prefill`` times."""
+    arch: str
+    batch: int
+    prompt: int
+    new: int
+    kernel: object
+    per_prefill: int
+
+
+RWKV_LOAD = StaticLoad("rwkv6-1.6b", 8, 512, 32, RK.rwkv6, 24)
+RWKV_SHAPE = (RWKV_LOAD.batch, RWKV_LOAD.prompt, 32, 64)  # (B, S, h, dk=dv)
 RWKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 0.1}
 RWKV_STATE_TOL = 2e-4          # the state is f32 whatever the input dtype
-# relative RMS error of the logits, prefill against decode (phase 8)
+# 26 RG-LRU layers; 2048 = the window, where the reference's ring is right
+RG_LOAD = StaticLoad("recurrentgemma-9b", 8, 2048, 32, GK.rglru, 26)
+RG_SHAPE = (RG_LOAD.batch, RG_LOAD.prompt, 4096)           # (B, S, d_state)
+RG_TOL = 1e-5                  # f32 h and the f32 carry
+BF16_ULP = 2.0 ** -7           # bf16 h: one ulp of the rounded f32 h
+# relative RMS error of the logits, prefill against decode (phases 8, 12)
 PREFILL_DECODE_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
 
 
@@ -89,6 +126,7 @@ def reset_counts() -> None:
     """Zero every kernel's launch count (before a path is driven)."""
     K.masked_avg_grid.launches = 0
     RK.rwkv6.launches = 0
+    GK.rglru.launches = 0
 
 
 def card_line() -> str:
@@ -405,11 +443,12 @@ def time_rwkv6(gen: torch.Generator) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def serve_rwkv(model, params, gen: torch.Generator) -> dict:
-    """Phase 7: the static-batch engine on rwkv6-1.6b at full width. One
-    short warm-up run at the same prompt shape (two new tokens), then
-    the checked run: prefill and every decode step timed on the host
-    clock between synchronisations."""
+def serve_static(model, params, gen: torch.Generator,
+                 load: StaticLoad) -> dict:
+    """Phases 7 and 11: the static-batch engine at full width on
+    ``load``. One short warm-up run at the same prompt shape (two new
+    tokens), then the checked run: prefill and every decode step timed
+    on the host clock between synchronisations."""
     cfg = model.cfg
     prefill, decode = model.prefill, model.decode_step
     finite = torch.ones((), dtype=torch.bool, device=model.device)
@@ -427,8 +466,8 @@ def serve_rwkv(model, params, gen: torch.Generator) -> dict:
             return logits, cache
         return call
 
-    eng = ServeEngine(model, params, max_len=RWKV_PROMPT + RWKV_NEW)
-    prompts = torch.randint(0, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT),
+    eng = ServeEngine(model, params, max_len=load.prompt + load.new)
+    prompts = torch.randint(0, cfg.vocab_size, (load.batch, load.prompt),
                             generator=gen, device="cuda")
     eng.generate(prompts, 2)          # warm-up at the prompt's shapes
     model.prefill = timed("prefill", prefill)
@@ -436,59 +475,68 @@ def serve_rwkv(model, params, gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    out = eng.generate(prompts, RWKV_NEW)
+    out = eng.generate(prompts, load.new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = RK.rwkv6.launches
+    launches = load.kernel.launches
     model.prefill, model.decode_step = prefill, decode
-    if tuple(out.shape) != (RWKV_BATCH, RWKV_NEW):
+    if tuple(out.shape) != (load.batch, load.new):
         raise AssertionError(f"generated {tuple(out.shape)}, want "
-                             f"{(RWKV_BATCH, RWKV_NEW)}")
+                             f"{(load.batch, load.new)}")
     if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError("token out of range")
     if not bool(finite):
         raise AssertionError("non-finite logits")
     prefills = len(times["prefill"])
-    if len(times["decode"]) != RWKV_NEW:
+    if len(times["decode"]) != load.new:
         raise AssertionError(f"{len(times['decode'])} decode calls, want "
-                             f"{RWKV_NEW}")
-    if launches != cfg.n_layers * prefills:
-        raise AssertionError(f"rwkv6 launches {launches} != {cfg.n_layers} "
-                             f"layers × {prefills} prefills")
-    return {"batch": RWKV_BATCH, "prompt_len": RWKV_PROMPT,
-            "new_tokens": RWKV_NEW, "wall_s": wall,
-            "tokens_per_s": RWKV_BATCH * RWKV_NEW / wall,
+                             f"{load.new}")
+    if launches != load.per_prefill * prefills:
+        raise AssertionError(f"{load.arch}: kernel launches {launches} != "
+                             f"{load.per_prefill} × {prefills} prefills")
+    return {"arch": load.arch, "batch": load.batch,
+            "prompt_len": load.prompt, "new_tokens": load.new,
+            "wall_s": wall, "tokens_per_s": load.batch * load.new / wall,
             "prefill_ms": times["prefill"][0] * 1e3,
-            "decode_ms_per_step": sum(times["decode"]) * 1e3 / RWKV_NEW,
-            "prefills": prefills, "rwkv6_launches": launches}
+            "decode_ms_per_step": sum(times["decode"]) * 1e3 / load.new,
+            "prefills": prefills, "kernel_launches": launches}
 
 
-def prefill_vs_decode(model, params, gen: torch.Generator,
-                      steps: int = 4) -> dict:
-    """Phase 8: the last logits of prefill(prompt + steps tokens) against
-    prefill(prompt) and ``steps`` teacher-forced decode steps, for the
-    slice's bf16 weights and for an f32 copy of them. In bf16 the two
-    routes round at different places (the prefill's matrix products over
-    all positions against the decode's over one, the kernel's output
-    against the plain decode step's), so they agree to a relative RMS
-    error on the logits; in f32 only the order of the f32 sums differs,
-    and the tolerance is tight enough to catch a fault of the
-    recurrence."""
+def _f32(tree):
+    """An f32 copy of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def prefill_vs_decode(model, params, gen: torch.Generator, load: StaticLoad,
+                      f32_layers=None, steps: int = 4) -> dict:
+    """Phases 8 and 12: the last logits of prefill(prompt + steps tokens)
+    against prefill(prompt) and ``steps`` teacher-forced decode steps, for
+    the slice's bf16 weights and for an f32 copy of them (of the first
+    ``f32_layers`` layers, or all). In bf16 the two routes round at
+    different places (the prefill's matrix products over all positions
+    against the decode's over one, the kernel's output against the plain
+    decode step's), so they agree to a relative RMS error on the logits;
+    in f32 only the order of the f32 sums differs, and the tolerance is
+    tight enough to catch a fault of the recurrence or the cache."""
     cfg = model.cfg
-    toks = torch.randint(0, cfg.vocab_size, (2, RWKV_PROMPT + steps),
+    S = load.prompt
+    toks = torch.randint(0, cfg.vocab_size, (2, S + steps),
                          generator=gen, device="cuda")
-    model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
-                          device="cuda")
-    params32 = {"embed": {k: v.float() for k, v in params["embed"].items()},
-                "layers": [{k: v.float() for k, v in layer.items()}
-                           for layer in params["layers"]]}
-    out = {"steps": steps, "prompt_len": RWKV_PROMPT}
+    n32 = f32_layers or cfg.n_layers
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32",
+                                              n_layers=n32), device="cuda")
+    params32 = {"embed": _f32(params["embed"]),
+                "layers": [_f32(layer) for layer in params["layers"][:n32]]}
+    out = {"steps": steps, "prompt_len": S, "f32_layers": n32}
     for name, m, p in (("bfloat16", model, params),
                        ("float32", model32, params32)):
         want, _ = m.prefill(p, {"tokens": toks})
-        got, cache = m.prefill(p, {"tokens": toks[:, :RWKV_PROMPT]})
+        got, cache = m.prefill(p, {"tokens": toks[:, :S]},
+                               max_len=S + steps)
         for t in range(steps):
-            pos = RWKV_PROMPT + t
+            pos = S + t
             got, cache = m.decode_step(p, cache,
                                        {"token": toks[:, pos:pos + 1]}, pos)
         g, w = got.float(), want.float()
@@ -497,13 +545,95 @@ def prefill_vs_decode(model, params, gen: torch.Generator,
         rel = ((g - w).norm() / w.norm()).item()
         tol = PREFILL_DECODE_TOL[name]
         if rel > tol:
-            raise AssertionError(f"{name} prefill vs decode logits: "
-                                 f"relative RMS error {rel} > {tol}")
+            raise AssertionError(f"{load.arch} {name} prefill vs decode "
+                                 f"logits: relative RMS error {rel} > {tol}")
         out[name] = {"rel_rms": rel, "max_abs": (g - w).abs().max().item(),
                      "argmax_equal": bool((g.argmax(-1)
                                            == w.argmax(-1)).all()),
                      "tol_rel_rms": tol}
     return out
+
+
+def rglru_inputs(gen: torch.Generator, B: int, S: int, d: int,
+                 dtype: torch.dtype, a_dtype=torch.float32) -> tuple:
+    """The JAX kernel tests' input distribution on the card: x normal in
+    ``dtype``, a uniform in (0.1, 0.999) in ``a_dtype``."""
+    x = torch.randn((B, S, d), generator=gen, device="cuda").to(dtype)
+    a = 0.1 + 0.899 * torch.rand((B, S, d), generator=gen, device="cuda")
+    return x, a.to(a_dtype)
+
+
+def check_rglru(gen: torch.Generator) -> dict:
+    """Phase 9: the RG-LRU kernel against its plain version over the
+    sweep, and at the slice shape. f32 h within 1e-5; bf16 h against the
+    plain version's f32 h rounded to bf16, within one bf16 ulp; the f32
+    carry within 1e-5. Returns the slice shape's errors."""
+    cases = [(2, S, d, dt, torch.float32)
+             for S in (1, 16, 33, 130, 2048) for d in (8, 70, 4096)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [RG_SHAPE + (dt, torch.float32)
+              for dt in (torch.float32, torch.bfloat16)]
+    cases.append((2, 130, 70, torch.bfloat16, torch.bfloat16))  # a in x's
+    errs = {}
+    for B, S, d, dt, adt in cases:
+        x, a = rglru_inputs(gen, B, S, d, dt, adt)
+        h, h_last = ops.rglru(x, a)
+        h_ref, last_ref = ops.rglru(x, a, backend="ref")
+        torch.cuda.synchronize()
+        err_h = (h.float() - h_ref.float()).abs().max().item()
+        err_last = (h_last - last_ref).abs().max().item()
+        tol = (dict(atol=RG_TOL, rtol=RG_TOL) if dt == torch.float32
+               else dict(atol=1e-6, rtol=BF16_ULP))
+        if h.dtype != dt or not torch.allclose(h.float(), h_ref.float(),
+                                               **tol):
+            raise AssertionError(f"rglru {(B, S, d)} x {dt} a {adt}: h max "
+                                 f"abs err {err_h} > {tol}")
+        if not torch.allclose(h_last, last_ref, atol=RG_TOL, rtol=RG_TOL):
+            raise AssertionError(f"rglru {(B, S, d)} x {dt} a {adt}: "
+                                 f"h_last max abs err {err_last} > {RG_TOL}")
+        if (B, S, d) == RG_SHAPE:
+            errs[str(dt).replace("torch.", "")] = {"h": err_h,
+                                                   "h_last": err_last}
+    print(f"rglru sweep: {len(cases)} cases agree with the plain version",
+          flush=True)
+    return errs
+
+
+def time_rglru(gen: torch.Generator) -> dict:
+    """Phase 10: times at the slice shape, bf16 x and f32 a (the model's
+    dtypes). The plain version is a 2048-step Python loop, so its graph
+    holds few calls."""
+    B, S, d = RG_SHAPE
+    x, a = rglru_inputs(gen, B, S, d, torch.bfloat16)
+
+    def kernel():
+        return GK.rglru(x, a)
+
+    def plain():
+        return ops.rglru(x, a, backend="ref")
+
+    n = B * S * d
+    nbytes = (n * x.element_size() + n * a.element_size()   # x, a
+              + n * x.element_size()                        # h
+              + B * d * 4)                                  # h_last
+    flops = 5 * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return {"ms": device_ms(kernel, calls=20, reps=10),
+            "plain_ms": device_ms(plain, calls=2, reps=3),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def init_model(arch: str, gen: torch.Generator):
+    """A full-size model and random weights drawn on the card; prints the
+    init time."""
+    model = build_model(get_config(arch), device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    print(f"init_s {time.perf_counter() - t0:.3f} ({arch})", flush=True)
+    return model, params
 
 
 def main() -> int:
@@ -526,12 +656,7 @@ def main() -> int:
     timing = time_kernel(gen)
     print(json.dumps({"kernel_timing": timing, "card": card}), flush=True)
 
-    cfg = get_config("gemma3-1b")
-    model = build_model(cfg, device="cuda")
-    t0 = time.perf_counter()
-    params = model.init(gen)
-    torch.cuda.synchronize()
-    print(f"init_s {time.perf_counter() - t0:.3f}", flush=True)
+    model, params = init_model("gemma3-1b", gen)
     slice_ = serve_slice(model, params)
     print(json.dumps({"slice": slice_, "card": card}), flush=True)
     equiv = dense_equivalence(model, params)
@@ -543,17 +668,29 @@ def main() -> int:
     rwkv_timing = time_rwkv6(gen)
     print(json.dumps({"rwkv6_errors": rwkv_err, "rwkv6_timing": rwkv_timing,
                       "card": card}), flush=True)
-
-    cfg = get_config("rwkv6-1.6b")
-    model = build_model(cfg, device="cuda")
-    t0 = time.perf_counter()
-    params = model.init(gen)
-    torch.cuda.synchronize()
-    print(f"init_s {time.perf_counter() - t0:.3f}", flush=True)
-    rwkv_slice = serve_rwkv(model, params, gen)
+    model, params = init_model(RWKV_LOAD.arch, gen)
+    rwkv_slice = serve_static(model, params, gen, RWKV_LOAD)
     print(json.dumps({"rwkv6_slice": rwkv_slice, "card": card}), flush=True)
-    pvd = prefill_vs_decode(model, params, gen)
+    pvd = prefill_vs_decode(model, params, gen, RWKV_LOAD)
     print(json.dumps({"rwkv6_prefill_vs_decode": pvd}), flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    rg_err = check_rglru(gen)
+    rg_timing = time_rglru(gen)
+    print(json.dumps({"rglru_errors": rg_err, "rglru_timing": rg_timing,
+                      "card": card}), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    model, params = init_model(RG_LOAD.arch, gen)
+    rg_slice = serve_static(model, params, gen, RG_LOAD)
+    print(json.dumps({"recurrentgemma_slice": rg_slice, "card": card}),
+          flush=True)
+    pvd = prefill_vs_decode(model, params, gen, RG_LOAD, f32_layers=3)
+    print(json.dumps({"recurrentgemma_prefill_vs_decode": pvd}), flush=True)
+    print(json.dumps({"peak_memory_gb":
+                      torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+    del model, params
+    torch.cuda.empty_cache()
 
     kernel = {"name": "masked_avg_grid", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
@@ -567,13 +704,22 @@ def main() -> int:
     rwkv = {"name": "rwkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
             "replaces": "src/repro/kernels/rwkv6_scan.py:71",
-            "launches": rwkv_slice["rwkv6_launches"],
+            "launches": rwkv_slice["kernel_launches"],
             "max_abs_err": rwkv_err["bfloat16"]["o"],
             "ms": rwkv_timing["ms"], "plain_ms": rwkv_timing["plain_ms"],
             "bound_ms": rwkv_timing["bound_ms"],
             "bound_by": rwkv_timing["bound_by"],
             "library_ms": None, "ok": True}
-    print(json.dumps({"kernels": [kernel, rwkv]}), flush=True)
+    rglru = {"name": "rglru", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/rglru.cu",
+             "replaces": "src/repro/kernels/rglru_scan.py:52",
+             "launches": rg_slice["kernel_launches"],
+             "max_abs_err": rg_err["bfloat16"]["h"],
+             "ms": rg_timing["ms"], "plain_ms": rg_timing["plain_ms"],
+             "bound_ms": rg_timing["bound_ms"],
+             "bound_by": rg_timing["bound_by"],
+             "library_ms": None, "ok": True}
+    print(json.dumps({"kernels": [kernel, rwkv, rglru]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

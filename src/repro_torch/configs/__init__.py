@@ -7,6 +7,7 @@ from repro_torch.configs.base import ArchConfig  # noqa: F401
 
 _MODULES = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "rps-paper-mlp": "repro_torch.configs.rps_paper",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1b6",
 }

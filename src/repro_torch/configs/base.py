@@ -1,7 +1,7 @@
 """Architecture config (port of :mod:`repro.configs.base`).
 
-Only the fields the ported families (dense, ssm) read are kept; the
-other families' fields land with their models.
+Only the fields the ported families (dense, ssm, hybrid) read are kept;
+the other families' fields land with their models.
 """
 from __future__ import annotations
 
@@ -18,7 +18,9 @@ _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class ArchConfig:
     """Architecture hyper-parameters. ``family`` selects the model:
     "dense" (decoder-only transformer: GQA, RoPE, optional sliding window
-    with a local:global pattern) or "ssm" (RWKV-6, attention-free)."""
+    with a local:global pattern), "ssm" (RWKV-6, attention-free) or
+    "hybrid" (RecurrentGemma: RG-LRU recurrent layers interleaved with
+    local attention by ``block_pattern``)."""
     name: str
     family: str
     n_layers: int

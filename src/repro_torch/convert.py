@@ -6,7 +6,9 @@ port keeps one dict per layer, in faithful order. :func:`params_from_jax`
 scatters every kind's group back to its layer indices by the same
 first-appearance rule the JAX package stacks them by (``group_layout``).
 The tests use it to run both packages on the same weights, for every
-ported family (gemma3's dense kinds, RWKV-6's rwkv kind).
+ported family (gemma3's dense kinds, RWKV-6's rwkv kind, RecurrentGemma's
+rec and attn kinds; nested dicts such as a layer's ``mlp`` and f32
+leaves such as ``lam`` carry across as they are).
 """
 from __future__ import annotations
 

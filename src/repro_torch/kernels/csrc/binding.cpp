@@ -1,11 +1,12 @@
 // Binds the port's CUDA kernels to PyTorch as
 //   torch.ops.repro_torch.masked_avg_grid(blocks, mask, out, tile)
 //   torch.ops.repro_torch.rwkv6_fwd(r, k, v, w, u, out, state)
+//   torch.ops.repro_torch.rglru_fwd(x, a, out, h_last)
 // The only file of the build that includes PyTorch's headers; it registers
 // the ops through torch/library.h rather than torch/extension.h and
 // pybind11, which keeps its compile short. The Python wrappers
-// (repro_torch/kernels/masked_avg.py, rwkv6.py) check devices, dtypes and
-// contiguity first; the launch limits are checked here.
+// (repro_torch/kernels/masked_avg.py, rwkv6.py, rglru.py) check devices,
+// dtypes and contiguity first; the launch limits are checked here.
 
 #include <ATen/core/Tensor.h>
 #include <c10/cuda/CUDAException.h>
@@ -42,7 +43,7 @@ repro_torch::DType dtype_code(c10::ScalarType t) {
     case c10::ScalarType::Long:
       return repro_torch::DType::kI64;
     default:
-      TORCH_CHECK(false, "masked_avg_grid: unsupported dtype ", t);
+      TORCH_CHECK(false, "repro_torch kernels: unsupported dtype ", t);
   }
 }
 
@@ -134,6 +135,43 @@ void rwkv6_fwd(const at::Tensor& r, const at::Tensor& k, const at::Tensor& v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void rglru_fwd(const at::Tensor& x, const at::Tensor& a, at::Tensor& out,
+               at::Tensor& h_last) {
+  for (const at::Tensor* t :
+       std::initializer_list<const at::Tensor*>{&x, &a, &out, &h_last}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == x.device(),
+                "rglru_fwd: tensors must be on one CUDA device");
+    TORCH_CHECK(t->is_contiguous(), "rglru_fwd: tensors must be contiguous");
+  }
+  TORCH_CHECK(x.dim() == 3 && h_last.dim() == 2,
+              "rglru_fwd: want x, a, out (B, S, d), h_last (B, d)");
+  const int64_t B = x.size(0), S = x.size(1), d = x.size(2);
+  TORCH_CHECK(a.sizes() == x.sizes() && out.sizes() == x.sizes() &&
+                  h_last.size(0) == B && h_last.size(1) == d,
+              "rglru_fwd: shape mismatch");
+  const c10::ScalarType st = x.scalar_type();
+  TORCH_CHECK(st == c10::ScalarType::Float || st == c10::ScalarType::BFloat16 ||
+                  st == c10::ScalarType::Half,
+              "rglru_fwd: x must be float32, bfloat16 or float16");
+  TORCH_CHECK(a.scalar_type() == c10::ScalarType::Float ||
+                  a.scalar_type() == st,
+              "rglru_fwd: a must be float32 or x's dtype");
+  TORCH_CHECK(out.scalar_type() == st, "rglru_fwd: out dtype must equal x's");
+  TORCH_CHECK(h_last.scalar_type() == c10::ScalarType::Float,
+              "rglru_fwd: h_last must be float32");
+  // the grid is (column blocks, B); S and d are passed as int
+  TORCH_CHECK(S >= 1 && S <= kMaxGridX && d >= 1 && d <= kMaxGridX &&
+                  B >= 1 && B <= kMaxGridY,
+              "rglru_fwd: need S, d >= 1 and 1 <= B <= ", kMaxGridY);
+  const c10::cuda::CUDAGuard guard(x.device());
+  repro_torch::rglru_fwd_launch(
+      x.data_ptr(), dtype_code(st), a.data_ptr(),
+      dtype_code(a.scalar_type()), out.data_ptr(),
+      static_cast<float*>(h_last.data_ptr()), B, S, d,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
@@ -143,4 +181,7 @@ TORCH_LIBRARY(repro_torch, m) {
   m.def("rwkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
         "Tensor(a!) out, Tensor(b!) state) -> ()",
         &rwkv6_fwd);
+  m.def("rglru_fwd(Tensor x, Tensor a, Tensor(a!) out, Tensor(b!) h_last) "
+        "-> ()",
+        &rglru_fwd);
 }

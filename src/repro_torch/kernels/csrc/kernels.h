@@ -9,8 +9,9 @@
 
 namespace repro_torch {
 
-// Element types the kernels read. masked_avg blocks and rwkv6 inputs:
-// kF32, kBF16, kF16. masked_avg mask: any.
+// Element types the kernels read. masked_avg blocks, rwkv6 inputs and
+// rglru x: kF32, kBF16, kF16. rglru a: kF32 or x's type. masked_avg mask:
+// any.
 enum class DType : int {
   kF32 = 0,
   kBF16 = 1,
@@ -45,5 +46,15 @@ void rwkv6_fwd_launch(const void* r, const void* k, const void* v,
                       const void* w, const float* u, DType dtype, void* out,
                       float* state, int64_t B, int64_t S, int64_t H,
                       int64_t dk, int64_t dv, cudaStream_t stream);
+
+// Enqueues the RG-LRU recurrence
+//   h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t
+// from h_0 = 0 over contiguous x and a (B, S, d): writes h (B, S, d) in
+// x's type and the final f32 carry h_last (B, d), one thread per (b, c).
+// a is f32 or of x's type. Needs S >= 1 and B <= 65535 (grid.y). Does not
+// synchronise; the caller checks cudaGetLastError() right after.
+void rglru_fwd_launch(const void* x, DType x_dtype, const void* a,
+                      DType a_dtype, void* out, float* h_last, int64_t B,
+                      int64_t S, int64_t d, cudaStream_t stream);
 
 }  // namespace repro_torch

@@ -12,8 +12,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import masked_avg as _kernel
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import rwkv6 as _rwkv6
-from repro_torch.kernels.ref import masked_avg_ref, rwkv6_ref, rwkv6_step_ref
+from repro_torch.kernels.ref import (masked_avg_ref, rglru_ref,
+                                     rglru_step_ref, rwkv6_ref,
+                                     rwkv6_step_ref)
 
 
 def masked_avg_grid(blocks: torch.Tensor, mask: torch.Tensor, *,
@@ -53,3 +56,23 @@ def rwkv6_step(r, k, v, w, u, state):
     new state f32)."""
     o, new_state = rwkv6_step_ref(r, k, v, w, u, state)
     return o.to(r.dtype), new_state
+
+
+def rglru(x, a, *, backend: str = "auto"):
+    """RG-LRU over a sequence from a zero carry: x, a (B, S, d) ->
+    (h (B, S, d) in ``x.dtype``, h_last (B, d) f32). The JAX package's
+    ``ops.rglru`` returns h in f32; its only caller casts h to the model
+    dtype at once, so the two give the same model outputs."""
+    if backend == "auto":
+        return _rglru.rglru(x, a)
+    if backend == "ref":
+        _rglru.check_shapes(x, a)
+        return rglru_ref(x, a)
+    raise ValueError(f"backend={backend!r}, want 'auto' or 'ref'")
+
+
+def rglru_step(x, a, state):
+    """One decode step, plain PyTorch on every device (the reference
+    step, not a kernel, in the JAX package too): x, a, state (B, d) ->
+    new h (B, d) f32."""
+    return rglru_step_ref(x, a, state)

@@ -56,3 +56,33 @@ def rwkv6_step_ref(r, k, v, w, u, state):
     o = torch.einsum("bhk,bhkv->bhv", r,
                      state + u.to(f32)[..., :, None] * kv)
     return o, w[..., :, None] * state + kv
+
+
+def rglru_ref(x, a, h0=None):
+    """Sequential RG-LRU recurrence, in f32.
+
+    x, a: (B, S, d), a in (0, 1); h0: (B, d) or None (zero).
+      h_t = a_t ⊙ h_{t-1} + sqrt(max(1 - a_t², 0)) ⊙ x_t
+    Returns (h: (B, S, d) in ``x.dtype``, h_last: (B, d) f32). The JAX
+    package's ``rglru_ref`` returns h in f32; the model casts it to its
+    dtype at once, which is the rounding done here.
+    """
+    B, S, d = x.shape
+    f32 = torch.float32
+    af = a.to(f32)
+    b = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * x.to(f32)
+    h = (torch.zeros((B, d), dtype=f32, device=x.device) if h0 is None
+         else h0.to(f32))
+    hs = torch.empty((B, S, d), dtype=f32, device=x.device)
+    for t in range(S):
+        h = af[:, t] * h + b[:, t]
+        hs[:, t] = h
+    return hs.to(x.dtype), h
+
+
+def rglru_step_ref(x, a, state):
+    """One decode step; x, a, state: (B, d). Returns the new h, f32."""
+    f32 = torch.float32
+    af = a.to(f32)
+    b = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * x.to(f32)
+    return af * state.to(f32) + b

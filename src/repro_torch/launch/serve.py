@@ -6,18 +6,29 @@ drop-masked tensor-parallel decode, on the GPU unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --serve legacy \
       --arch rwkv6-1.6b --full --batch 8 --prompt-len 512 --new-tokens 32
 
-  # the same path at smoke-test size on the CPU
+  # recurrentgemma-9b at full width, static batch, greedy (a prompt
+  # length that is a multiple of the 2048-token window: see below)
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve legacy \
+      --arch recurrentgemma-9b --full --batch 8 --prompt-len 2048 \
+      --new-tokens 32
+
+  # the same paths at smoke-test size on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --serve legacy \
       --arch rwkv6-1.6b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve legacy \
+      --arch recurrentgemma-9b --device cpu
 
   # gemma3-1b at full width, lossy TP decode over 4 shards
   PYTHONPATH=src python -m repro_torch.launch.serve --serve continuous \
       --full --tp-shards 4 -p 0.1
 
-The flags are the JAX launcher's. ``--serve legacy`` serves the ssm
-family (RWKV-6); for a dense arch it raises ``NotImplementedError``
-naming the kinds whose contiguous-cache decode is not ported yet.
-``--telemetry-dir`` is not ported yet and raises.
+The flags are the JAX launcher's. ``--serve legacy`` serves every ported
+family (dense, ssm, hybrid) on the contiguous cache. Its windowed
+attention layers keep the reference's ring buffer, which holds the right
+positions only when ``--prompt-len`` is a multiple of the window; the
+port reproduces the reference's output at other lengths too (ROADMAP
+C). ``--serve continuous`` serves the dense
+family. ``--telemetry-dir`` is not ported yet and raises.
 """
 from __future__ import annotations
 

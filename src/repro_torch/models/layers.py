@@ -1,11 +1,13 @@
 """Model primitives (port of :mod:`repro.models.layers`): RMS norm, RoPE,
-GQA attention (prefill and paged decode), gated MLP, embedding and head.
+GQA attention (prefill, contiguous and paged decode), gated MLP,
+embedding and head.
 
 Layouts are the JAX package's: ``wq``/``wk``/``wv`` are (d, h, hd), ``wo``
-is (h, hd, d), activations (B, S, …), and the paged KV pool is
-(n_slots, kvh, hd) per layer. Mixed-dtype products follow JAX's type
-promotion (:func:`einsum`), so a bf16 weight meeting an f32 activation is
-computed in f32, as the reference does.
+is (h, hd, d), activations (B, S, …), the contiguous KV cache is
+(B, C, kvh, hd) and the paged KV pool (n_slots, kvh, hd) per layer.
+Mixed-dtype products follow JAX's type promotion (:func:`einsum`), so a
+bf16 weight meeting an f32 activation is computed in f32, as the
+reference does.
 
 Prefill runs :func:`full_attention` at every length. The JAX package
 switches to blocked local or chunked attention above 2·window or 2048
@@ -110,19 +112,24 @@ def full_attention(q, k, v, *, causal: bool = True,
 
 
 def decode_attention(q, k_cache, v_cache, pos, *,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, ring: bool = False):
     """One-token attention against a contiguous cache view.
 
     q: (B,1,h,hd); caches: (B,C,kv,hd); ``pos``: the absolute position of
     the new token, a scalar or a (B,) tensor of per-request positions.
-    Slots ``pos - window < idx <= pos`` are valid.
+    With ``ring`` the cache is a ring buffer of C slots and every slot
+    written so far is valid (``idx < min(pos + 1, C)``, the reference's
+    mask); otherwise slots ``pos - window < idx <= pos`` are valid.
     """
     B, C, kvh, hd = k_cache.shape
     idx = torch.arange(C, device=q.device)
     pos = torch.as_tensor(pos, device=q.device).reshape(-1, 1)   # (B|1, 1)
-    valid = idx[None, :] <= pos
-    if window is not None:
-        valid = valid & (idx[None, :] > pos - window)
+    if ring:
+        valid = idx[None, :] < torch.clamp(pos + 1, max=C)
+    else:
+        valid = idx[None, :] <= pos
+        if window is not None:
+            valid = valid & (idx[None, :] > pos - window)
     mask = valid.reshape(-1, 1, 1, 1, C)
     g = q.shape[2] // kvh
     qr = q.reshape(B, 1, kvh, g, hd)
@@ -146,6 +153,31 @@ def attention_fwd(p, x, *, cfg: ArchConfig, window: Optional[int]):
     out = full_attention(q, k, v, causal=True, window=window)
     out = einsum("bshe,hed->bsd", out, p["wo"])
     return out, (k, v)
+
+
+def attention_decode(p, x, k_cache, v_cache, pos: int, *, cfg: ArchConfig,
+                     window: Optional[int] = None, ring: bool = False):
+    """One-step decode against the contiguous cache (all requests at one
+    position ``pos``): writes the new token's K/V at slot ``pos % C``
+    with ``ring``, else at slot ``pos`` (clamped to the last slot, as the
+    reference's ``dynamic_update_slice`` clamps), then attends. The
+    caches are written **in place** (the JAX package returns updated
+    copies and its decode step donates the cache). Returns
+    (out, k_cache, v_cache)."""
+    q = einsum("bsd,dhe->bshe", x, p["wq"])
+    k = einsum("bsd,dhe->bshe", x, p["wk"])
+    v = einsum("bsd,dhe->bshe", x, p["wv"])
+    positions = torch.full((1,), pos, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    C = k_cache.shape[1]
+    slot = pos % C if ring else min(pos, C - 1)
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    out = decode_attention(q, k_cache, v_cache, pos, window=window,
+                           ring=ring)
+    out = einsum("bshe,hed->bsd", out, p["wo"])
+    return out, k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

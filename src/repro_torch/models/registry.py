@@ -1,5 +1,6 @@
 """Top-level model API (port of :mod:`repro.models.registry`) for the
-dense family (gemma3) and the ssm family (RWKV-6).
+dense family (gemma3), the ssm family (RWKV-6) and the hybrid family
+(RecurrentGemma).
 
 ``build_model(cfg, device=...)`` returns a :class:`Model` whose methods
 work on plain parameter dicts:
@@ -14,9 +15,8 @@ work on plain parameter dicts:
   init_paged(n_slots)                         -> pool
 
 The contiguous cache (``paged=False``, ``decode_step``, ``init_cache``)
-serves the rwkv kind; the paged pool serves the dense kinds. A dense
-model asked for the contiguous path raises ``NotImplementedError``: its
-ring-buffer KV cache is not ported yet.
+serves every ported family (the dense kinds on the reference's
+ring-buffer KV cache); the paged pool serves the dense kinds.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import stack as S
+from repro_torch.models.hybrid import hybrid_kind_sequence
 from repro_torch.models.transformer import dense_kind_sequence
 
 
@@ -38,6 +39,8 @@ def kind_sequence(cfg: ArchConfig) -> List[str]:
         return dense_kind_sequence(cfg)
     if cfg.family == "ssm":
         return ["rwkv"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        return hybrid_kind_sequence(cfg)
     raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
                               f"ported yet")
 
@@ -57,28 +60,26 @@ class Model:
         return {"embed": L.init_embed(gen, self.cfg),
                 "layers": S.init_stack(gen, self.cfg, self.kinds)}
 
-    def check_contiguous(self) -> None:
-        """Raise ``NotImplementedError`` if a layer kind of this model has
-        no contiguous-cache path in the port (the dense kinds)."""
-        S.check_contiguous(self.kinds)
-
     def prefill(self, params, inputs, max_len=None, paged: bool = False):
         """Prompt pass. Returns the last position's logits (B, vocab) and
         the per-layer cache: with ``paged`` the K/V of every position
         (dense kinds, for the slot pool), else the contiguous decode
-        cache (rwkv: final state and token shifts). ``max_len`` sizes the
-        dense ring buffer in the reference; no ported kind reads it."""
+        cache (dense: the last ``window`` K/V rows, or all rows padded to
+        ``max_len`` for a global layer; rwkv: final state and token
+        shifts; rec: conv state and f32 carry)."""
         x = L.embed(params["embed"], inputs["tokens"])
         x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
-                                 mode="prefill", paged=paged)
+                                 mode="prefill", paged=paged,
+                                 max_len=max_len)
         vocab = self.cfg.vocab_size
         last = L.lm_head(params["embed"], x[:, -1:], vocab)[:, 0, :vocab]
         return last, cache
 
     def decode_step(self, params, cache, inputs, pos):
-        """One decode step against the contiguous cache. ``pos`` (the new
-        token's position) is the reference's argument; no ported
-        contiguous kind reads it. Returns (logits (B, vocab), new cache)."""
+        """One decode step against the contiguous cache at ``pos`` (the
+        new token's position, the same for every request). Returns
+        (logits (B, vocab), new cache); the dense kinds' K/V caches are
+        written in place (the reference donates them)."""
         x = L.embed(params["embed"], inputs["token"])
         x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
                                  mode="decode", cache=cache, pos=pos)
@@ -89,7 +90,8 @@ class Model:
     def init_cache(self, batch_size: int, max_len: int) -> list:
         """Empty contiguous decode cache (``max_len`` as in
         :meth:`prefill`)."""
-        return S.init_cache(self.cfg, self.kinds, batch_size, self.device)
+        return S.init_cache(self.cfg, self.kinds, batch_size, max_len,
+                            self.device)
 
     def decode_paged(self, params, pool, inputs, pos, bt, *, page: int,
                      masks=None, tp=None):

@@ -4,8 +4,8 @@ static-batch sampler and the continuous-batching engine.
 ``make_serve_steps`` builds the prefill and decode closures, and
 :class:`ServeEngine` is a batched greedy / temperature sampler on top:
 one static batch, a prefill, then one decode step per token against the
-contiguous cache (the rwkv kind; the dense kinds' ring-buffer cache is
-not ported yet).
+contiguous cache (every ported family: the dense kinds' ring-buffer KV
+cache, rwkv's and rec's recurrent states).
 
 :class:`ContinuousEngine` serves requests with per-request admission and
 iteration-level join/evict (``serve.scheduler``), a paged KV cache
@@ -56,7 +56,6 @@ class ServeEngine:
     temperature: float = 0.0
 
     def __post_init__(self):
-        self.model.check_contiguous()
         self._prefill, self._decode = make_serve_steps(self.model,
                                                        self.max_len)
 

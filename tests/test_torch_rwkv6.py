@@ -292,23 +292,6 @@ def test_rwkv_has_no_paged_path(rwkv):
                              torch.zeros((1, 1), dtype=torch.long), page=4)
 
 
-def test_dense_contiguous_path_raises_naming_kinds():
-    """The dense kinds' ring-buffer cache is not ported: every contiguous
-    entry point raises and names them."""
-    model = build_model(get_config("gemma3-1b").reduced(), device="cpu")
-    gen = torch.Generator()
-    gen.manual_seed(0)
-    params = model.init(gen)
-    toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    for call in (lambda: model.prefill(params, toks),
-                 lambda: model.init_cache(1, 8),
-                 lambda: ServeEngine(model, params)):
-        with pytest.raises(NotImplementedError, match="attn@64"):
-            call()
-    last, _ = model.prefill(params, toks, paged=True)
-    assert last.shape == (1, model.cfg.vocab_size)
-
-
 # ---------------------------------------------------------------------------
 # Static-batch engine and launcher
 # ---------------------------------------------------------------------------
@@ -357,6 +340,7 @@ def test_launcher_serves_legacy_on_cpu():
                              "--device", "cpu"])
     assert out.shape == (4, 16)
     assert int(out.min()) >= 0 and int(out.max()) < 512
-    with pytest.raises(NotImplementedError, match="attn@64"):
-        launch_serve.main(["--serve", "legacy", "--arch", "gemma3-1b",
-                           "--device", "cpu"])
+    # the dense kinds serve on the contiguous ring-buffer cache too
+    dense = launch_serve.main(["--serve", "legacy", "--arch", "gemma3-1b",
+                               "--device", "cpu"])
+    assert dense.shape == (4, 16)

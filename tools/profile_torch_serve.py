@@ -19,9 +19,11 @@ width, random bf16 weights, the static-batch engine: 8 prompts of 512
 tokens, 32 new tokens, greedy) the same way: a warm-up, a timed
 ``generate`` (host time of the prefill and of each decode step), then
 one prefill and one whole ``generate`` under the profiler, so the
-device time splits into prefill and decode.
+device time splits into prefill and decode. ``--slice recurrentgemma``
+does the same with chip_smoke.py's phase-11 load (recurrentgemma-9b at
+full width and depth, 8 prompts of 2048 tokens, 32 new tokens).
 
-    python3 tools/profile_torch_serve.py [--slice gemma3|rwkv6]
+    python3 tools/profile_torch_serve.py [--slice gemma3|rwkv6|recurrentgemma]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -40,11 +42,10 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa
 
-from chip_smoke import (RWKV_BATCH, RWKV_NEW, RWKV_PROMPT,  # noqa: E402
-                        card_line, smoke_engine, smoke_requests)
+from chip_smoke import (RG_LOAD, RWKV_LOAD, card_line,  # noqa: E402
+                        smoke_engine, smoke_requests)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import masked_avg as K  # noqa: E402
-from repro_torch.kernels import rwkv6 as RK  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
@@ -86,77 +87,83 @@ def _top(kernels: list, busy_s: float, n: int = 10) -> list:
              "share_of_busy": k[0] / 1e6 / busy_s} for k in kernels[:n]]
 
 
-def profile_rwkv6(card: str) -> dict:
-    """The static-batch rwkv6-1.6b slice (chip_smoke.py phase 7)."""
-    cfg = get_config("rwkv6-1.6b")
+# the static-batch slices: (chip_smoke load, the kernel's CUDA name)
+STATIC = {"rwkv6": (RWKV_LOAD, "rwkv6_fwd_kernel"),
+          "recurrentgemma": (RG_LOAD, "rglru_fwd_kernel")}
+
+
+def profile_static(card: str, name: str) -> dict:
+    """A static-batch slice (chip_smoke.py phase 7 or 11)."""
+    load, kname = STATIC[name]
+    cfg = get_config(load.arch)
     model = build_model(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = model.init(gen)
-    eng = ServeEngine(model, params, max_len=RWKV_PROMPT + RWKV_NEW)
-    prompts = torch.randint(0, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT),
+    eng = ServeEngine(model, params, max_len=load.prompt + load.new)
+    prompts = torch.randint(0, cfg.vocab_size, (load.batch, load.prompt),
                             generator=gen, device="cuda")
-    eng.generate(prompts, RWKV_NEW)                   # warm-up
+    eng.generate(prompts, load.new)                   # warm-up
     prefill, decode = model.prefill, model.decode_step
     host = {"serve.prefill": [], "serve.decode_step": []}
     model.prefill = _timed(prefill, host["serve.prefill"])
     model.decode_step = _timed(decode, host["serve.decode_step"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.generate(prompts, RWKV_NEW)
+    eng.generate(prompts, load.new)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     model.prefill, model.decode_step = prefill, decode
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof_p:
-        model.prefill(params, {"tokens": prompts})
+        model.prefill(params, {"tokens": prompts}, max_len=eng.max_len)
         torch.cuda.synchronize()
-    RK.rwkv6.launches = 0
+    load.kernel.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof_g:
-        eng.generate(prompts, RWKV_NEW)
+        eng.generate(prompts, load.new)
         torch.cuda.synchronize()
-    launches = RK.rwkv6.launches
+    launches = load.kernel.launches
     pre, gen_k = _device_kernels(prof_p), _device_kernels(prof_g)
     pre_busy_s = sum(k[0] for k in pre) / 1e6
     busy_s = sum(k[0] for k in gen_k) / 1e6
-    rw = [k for k in gen_k if "rwkv6_fwd_kernel" in k[2]]
+    kern = [k for k in gen_k if kname in k[2]]
     n_pre = sum(k[1] for k in pre)
     n_all = sum(k[1] for k in gen_k)
     return {
-        "card": card, "slice": "rwkv6", "batch": RWKV_BATCH,
-        "prompt_len": RWKV_PROMPT, "new_tokens": RWKV_NEW,
-        "wall_s": wall_s,
-        "tokens_per_s": RWKV_BATCH * RWKV_NEW / wall_s,
+        "card": card, "slice": name, "arch": load.arch,
+        "batch": load.batch, "prompt_len": load.prompt,
+        "new_tokens": load.new, "wall_s": wall_s,
+        "tokens_per_s": load.batch * load.new / wall_s,
         "host_ms_prefill": 1e3 * host["serve.prefill"][0],
         "host_ms_per_decode_step":
-            1e3 * sum(host["serve.decode_step"]) / RWKV_NEW,
+            1e3 * sum(host["serve.decode_step"]) / load.new,
         "device_busy_s": busy_s,
         "device_idle_share": 1.0 - busy_s / wall_s,
         "prefill_device_ms": pre_busy_s * 1e3,
-        "decode_device_ms_per_step": (busy_s - pre_busy_s) * 1e3 / RWKV_NEW,
+        "decode_device_ms_per_step": (busy_s - pre_busy_s) * 1e3 / load.new,
         "kernel_launches_prefill": n_pre,
-        "kernel_launches_per_decode_step": (n_all - n_pre) / RWKV_NEW,
-        "rwkv6_launches": launches,
-        "rwkv6_device_ms": rw[0][0] / 1e3 if rw else None,
-        "rwkv6_share_of_prefill_busy":
-            rw[0][0] / 1e6 / pre_busy_s if rw else None,
+        "kernel_launches_per_decode_step": (n_all - n_pre) / load.new,
+        "kernel": kname, "kernel_launches": launches,
+        "kernel_device_ms": kern[0][0] / 1e3 if kern else None,
+        "kernel_share_of_prefill_busy":
+            kern[0][0] / 1e6 / pre_busy_s if kern else None,
         "top_kernels_prefill": _top(pre, pre_busy_s),
         "top_kernels_generate": _top(gen_k, busy_s)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--slice", choices=("gemma3", "rwkv6"),
+    ap.add_argument("--slice", choices=("gemma3",) + tuple(STATIC),
                     default="gemma3")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
-    if args.slice == "rwkv6":
-        print(json.dumps(profile_rwkv6(card), indent=1))
+    if args.slice in STATIC:
+        print(json.dumps(profile_static(card, args.slice), indent=1))
         return 0
     cfg = get_config("gemma3-1b")
     model = build_model(cfg, device="cuda")
