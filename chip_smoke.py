@@ -51,7 +51,29 @@ raises on failure; nothing is caught):
    26 kernel launches (one per RG-LRU layer) per prefill;
 12. prefill against decode as in 8, at a 2048-token prompt: the bf16
    model at full depth, and an f32 copy of its first repeating unit
-   (3 layers, full width).
+   (3 layers, full width);
+13. ring-round kernel against its plain version (the ring run hop for
+   hop) on the card, bit for bit: n in {1, 2, 4, 8, 16} x s in {1, n/2,
+   n, 2n} x the three modes x payload f32/bf16 x accumulation f32/bf16 x
+   d in {1, 33, 4097} x G in {1, 3} x integer-valued and continuous data;
+14. its time at two shapes, the largest exchange group of rps-100m's
+   per-leaf plan at n = 16 and one 25 MiB f32 bucket at n = 16, beside
+   its plain version, the port's engine="xla" route for the same group
+   (einsum, divide, where: three calls, not a library yardstick) and the
+   card's bound;
+15. the quickstart (the paper's claim): the 24-48-8 tanh MLP on the
+   heterogeneous teacher task, n = 16, 150 steps; reliable allreduce at
+   p = 0, rps_model and rps_grad at p = 0.1 on the ring kernel; RPS's
+   final loss < 1.15 x the baseline's + 0.02, and rps_model on the xla
+   engine within 1e-4 of the ring run;
+16. the training launcher's defaults (rps-paper-mlp, bf16, char-LM,
+   n = 16, batch 32, seq 64, 200 steps) with --engine ring;
+17. rps-100m (12 layers, d 768, 12 / 4 KV heads, d_ff 3072, vocab 16384,
+   f32) at the example's paper scale: n = 16, batch 32, seq 128, 4
+   steps on the ring kernel (launches = exchange groups x steps); step
+   ms, training tokens/s, peak memory, the loss (finite at every step;
+   the first step's batch scores lower on the trained mean model than on
+   the initial one) and the consensus (finite, > 0).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -74,13 +96,22 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import masked_avg as K  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.core import rps as rps_lib  # noqa: E402
+from repro_torch.data import (CharLMTask, TeacherTask,  # noqa: E402
+                              make_worker_streams)
 from repro_torch.kernels import rglru as GK  # noqa: E402
+from repro_torch.kernels import ring as RG  # noqa: E402
 from repro_torch.kernels import rwkv6 as RK  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.netsim import request_trace  # noqa: E402
 from repro_torch.serve import (ContinuousEngine, PagedCache,  # noqa: E402
                                ServeEngine, TPDecodeConfig, make_requests,
                                make_tp_context)
+from repro_torch.train import (SimulatorConfig,  # noqa: E402
+                               make_exchange_plan, run_simulation)
 
 # Full-precision f32 matmuls and convolutions on the card (no TF32), set
 # explicitly: the kernel comparison and the dense-equivalence check state
@@ -122,11 +153,31 @@ BF16_ULP = 2.0 ** -7           # bf16 h: one ulp of the rounded f32 h
 PREFILL_DECODE_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
 
 
+# the ring-round phases (13-17)
+RING_NS = (1, 2, 4, 8, 16)
+# 1, 33, 4097: the scalar template; 64, 4096, 4104: the 16-byte template
+# (VEC 4 at f32, 8 at bf16), one partial tile, whole tiles, both
+RING_DS = (1, 33, 64, 4096, 4097, 4104)
+BUCKET_MB = 25                 # the one-bucket timing shape at n = 16
+# examples/train_rps_100m.py's model, built here (not a registry config)
+RPS_100M = ArchConfig(
+    name="rps-100m", family="dense", n_layers=12, d_model=768, n_heads=12,
+    n_kv_heads=4, d_ff=3072, vocab_size=16_384, max_seq=1024,
+    dtype="float32", citation="examples/train_rps_100m.py")
+# the example's --paper-scale load
+# the example's --paper-scale load, run 4 steps past its 20-step warm-up
+RPS_100M_LOAD = dict(n=16, batch=32, seq=128, lr=0.3, warmup=20, steps=24,
+                     p=0.1)
+QUICKSTART_TOL = 1e-4          # ring against xla final loss (test_ring.py)
+QUICKSTART_SHAPES = {"w1": (24, 48), "w2": (48, 8)}    # the 24-48-8 MLP
+
+
 def reset_counts() -> None:
     """Zero every kernel's launch count (before a path is driven)."""
     K.masked_avg_grid.launches = 0
     RK.rwkv6.launches = 0
     GK.rglru.launches = 0
+    RG.ring_round.launches = 0
 
 
 def card_line() -> str:
@@ -636,6 +687,282 @@ def init_model(arch: str, gen: torch.Generator):
     return model, params
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def ring_case(gen: torch.Generator, G: int, n: int, s: int, d: int,
+              dtype: torch.dtype, integer: bool, mode: str):
+    """Random inputs of one ring-round case on the card: the stack
+    (integer-valued in [-8, 8] or normal), Bernoulli(0.7) masks with the
+    owner entries forced on, and the divisor ``mode`` prescribes."""
+    if integer:
+        x = torch.randint(-8, 9, (G, n, s, d), generator=gen, device="cuda")
+    else:
+        x = torch.randn((G, n, s, d), generator=gen, device="cuda")
+    own = rps_lib.owner_mask(n, s, device="cuda")
+    rs = (torch.rand((G, n, s), generator=gen, device="cuda") < 0.7) | own
+    ag = (torch.rand((G, n, s), generator=gen, device="cuda") < 0.7) | own
+    div = rps_lib._divisor(rps_lib.wire_lib.make_recovery("renorm"), mode,
+                           rs, n)
+    return x.to(dtype), rs, ag, div
+
+
+def check_ring(gen: torch.Generator) -> tuple:
+    """Phase 13: the kernel against its plain version, bit for bit, over
+    the sweep. Returns (the number of cases, the largest absolute
+    difference, 0 when every case is bitwise)."""
+    n_cases, worst = 0, 0.0
+    for n in RING_NS:
+        for s in sorted({1, max(n // 2, 1), n, 2 * n}):
+            for d in RING_DS:
+                for G in (1, 3):
+                    for dt in (torch.float32, torch.bfloat16):
+                        for integer in (True, False):
+                            for mode in RG.MODES:
+                                args = ring_case(gen, G, n, s, d, dt,
+                                                 integer, mode)
+                                for acc in (torch.float32, torch.bfloat16):
+                                    got = ops.ring_round(*args, mode=mode,
+                                                         rs_dtype=acc)
+                                    want = ops.ring_round(
+                                        *args, mode=mode, rs_dtype=acc,
+                                        backend="ref")
+                                    err = (got.float() - want.float()
+                                           ).abs().max().item()
+                                    worst = max(worst, err)
+                                    if not torch.equal(_bits(got),
+                                                       _bits(want)):
+                                        raise AssertionError(
+                                            f"ring_round G={G} n={n} s={s} "
+                                            f"d={d} {dt} acc {acc} {mode} "
+                                            f"int={integer}: not bitwise "
+                                            f"(max abs err {err})")
+                                    n_cases += 1
+    print(f"ring sweep: {n_cases} cases agree bit for bit with the plain "
+          f"version", flush=True)
+    return n_cases, worst
+
+
+def check_ring_plans(gen: torch.Generator, plans: dict) -> int:
+    """Phase 13, continued: the kernel against its plain version, bit for
+    bit, at every exchange group of the training phases' plans, in its
+    payload dtype, every mode and both accumulation dtypes (normal data).
+    Returns the number of cases."""
+    n_cases = 0
+    for name, plan in plans.items():
+        for (blk, m, dt), idxs in rps_lib._global_groups(plan).items():
+            for mode in RG.MODES:
+                args = ring_case(gen, len(idxs), plan.n, plan.s, blk * m,
+                                 getattr(torch, dt), False, mode)
+                for acc in (torch.float32, torch.bfloat16):
+                    got = ops.ring_round(*args, mode=mode, rs_dtype=acc)
+                    want = ops.ring_round(*args, mode=mode, rs_dtype=acc,
+                                          backend="ref")
+                    if not torch.equal(_bits(got), _bits(want)):
+                        raise AssertionError(
+                            f"ring_round at {name}'s group {blk}x{m} {dt} "
+                            f"(G={len(idxs)}) acc {acc} {mode}: not bitwise")
+                    n_cases += 1
+                    del got, want
+            del args
+    torch.cuda.empty_cache()
+    print(f"ring plan groups: {n_cases} cases agree bit for bit with the "
+          f"plain version", flush=True)
+    return n_cases
+
+
+def largest_group(plan) -> tuple:
+    """(G, n, s, d) of the plan's largest exchange group by bytes."""
+    best = None
+    for (blk, m, _dt), idxs in rps_lib._global_groups(plan).items():
+        shape = (len(idxs), plan.n, plan.s, blk * m)
+        if best is None or np.prod(shape) > np.prod(best):
+            best = shape
+    return best
+
+
+def time_ring(gen: torch.Generator, shape: tuple) -> dict:
+    """Phase 14: times of one ring-round call on an f32 (G, n, s, d)
+    group in model mode with the f32 wire (the slice's dtypes)."""
+    G, n, s, d = shape
+    x, rs, ag, div = ring_case(gen, G, n, s, d, torch.float32, False,
+                               "model")
+
+    def kernel():
+        return RG.ring_round(x, rs, ag, div, mode="model")
+
+    def plain():
+        return ops.ring_round(x, rs, ag, div, mode="model", backend="ref")
+
+    def xla_route():
+        sums = torch.einsum("gij,gijd->gjd", rs.to(torch.float32), x)
+        tilde = sums / div[..., None]
+        return torch.where(ag[..., None], tilde[:, None], x)
+
+    got = kernel()
+    if not torch.equal(_bits(got), _bits(plain())):
+        raise AssertionError(f"ring_round {shape}: not bitwise at the "
+                             f"timing shape")
+    err_xla = (xla_route() - got).abs().max().item()
+    del got
+    torch.cuda.empty_cache()
+    el = x.element_size()
+    nbytes = (2 * x.numel() * el                      # stack in, out
+              + rs.numel() * rs.element_size()
+              + ag.numel() * ag.element_size() + div.numel() * 4)
+    flops = 2 * x.numel()                             # gate, add
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    big = x.numel() * el > 2 ** 30
+    return {"shape": list(shape),
+            "ms": device_ms(kernel, calls=5 if big else 20, reps=5),
+            "plain_ms": device_ms(plain, calls=1, reps=2),
+            "xla_route_ms": device_ms(xla_route, calls=2 if big else 5,
+                                      reps=3),
+            "xla_route_max_abs_diff": err_xla,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes}
+
+
+def quickstart(steps: int = 150, n: int = 16) -> dict:
+    """Phase 15: examples/quickstart.py on the port. Four runs from one
+    seed (so the same initial weights and, for the three p = 0.1 runs,
+    the same drop masks); each rps run's ring-kernel launches are
+    counted."""
+    task = TeacherTask(d_in=24, n_classes=8, hetero=0.3, seed=0)
+
+    def init_fn(gen):
+        return {k: torch.randn(shape, generator=gen, device=gen.device) * 0.1
+                for k, shape in QUICKSTART_SHAPES.items()}
+
+    def loss_fn(p, batch):
+        x, y = batch
+        logits = torch.tanh(x @ p["w1"]) @ p["w2"]
+        gold = torch.gather(logits, -1, y.long()[:, None])[:, 0]
+        return torch.mean(torch.logsumexp(logits, -1) - gold)
+
+    batch_fn = make_worker_streams(task, n, 32)
+    out = {}
+    for name, agg, p, engine in (("baseline", "allreduce_model", 0.0, "ring"),
+                                 ("rps_model", "rps_model", 0.1, "ring"),
+                                 ("rps_grad", "rps_grad", 0.1, "ring"),
+                                 ("rps_model_xla", "rps_model", 0.1, "xla")):
+        scfg = SimulatorConfig(n_workers=n, drop_rate=p, aggregator=agg,
+                               lr=0.2, warmup=10, steps=steps,
+                               eval_every=steps - 1, engine=engine)
+        reset_counts()
+        h = run_simulation(loss_fn, init_fn, batch_fn, scfg)
+        launches = RG.ring_round.launches
+        out[name] = {"final_loss": h["final_loss"],
+                     "consensus": h["consensus"][-1],
+                     "ring_launches": launches,
+                     "masked_avg_launches": K.masked_avg_grid.launches,
+                     "wall_s": sum(h["step_s"])}
+        if agg.startswith("rps") and engine == "ring" \
+                and launches != 2 * steps:      # two leaves, one group each
+            raise AssertionError(f"quickstart {name}: {launches} ring "
+                                 f"launches, want {2 * steps}")
+    base, rps = out["baseline"]["final_loss"], out["rps_model"]["final_loss"]
+    if not rps < base * 1.15 + 0.02:
+        raise AssertionError(f"quickstart claim fails: RPS {rps} >= 1.15 x "
+                             f"baseline {base} + 0.02")
+    gap = abs(out["rps_model_xla"]["final_loss"] - rps)
+    if gap > QUICKSTART_TOL:
+        raise AssertionError(f"quickstart ring vs xla final loss: {gap} > "
+                             f"{QUICKSTART_TOL}")
+    out["ring_vs_xla_abs"] = gap
+    return out
+
+
+def launcher_default() -> dict:
+    """Phase 16: ``python -m repro_torch.launch.train`` at its defaults
+    (rps-paper-mlp, n = 16, batch 32, seq 64, 200 steps, lr 0.05, warmup
+    10, p = 0.1) on the ring engine."""
+    reset_counts()
+    h = train_launcher.main(["--engine", "ring"])
+    launches = RG.ring_round.launches
+    floor = CharLMTask(vocab=256, seq_len=64).entropy_floor()
+    losses = h["loss"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"launcher: loss did not fall: {losses}")
+    if launches == 0:
+        raise AssertionError("launcher: the ring kernel never launched")
+    return {"final_loss": h["final_loss"], "first_loss": losses[0],
+            "entropy_floor": floor, "consensus": h["consensus"][-1],
+            "ring_launches": launches, "wall_s": sum(h["step_s"]),
+            "step_ms_mean": 1e3 * float(np.mean(h["step_s"][1:]))}
+
+
+def rps100m(gen: torch.Generator, load=RPS_100M_LOAD) -> dict:
+    """Phase 17: rps-100m at the example's paper scale on the ring
+    kernel, past the warm-up. The batches are made before the run
+    (set-up), so the step times are the simulator's. Learning is checked
+    twice: the last step's training loss is below the first step's, and
+    a held-out batch (the step after the run's last, never trained on)
+    scores lower under the workers' mean model after the run than under
+    the initial model."""
+    n, steps = load["n"], load["steps"]
+    model = build_model(RPS_100M, device="cuda")
+    p1 = model.init_stacked(gen)
+    n_params = sum(x.numel() for x in tree_lib.leaves(p1))
+    task = CharLMTask(vocab=RPS_100M.vocab_size, seq_len=load["seq"],
+                      seed=0)
+    t0 = time.perf_counter()
+    stream = make_worker_streams(task, n, load["batch"])
+    batches = [stream(t) for t in range(steps + 1)]   # the last: held out
+    data_s = time.perf_counter() - t0
+    scfg = SimulatorConfig(n_workers=n, drop_rate=load["p"],
+                           aggregator="rps_model", lr=load["lr"],
+                           warmup=load["warmup"], steps=steps, eval_every=1,
+                           engine="ring")
+    plan = make_exchange_plan(p1, scfg)
+    groups = len(rps_lib._global_groups(plan))
+
+    def loss_fn(p, b):
+        return model.loss(p, b)[0]
+
+    def held_out(p):
+        with torch.no_grad():
+            return float(torch.stack([
+                loss_fn(p, {k: v[i] for k, v in batches[steps].items()})
+                for i in range(n)]).mean())
+
+    held_before = held_out(p1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    h = run_simulation(loss_fn, None, lambda t: batches[t], scfg,
+                       init_params=p1)
+    launches = RG.ring_round.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    loss, cons = h["loss"], h["consensus"]
+    if launches != groups * steps:
+        raise AssertionError(f"rps-100m: {launches} ring launches, want "
+                             f"{groups} groups x {steps} steps")
+    held_after = held_out(tree_lib.map(lambda x: torch.mean(x, 0),
+                                       h["params"]))
+    if not (all(np.isfinite(loss)) and loss[-1] < loss[0]
+            and held_after < held_before):
+        raise AssertionError(f"rps-100m: losses {loss}; held-out batch "
+                             f"{held_before} -> {held_after}: not finite, "
+                             f"or not lower after the run")
+    if not (np.isfinite(cons[-1]) and cons[-1] > 0):
+        raise AssertionError(f"rps-100m: consensus {cons[-1]}")
+    step_s = h["step_s"]
+    later = float(np.mean(step_s[1:]))
+    tokens = n * load["batch"] * load["seq"]
+    return {"params_per_worker": n_params, "groups": groups,
+            "ring_launches": launches, "data_s": data_s,
+            "first_step_ms": step_s[0] * 1e3,
+            "step_ms": [t * 1e3 for t in step_s[1:]],
+            "tokens_per_s": tokens / later, "peak_memory_gb": peak,
+            "loss": loss, "held_out_loss_before": held_before,
+            "held_out_loss_after": held_after,
+            "consensus": cons,
+            "largest_group": list(largest_group(plan)), **load}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -692,6 +1019,34 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
+    ring_cases, ring_err = check_ring(gen)
+    # the training phases' per-leaf plans at n = 16 (shapes only)
+    trees = {"quickstart": {k: torch.empty(shape, device="meta")
+                            for k, shape in QUICKSTART_SHAPES.items()}}
+    for cfg in (get_config("rps-paper-mlp"), RPS_100M):
+        trees[cfg.name] = tree_lib.map(
+            lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+            build_model(cfg, device="cuda").init_stacked(gen))
+    plans = {name: make_exchange_plan(tree, SimulatorConfig(n_workers=16))
+             for name, tree in trees.items()}
+    ring_cases += check_ring_plans(gen, plans)
+    group = largest_group(plans["rps-100m"])
+    bucket = (1, 16, 16, BUCKET_MB * 2 ** 20 // 4 // 16)
+    ring_group = time_ring(gen, group)
+    ring_bucket = time_ring(gen, bucket)
+    print(json.dumps({"ring_sweep_cases": ring_cases,
+                      "ring_sweep_max_abs_err": ring_err,
+                      "ring_timing_group": ring_group,
+                      "ring_timing_bucket": ring_bucket, "card": card}),
+          flush=True)
+    torch.cuda.empty_cache()
+    qs = quickstart()
+    print(json.dumps({"quickstart": qs, "card": card}), flush=True)
+    la = launcher_default()
+    print(json.dumps({"launcher_default": la, "card": card}), flush=True)
+    big = rps100m(gen)
+    print(json.dumps({"rps_100m": big, "card": card}), flush=True)
+
     kernel = {"name": "masked_avg_grid", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
               "replaces": "src/repro/kernels/masked_avg.py:58",
@@ -719,7 +1074,16 @@ def main() -> int:
              "bound_ms": rg_timing["bound_ms"],
              "bound_by": rg_timing["bound_by"],
              "library_ms": None, "ok": True}
-    print(json.dumps({"kernels": [kernel, rwkv, rglru]}), flush=True)
+    ring = {"name": "ring_round", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ring.cu",
+            "replaces": "src/repro/kernels/rps_ring.py:331",
+            "launches": big["ring_launches"],
+            "max_abs_err": ring_err,
+            "ms": ring_group["ms"], "plain_ms": ring_group["plain_ms"],
+            "bound_ms": ring_group["bound_ms"],
+            "bound_by": ring_group["bound_by"],
+            "library_ms": None, "ok": True}
+    print(json.dumps({"kernels": [kernel, rwkv, rglru, ring]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

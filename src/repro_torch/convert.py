@@ -9,6 +9,10 @@ The tests use it to run both packages on the same weights, for every
 ported family (gemma3's dense kinds, RWKV-6's rwkv kind, RecurrentGemma's
 rec and attn kinds; nested dicts such as a layer's ``mlp`` and f32
 leaves such as ``lam`` carry across as they are).
+
+The train path keeps the JAX package's stacked layout, and
+:func:`stacked_params_from_jax` carries any tree across in it, leaf for
+leaf (one worker's parameters or an n-worker stack alike).
 """
 from __future__ import annotations
 
@@ -48,3 +52,10 @@ def params_from_jax(np_params: dict, cfg: ArchConfig, device="cuda") -> dict:
                               stacked)
     embed = _map(lambda a: _tensor(a, device), np_params["embed"])
     return {"embed": embed, "layers": layers}
+
+
+def stacked_params_from_jax(np_params, device="cuda"):
+    """Any tree of the JAX package's numpy arrays (nested dicts, e.g. the
+    stacked train-layout parameters) as tensors in the same layout."""
+    device = resolve_device(device)
+    return _map(lambda a: _tensor(a, device), np_params)

@@ -1,21 +1,32 @@
 """Static layout of one RPS round (port of :mod:`repro.core.plan`).
 
-An :class:`ExchangePlan` lays a payload out as ``(s, blk, m)`` block
-tables — s server blocks of ``blk`` rows — with the padding computed once
-at setup. Ported so far: the single-leaf, single-bucket plan
-(:func:`make_plan` with no bucketing knob) and the decode-shaped plan of
-the tensor-parallel serving path (:func:`decode_plan`). The fixed-byte and
-per-leaf bucketings, model-dim buckets and the async schedule raise or are
-absent until the training path needs them.
+An :class:`ExchangePlan` assigns every leaf of a parameter tree (a tensor,
+or a dict / list / tuple of them, flattened in ``jax.tree`` order by
+:mod:`repro_torch.tree`) to one bucket, and lays each bucket out as an
+``(s, blk, m)`` block table — s server blocks of ``blk`` rows — with the
+padding computed once at setup:
+
+- :func:`per_leaf_plan`: one bucket per leaf, one shared mask draw (the
+  simulator's and the trainer's default);
+- :func:`single_bucket_plan`: every leaf ravelled into one bucket;
+- :func:`make_plan` with ``bucket_bytes`` or ``n_buckets``: leaves
+  coalesced in tree order into fixed-byte or size-balanced buckets, each
+  bucket its own wire packet (per-bucket masks);
+- :func:`decode_plan`: the tensor-parallel serving path's one
+  ``(d_model, batch)`` leaf.
+
+Model-dim (tensor-parallel) buckets and the async schedule are not ported
+yet and raise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.core import wire as wire_lib
 
 
@@ -40,18 +51,21 @@ class Bucket:
     free: int                               # Σ sizes (rows before padding)
     blk: int                                # block width: ceil(free / s)
     pad: int                                # s·blk − free padding rows
-    dtype: str                              # payload dtype
+    dtype: str                              # payload dtype (promoted)
 
 
 @dataclasses.dataclass(frozen=True)
 class ExchangePlan:
     """Static layout of one RPS round over an n-worker axis with s server
-    blocks, built once at setup. The payload is one tensor (the
-    single-leaf plan), so there is one bucket and one shared mask draw
-    per round."""
+    blocks, built once at setup. ``per_bucket_masks``: every bucket draws
+    its own ``(n, s)`` mask pair (the fixed-byte plans), else one shared
+    draw per round."""
     n: int
     s: int
     buckets: Tuple[Bucket, ...]
+    n_leaves: int
+    per_bucket_masks: bool
+    treedef: Any = dataclasses.field(hash=False, compare=False)
     engine: str = "xla"
     wire: str = "f32"
     recovery: str = "renorm"
@@ -59,6 +73,14 @@ class ExchangePlan:
     @property
     def n_buckets(self) -> int:
         return len(self.buckets)
+
+    @property
+    def packets_per_block(self) -> int:
+        return self.n_buckets if self.per_bucket_masks else 1
+
+    @property
+    def model_packets(self) -> int:
+        return self.s * self.packets_per_block
 
     def payload_elems(self) -> int:
         return sum(self.s * b.blk * b.m for b in self.buckets)
@@ -89,8 +111,8 @@ class ExchangePlan:
                 "wire": wire,
                 "recovery": self.recovery,
                 "schedule": "sync",
-                "per_bucket_masks": False,
-                "model_packets": self.s,         # one packet per block
+                "per_bucket_masks": self.per_bucket_masks,
+                "model_packets": self.model_packets,
                 "payload_bytes": int(sum(
                     self.s * b.blk * b.m * _itemsize(b.dtype)
                     for b in self.buckets)),
@@ -102,58 +124,221 @@ class ExchangePlan:
                 "pad_frac": float(1.0 - free / elems) if elems else 0.0}
 
     # ---- gather / scatter ------------------------------------------------
-    def gather(self, tree: torch.Tensor, lead: int = 0) -> list:
-        """Payload -> list of (lead…, s, blk, m) block tables, one per
+    def check_leaves(self, tree: Any, lead: int = 0) -> list:
+        """Flatten ``tree`` and check it against the plan's shapes."""
+        leaves = tree_lib.leaves(tree)
+        if len(leaves) != self.n_leaves:
+            raise ValueError(f"plan built for {self.n_leaves} leaves, "
+                             f"tree has {len(leaves)}")
+        for b in self.buckets:
+            for lid, shp in zip(b.leaf_ids, b.shapes):
+                got = tuple(leaves[lid].shape[lead:])
+                if got != shp:
+                    raise ValueError(
+                        f"leaf {lid} shape {got} != plan shape {shp} "
+                        f"(lead={lead}) — rebuild the plan for this tree")
+        return leaves
+
+    def gather_bucket(self, leaves: Sequence[torch.Tensor], b: int,
+                      lead: int = 0) -> torch.Tensor:
+        """Bucket ``b``'s (lead…, s, blk, m) block table; members are
+        promoted to the bucket dtype. A one-leaf bucket without padding
+        is a view of its leaf."""
+        bk = self.buckets[b]
+        lshape = tuple(leaves[bk.leaf_ids[0]].shape[:lead])
+        dt = getattr(torch, bk.dtype)
+        parts = [leaves[i].reshape(lshape + (-1,)).to(dt)
+                 for i in bk.leaf_ids]
+        seg = parts[0] if len(parts) == 1 else torch.cat(parts, dim=lead)
+        if bk.pad:
+            seg = torch.nn.functional.pad(seg, (0, bk.pad))
+        return seg.reshape(lshape + (self.s, bk.blk, bk.m))
+
+    def gather(self, tree: Any, lead: int = 0) -> list:
+        """Tree -> list of (lead…, s, blk, m) block tables, one per
         bucket; ``lead`` leading dims (e.g. the stacked worker dim) are
         kept."""
-        (bk,) = self.buckets
-        got = tuple(tree.shape[lead:])
-        if got != bk.shapes[0]:
-            raise ValueError(f"leaf shape {got} != plan shape {bk.shapes[0]} "
-                             f"(lead={lead}) — rebuild the plan")
-        lshape = tuple(tree.shape[:lead])
-        seg = tree.reshape(lshape + (-1,)).to(getattr(torch, bk.dtype))
-        seg = seg[..., None]
-        if bk.pad:
-            seg = torch.nn.functional.pad(seg, (0, 0, 0, bk.pad))
-        return [seg.reshape(lshape + (self.s, bk.blk, bk.m))]
+        leaves = self.check_leaves(tree, lead)
+        return [self.gather_bucket(leaves, b, lead)
+                for b in range(self.n_buckets)]
 
-    def scatter(self, tables: Sequence[torch.Tensor],
-                lead: int = 0) -> torch.Tensor:
-        """Inverse of :meth:`gather` (restored to the leaf's plan dtype)."""
-        (bk,), (tbl,) = self.buckets, tables
-        lshape = tuple(tbl.shape[:lead])
-        seg = tbl.reshape(lshape + (self.s * bk.blk, bk.m))
-        if bk.pad:
-            seg = seg[..., :bk.free, :]
-        return seg[..., 0].reshape(lshape + bk.shapes[0]).to(
-            getattr(torch, bk.dtypes[0]))
+    def scatter(self, tables: Sequence[torch.Tensor], lead: int = 0) -> Any:
+        """Inverse of :meth:`gather` (members restored to their own
+        shapes and dtypes)."""
+        new_leaves: list = [None] * self.n_leaves
+        for b, tbl in zip(self.buckets, tables):
+            lshape = tuple(tbl.shape[:lead])
+            seg = tbl.reshape(lshape + (self.s * b.blk,))
+            off = 0
+            for lid, sz, shp, dt in zip(b.leaf_ids, b.sizes, b.shapes,
+                                        b.dtypes):
+                piece = seg[..., off:off + sz]
+                new_leaves[lid] = piece.reshape(lshape + shp).to(
+                    getattr(torch, dt))
+                off += sz
+        return tree_lib.unflatten(self.treedef, new_leaves)
 
 
-def make_plan(tree: torch.Tensor, n: int, s: Optional[int] = None, *,
-              engine: str = "xla", wire: str = "f32",
-              recovery: str = "renorm") -> ExchangePlan:
-    """The single-bucket plan of one tensor (a real tensor or a ``meta``
-    one — only its shape and dtype are read)."""
+def _leaf_meta(leaves) -> Tuple[list, list, list]:
+    shapes = [tuple(int(d) for d in x.shape) for x in leaves]
+    dtypes = [wire_lib.dtype_name(x.dtype) for x in leaves]
+    sizes = [int(np.prod(s, dtype=np.int64)) if s else 1 for s in shapes]
+    return shapes, dtypes, sizes
+
+
+def _flat_bucket(ids, shapes, dtypes, sizes, s: int) -> Bucket:
+    free = sum(sizes[i] for i in ids)
+    blk = max(_ceil_div(free, s), 1)
+    dt = getattr(torch, dtypes[ids[0]])
+    for i in ids[1:]:
+        dt = torch.promote_types(dt, getattr(torch, dtypes[i]))
+    return Bucket(leaf_ids=tuple(ids),
+                  shapes=tuple(shapes[i] for i in ids),
+                  dtypes=tuple(dtypes[i] for i in ids),
+                  sizes=tuple(sizes[i] for i in ids),
+                  model_dim=None, m=1, free=free, blk=blk,
+                  pad=s * blk - free, dtype=wire_lib.dtype_name(dt))
+
+
+def _canon_pipeline(wire, recovery) -> Tuple[str, str]:
+    wire = wire_lib.canon_wire_name("f32" if wire is None else wire)
+    return wire, wire_lib.make_recovery(recovery).kind
+
+
+def _check_ns(n: int, s: Optional[int]) -> int:
     if n < 1:
         raise ValueError(f"need n >= 1 workers, got {n}")
     s = n if s is None else int(s)
     if s < 1:
         raise ValueError(f"need s >= 1 server blocks, got {s}")
-    if not isinstance(tree, torch.Tensor):
-        raise NotImplementedError("multi-leaf plans are not ported yet; "
-                                  "pass one tensor")
-    shape = tuple(int(d) for d in tree.shape)
-    dtype = wire_lib.dtype_name(tree.dtype)
-    free = int(np.prod(shape, dtype=np.int64)) if shape else 1
-    blk = max(_ceil_div(free, s), 1)
-    bucket = Bucket(leaf_ids=(0,), shapes=(shape,), dtypes=(dtype,),
-                    sizes=(free,), model_dim=None, m=1, free=free, blk=blk,
-                    pad=s * blk - free, dtype=dtype)
-    wire = wire_lib.canon_wire_name("f32" if wire is None else wire)
-    recovery = wire_lib.make_recovery(recovery).kind
-    return ExchangePlan(n=int(n), s=s, buckets=(bucket,),
-                        engine=str(engine), wire=wire, recovery=recovery)
+    return s
+
+
+def _not_ported(model_dims, schedule) -> None:
+    if model_dims is not None:
+        raise NotImplementedError("model_dims (tensor-parallel buckets) "
+                                  "are not ported yet")
+    if schedule not in (None, "sync"):
+        raise NotImplementedError(f"schedule={schedule!r} is not ported "
+                                  f"yet; ported: 'sync'")
+
+
+def make_plan(tree: Any, n: int, s: Optional[int] = None, *,
+              bucket_bytes: Optional[float] = None,
+              n_buckets: Optional[int] = None,
+              model_dims: Any = None,
+              per_bucket_masks: Optional[bool] = None,
+              engine: str = "xla", wire: str = "f32",
+              recovery: str = "renorm",
+              schedule: str = "sync") -> ExchangePlan:
+    """The plan of ``tree`` (real or ``meta`` tensors: only shapes and
+    dtypes are read). ``bucket_bytes``: greedy fixed-byte coalescing in
+    tree order (a leaf larger than the budget gets its own bucket; leaves
+    are never split). ``n_buckets``: that many size-balanced contiguous
+    groups. Neither: one bucket. ``per_bucket_masks`` defaults to True
+    exactly when a bucketing knob is given."""
+    s = _check_ns(n, s)
+    _not_ported(model_dims, schedule)
+    if bucket_bytes is not None and n_buckets is not None:
+        raise ValueError("give bucket_bytes or n_buckets, not both")
+    if n_buckets is not None and int(n_buckets) < 1:
+        raise ValueError(f"need n_buckets >= 1, got {n_buckets}")
+    if bucket_bytes is not None and float(bucket_bytes) <= 0:
+        raise ValueError(f"need bucket_bytes > 0, got {bucket_bytes}")
+    leaves, treedef = tree_lib.flatten(tree)
+    if not leaves:
+        raise ValueError("cannot plan an empty tree")
+    shapes, dtypes, sizes = _leaf_meta(leaves)
+    ids = list(range(len(leaves)))
+    groups: list = []
+    if n_buckets is not None:
+        k = max(1, min(int(n_buckets), len(ids)))
+        total = sum(sizes)
+        cur: list = []
+        acc = 0
+        for idx, i in enumerate(ids):
+            cur.append(i)
+            acc += sizes[i]
+            left = len(ids) - idx - 1          # leaves still unassigned
+            need = k - len(groups) - 1         # groups still to fill
+            if len(groups) < k - 1 and (
+                    acc >= total * (len(groups) + 1) / k or left == need):
+                groups.append(cur)
+                cur = []
+        if cur:
+            groups.append(cur)
+    elif bucket_bytes is not None:
+        cap = max(float(bucket_bytes), 1.0)
+        cur, acc_b = [], 0.0
+        for i in ids:
+            nbytes = sizes[i] * _itemsize(dtypes[i])
+            if cur and acc_b + nbytes > cap:
+                groups.append(cur)
+                cur, acc_b = [], 0.0
+            cur.append(i)
+            acc_b += nbytes
+        if cur:
+            groups.append(cur)
+    else:
+        groups.append(ids)
+    buckets = tuple(_flat_bucket(g, shapes, dtypes, sizes, s)
+                    for g in groups)
+    if per_bucket_masks is None:
+        per_bucket_masks = bucket_bytes is not None or n_buckets is not None
+    wire, recovery = _canon_pipeline(wire, recovery)
+    return ExchangePlan(n=int(n), s=s, buckets=buckets,
+                        n_leaves=len(leaves),
+                        per_bucket_masks=bool(per_bucket_masks),
+                        treedef=treedef, engine=str(engine), wire=wire,
+                        recovery=recovery)
+
+
+def per_leaf_plan(tree: Any, n: int, s: Optional[int] = None, *,
+                  engine: str = "xla", wire: str = "f32",
+                  recovery: str = "renorm",
+                  schedule: str = "sync") -> ExchangePlan:
+    """One bucket per leaf (each leaf fully flattened), one shared mask
+    draw per round."""
+    s = _check_ns(n, s)
+    _not_ported(None, schedule)
+    leaves, treedef = tree_lib.flatten(tree)
+    if not leaves:
+        raise ValueError("cannot plan an empty tree")
+    shapes, dtypes, sizes = _leaf_meta(leaves)
+    buckets = tuple(_flat_bucket([i], shapes, dtypes, sizes, s)
+                    for i in range(len(leaves)))
+    wire, recovery = _canon_pipeline(wire, recovery)
+    return ExchangePlan(n=int(n), s=s, buckets=buckets,
+                        n_leaves=len(leaves), per_bucket_masks=False,
+                        treedef=treedef, engine=str(engine), wire=wire,
+                        recovery=recovery)
+
+
+def single_bucket_plan(tree: Any, n: int, s: Optional[int] = None, *,
+                       engine: str = "xla", wire: str = "f32",
+                       recovery: str = "renorm") -> ExchangePlan:
+    """Every leaf ravelled into one bucket, one shared mask draw."""
+    return make_plan(tree, n, s, engine=engine, wire=wire,
+                     recovery=recovery)
+
+
+def plan_from_config(tree: Any, n: int, s: Optional[int] = None, *,
+                     bucket_mb: Optional[float] = None,
+                     n_buckets: Optional[int] = None,
+                     engine: str = "xla", wire: str = "f32",
+                     recovery: str = "renorm",
+                     schedule: str = "sync") -> ExchangePlan:
+    """The config-knob → plan policy of the simulator: ``bucket_mb`` MiB
+    fixed-byte buckets or ``n_buckets`` size-balanced ones (per-bucket
+    masks), both unset → the per-leaf plan."""
+    if bucket_mb is not None or n_buckets is not None:
+        return make_plan(tree, n, s,
+                         bucket_bytes=(bucket_mb * 2 ** 20
+                                       if bucket_mb is not None else None),
+                         n_buckets=n_buckets, engine=engine, wire=wire,
+                         recovery=recovery, schedule=schedule)
+    return per_leaf_plan(tree, n, s, engine=engine, wire=wire,
+                         recovery=recovery, schedule=schedule)
 
 
 def decode_plan(d_model: int, batch: int, n: int,

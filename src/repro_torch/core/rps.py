@@ -12,13 +12,21 @@ always delivered:
   - AG-drop: receiver i keeps its own pre-average block j when
     ``ag[i, j]`` is False (model mode), or applies no update (grad modes).
 
-On a CUDA stack the renormalised average runs on the hand-written masked
-average kernel (``kernels/masked_avg.py``), as the JAX package uses its
-Pallas kernel on a TPU; there is no fallback to the plain version.
-Ported so far: :func:`rps_exchange_global` with ``engine="xla"``, the
-linear codecs and the renorm / scale recoveries. The ring engine, the
-collective paths, error feedback, corruption and telemetry taps are still
-to port.
+:func:`rps_exchange_global` runs the round on stacked worker trees, one
+batched call per group of equal-width buckets, under two engines:
+
+  - ``"xla"``: the renormalised average on the hand-written masked-average
+    kernel (``kernels/masked_avg.py``), an f32 einsum for the other
+    divisors;
+  - ``"ring"``: the ring engine's arithmetic, contributions summed in ring
+    order in the wire dtype, on the hand-written drop-masked ring-round
+    kernel (``kernels/ring.py``).
+
+On a CUDA stack both kernels launch or raise; there is no fallback to the
+plain versions. Ported so far: the global path with the linear codecs and
+the renorm / scale recoveries, any plan, shared or per-bucket masks. The
+collective paths, error feedback, async lateness, corruption and telemetry
+taps are still to port.
 """
 from __future__ import annotations
 
@@ -26,9 +34,16 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import wire as wire_lib
 from repro_torch.kernels import masked_avg as masked_avg_lib
+from repro_torch.kernels import ops
+# the reference keeps the scatter layout here (rps.py:167-205); the port
+# keeps it with its only user, the plain ring round
+from repro_torch.kernels.ref import masks_to_scatter as _masks_to_scatter
+from repro_torch.kernels.ref import pad_mask_blocks as _pad_mask_blocks
+from repro_torch.kernels.ref import scatter_layout as _scatter_layout
 
 
 def owners(n: int, s: Optional[int] = None, *,
@@ -80,42 +95,86 @@ def _divisor(rec: wire_lib.Recovery, mode: str, rs: torch.Tensor,
     raise ValueError(mode)
 
 
-def rps_exchange_global(tree: torch.Tensor, gen: Optional[torch.Generator],
-                        p: float, n: int, *, mode: str = "model",
-                        masks=None,
+def _global_groups(plan: plan_lib.ExchangePlan) -> dict:
+    """Bucket indices grouped by (blk, m, dtype): each group is one
+    batched call in the global path."""
+    groups: dict = {}
+    for b, bk in enumerate(plan.buckets):
+        groups.setdefault((bk.blk, bk.m, bk.dtype), []).append(b)
+    return groups
+
+
+def _bucket_masks(rs: torch.Tensor, ag: torch.Tensor, b: int):
+    """Bucket b's (n, s) mask pair: per-bucket (n_buckets, n, s) masks
+    index their own draw, (n, s) masks are shared by every bucket."""
+    if rs.dim() == 3:
+        return rs[b], ag[b]
+    return rs, ag
+
+
+def _resolve_masks(gen, n: int, p: float, plan: plan_lib.ExchangePlan,
+                   masks):
+    """The given masks (checked against the plan), or the draw the plan
+    prescribes: per-bucket for packetised plans, one shared draw
+    otherwise."""
+    if masks is not None:
+        rs, ag = masks
+        if rs.dim() == 3 and rs.shape[0] != plan.n_buckets:
+            raise ValueError(f"per-bucket masks carry {rs.shape[0]} "
+                             f"buckets, plan has {plan.n_buckets}")
+        return rs, ag
+    if gen is None:
+        raise ValueError("give masks= or a generator to draw them")
+    return sample_masks(gen, n, p, plan.s,
+                        n_buckets=plan.n_buckets
+                        if plan.per_bucket_masks else None)
+
+
+def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
+                        n: int, *, mode: str = "model", masks=None,
                         s: Optional[int] = None,
                         plan: Optional[plan_lib.ExchangePlan] = None,
                         engine: str = "xla",
                         rs_dtype=torch.float32, wire=None,
                         recovery=None, ef_state=None, late=None,
-                        corruption=None,
-                        corrupt_masks=None) -> torch.Tensor:
-    """Global-view exchange of a stacked tensor ``tree`` (leading dim n).
+                        corruption=None, corrupt_masks=None):
+    """Global-view exchange of a stacked tree (every leaf has the worker
+    dim n first).
 
-    ``masks``: a precomputed ``(rs, ag)`` pair, ``(n, s)`` or per-bucket
-    ``(n_buckets, n, s)``; otherwise drawn from ``gen`` with drop rate p.
-    ``plan``: the layout over the per-worker tensor (leading n stripped);
-    ``None`` builds the single-bucket plan. ``wire``/``recovery`` default
-    to the plan's fields; a codec narrower than the payload rounds each
-    contribution to the wire dtype before the f32-accumulated sum.
-    The renorm average runs through the masked-average kernel's wrapper
-    (the kernel on a CUDA stack, its plain version on a CPU stack), so
-    it comes back in the wire dtype, as the JAX package's Pallas route
-    returns it; the other divisors take an f32 einsum.
-    ``ef_state``, ``late``, ``corruption`` and ``corrupt_masks`` (error
-    feedback, async lateness, Byzantine corruption) are not ported yet
-    and raise.
+    ``masks``: a precomputed ``(rs, ag)`` pair, shared ``(n, s)`` or
+    per-bucket ``(n_buckets, n, s)``; otherwise drawn from ``gen`` as the
+    plan prescribes. ``plan``: the layout over the per-worker tree (n
+    stripped); ``None`` builds the per-leaf plan. ``wire``/``recovery``
+    default to the plan's fields.
+
+    Each group of equal-width buckets is one batched call:
+
+    - ``engine="xla"`` (or "auto"): a codec narrower than the payload
+      rounds each contribution to the wire grid before the f32-accumulated
+      sum. The renorm average runs through the masked-average kernel's
+      wrapper and comes back in the wire dtype, as the JAX package's
+      Pallas route returns it; the other divisors take an f32 einsum.
+    - ``engine="ring"``: the ring engine's arithmetic — contributions
+      added in ring order (owner+1, …, owner) in the codec's accumulation
+      dtype, divided by the recovery divisor, AG-selected — through
+      :func:`repro_torch.kernels.ops.ring_round`.
+
+    The AG fallback is the input stack (model / grad_renorm) or zero
+    (grad). ``ef_state``, ``late``, ``corruption`` and ``corrupt_masks``
+    (error feedback, async lateness, Byzantine corruption) are not ported
+    yet and raise.
     """
     if any(a is not None for a in (ef_state, late, corruption,
                                    corrupt_masks)):
         raise NotImplementedError("ef_state / late / corruption are not "
                                   "ported yet")
     if plan is None:
+        per_worker = tree_lib.map(
+            lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
+            tree)
         if masks is not None:
             s = masks[0].shape[-1]
-        per_worker = torch.empty(tree.shape[1:], dtype=tree.dtype,
-                                 device="meta")
-        plan = plan_lib.make_plan(per_worker, n, s)
+        plan = plan_lib.per_leaf_plan(per_worker, n, s)
     wire = plan.wire if wire is None else wire
     recovery = plan.recovery if recovery is None else recovery
     codec = wire_lib.resolve_codec(wire, rs_dtype)
@@ -124,46 +183,49 @@ def rps_exchange_global(tree: torch.Tensor, gen: Optional[torch.Generator],
         raise ValueError(mode)
     if engine in (None, "auto"):
         engine = "xla"
-    elif engine == "ring":
-        raise NotImplementedError("engine='ring' is not ported yet")
-    elif engine != "xla":
+    elif engine not in ("xla", "ring"):
         raise ValueError(f"engine={engine!r}")
-    if masks is None:
-        if gen is None:
-            raise ValueError("give masks= or a generator to draw them")
-        rs, ag = sample_masks(gen, n, p, plan.s)
-    else:
-        rs, ag = masks
-        if rs.dim() == 3:
-            if rs.shape[0] != plan.n_buckets:
-                raise ValueError(f"per-bucket masks carry {rs.shape[0]} "
-                                 f"buckets, plan has {plan.n_buckets}")
-            rs, ag = rs[0], ag[0]
+    rs, ag = _resolve_masks(gen, n, p, plan, masks)
+    s = plan.s
     renorm = mode in ("model", "grad_renorm")
     # the masked-average kernel renormalises by the received count
     # internally; the scale divisor takes the einsum path
-    use_kernel = renorm and rec.kind != "scale"
+    use_kernel = engine == "xla" and renorm and rec.kind != "scale"
 
-    s = plan.s
-    (bk,) = plan.buckets
-    (table,) = plan.gather(tree, lead=1)             # (n, s, blk, m)
-    stack = table.reshape(n, s, bk.blk * bk.m)
-    send = stack
-    if codec.wire_dtype.itemsize < stack.dtype.itemsize:
-        send = stack.to(codec.wire_dtype)            # round to the wire grid
-    if use_kernel:
-        # (s, n, d) per-block stacks and the raw (s, n) mask: the kernel
-        # casts the mask itself, so no float copy of it is made
-        tilde = masked_avg_lib.masked_avg_grid(
-            send.transpose(0, 1).contiguous(), rs.t().contiguous())
-    else:
-        sums = torch.einsum("ij,ijd->jd", rs.to(torch.float32),
-                            send.to(torch.float32))
-        tilde = sums / _divisor(rec, mode, rs, n)[:, None]
-    gathered = tilde.to(stack.dtype)[None]           # the AG payload
-    ag = ag.to(torch.bool)[..., None]
-    if renorm:
-        out = torch.where(ag, gathered, stack)       # fallback: own block
-    else:
-        out = gathered * ag.to(stack.dtype)          # no update on a drop
-    return plan.scatter([out.reshape(n, s, bk.blk, bk.m)], lead=1)
+    tables = plan.gather(tree, lead=1)               # each (n, s, blk, m)
+    outs: list = [None] * len(tables)
+    for (blk, m, _dt), idxs in _global_groups(plan).items():
+        G, d = len(idxs), blk * m
+        if G == 1:                                   # a view, no copy
+            stack = tables[idxs[0]].reshape(1, n, s, d)
+        else:
+            stack = torch.stack([tables[j].reshape(n, s, d) for j in idxs])
+        pairs = [_bucket_masks(rs, ag, j) for j in idxs]
+        rs_g = torch.stack([pair[0] for pair in pairs])         # (G, n, s)
+        ag_g = torch.stack([pair[1] for pair in pairs])
+        if engine == "ring":
+            div_g = _divisor(rec, mode, rs_g, n)                 # (G, s)
+            out = ops.ring_round(stack.contiguous(), rs_g, ag_g, div_g,
+                                 mode=mode, rs_dtype=codec.accum_dtype)
+        else:
+            send = codec.to_wire(stack)
+            if use_kernel:
+                # (G·s, n, d) per-block stacks and the raw mask: the
+                # kernel casts the mask itself
+                tilde = masked_avg_lib.masked_avg_grid(
+                    send.transpose(1, 2).reshape(G * s, n, d).contiguous(),
+                    rs_g.transpose(1, 2).reshape(G * s, n).contiguous()
+                ).reshape(G, s, d)
+            else:
+                sums = torch.einsum("gij,gijd->gjd", rs_g.to(torch.float32),
+                                    send.to(torch.float32))
+                tilde = sums / _divisor(rec, mode, rs_g, n)[..., None]
+            gathered = tilde.to(stack.dtype)[:, None]    # the AG payload
+            keep = ag_g.to(torch.bool)[..., None]
+            if renorm:
+                out = torch.where(keep, gathered, stack)  # own block
+            else:
+                out = gathered * keep.to(stack.dtype)     # no update
+        for pos, j in enumerate(idxs):
+            outs[j] = out[pos].reshape(n, s, blk, m)
+    return plan.scatter(outs, lead=1)

@@ -3,7 +3,9 @@
 Ported so far: the linear codecs (``f32`` passthrough, the paper's wire,
 and ``bf16``, which the tensor-parallel decode config accepts) and the
 stateless recoveries ``renorm`` (divide by the received count, Algorithm 1)
-and ``scale`` (divide by the expected count n(1−p)). The int8 codec, the
+and ``scale`` (divide by the expected count n(1−p), the simulator takes p
+from its channel's ``effective_p``). A linear codec's sums accumulate in
+its wire dtype (:attr:`WireCodec.accum_dtype`). The int8 codec, the
 error-feedback recovery and the robust aggregators raise
 ``NotImplementedError``.
 """
@@ -36,6 +38,19 @@ class WireCodec:
     ``wire_dtype`` (a cast; decoding is the identity)."""
     name: str
     wire_dtype: torch.dtype
+
+    @property
+    def accum_dtype(self) -> torch.dtype:
+        """Dtype the RS sums accumulate in: the wire dtype itself."""
+        return self.wire_dtype
+
+    def to_wire(self, x: torch.Tensor) -> torch.Tensor:
+        """A contribution's wire representation: rounded to the wire grid
+        only when that narrows it (widening is exact, so ``x`` itself is
+        kept and no copy is made)."""
+        if self.wire_dtype.itemsize < x.dtype.itemsize:
+            return x.to(self.wire_dtype)
+        return x
 
 
 _CODECS = {name: WireCodec(name, dt) for dt, name in _NAMES.items()}
@@ -83,6 +98,20 @@ def resolve_codec(wire: Any, rs_dtype: Any = torch.float32) -> WireCodec:
         if codec.name != "f32":
             return codec
     return make_codec(rs_dtype)
+
+
+def config_wire(wire: Any, exchange_dtype: Any = "float32") -> str:
+    """The effective codec of a config's (``wire``, ``exchange_dtype``)
+    pair: an explicit non-f32 ``wire`` wins; otherwise the legacy
+    ``exchange_dtype`` knob selects the matching linear codec. A codec
+    that is not ported yet is returned by name, for the caller to
+    refuse."""
+    if str(wire).lower() in _NOT_PORTED_WIRES:
+        return str(wire).lower()
+    name = canon_wire_name(wire)
+    if name != "f32":
+        return name
+    return canon_wire_name(exchange_dtype)
 
 
 @dataclasses.dataclass(frozen=True)

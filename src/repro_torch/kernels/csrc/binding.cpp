@@ -2,10 +2,13 @@
 //   torch.ops.repro_torch.masked_avg_grid(blocks, mask, out, tile)
 //   torch.ops.repro_torch.rwkv6_fwd(r, k, v, w, u, out, state)
 //   torch.ops.repro_torch.rglru_fwd(x, a, out, h_last)
+//   torch.ops.repro_torch.ring_round(stack, rs, ag, div, out, renorm,
+//                                    acc_bf16)
 // The only file of the build that includes PyTorch's headers; it registers
 // the ops through torch/library.h rather than torch/extension.h and
 // pybind11, which keeps its compile short. The Python wrappers
-// (repro_torch/kernels/masked_avg.py, rwkv6.py, rglru.py) check devices,
+// (repro_torch/kernels/masked_avg.py, rwkv6.py, rglru.py, ring.py) check
+// devices,
 // dtypes and contiguity first; the launch limits are checked here.
 
 #include <ATen/core/Tensor.h>
@@ -172,6 +175,55 @@ void rglru_fwd(const at::Tensor& x, const at::Tensor& a, at::Tensor& out,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void ring_round(const at::Tensor& stack, const at::Tensor& rs,
+                const at::Tensor& ag, const at::Tensor& div, at::Tensor& out,
+                bool renorm, bool acc_bf16) {
+  for (const at::Tensor* t :
+       std::initializer_list<const at::Tensor*>{&stack, &rs, &ag, &div,
+                                                &out}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == stack.device(),
+                "ring_round: tensors must be on one CUDA device");
+    TORCH_CHECK(t->is_contiguous(), "ring_round: tensors must be contiguous");
+  }
+  TORCH_CHECK(stack.dim() == 4 && rs.dim() == 3 && ag.dim() == 3 &&
+                  div.dim() == 2,
+              "ring_round: want stack and out (G, n, s, d), rs and ag "
+              "(G, n, s), div (G, s)");
+  const int64_t G = stack.size(0), n = stack.size(1), s = stack.size(2),
+                d = stack.size(3);
+  TORCH_CHECK(out.sizes() == stack.sizes() && rs.size(0) == G &&
+                  rs.size(1) == n && rs.size(2) == s &&
+                  ag.sizes() == rs.sizes() && div.size(0) == G &&
+                  div.size(1) == s,
+              "ring_round: shape mismatch");
+  const c10::ScalarType st = stack.scalar_type();
+  TORCH_CHECK(st == c10::ScalarType::Float || st == c10::ScalarType::BFloat16,
+              "ring_round: stack must be float32 or bfloat16");
+  TORCH_CHECK(out.scalar_type() == st,
+              "ring_round: out dtype must equal stack's");
+  TORCH_CHECK(div.scalar_type() == c10::ScalarType::Float,
+              "ring_round: div must be float32");
+  // the mask column of n ranks lives in 2 * n floats of shared memory; the
+  // grid is one block per (g, j, column tile) on grid.x
+  TORCH_CHECK(n >= 1 && n <= kMaxWorkers, "ring_round: n = ", n,
+              " ranks, want 1..", kMaxWorkers);
+  TORCH_CHECK(G >= 1 && s >= 1 && d >= 1,
+              "ring_round: need G, s, d >= 1");
+  const int64_t tiles =
+      (d + repro_torch::kRingTileCols - 1) / repro_torch::kRingTileCols;
+  TORCH_CHECK(G * s <= kMaxGridX / tiles, "ring_round: G * s * tiles = ",
+              G, " * ", s, " * ", tiles, " blocks exceed ", kMaxGridX);
+  const c10::cuda::CUDAGuard guard(stack.device());
+  repro_torch::ring_round_launch(
+      stack.data_ptr(), dtype_code(st), rs.data_ptr(),
+      dtype_code(rs.scalar_type()), ag.data_ptr(),
+      dtype_code(ag.scalar_type()),
+      static_cast<const float*>(div.data_ptr()), out.data_ptr(),
+      acc_bf16 ? repro_torch::DType::kBF16 : repro_torch::DType::kF32, renorm,
+      G, n, s, d, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
@@ -184,4 +236,7 @@ TORCH_LIBRARY(repro_torch, m) {
   m.def("rglru_fwd(Tensor x, Tensor a, Tensor(a!) out, Tensor(b!) h_last) "
         "-> ()",
         &rglru_fwd);
+  m.def("ring_round(Tensor stack, Tensor rs, Tensor ag, Tensor div, "
+        "Tensor(a!) out, bool renorm, bool acc_bf16) -> ()",
+        &ring_round);
 }

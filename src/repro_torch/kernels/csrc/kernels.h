@@ -10,7 +10,8 @@
 namespace repro_torch {
 
 // Element types the kernels read. masked_avg blocks, rwkv6 inputs and
-// rglru x: kF32, kBF16, kF16. rglru a: kF32 or x's type. masked_avg mask:
+// rglru x: kF32, kBF16, kF16. rglru a: kF32 or x's type. ring_round
+// payload and accumulation: kF32, kBF16. masked_avg and ring_round masks:
 // any.
 enum class DType : int {
   kF32 = 0,
@@ -56,5 +57,25 @@ void rwkv6_fwd_launch(const void* r, const void* k, const void* v,
 void rglru_fwd_launch(const void* x, DType x_dtype, const void* a,
                       DType a_dtype, void* out, float* h_last, int64_t B,
                       int64_t S, int64_t d, cudaStream_t stream);
+
+// Enqueues the drop-masked ring round of one exchange group: for the
+// contiguous (G, n, s, d) payload `stack` (f32 or bf16), (G, n, s) masks rs
+// and ag of any of the DType types, the (G, s) f32 divisor `div` and the
+// accumulation type `acc_dtype` (kF32 or kBF16), writes out (G, n, s, d) in
+// the payload type: block j's rs-gated contributions summed in ring order
+// owner+1, ..., owner (owner = j % n) in acc_dtype, divided by div, and
+// selected per rank by ag against the rank's own block (`renorm`) or zero.
+// One thread block per (g, j, column tile); needs n >= 1 and
+// G * s * tiles <= 2^31 - 1. Does not synchronise; the caller checks
+// cudaGetLastError() right after.
+void ring_round_launch(const void* stack, DType dtype, const void* rs,
+                       DType rs_dtype, const void* ag, DType ag_dtype,
+                       const float* div, void* out, DType acc_dtype,
+                       bool renorm, int64_t G, int64_t n, int64_t s,
+                       int64_t d, cudaStream_t stream);
+
+// Columns one ring-round thread block covers at the scalar width; the
+// binding sizes the grid's limit with it.
+constexpr int64_t kRingTileCols = 256;
 
 }  // namespace repro_torch

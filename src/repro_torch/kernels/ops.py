@@ -13,10 +13,11 @@ import torch
 
 from repro_torch.kernels import masked_avg as _kernel
 from repro_torch.kernels import rglru as _rglru
+from repro_torch.kernels import ring as _ring
 from repro_torch.kernels import rwkv6 as _rwkv6
 from repro_torch.kernels.ref import (masked_avg_ref, rglru_ref,
-                                     rglru_step_ref, rwkv6_ref,
-                                     rwkv6_step_ref)
+                                     rglru_step_ref, ring_round_ref,
+                                     rwkv6_ref, rwkv6_step_ref)
 
 
 def masked_avg_grid(blocks: torch.Tensor, mask: torch.Tensor, *,
@@ -76,3 +77,18 @@ def rglru_step(x, a, state):
     step, not a kernel, in the JAX package too): x, a, state (B, d) ->
     new h (B, d) f32."""
     return rglru_step_ref(x, a, state)
+
+
+def ring_round(stack, rs, ag, div, *, mode: str, rs_dtype=torch.float32,
+               backend: str = "auto"):
+    """One exchange group's drop-masked ring round for all n stacked
+    ranks: stack (G, n, s, d), rs / ag (G, n, s), div (G, s) f32 ->
+    (G, n, s, d) in ``stack.dtype`` (see :mod:`repro_torch.kernels.ring`)."""
+    if backend == "auto":
+        return _ring.ring_round(stack, rs, ag, div, mode=mode,
+                                rs_dtype=rs_dtype)
+    if backend == "ref":
+        _ring.check_shapes(stack, rs, ag, div, mode)
+        return ring_round_ref(stack, rs, ag, div, mode=mode,
+                              rs_dtype=rs_dtype)
+    raise ValueError(f"backend={backend!r}, want 'auto' or 'ref'")

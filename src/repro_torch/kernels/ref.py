@@ -86,3 +86,131 @@ def rglru_step_ref(x, a, state):
     af = a.to(f32)
     b = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * x.to(f32)
     return af * state.to(f32) + b
+
+
+def scatter_layout(n: int, s: int):
+    """Layout of s round-robin-owned blocks on an n-device axis: the
+    blocks padded with dummy blocks to S = k·n (k = ceil(s/n)) and
+    permuted to owner-major order, scatter row i·k + c holding block
+    c·n + i. Returns (k, S, order, inv); ``order``/``inv`` are None when
+    k == 1 (the identity)."""
+    k = -(-s // n)
+    S = k * n
+    if k == 1:
+        return k, S, None, None
+    r = torch.arange(S)
+    order = (r % k) * n + r // k          # scatter row -> block index
+    inv = (r % n) * k + r // n            # block index -> scatter row
+    return k, S, order, inv
+
+
+def pad_mask_blocks(m: torch.Tensor, S: int) -> torch.Tensor:
+    """Extend (…, s) mask columns with always-delivered dummy blocks."""
+    s = m.shape[-1]
+    if S == s:
+        return m
+    ones = torch.ones(tuple(m.shape[:-1]) + (S - s,), dtype=m.dtype,
+                      device=m.device)
+    return torch.cat([m, ones], dim=-1)
+
+
+def masks_to_scatter(rs: torch.Tensor, ag: torch.Tensor, S: int, order):
+    """(rs, ag) padded to S dummy-extended columns and permuted to the
+    owner-major scatter order (``order=None``: the identity)."""
+    rs_sc, ag_sc = pad_mask_blocks(rs, S), pad_mask_blocks(ag, S)
+    if order is not None:
+        order = order.to(rs.device)
+        rs_sc, ag_sc = rs_sc[..., order], ag_sc[..., order]
+    return rs_sc, ag_sc
+
+
+def ring_global_sums(stack, rs_g, own, *, rs_dtype=torch.float32):
+    """Single-device replay of the ring RS arithmetic (the JAX package's
+    ``rps_ring.ring_global_sums`` for linear codecs): ``stack`` (G, n, s,
+    d) contributions, ``rs_g`` (G, n, s) masks, ``own`` (s,) block
+    owners. Returns (G, s, d) masked sums accumulated in ring order in
+    ``rs_dtype`` — block j's contributions added owner+1, …, owner+n−1,
+    owner, each cast to ``rs_dtype`` and gated first — from a zero start
+    as the reference's scan does."""
+    G, n, s, d = stack.shape
+    rs_w = rs_g.to(rs_dtype)
+    cols = torch.arange(s, device=stack.device)
+    own = own.to(stack.device)
+    acc = torch.zeros((G, s, d), dtype=rs_dtype, device=stack.device)
+    for t in range(1, n + 1):
+        idx = (own + t) % n
+        acc = acc + stack[:, idx, cols, :].to(rs_dtype) \
+            * rs_w[:, idx, cols][..., None]
+    return acc
+
+
+def ring_round_ref(stack, rs_g, ag_g, div_g, *, mode: str,
+                   rs_dtype=torch.float32):
+    """The drop-masked ring round over n stacked ranks, hop for hop as
+    the JAX package's interpret ring (``rps_ring._ring_schedule_jax``)
+    runs it on n devices; the plain version of the ring-round kernel.
+
+    stack: (G, n, s, d) payload in block order (rank i's blocks in row
+    i); rs_g, ag_g: (G, n, s) masks, nonzero = delivered; div_g: (G, s)
+    f32 recovery divisor; mode: "model", "grad" or "grad_renorm";
+    rs_dtype: the accumulation (wire) dtype. Works in the collective
+    path's scatter layout — blocks padded with dummy blocks to S = k·n
+    and permuted owner-major, so rank i owns chunk i (rows i·k … i·k+k−1)
+    — with the ranks on dim 1 and ``torch.roll`` over it as the ring's
+    ``ppermute``:
+
+      RS  rank i starts chunk i−1's partial with its gated contribution;
+          n−1 hops each pass the partial to the right neighbour, which
+          adds its own (so chunk c sums ranks c+1, c+2, …, c, owner
+          last, every add in ``rs_dtype``);
+      div the owner divides by the chunk's divisor (cast to rs_dtype);
+      AG  n−1 hops broadcast the averaged chunks in the payload dtype,
+          each selected against the rank's own block (model,
+          grad_renorm) or zero (grad) where ``ag`` dropped it.
+
+    Returns (G, n, s, d) in ``stack.dtype``: row i is what rank i's
+    ``ring_exchange_scatter_table`` returns, cropped back to block order.
+    """
+    G, n, s, d = stack.shape
+    k, S, order, inv = scatter_layout(n, s)
+    rs_sc, ag_sc = masks_to_scatter(rs_g, ag_g, S, order)
+    div_sc = pad_mask_blocks(div_g.to(torch.float32), S)
+    blocks = stack
+    if S != s:
+        blocks = torch.nn.functional.pad(blocks, (0, 0, 0, S - s))
+    if order is not None:
+        order = order.to(stack.device)
+        blocks, div_sc = blocks[:, :, order], div_sc[..., order]
+    ch = blocks.reshape(G, n, n, k, d)          # (G, rank, chunk, k, d)
+    rs_ch = rs_sc.to(rs_dtype).reshape(G, n, n, k, 1)
+    ranks = torch.arange(n, device=stack.device)
+
+    def at_chunk(x, offset):
+        """Every rank's chunk (rank + offset) mod n: (G, n, k, …)."""
+        idx = (ranks + offset) % n
+        return x[:, ranks, idx]
+
+    def contrib(offset):
+        return at_chunk(ch, offset).to(rs_dtype) * at_chunk(rs_ch, offset)
+
+    acc = contrib(-1)
+    for t in range(n - 1):
+        acc = torch.roll(acc, 1, dims=1) + contrib(-2 - t)
+    my_div = div_sc.reshape(G, n, k)[..., None].to(rs_dtype)   # chunk i
+    cur = (acc / my_div).to(stack.dtype)
+    gathered = torch.zeros_like(ch)
+    gathered[:, ranks, ranks] = cur
+    for t in range(n - 1):
+        cur = torch.roll(cur, 1, dims=1)
+        gathered[:, ranks, (ranks - 1 - t) % n] = cur
+    gathered = gathered.reshape(G, n, S, d)
+    keep = (ag_sc != 0)[..., None]
+    if mode in ("model", "grad_renorm"):
+        out = torch.where(keep, gathered, blocks)
+    elif mode == "grad":
+        out = torch.where(keep, gathered, torch.zeros_like(blocks))
+    else:
+        raise ValueError(mode)
+    if inv is not None:
+        out = out[:, :, inv.to(stack.device)]
+    return out[:, :, :s]

@@ -283,3 +283,16 @@ def lm_head(p, x, vocab_size: Optional[int] = None) -> torch.Tensor:
         pad = torch.arange(V, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, NEG_INF)
     return logits
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32; logits (B, S, V), labels
+    (B, S) of any integer dtype."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)

@@ -6,6 +6,9 @@ dense family (gemma3), the ssm family (RWKV-6) and the hybrid family
 work on plain parameter dicts:
 
   init(gen)                                   -> params
+  init_stacked(gen)                           -> train-layout params
+  loss(train-layout params, {"tokens", "labels": (B,S)})
+                                              -> (loss, metrics)
   prefill(params, {"tokens": (B,S)}, max_len=None, paged=False)
                                               -> (last_logits, cache)
   decode_step(params, cache, {"token": (B,1)}, pos) -> (logits, cache)
@@ -13,6 +16,12 @@ work on plain parameter dicts:
   decode_paged(params, pool, {"token": (B,1)}, pos, bt, page=...)
                                               -> (logits, pool)
   init_paged(n_slots)                         -> pool
+
+Serving keeps one parameter dict per layer (``params["layers"]`` a list);
+training keeps the JAX package's stacked layout (``params["layers"]`` a
+dict of per-kind stacks, :func:`repro_torch.models.stack.stack_layers`),
+so that the exchange's blocks fall where the reference's do. ``loss`` is
+ported for the dense family; autograd gives its gradients.
 
 The contiguous cache (``paged=False``, ``decode_step``, ``init_cache``)
 serves every ported family (the dense kinds on the reference's
@@ -59,6 +68,28 @@ class Model:
                              f"{self.device}")
         return {"embed": L.init_embed(gen, self.cfg),
                 "layers": S.init_stack(gen, self.cfg, self.kinds)}
+
+    def init_stacked(self, gen: torch.Generator) -> dict:
+        """Random parameters in the train path's stacked layout, drawn as
+        :meth:`init` draws them."""
+        params = self.init(gen)
+        return {"embed": params["embed"],
+                "layers": S.stack_layers(params["layers"], self.kinds)}
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy of ``batch`` ({"tokens",
+        "labels": (B, S)}) under train-layout ``params``. Returns (loss,
+        {"nll", "aux_loss"}); the dense kinds add no auxiliary loss."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(f"{self.cfg.name}: the train mode of "
+                                      f"family {self.cfg.family!r} is not "
+                                      f"ported yet")
+        x = L.embed(params["embed"], batch["tokens"])
+        x = S.apply_stack_train(params["layers"], x, self.cfg, self.kinds)
+        logits = L.lm_head(params["embed"], x, self.cfg.vocab_size)
+        nll = L.softmax_xent(logits, batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+        return nll + aux, {"nll": nll, "aux_loss": aux}
 
     def prefill(self, params, inputs, max_len=None, paged: bool = False):
         """Prompt pass. Returns the last position's logits (B, vocab) and

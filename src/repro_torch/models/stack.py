@@ -8,8 +8,14 @@ RG-LRU kind (``"rec"``, :mod:`repro_torch.models.hybrid`). The JAX
 package can also run the layers grouped by kind (one scan per group);
 for gemma3's 5:1 pattern that runs all local layers before the global
 ones, which is not the model's order. The port follows the ungrouped,
-faithful path (``build_model(cfg, grouped=False)``). Parameters and
-caches are plain lists with one entry per layer, in order.
+faithful path (``build_model(cfg, grouped=False)``). For serving,
+parameters and caches are plain lists with one entry per layer, in order.
+The train path keeps the JAX package's stacked layout instead
+(``{kind: leaves with a leading per-kind layer dim}``,
+:func:`stack_layers`): the exchange partitions each leaf into server
+blocks, so only that layout puts the blocks, the buckets and the drop
+masks on the same elements as the reference. :func:`apply_stack_train`
+reads layer l's weights as views into the stacked leaves.
 
 Which kinds serve on which cache:
 
@@ -26,6 +32,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import hybrid as H
 from repro_torch.models import rwkv6 as R
@@ -53,6 +60,32 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig,
     """Per-layer parameter dicts, drawn in layer order from ``gen``."""
     init = {"rwkv": R.init_rwkv, "rec": H.init_rec}
     return [init.get(k, T.init_layer)(gen, cfg) for k in kinds]
+
+
+def stack_layers(layers: Sequence[dict], kinds: Sequence[str]) -> dict:
+    """Per-layer parameter dicts -> {kind: stacked leaves}, each kind's
+    layers stacked along a new leading dim in faithful order (the JAX
+    package's ``init_stack`` layout)."""
+    return {kind: tree_lib.map(lambda *xs: torch.stack(xs),
+                               *[layers[i] for i in idxs])
+            for kind, idxs in group_layout(kinds).items()}
+
+
+def apply_stack_train(params: dict, x, cfg: ArchConfig,
+                      kinds: Sequence[str]):
+    """The train-mode pass over the stacked layout, in faithful order
+    (the JAX package's ``apply_stack(mode="train", grouped=False)``).
+    Dense kinds only; returns x."""
+    pos = {kind: 0 for kind in params}
+    for kind in kinds:
+        if kind in RECURRENT:
+            raise NotImplementedError(f"kind {kind!r} has no ported train "
+                                      f"mode yet")
+        i = pos[kind]
+        pos[kind] += 1
+        p = tree_lib.map(lambda a, i=i: a[i], params[kind])
+        x = T.train(p, x, cfg, T.window_of(kind))
+    return x
 
 
 def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,

@@ -1,7 +1,8 @@
 """Dense decoder layer: GQA + RoPE with an optional sliding window, gated
 MLP (port of the dense kind of :mod:`repro.models.transformer`).
 
-Ported: parameter init; the prefill, for the paged pool (every
+Ported: parameter init; the train-mode layer pass; the prefill, for the
+paged pool (every
 position's K/V) or the contiguous cache; the contiguous decode step; the
 paged decode step with the tensor-parallel hooks. A layer with ``tp``
 set sends both output projections through the drop-masked exchange:
@@ -51,6 +52,15 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig) -> dict:
             "ln2": torch.zeros((cfg.d_model,), dtype=dt, device=gen.device),
             "attn": L.init_attention(gen, cfg),
             "mlp": L.init_mlp(gen, cfg)}
+
+
+def train(p, x, cfg: ArchConfig, window: Optional[int]):
+    """The train-mode layer pass (causal full attention; autograd gives
+    its backward). Returns x."""
+    h, _ = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg,
+                           window=window)
+    x = x + h
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
 
 
 def prefill(p, x, cfg: ArchConfig, window: Optional[int], *,

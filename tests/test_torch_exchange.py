@@ -171,12 +171,13 @@ def test_exchange_default_plan_and_per_bucket_masks():
 
 def test_exchange_not_ported_options_raise():
     x = torch.zeros((4, 8))
-    with pytest.raises(NotImplementedError):
-        trps.rps_exchange_global(x, None, 0.1, 4, engine="ring",
-                                 masks=trps.sample_masks(
-                                     torch.Generator(), 4, 0.1))
+    # engine="ring" is ported: its parity cases are in test_torch_ring.py
     with pytest.raises(NotImplementedError, match="not ported"):
         trps.rps_exchange_global(x, None, 0.1, 4, corruption="collude")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        trps.rps_exchange_global(x, None, 0.1, 4, ef_state=x)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        trps.rps_exchange_global(x, None, 0.1, 4, late=(x, x))
     with pytest.raises(NotImplementedError):
         twire.make_recovery("ef")
     with pytest.raises(NotImplementedError):
@@ -236,3 +237,152 @@ def test_tp_exchange_equals_reference_on_injected_masks():
                                jax.random.PRNGKey(2))
         got = ctx_t._exchange(_t(partials), masks_t, site)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---- the multi-leaf plans (the training path's layouts) --------------------
+
+_TREE_SHAPES = {"p0": (6, 4), "p1": (17,), "p2": (3, 5), "p3": (8, 2),
+                "p4": (9,)}
+
+
+def _trees(shapes, dtypes=None):
+    """The same per-worker tree as JAX shape structs and meta tensors."""
+    dtypes = dtypes or {k: "float32" for k in shapes}
+    j = {k: jax.ShapeDtypeStruct(v, jnp.dtype(dtypes[k]))
+         for k, v in shapes.items()}
+    t = {k: torch.empty(v, dtype=getattr(torch, dtypes[k]), device="meta")
+         for k, v in shapes.items()}
+    return j, t
+
+
+def _bucket_fields(plan):
+    return [dataclasses.asdict(b) for b in plan.buckets]
+
+
+@pytest.mark.parametrize("n,s", [(2, 1), (4, 3), (8, 8), (4, 13)])
+@pytest.mark.parametrize("knob", [None, ("n_buckets", 1), ("n_buckets", 2),
+                                  ("n_buckets", 3), ("n_buckets", 99),
+                                  ("bucket_bytes", 64),
+                                  ("bucket_bytes", 200)])
+def test_make_plan_equals_reference(n, s, knob):
+    jt, tt = _trees(_TREE_SHAPES, {"p0": "float32", "p1": "bfloat16",
+                                   "p2": "float32", "p3": "float32",
+                                   "p4": "bfloat16"})
+    kw = {} if knob is None else {knob[0]: knob[1]}
+    jp = jplan.make_plan(jt, n, s, **kw)
+    tp_ = tplan.make_plan(tt, n, s, **kw)
+    assert tp_.describe() == jp.describe()
+    assert tp_.describe("bf16") == jp.describe("bf16")
+    assert _bucket_fields(tp_) == _bucket_fields(jp)
+
+
+@pytest.mark.parametrize("s", [None, 2, 8])
+def test_per_leaf_and_single_plans_equal_reference(s):
+    jt, tt = _trees(_TREE_SHAPES)
+    for jfn, tfn in ((jplan.per_leaf_plan, tplan.per_leaf_plan),
+                     (jplan.single_bucket_plan, tplan.single_bucket_plan)):
+        jp, tp_ = jfn(jt, 4, s), tfn(tt, 4, s)
+        assert tp_.describe() == jp.describe()
+        assert _bucket_fields(tp_) == _bucket_fields(jp)
+    jp = jplan.plan_from_config(jt, 4, s, bucket_mb=1e-4, engine="ring")
+    tp_ = tplan.plan_from_config(tt, 4, s, bucket_mb=1e-4, engine="ring")
+    assert tp_.describe() == jp.describe()
+
+
+@pytest.mark.parametrize("s", [1, 2, 5, 8])
+@pytest.mark.parametrize("lead", [0, 1])
+@pytest.mark.parametrize("knob", [None, ("n_buckets", 2),
+                                  ("bucket_bytes", 128)])
+def test_multi_leaf_gather_scatter_equal_reference(s, lead, knob):
+    """tests/test_plan.py's roundtrip layout (flat leaves of both dtypes;
+    its model-dim leaf is flattened here, model dims are not ported):
+    the gathered tables equal the reference's, and scatter inverts."""
+    rng = np.random.default_rng(s + 10 * lead)
+    shapes = {"a": (6, 4), "b": (17,), "tp": (3, 8), "c": (5,)}
+    dtypes = {"a": "float32", "b": "float32", "tp": "float32",
+              "c": "bfloat16"}
+    tree = {k: rng.normal(size=v).astype(np.float32)
+            for k, v in shapes.items()}
+    if lead:
+        tree = {k: np.stack([v, 2 * v, -v]) for k, v in tree.items()}
+    jt = {k: jnp.asarray(v, jnp.dtype(dtypes[k])) for k, v in tree.items()}
+    tt = {k: torch.from_numpy(np.array(jt[k], np.float32)).to(
+        getattr(torch, dtypes[k])) for k in tree}
+    kw = {} if knob is None else {knob[0]: knob[1]}
+    js, ts = _trees(shapes, dtypes)
+    jp, tp_ = jplan.make_plan(js, 4, s, **kw), tplan.make_plan(ts, 4, s,
+                                                                **kw)
+    want = jp.gather(jt, lead=lead)
+    got = tp_.gather(tt, lead=lead)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert str(g.dtype).removeprefix("torch.") == w.dtype.name
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w, np.float32))
+    back = tp_.scatter(got, lead=lead)
+    for k in tt:
+        assert back[k].dtype == tt[k].dtype
+        torch.testing.assert_close(back[k], tt[k], rtol=0, atol=0)
+
+
+def test_plan_leaf_order_is_jax_tree_order():
+    """Nested dicts flatten with sorted keys, depth first, as
+    jax.tree.flatten does: the leaf ids (and so the buckets) agree."""
+    shapes = {"z": {"b": (3,), "a": (2, 2)}, "a": (5,), "m": {"q": (1,)}}
+
+    def build(fn):
+        return {k: ({kk: fn(vv) for kk, vv in v.items()}
+                    if isinstance(v, dict) else fn(v))
+                for k, v in shapes.items()}
+    jt = build(lambda v: jax.ShapeDtypeStruct(v, jnp.float32))
+    tt = build(lambda v: torch.empty(v, device="meta"))
+    jp, tp_ = jplan.make_plan(jt, 2, n_buckets=2), tplan.make_plan(
+        tt, 2, n_buckets=2)
+    assert _bucket_fields(tp_) == _bucket_fields(jp)
+
+
+def test_plan_not_ported_knobs_raise():
+    _, tt = _trees(_TREE_SHAPES)
+    with pytest.raises(NotImplementedError, match="model_dims"):
+        tplan.make_plan(tt, 4, model_dims={k: None for k in tt})
+    with pytest.raises(NotImplementedError, match="schedule"):
+        tplan.per_leaf_plan(tt, 4, schedule="async")
+    with pytest.raises(ValueError, match="not both"):
+        tplan.make_plan(tt, 4, n_buckets=2, bucket_bytes=64)
+    with pytest.raises(ValueError, match="n_buckets"):
+        tplan.make_plan(tt, 4, n_buckets=0)
+
+
+@pytest.mark.parametrize("engine", ["xla", "ring"])
+@pytest.mark.parametrize("mode", ["model", "grad"])
+@pytest.mark.parametrize("knob", [None, ("n_buckets", 3)])
+def test_multi_leaf_exchange_xla_and_ring_equal_reference(engine, mode,
+                                                          knob):
+    """A bucketed or per-leaf exchange of a mixed-dtype tree, shared or
+    per-bucket masks, bitwise on integer-valued stacks."""
+    n, s = 4, 4
+    rng = np.random.default_rng(len(mode) + (knob is None))
+    dtypes = {"p0": "float32", "p1": "bfloat16", "p2": "float32",
+              "p3": "float32", "p4": "float32"}
+    jt, tt = _trees(_TREE_SHAPES, dtypes)
+    kw = {} if knob is None else {knob[0]: knob[1]}
+    jp = jplan.make_plan(jt, n, s, **kw) if knob else \
+        jplan.per_leaf_plan(jt, n, s)
+    tp_ = tplan.make_plan(tt, n, s, **kw) if knob else \
+        tplan.per_leaf_plan(tt, n, s)
+    nb = jp.n_buckets if jp.per_bucket_masks else None
+    rs, ag = jrps.sample_masks(jax.random.PRNGKey(9), n, 0.3, s,
+                               n_buckets=nb)
+    x = {k: rng.integers(-6, 7, (n,) + v).astype(np.float32)
+         for k, v in _TREE_SHAPES.items()}
+    want = jrps.rps_exchange_global(
+        {k: jnp.asarray(v, jnp.dtype(dtypes[k])) for k, v in x.items()},
+        jax.random.PRNGKey(0), 0.3, n, mode=mode, masks=(rs, ag), plan=jp,
+        engine=engine)
+    got = trps.rps_exchange_global(
+        {k: _t(v).to(getattr(torch, dtypes[k])) for k, v in x.items()},
+        None, 0.3, n, mode=mode, masks=(_t(rs), _t(ag)), plan=tp_,
+        engine=engine)
+    for k in x:
+        np.testing.assert_array_equal(got[k].float().numpy(),
+                                      np.asarray(want[k], np.float32))

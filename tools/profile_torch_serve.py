@@ -23,7 +23,16 @@ device time splits into prefill and decode. ``--slice recurrentgemma``
 does the same with chip_smoke.py's phase-11 load (recurrentgemma-9b at
 full width and depth, 8 prompts of 2048 tokens, 32 new tokens).
 
-    python3 tools/profile_torch_serve.py [--slice gemma3|rwkv6|recurrentgemma]
+``--slice train`` profiles chip_smoke.py's phase-17 load, the training
+simulator on rps-100m (n = 16 workers, batch 32, seq 128, rps_model at
+p = 0.1 on the ring-round kernel): a one-step warm-up run, a timed run
+of two steps (host wall of each step, the device synchronised at its
+end), then the same run under ``torch.profiler``. Prints the step times,
+training tokens/s, device busy time and idle share per step, the top
+kernels, and the ring kernel's launches, device time and share of busy
+time.
+
+    python3 tools/profile_torch_serve.py [--slice gemma3|rwkv6|recurrentgemma|train]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -42,12 +51,15 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa
 
-from chip_smoke import (RG_LOAD, RWKV_LOAD, card_line,  # noqa: E402
-                        smoke_engine, smoke_requests)
+from chip_smoke import (RG_LOAD, RPS_100M, RPS_100M_LOAD,  # noqa: E402
+                        RWKV_LOAD, card_line, smoke_engine, smoke_requests)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import CharLMTask, make_worker_streams  # noqa: E402
 from repro_torch.kernels import masked_avg as K  # noqa: E402
+from repro_torch.kernels import ring as RG  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.train import SimulatorConfig, run_simulation  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -153,15 +165,72 @@ def profile_static(card: str, name: str) -> dict:
         "top_kernels_generate": _top(gen_k, busy_s)}
 
 
+def profile_train(card: str, steps: int = 2) -> dict:
+    """The training slice (chip_smoke.py phase 17's load)."""
+    load = RPS_100M_LOAD
+    n = load["n"]
+    model = build_model(RPS_100M, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    p1 = model.init_stacked(gen)
+    task = CharLMTask(vocab=RPS_100M.vocab_size, seq_len=load["seq"],
+                      seed=0, device="cuda")
+    stream = make_worker_streams(task, n, load["batch"])
+    batches = [stream(t) for t in range(steps)]
+
+    def loss_fn(p, b):
+        return model.loss(p, b)[0]
+
+    def run(k: int) -> list:
+        scfg = SimulatorConfig(n_workers=n, drop_rate=load["p"],
+                               aggregator="rps_model", lr=load["lr"],
+                               warmup=load["warmup"], steps=k,
+                               eval_every=1, engine="ring")
+        h = run_simulation(loss_fn, None, lambda t: batches[t], scfg,
+                           device="cuda", init_params=p1)
+        return h["step_s"]
+
+    run(1)                                            # warm-up
+    step_s = run(steps)
+    RG.ring_round.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t0
+    launches = RG.ring_round.launches
+    kernels = _device_kernels(prof)
+    busy_s = sum(k[0] for k in kernels) / 1e6
+    ring = [k for k in kernels if "ring_round_kernel" in k[2]]
+    ring_s = sum(k[0] for k in ring) / 1e6
+    tokens = n * load["batch"] * load["seq"]
+    return {
+        "card": card, "slice": "train", "arch": RPS_100M.name, **load,
+        "steps_profiled": steps, "step_ms": [t * 1e3 for t in step_s],
+        "tokens_per_s": tokens * steps / sum(step_s),
+        "profiled_wall_s": prof_wall_s,
+        "device_busy_ms_per_step": busy_s * 1e3 / steps,
+        "device_idle_share": 1.0 - busy_s / sum(step_s),
+        "kernel_launches_per_step": sum(k[1] for k in kernels) / steps,
+        "ring_launches": launches,
+        "ring_device_ms_per_step": ring_s * 1e3 / steps,
+        "ring_share_of_busy": ring_s / busy_s,
+        "top_kernels": _top(kernels, busy_s, n=12)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--slice", choices=("gemma3",) + tuple(STATIC),
-                    default="gemma3")
+    ap.add_argument("--slice", choices=("gemma3",) + tuple(STATIC)
+                    + ("train",), default="gemma3")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
+    if args.slice == "train":
+        print(json.dumps(profile_train(card), indent=1))
+        return 0
     if args.slice in STATIC:
         print(json.dumps(profile_static(card, args.slice), indent=1))
         return 0
