@@ -9,7 +9,7 @@ It needs one CUDA device and exits non-zero without one. Phases (each
 raises on failure; nothing is caught):
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: every kernel of the serving path, from the sources in
+2. build: every kernel of the port, from the sources in
    src/repro_torch/kernels/csrc (timed);
 3. kernel against its plain version on the card: the masked-average
    kernel over a sweep of shapes, dtypes and mask types, within the JAX
@@ -69,11 +69,33 @@ raises on failure; nothing is caught):
 16. the training launcher's defaults (rps-paper-mlp, bf16, char-LM,
    n = 16, batch 32, seq 64, 200 steps) with --engine ring;
 17. rps-100m (12 layers, d 768, 12 / 4 KV heads, d_ff 3072, vocab 16384,
-   f32) at the example's paper scale: n = 16, batch 32, seq 128, 4
+   f32) at the example's paper scale: n = 16, batch 32, seq 128, 24
    steps on the ring kernel (launches = exchange groups x steps); step
    ms, training tokens/s, peak memory, the loss (finite at every step;
    the first step's batch scores lower on the trained mean model than on
-   the initial one) and the consensus (finite, > 0).
+   the initial one) and the consensus (finite, > 0);
+18. the ring round's encoded variant (the int8 wire: int8 contributions
+   decoded in the kernel, the partial re-encoded on every hop; without
+   the re-encode; the EF send on a linear wire summed in f32 and bf16)
+   against its plain version on the card, bit for bit: payload f32 /
+   bf16 x the three modes x n in {1, 2, 4, 8, 16} x s in {1, n/2, n, 2n}
+   x d in {1, 33, 64, 4096, 4097, 4104}, a block zero in every rank; and
+   every exchange group of the rps-paper-mlp and rps-100m plans at the
+   int8 wire;
+19. its time at phase 14's two shapes beside its form without the
+   re-encode, its plain version, the xla engine's int8 route and the
+   card's bound (phase 14 times the linear kernel at the same shapes);
+20. benchmarks/wire_bench.py section 2 on the port: replicated data,
+   n = 8, rps_model, engine "auto", p in {0.2, 0.3}, 3 seeds, 200 steps;
+   ef closes at least half of the bf16 and int8 wires' loss gap;
+21. rps-100m at phase 17's load with the int8 wire on the ring engine,
+   renorm and ef, 8 steps each from phase 17's weights, batches and
+   masks: every group on the encoded variant (launches = groups x
+   steps), finite losses within INT8_LOSS_GAP of phase 17's at every
+   step; step ms, tokens/s and peak memory; then one exchange of each
+   run's final replicas (and residual) at full width, on the card through
+   the kernels and on the CPU through the plain versions, with the same
+   masks and rounding noise: bit for bit.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -178,6 +200,7 @@ def reset_counts() -> None:
     RK.rwkv6.launches = 0
     GK.rglru.launches = 0
     RG.ring_round.launches = 0
+    RG.ring_round_enc.launches = 0
 
 
 def card_line() -> str:
@@ -212,6 +235,24 @@ def device_ms(fn, calls: int = 100, reps: int = 20) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / (calls * reps)
+
+
+def event_ms(fn, calls: int, warm: int = 2) -> float:
+    """Device time of one ``fn()`` call from CUDA events around ``calls``
+    eager calls, for calls long enough that the host stays ahead of the
+    card (phase 19: the encoded ring round's cooperative launch is timed
+    outside a CUDA graph)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(calls):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / calls
 
 
 def eager_ms(fn, calls: int = 1000) -> float:
@@ -894,33 +935,55 @@ def launcher_default() -> dict:
             "step_ms_mean": 1e3 * float(np.mean(h["step_s"][1:]))}
 
 
-def rps100m(gen: torch.Generator, load=RPS_100M_LOAD) -> dict:
-    """Phase 17: rps-100m at the example's paper scale on the ring
-    kernel, past the warm-up. The batches are made before the run
-    (set-up), so the step times are the simulator's. Learning is checked
-    twice: the last step's training loss is below the first step's, and
-    a held-out batch (the step after the run's last, never trained on)
-    scores lower under the workers' mean model after the run than under
-    the initial model."""
-    n, steps = load["n"], load["steps"]
+@dataclasses.dataclass
+class Rps100mSetup:
+    """Phase 17's model, initial weights and batches, shared with phase
+    21 so that its int8 runs start from the same point."""
+    model: object
+    p1: dict
+    batches: list
+    data_s: float
+
+    def loss_fn(self, p, b):
+        return self.model.loss(p, b)[0]
+
+
+def rps100m_setup(gen: torch.Generator, load=RPS_100M_LOAD) -> Rps100mSetup:
+    """rps-100m at full width with random weights from ``gen``, and the
+    load's batches (made before the runs: set-up, so the step times are
+    the simulator's; one more than the steps, the last held out)."""
     model = build_model(RPS_100M, device="cuda")
     p1 = model.init_stacked(gen)
-    n_params = sum(x.numel() for x in tree_lib.leaves(p1))
     task = CharLMTask(vocab=RPS_100M.vocab_size, seq_len=load["seq"],
                       seed=0)
     t0 = time.perf_counter()
-    stream = make_worker_streams(task, n, load["batch"])
-    batches = [stream(t) for t in range(steps + 1)]   # the last: held out
-    data_s = time.perf_counter() - t0
-    scfg = SimulatorConfig(n_workers=n, drop_rate=load["p"],
-                           aggregator="rps_model", lr=load["lr"],
-                           warmup=load["warmup"], steps=steps, eval_every=1,
-                           engine="ring")
+    stream = make_worker_streams(task, load["n"], load["batch"])
+    batches = [stream(t) for t in range(load["steps"] + 1)]
+    return Rps100mSetup(model, p1, batches, time.perf_counter() - t0)
+
+
+def rps100m_config(load=RPS_100M_LOAD, **kw) -> SimulatorConfig:
+    base = dict(n_workers=load["n"], drop_rate=load["p"],
+                aggregator="rps_model", lr=load["lr"],
+                warmup=load["warmup"], steps=load["steps"], eval_every=1,
+                engine="ring")
+    base.update(kw)
+    return SimulatorConfig(**base)
+
+
+def rps100m(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
+    """Phase 17: rps-100m at the example's paper scale on the ring
+    kernel, past the warm-up. Learning is checked twice: the last step's
+    training loss is below the first step's, and a held-out batch (the
+    step after the run's last, never trained on) scores lower under the
+    workers' mean model after the run than under the initial model."""
+    n, steps = load["n"], load["steps"]
+    p1, batches, loss_fn = setup.p1, setup.batches, setup.loss_fn
+    n_params = sum(x.numel() for x in tree_lib.leaves(p1))
+    data_s = setup.data_s
+    scfg = rps100m_config(load)
     plan = make_exchange_plan(p1, scfg)
     groups = len(rps_lib._global_groups(plan))
-
-    def loss_fn(p, b):
-        return model.loss(p, b)[0]
 
     def held_out(p):
         with torch.no_grad():
@@ -961,6 +1024,308 @@ def rps100m(gen: torch.Generator, load=RPS_100M_LOAD) -> dict:
             "held_out_loss_after": held_after,
             "consensus": cons,
             "largest_group": list(largest_group(plan)), **load}
+
+
+INT8 = rps_lib.wire_lib.make_codec("int8")
+# the encoded ring round's variants in phase 18: (name, table, levels,
+# accumulation dtype); "int8" re-encodes on every hop (the int8 wire's
+# ring engine), "int8_enc" only decodes, "send_*" is the EF send on a
+# linear wire summed in f32 or bf16
+RING_ENC_VARIANTS = (("int8", "int8", INT8.levels, torch.float32),
+                     ("int8_enc", "int8", 0, torch.float32),
+                     ("send_f32", "send", 0, torch.float32),
+                     ("send_bf16", "send", 0, torch.bfloat16))
+# phase 21: the largest |loss(int8) - loss(f32)| allowed at any step,
+# about ten times the largest gap measured on an H100 80GB HBM3 at 700 W
+# (5.2e-4 with ef, 4.9e-4 with renorm; PERF.md)
+INT8_LOSS_GAP = 5e-3
+# phase 20: wire_bench.py section 2 (replicated data, n = 8)
+GAP_STUDY = dict(n=8, steps=200, seeds=(0, 1, 2), ps=(0.2, 0.3))
+
+
+def ring_enc_case(gen: torch.Generator, G: int, n: int, s: int, d: int,
+                  dtype: torch.dtype, table: str, mode: str):
+    """Random inputs of one encoded ring-round case on the card: the
+    stack (normal, block 0 of group 0 all zero in every rank, so a whole
+    row and its partials are zero), the masks and divisor of
+    :func:`ring_case`, and the encoded table: the stack's int8 encode
+    (stochastic, one scale per row) or a send in the payload dtype."""
+    x, rs, ag, div = ring_case(gen, G, n, s, d, dtype, False, mode)
+    x[0, :, 0] = 0
+    if table == "int8":
+        q, sc = INT8.encode(x, lead=2, gen=gen)
+        return (x, rs, ag, div), {"enc": q, "scale": sc[..., 0]}
+    send = (x.float() + 0.01 * torch.randn(x.shape, generator=gen,
+                                           device="cuda")).to(dtype)
+    return (x, rs, ag, div), {"enc": send, "scale": None}
+
+
+def check_ring_enc(gen: torch.Generator, plans: dict) -> tuple:
+    """Phase 18: the encoded variant against its plain version, bit for
+    bit: the four variants x payload f32 / bf16 x the three modes x
+    n in {1, 2, 4, 8, 16} x s in {1, n/2, n, 2n} x d in RING_DS, G = 2;
+    then every exchange group of the rps-paper-mlp and rps-100m plans at
+    the int8 wire (re-encoding), every mode. Returns (cases, the largest
+    absolute difference)."""
+    n_cases, worst = 0, 0.0
+
+    def one(args, enc, mode, levels, acc, what):
+        nonlocal n_cases, worst
+        got = ops.ring_round(*args, mode=mode, rs_dtype=acc, levels=levels,
+                             **enc)
+        want = ops.ring_round(*args, mode=mode, rs_dtype=acc, levels=levels,
+                              backend="ref", **enc)
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        if not torch.equal(_bits(got), _bits(want)):
+            raise AssertionError(f"ring_round_enc {what} {mode}: not "
+                                 f"bitwise (max abs err {err})")
+        n_cases += 1
+
+    for n in RING_NS:
+        for s in sorted({1, max(n // 2, 1), n, 2 * n}):
+            for d in RING_DS:
+                for dt in (torch.float32, torch.bfloat16):
+                    for name, table, levels, acc in RING_ENC_VARIANTS:
+                        for mode in RG.MODES:
+                            args, enc = ring_enc_case(gen, 2, n, s, d, dt,
+                                                      table, mode)
+                            one(args, enc, mode, levels, acc,
+                                f"{name} n={n} s={s} d={d} {dt}")
+    for name, plan in plans.items():
+        if name == "quickstart":
+            continue
+        for (blk, m, dt), idxs in rps_lib._global_groups(plan).items():
+            for mode in RG.MODES:
+                args, enc = ring_enc_case(gen, len(idxs), plan.n, plan.s,
+                                          blk * m, getattr(torch, dt),
+                                          "int8", mode)
+                one(args, enc, mode, INT8.levels, torch.float32,
+                    f"at {name}'s group {blk}x{m} {dt} (G={len(idxs)})")
+                del args, enc
+    torch.cuda.empty_cache()
+    print(f"ring_round_enc: {n_cases} cases agree bit for bit with the "
+          f"plain version", flush=True)
+    return n_cases, worst
+
+
+def time_ring_enc(gen: torch.Generator, shape: tuple) -> dict:
+    """Phase 19: times of the int8 wire's ring round (re-encoding) on an
+    f32 (G, n, s, d) group in model mode, beside its no-re-encode form,
+    its plain version and the xla engine's int8 route (decode, einsum,
+    divide, where). The bound: the int8 table and scales read once, the
+    output written once, the fallback blocks read where ag dropped them."""
+    G, n, s, d = shape
+    args, enc = ring_enc_case(gen, G, n, s, d, torch.float32, "int8",
+                              "model")
+    x, rs, ag, div = args
+    q, sc = enc["enc"], enc["scale"]
+
+    def kernel():
+        return RG.ring_round_enc(x, q, sc, rs, ag, div, mode="model",
+                                 levels=INT8.levels)
+
+    def no_requant():
+        return RG.ring_round_enc(x, q, sc, rs, ag, div, mode="model")
+
+    def plain():
+        return ops.ring_round(*args, mode="model", levels=INT8.levels,
+                              backend="ref", **enc)
+
+    def xla_route():
+        send = INT8.decode(q, sc[..., None])
+        sums = torch.einsum("gij,gijd->gjd", rs.to(torch.float32), send)
+        tilde = sums / div[..., None]
+        return torch.where(ag[..., None], tilde[:, None], x)
+
+    got = kernel()
+    if not torch.equal(_bits(got), _bits(plain())):
+        raise AssertionError(f"ring_round_enc {shape}: not bitwise at the "
+                             f"timing shape")
+    err_xla = (xla_route() - got).abs().max().item()
+    del got
+    torch.cuda.empty_cache()
+    dropped = int((ag == 0).sum())
+    nbytes = (q.numel() + sc.numel() * 4             # the int8 table
+              + x.numel() * x.element_size()          # out
+              + dropped * d * x.element_size()        # the fallback
+              + rs.numel() * rs.element_size()
+              + ag.numel() * ag.element_size() + div.numel() * 4)
+    # per element: decode, gate, add; per partial element and hop after
+    # the first: divide, round, multiply
+    flops = 3 * x.numel() + 3 * (n - 1) * G * s * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    big = x.numel() * x.element_size() > 2 ** 30
+    return {"shape": list(shape),
+            "ms": event_ms(kernel, 20 if big else 100),
+            "no_requant_ms": event_ms(no_requant, 20 if big else 100),
+            "plain_ms": event_ms(plain, 2, warm=1),
+            "xla_route_ms": event_ms(xla_route, 5 if big else 20),
+            "xla_route_max_abs_diff": err_xla,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes,
+            # what the design moves: the partial's f32 round trip per hop
+            "design_bytes": nbytes + 8 * (n - 1) * G * s * d}
+
+
+def ef_gap_closure(study=GAP_STUDY) -> dict:
+    """Phase 20: benchmarks/wire_bench.py section 2 on the port and the
+    card. Replicated worker data (so with an f32 wire the drops cost
+    nothing and the gap to the reliable f32 run is the codec's), n = 8, a
+    6 -> 4 least-squares model, rps_model, engine "auto" (the xla engine,
+    the masked-average kernel), 2 buckets, lr 0.2, warm-up 5, 200 steps,
+    3 seeds; at p in {0.2, 0.3} the ef recovery must close at least half
+    of the bf16 and int8 wires' gap: closed = (loss(renorm) - loss(ef)) /
+    (loss(renorm) - loss(reliable f32))."""
+    n, steps, seeds = study["n"], study["steps"], study["seeds"]
+    rng = np.random.default_rng(0)
+    x1 = rng.normal(size=(16, 6)).astype(np.float32)
+    xs = torch.from_numpy(np.broadcast_to(x1, (n,) + x1.shape).copy()
+                          ).cuda()
+    w_true = torch.from_numpy(rng.normal(size=(6, 4)).astype(np.float32)
+                              ).cuda()
+    ys = xs @ w_true
+
+    def init_fn(gen):
+        return {"w": torch.randn((6, 4), generator=gen, device="cuda") * 0.1}
+
+    def loss_fn(p, b):
+        x, y = b
+        return torch.mean((x @ p["w"] - y) ** 2)
+
+    def final(wire, recovery, p):
+        out = []
+        for seed in seeds:
+            h = run_simulation(loss_fn, init_fn, lambda t: (xs, ys),
+                               SimulatorConfig(
+                                   n_workers=n, drop_rate=p,
+                                   aggregator="rps_model", steps=steps,
+                                   lr=0.2, warmup=5, n_buckets=2, seed=seed,
+                                   wire=wire, recovery=recovery))
+            out.append(h["final_loss"])
+        return float(np.mean(out))
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rel = final("f32", "renorm", 0.0)
+    res = {"reliable_f32": rel, "closure": {}}
+    for p in study["ps"]:
+        for wire in ("bf16", "int8"):
+            ln, le = final(wire, "renorm", p), final(wire, "ef", p)
+            gap = ln - rel
+            closed = (ln - le) / gap if gap > 1e-9 else 1.0
+            res["closure"][f"{wire}_p{p}"] = {
+                "renorm": ln, "ef": le, "gap": gap, "closed_frac": closed}
+    res["ef_gap_closure_min"] = min(c["closed_frac"]
+                                    for c in res["closure"].values())
+    res["masked_avg_launches"] = K.masked_avg_grid.launches
+    res["wall_s"] = time.perf_counter() - t0
+    if not res["ef_gap_closure_min"] >= 0.5:
+        raise AssertionError(f"ef closes less than half the wire gap: "
+                             f"{res['closure']}")
+    if res["masked_avg_launches"] == 0:
+        raise AssertionError("gap study: the masked-average kernel never "
+                             "launched")
+    return res
+
+
+def exchange_card_vs_cpu(params, ef_state, scfg, seed: int = 0) -> int:
+    """Phase 21's check of the whole exchange around the kernel: one
+    rps_exchange_global of rps-100m's embedding and first layer at full
+    width (the stacked replicas ``params`` and, under ef, their residual)
+    on the card through the kernels and on the CPU through their plain
+    versions (which the tests hold against the JAX package), with the
+    same masks and rounding noise drawn on the CPU. Every output, and the
+    new residual, must agree bit for bit. Returns the elements compared."""
+    def part(tree):
+        return {"embed": tree["embed"],
+                "layers": tree_lib.map(lambda x: x[:, :1].contiguous(),
+                                       tree["layers"])}
+
+    sub = part(params)
+    ef = part(ef_state) if ef_state is not None else None
+    n = scfg.n_workers
+    plan = make_exchange_plan(tree_lib.map(lambda x: x[0], sub), scfg)
+    cpu = torch.Generator().manual_seed(seed)
+    masks = rps_lib.sample_masks(cpu, n, scfg.drop_rate, plan.s,
+                                 n_buckets=plan.n_buckets)
+
+    def exchange(device):
+        def noise(g_idx, shape):
+            g = torch.Generator().manual_seed(seed + 1 + g_idx)
+            return torch.rand(shape, generator=g).to(device)
+
+        def on(tree):
+            return None if tree is None else \
+                tree_lib.map(lambda x: x.to(device), tree)
+
+        out = rps_lib.rps_exchange_global(
+            on(sub), None, scfg.drop_rate, n, mode="model",
+            masks=tuple(m.to(device) for m in masks), plan=plan,
+            engine="ring", wire="int8", recovery=scfg.recovery,
+            ef_state=on(ef), wire_noise=noise)
+        return tree_lib.leaves(out)
+
+    card, host = exchange("cuda"), exchange("cpu")
+    for a, b in zip(card, host):
+        if not torch.equal(_bits(a.cpu()), _bits(b)):
+            raise AssertionError(f"rps-100m int8 {scfg.recovery}: the "
+                                 f"exchange on the card differs from the "
+                                 f"plain one on the CPU")
+    return sum(x.numel() for x in host)
+
+
+def rps100m_int8(setup: Rps100mSetup, f32_loss: list, steps: int = 8,
+                 load=RPS_100M_LOAD) -> dict:
+    """Phase 21: rps-100m at phase 17's load with the int8 wire on the
+    ring engine, once with renorm and once with ef, from phase 17's
+    initial weights, batches and (one seed, the masks' own generator)
+    masks. Every group runs the encoded ring round (re-encoding): 6
+    launches per step and none of the linear one; each step's loss is
+    finite and within INT8_LOSS_GAP of phase 17's f32 loss at that
+    step; the run's last replicas exchange alike on the card and the CPU
+    (:func:`exchange_card_vs_cpu`)."""
+    n = load["n"]
+    out = {}
+    for recovery in ("renorm", "ef"):
+        scfg = rps100m_config(load, steps=steps, wire="int8",
+                              recovery=recovery)
+        groups = len(rps_lib._global_groups(make_exchange_plan(setup.p1,
+                                                               scfg)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        h = run_simulation(setup.loss_fn, None,
+                           lambda t: setup.batches[t], scfg,
+                           init_params=setup.p1)
+        launches = RG.ring_round_enc.launches
+        linear = RG.ring_round.launches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss = h["loss"]
+        gaps = [abs(a - b) for a, b in zip(loss, f32_loss)]
+        if launches != groups * steps or linear != 0:
+            raise AssertionError(f"rps-100m int8 {recovery}: {launches} "
+                                 f"encoded and {linear} linear ring "
+                                 f"launches, want {groups} x {steps} and 0")
+        if not (all(np.isfinite(loss)) and max(gaps) <= INT8_LOSS_GAP):
+            raise AssertionError(f"rps-100m int8 {recovery}: losses {loss} "
+                                 f"against f32 {f32_loss[:steps]}")
+        compared = exchange_card_vs_cpu(h["params"], h["ef_state"], scfg)
+        step_s = h["step_s"]
+        later = float(np.mean(step_s[1:]))
+        out[recovery] = {
+            "ring_enc_launches": launches, "groups": groups,
+            "first_step_ms": step_s[0] * 1e3,
+            "step_ms": [t * 1e3 for t in step_s[1:]],
+            "tokens_per_s": n * load["batch"] * load["seq"] / later,
+            "peak_memory_gb": peak, "loss": loss,
+            "f32_loss": f32_loss[:steps], "max_loss_gap": max(gaps),
+            "consensus": h["consensus"],
+            "exchange_bitwise_card_vs_cpu": compared}
+        del h
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1044,8 +1409,27 @@ def main() -> int:
     print(json.dumps({"quickstart": qs, "card": card}), flush=True)
     la = launcher_default()
     print(json.dumps({"launcher_default": la, "card": card}), flush=True)
-    big = rps100m(gen)
+    setup = rps100m_setup(gen)
+    big = rps100m(setup)
     print(json.dumps({"rps_100m": big, "card": card}), flush=True)
+    torch.cuda.empty_cache()
+
+    enc_cases, enc_err = check_ring_enc(gen, plans)
+    enc_group = time_ring_enc(gen, group)
+    enc_bucket = time_ring_enc(gen, bucket)
+    print(json.dumps({"ring_enc_cases": enc_cases,
+                      "ring_enc_max_abs_err": enc_err,
+                      "ring_enc_timing_group": enc_group,
+                      "ring_enc_timing_bucket": enc_bucket,
+                      "ring_linear_ms": {"group": ring_group["ms"],
+                                         "bucket": ring_bucket["ms"]},
+                      "card": card}), flush=True)
+    torch.cuda.empty_cache()
+    gap = ef_gap_closure()
+    print(json.dumps({"ef_gap_closure": gap, "card": card}), flush=True)
+    big_int8 = rps100m_int8(setup, big["loss"])
+    print(json.dumps({"rps_100m_int8": big_int8, "card": card}), flush=True)
+    del setup
 
     kernel = {"name": "masked_avg_grid", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
@@ -1083,7 +1467,17 @@ def main() -> int:
             "bound_ms": ring_group["bound_ms"],
             "bound_by": ring_group["bound_by"],
             "library_ms": None, "ok": True}
-    print(json.dumps({"kernels": [kernel, rwkv, rglru, ring]}), flush=True)
+    ring_enc = {"name": "ring_round_enc", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ring_q.cu",
+                "replaces": "src/repro/kernels/rps_ring.py:331",
+                "launches": big_int8["renorm"]["ring_enc_launches"],
+                "max_abs_err": enc_err,
+                "ms": enc_group["ms"], "plain_ms": enc_group["plain_ms"],
+                "bound_ms": enc_group["bound_ms"],
+                "bound_by": enc_group["bound_by"],
+                "library_ms": None, "ok": True}
+    print(json.dumps({"kernels": [kernel, rwkv, rglru, ring, ring_enc]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -87,7 +87,8 @@ class ExchangePlan:
 
     def rs_leg_bytes(self, wire=None) -> int:
         """Bytes one device moves on the RS leg per round (every bucket's
-        scatter-padded (S, blk, m) table in the wire dtype)."""
+        scatter-padded (S, blk, m) table in the wire dtype; the int8
+        codec's f32 row scales are counted apart, as ``scale_bytes``)."""
         wire = self.wire if wire is None else wire
         S = _ceil_div(self.s, self.n) * self.n
         rs_b = wire_lib.canon_wire_dtype(wire).itemsize
@@ -105,6 +106,8 @@ class ExchangePlan:
         free = sum(b.free * b.m for b in self.buckets)
         wire = self.wire if rs_dtype is None else \
             wire_lib.canon_wire_name(rs_dtype)
+        S = _ceil_div(self.s, self.n) * self.n
+        quantized = wire_lib.make_codec(wire).quantized
         return {"n": self.n, "s": self.s, "n_buckets": self.n_buckets,
                 "collectives_per_round": 2 * self.n_buckets,
                 "engine": self.engine,
@@ -119,7 +122,9 @@ class ExchangePlan:
                 "rs_leg_bytes": int(self.rs_leg_bytes(wire)),
                 "rs_bytes_ratio": float(self.rs_leg_bytes(wire)
                                         / max(self.rs_leg_bytes("f32"), 1)),
-                "scale_bytes": 0,            # no quantised codec yet
+                # the int8 codec's f32 scale per block row, apart
+                "scale_bytes": int(4 * S * self.n_buckets) if quantized
+                else 0,
                 "wire_bytes_per_round": int(self.wire_bytes(wire)),
                 "pad_frac": float(1.0 - free / elems) if elems else 0.0}
 

@@ -22,11 +22,14 @@ batched call per group of equal-width buckets, under two engines:
     order in the wire dtype, on the hand-written drop-masked ring-round
     kernel (``kernels/ring.py``).
 
-On a CUDA stack both kernels launch or raise; there is no fallback to the
-plain versions. Ported so far: the global path with the linear codecs and
-the renorm / scale recoveries, any plan, shared or per-bucket masks. The
-collective paths, error feedback, async lateness, corruption and telemetry
-taps are still to port.
+The int8 wire's ring engine runs the kernel's encoded variant (int8
+contributions decoded in the kernel, the partial re-encoded on every hop),
+and the error-feedback recovery sends through the same variant. On a CUDA
+stack every kernel launches or raises; there is no fallback to the plain
+versions. Ported so far: the global path with the f32 / bf16 / int8 wires
+and the renorm / scale / ef recoveries, any plan, shared or per-bucket
+masks. The collective paths, async lateness, corruption, the robust
+recoveries and telemetry taps are still to port.
 """
 from __future__ import annotations
 
@@ -130,14 +133,30 @@ def _resolve_masks(gen, n: int, p: float, plan: plan_lib.ExchangePlan,
                         if plan.per_bucket_masks else None)
 
 
+def _group_stack(tables, idxs, n: int, s: int, d: int) -> torch.Tensor:
+    """A group's (G, n, s, d) stack of bucket tables: a view for one
+    bucket, a copy for several."""
+    if len(idxs) == 1:
+        return tables[idxs[0]].reshape(1, n, s, d)
+    return torch.stack([tables[j].reshape(n, s, d) for j in idxs])
+
+
+def _group_noise(wire_noise, g_idx: int, shape: tuple) -> dict:
+    """The stochastic-rounding source of group ``g_idx`` as ``encode``
+    keywords: a hook's uniforms or a generator."""
+    if isinstance(wire_noise, torch.Generator):
+        return {"gen": wire_noise}
+    return {"uniforms": wire_noise(g_idx, shape)}
+
+
 def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
                         n: int, *, mode: str = "model", masks=None,
                         s: Optional[int] = None,
                         plan: Optional[plan_lib.ExchangePlan] = None,
                         engine: str = "xla",
                         rs_dtype=torch.float32, wire=None,
-                        recovery=None, ef_state=None, late=None,
-                        corruption=None, corrupt_masks=None):
+                        recovery=None, ef_state=None, wire_noise=None,
+                        late=None, corruption=None, corrupt_masks=None):
     """Global-view exchange of a stacked tree (every leaf has the worker
     dim n first).
 
@@ -159,15 +178,24 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
       dtype, divided by the recovery divisor, AG-selected — through
       :func:`repro_torch.kernels.ops.ring_round`.
 
+    The int8 wire encodes each contribution with one scale per (group,
+    worker, block), rounding stochastically: ``wire_noise`` is a
+    ``torch.Generator`` or a hook ``(g_idx, shape) -> uniforms`` (the
+    parity tests hand in the reference's), defaulting to ``gen``. The xla
+    engine sums the decoded contributions; the ring engine hands the int8
+    table and its scales to the encoded ring round, which re-encodes the
+    running partial on every hop. ``recovery="ef"`` takes the stacked
+    residual ``ef_state`` (``wire.init_ef_state(tree)`` to start), sends
+    ``intent = x + e`` — the int8 encode then deterministic — and returns
+    ``(out_tree, new_ef_state)``, the residual ``intent − send`` where the
+    block was delivered and ``e`` where it was dropped.
+
     The AG fallback is the input stack (model / grad_renorm) or zero
-    (grad). ``ef_state``, ``late``, ``corruption`` and ``corrupt_masks``
-    (error feedback, async lateness, Byzantine corruption) are not ported
-    yet and raise.
+    (grad). ``late``, ``corruption`` and ``corrupt_masks`` (async
+    lateness, Byzantine corruption) are not ported yet and raise.
     """
-    if any(a is not None for a in (ef_state, late, corruption,
-                                   corrupt_masks)):
-        raise NotImplementedError("ef_state / late / corruption are not "
-                                  "ported yet")
+    if any(a is not None for a in (late, corruption, corrupt_masks)):
+        raise NotImplementedError("late / corruption are not ported yet")
     if plan is None:
         per_worker = tree_lib.map(
             lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
@@ -179,12 +207,22 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
     recovery = plan.recovery if recovery is None else recovery
     codec = wire_lib.resolve_codec(wire, rs_dtype)
     rec = wire_lib.make_recovery(recovery, p=p)
+    use_ef = rec.needs_state
+    if use_ef and ef_state is None:
+        raise ValueError("recovery='ef' needs ef_state= (the stacked "
+                         "residual; wire.init_ef_state(tree) to start)")
     if mode not in ("model", "grad", "grad_renorm"):
         raise ValueError(mode)
     if engine in (None, "auto"):
         engine = "xla"
     elif engine not in ("xla", "ring"):
         raise ValueError(f"engine={engine!r}")
+    if codec.quantized and not use_ef:
+        wire_noise = gen if wire_noise is None else wire_noise
+        if wire_noise is None:
+            raise ValueError("the int8 wire rounds stochastically: give "
+                             "wire_noise= (a generator, or a hook "
+                             "(g_idx, shape) -> uniforms) or gen")
     rs, ag = _resolve_masks(gen, n, p, plan, masks)
     s = plan.s
     renorm = mode in ("model", "grad_renorm")
@@ -193,22 +231,50 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
     use_kernel = engine == "xla" and renorm and rec.kind != "scale"
 
     tables = plan.gather(tree, lead=1)               # each (n, s, blk, m)
+    ef_tables = plan.gather(ef_state, lead=1) if use_ef else None
     outs: list = [None] * len(tables)
-    for (blk, m, _dt), idxs in _global_groups(plan).items():
+    ef_outs: list = [None] * len(tables)
+    for g_idx, ((blk, m, _dt), idxs) in \
+            enumerate(_global_groups(plan).items()):
         G, d = len(idxs), blk * m
-        if G == 1:                                   # a view, no copy
-            stack = tables[idxs[0]].reshape(1, n, s, d)
-        else:
-            stack = torch.stack([tables[j].reshape(n, s, d) for j in idxs])
+        stack = _group_stack(tables, idxs, n, s, d)
         pairs = [_bucket_masks(rs, ag, j) for j in idxs]
         rs_g = torch.stack([pair[0] for pair in pairs])         # (G, n, s)
         ag_g = torch.stack([pair[1] for pair in pairs])
+        # the contributions: ``send`` decoded in the payload dtype (the
+        # xla engine's), ``enc`` / ``scale`` encoded (the ring engine's)
+        send = enc = scale = None
+        if use_ef:
+            ef_stack = _group_stack(ef_tables, idxs, n, s, d).to(stack.dtype)
+            intent = stack + ef_stack
+            if codec.quantized:     # deterministic: the feedback unbiases
+                enc, scale = codec.encode(intent, lead=2)
+                send = codec.decode(enc, scale).to(stack.dtype)
+            else:
+                send = enc = codec.fake_quant(intent)
+            # intent − send, in place unless the f32 codec's send is the
+            # intent itself; a dropped block's residual stays outstanding
+            err = intent - send if send is intent else intent.sub_(send)
+            resid = torch.where(rs_g[..., None] != 0, err, ef_stack)
+            del intent, err, ef_stack
+            for pos, j in enumerate(idxs):
+                ef_outs[j] = resid[pos].reshape(n, s, blk, m)
+        elif codec.quantized:
+            enc, scale = codec.encode(
+                stack, lead=2,
+                **_group_noise(wire_noise, g_idx, tuple(stack.shape)))
         if engine == "ring":
+            del send
             div_g = _divisor(rec, mode, rs_g, n)                 # (G, s)
-            out = ops.ring_round(stack.contiguous(), rs_g, ag_g, div_g,
-                                 mode=mode, rs_dtype=codec.accum_dtype)
+            out = ops.ring_round(
+                stack.contiguous(), rs_g, ag_g, div_g, mode=mode,
+                rs_dtype=codec.accum_dtype, enc=enc,
+                scale=None if scale is None else scale[..., 0],
+                levels=codec.levels)
         else:
-            send = codec.to_wire(stack)
+            if send is None:
+                send = codec.to_wire(stack) if enc is None \
+                    else codec.decode(enc, scale).to(stack.dtype)
             if use_kernel:
                 # (G·s, n, d) per-block stacks and the raw mask: the
                 # kernel casts the mask itself
@@ -228,4 +294,6 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
                 out = gathered * keep.to(stack.dtype)     # no update
         for pos, j in enumerate(idxs):
             outs[j] = out[pos].reshape(n, s, blk, m)
+    if use_ef:
+        return plan.scatter(outs, lead=1), plan.scatter(ef_outs, lead=1)
     return plan.scatter(outs, lead=1)

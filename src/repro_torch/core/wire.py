@@ -1,13 +1,22 @@
 """Wire pipeline: codecs × loss recovery (port of :mod:`repro.core.wire`).
 
-Ported so far: the linear codecs (``f32`` passthrough, the paper's wire,
-and ``bf16``, which the tensor-parallel decode config accepts) and the
-stateless recoveries ``renorm`` (divide by the received count, Algorithm 1)
-and ``scale`` (divide by the expected count n(1−p), the simulator takes p
-from its channel's ``effective_p``). A linear codec's sums accumulate in
-its wire dtype (:attr:`WireCodec.accum_dtype`). The int8 codec, the
-error-feedback recovery and the robust aggregators raise
-``NotImplementedError``.
+Codecs — how a contribution is represented on the reduce-scatter leg:
+
+  ``f32``   passthrough, the paper's wire;
+  ``bf16``  a linear downcast; a linear codec's sums accumulate in its
+            wire dtype (:attr:`WireCodec.accum_dtype`);
+  ``int8``  the quantised codec: each block row onto the grid
+            {−127, …, 127} with one f32 scale (:mod:`repro_torch.core.quant`),
+            stochastic rounding when noise is given, round-to-nearest-even
+            otherwise; the decoded values accumulate in f32.
+
+Recoveries — what the receiver does about missing contributions:
+``renorm`` (divide by the received count, Algorithm 1), ``scale`` (divide
+by the expected count n(1−p); the simulator takes p from its channel's
+``effective_p``) and ``ef``, renorm plus an error-feedback residual
+e' = (x + e) − decode(encode(x + e)) carried per worker across rounds
+(:func:`init_ef_state`). The robust aggregators (``median``, ``trimmed``,
+``clip``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,15 +25,18 @@ from typing import Any, Optional
 
 import torch
 
-WIRES = ("f32", "bf16")
-RECOVERIES = ("renorm", "scale")
-_NOT_PORTED_WIRES = ("int8",)
-_NOT_PORTED_RECOVERIES = ("ef", "median", "trimmed", "clip")
+from repro_torch import tree as tree_lib
+from repro_torch.core import quant as quant_lib
+
+WIRES = ("f32", "bf16", "int8")
+RECOVERIES = ("renorm", "scale", "ef")
+#: the Byzantine-robust kinds, not ported yet
+ROBUST_RECOVERIES = ("median", "trimmed", "clip")
 
 _ALIASES = {"f32": torch.float32, "fp32": torch.float32,
             "float32": torch.float32, "bf16": torch.bfloat16,
-            "bfloat16": torch.bfloat16}
-_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+            "bfloat16": torch.bfloat16, "int8": torch.int8}
+_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -34,26 +46,63 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class WireCodec:
-    """A linear codec: the RS-leg contributions are rounded to
-    ``wire_dtype`` (a cast; decoding is the identity)."""
+    """Encode / decode of the RS leg. ``levels == 0``: a linear codec,
+    the contributions rounded to ``wire_dtype`` (a cast; decoding is the
+    identity). ``levels > 0``: a quantised codec, one f32 scale per block
+    row (every dim after ``lead``) and a payload on the integer grid in
+    ``wire_dtype``."""
     name: str
     wire_dtype: torch.dtype
+    levels: int = 0
+
+    @property
+    def quantized(self) -> bool:
+        return self.levels > 0
 
     @property
     def accum_dtype(self) -> torch.dtype:
-        """Dtype the RS sums accumulate in: the wire dtype itself."""
-        return self.wire_dtype
+        """Dtype the RS sums accumulate in: the wire dtype itself for a
+        linear codec, f32 for a quantised one."""
+        return torch.float32 if self.quantized else self.wire_dtype
 
     def to_wire(self, x: torch.Tensor) -> torch.Tensor:
-        """A contribution's wire representation: rounded to the wire grid
-        only when that narrows it (widening is exact, so ``x`` itself is
-        kept and no copy is made)."""
+        """A linear codec's wire representation of a contribution: rounded
+        to the wire grid only when that narrows it (widening is exact, so
+        ``x`` itself is kept and no copy is made)."""
         if self.wire_dtype.itemsize < x.dtype.itemsize:
             return x.to(self.wire_dtype)
         return x
 
+    def encode(self, x: torch.Tensor, uniforms=None, lead: int = 0,
+               gen: Optional[torch.Generator] = None):
+        """x → (wire payload, scales): a cast and no scales for a linear
+        codec; per-row f32 scales over dims > ``lead`` and the int8 grid
+        for a quantised one, rounded stochastically with ``uniforms`` (or
+        uniforms drawn from ``gen``), to nearest-even without."""
+        if not self.quantized:
+            return x.to(self.wire_dtype), None
+        return quant_lib.quantize(x, self.levels, self.wire_dtype,
+                                  uniforms=uniforms, gen=gen, lead=lead)
 
-_CODECS = {name: WireCodec(name, dt) for dt, name in _NAMES.items()}
+    def decode(self, enc: torch.Tensor, scale) -> torch.Tensor:
+        """Payload back to accumulation values (f32 × scale for a
+        quantised codec, the identity for a linear one)."""
+        if not self.quantized:
+            return enc
+        return quant_lib.dequantize(enc, scale)
+
+    def fake_quant(self, x: torch.Tensor, uniforms=None, lead: int = 0,
+                   gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """decode(encode(x)) in ``x``'s dtype — what the wire delivers;
+        the EF residual is x − fake_quant(x)."""
+        if not self.quantized:
+            return x.to(self.wire_dtype).to(x.dtype)
+        return self.decode(*self.encode(x, uniforms, lead, gen)).to(x.dtype)
+
+
+_CODECS = {"f32": WireCodec("f32", torch.float32),
+           "bf16": WireCodec("bf16", torch.bfloat16),
+           "int8": WireCodec("int8", torch.int8, levels=127)}
 
 
 def canon_wire_dtype(wire: Any) -> torch.dtype:
@@ -66,16 +115,14 @@ def canon_wire_dtype(wire: Any) -> torch.dtype:
     if isinstance(wire, torch.dtype):
         return wire
     name = str(wire).lower()
-    if name in _NOT_PORTED_WIRES:
-        raise NotImplementedError(f"wire={wire!r} is not ported yet; "
-                                  f"ported: {WIRES}")
     if name not in _ALIASES:
         raise ValueError(f"wire={wire!r}: unknown (known: {WIRES})")
     return _ALIASES[name]
 
 
 def canon_wire_name(wire: Any) -> str:
-    """Canonical short name ("f32" | "bf16") of any wire spelling."""
+    """Canonical short name ("f32" | "bf16" | "int8") of any wire
+    spelling."""
     if isinstance(wire, WireCodec):
         return wire.name
     dt = canon_wire_dtype(wire)
@@ -103,11 +150,7 @@ def resolve_codec(wire: Any, rs_dtype: Any = torch.float32) -> WireCodec:
 def config_wire(wire: Any, exchange_dtype: Any = "float32") -> str:
     """The effective codec of a config's (``wire``, ``exchange_dtype``)
     pair: an explicit non-f32 ``wire`` wins; otherwise the legacy
-    ``exchange_dtype`` knob selects the matching linear codec. A codec
-    that is not ported yet is returned by name, for the caller to
-    refuse."""
-    if str(wire).lower() in _NOT_PORTED_WIRES:
-        return str(wire).lower()
+    ``exchange_dtype`` knob selects the matching linear codec."""
     name = canon_wire_name(wire)
     if name != "f32":
         return name
@@ -117,18 +160,23 @@ def config_wire(wire: Any, exchange_dtype: Any = "float32") -> str:
 @dataclasses.dataclass(frozen=True)
 class Recovery:
     """Receiver-side loss recovery. ``p`` is the expected drop rate the
-    ``scale`` divisor needs; unused by ``renorm``."""
+    ``scale`` divisor needs; unused by ``renorm`` and ``ef``."""
     kind: str = "renorm"
     p: Optional[float] = None
 
     def __post_init__(self):
-        if self.kind in _NOT_PORTED_RECOVERIES:
+        if self.kind in ROBUST_RECOVERIES:
             raise NotImplementedError(
                 f"recovery={self.kind!r} is not ported yet; ported: "
                 f"{RECOVERIES}")
         if self.kind not in RECOVERIES:
             raise ValueError(
                 f"recovery={self.kind!r}, want one of {RECOVERIES}")
+
+    @property
+    def needs_state(self) -> bool:
+        """EF carries a params-shaped residual across rounds."""
+        return self.kind == "ef"
 
     def expected_count(self, n: int) -> float:
         """The static ``scale`` divisor n(1−p), clamped to ≥ 1."""
@@ -148,3 +196,40 @@ def make_recovery(recovery: Any, p: Optional[float] = None) -> Recovery:
             return dataclasses.replace(recovery, p=p)
         return recovery
     return Recovery(str(recovery), p=p)
+
+
+def init_ef_state(tree: Any) -> Any:
+    """Zero EF residual matching an exchanged tree (same shapes, dtypes
+    and devices; per-worker for a stacked simulator tree)."""
+    return tree_lib.map(torch.zeros_like, tree)
+
+
+# ---- theory constants (the reference's core.theory reads them) ------------
+
+#: Nominal relative second moment ω = E‖decode(encode(x)) − x‖² / ‖x‖² of
+#: one codec pass: bf16 round-to-nearest at 8 mantissa bits (the
+#: conservative 2⁻¹⁷), int8 stochastic rounding at Δ = max|x|/127 against
+#: E x² ≈ max²/3, f32 exact.
+WIRE_OMEGA = {
+    "f32": 0.0,
+    "bf16": 2.0 ** -17,
+    "int8": 3.0 / (4.0 * 127.0 ** 2),
+}
+
+
+def codec_omega(wire: Any) -> float:
+    """ω of any wire spelling; a float dtype without an entry gets the
+    round-to-nearest figure ε²/4, ε its unit roundoff."""
+    dt = canon_wire_dtype(wire)
+    name = _NAMES.get(dt)
+    if name in WIRE_OMEGA:
+        return WIRE_OMEGA[name]
+    eps = float(torch.finfo(dt).eps) / 2.0
+    return eps * eps / 4.0
+
+
+def effective_omega(wire: Any, recovery: Any = "renorm") -> float:
+    """Codec variance after recovery: EF leaves the higher-order ω²,
+    renorm and scale pass ω through."""
+    w = codec_omega(wire)
+    return w * w if make_recovery(recovery).kind == "ef" else w

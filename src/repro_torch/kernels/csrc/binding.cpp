@@ -4,12 +4,14 @@
 //   torch.ops.repro_torch.rglru_fwd(x, a, out, h_last)
 //   torch.ops.repro_torch.ring_round(stack, rs, ag, div, out, renorm,
 //                                    acc_bf16)
+//   torch.ops.repro_torch.ring_round_enc(stack, enc, scale, rs, ag, div,
+//                                        out, part, amax, renorm, acc_bf16,
+//                                        levels)
 // The only file of the build that includes PyTorch's headers; it registers
 // the ops through torch/library.h rather than torch/extension.h and
 // pybind11, which keeps its compile short. The Python wrappers
 // (repro_torch/kernels/masked_avg.py, rwkv6.py, rglru.py, ring.py) check
-// devices,
-// dtypes and contiguity first; the launch limits are checked here.
+// devices, dtypes and contiguity first; the launch limits are checked here.
 
 #include <ATen/core/Tensor.h>
 #include <c10/cuda/CUDAException.h>
@@ -18,12 +20,15 @@
 #include <torch/library.h>
 
 #include <initializer_list>
+#include <optional>
+#include <vector>
 
 #include "kernels.h"
 
 namespace {
 
 constexpr int64_t kMaxWorkers = 8192;
+constexpr int64_t kMaxLevels = 127;
 constexpr int64_t kMaxGridX = 2147483647;
 constexpr int64_t kMaxGridY = 65535;
 
@@ -203,10 +208,12 @@ void ring_round(const at::Tensor& stack, const at::Tensor& rs,
               "ring_round: out dtype must equal stack's");
   TORCH_CHECK(div.scalar_type() == c10::ScalarType::Float,
               "ring_round: div must be float32");
-  // the mask column of n ranks lives in 2 * n floats of shared memory; the
-  // grid is one block per (g, j, column tile) on grid.x
-  TORCH_CHECK(n >= 1 && n <= kMaxWorkers, "ring_round: n = ", n,
-              " ranks, want 1..", kMaxWorkers);
+  // the mask column of n ranks lives in 2 * n floats of shared memory
+  // beside the divisor; the grid is one block per (g, j, column tile) on
+  // grid.x
+  const int64_t most = (repro_torch::kRingSmemFloats - 1) / 2;
+  TORCH_CHECK(n >= 1 && n <= most, "ring_round: n = ", n, " ranks, want 1..",
+              most);
   TORCH_CHECK(G >= 1 && s >= 1 && d >= 1,
               "ring_round: need G, s, d >= 1");
   const int64_t tiles =
@@ -215,12 +222,112 @@ void ring_round(const at::Tensor& stack, const at::Tensor& rs,
               G, " * ", s, " * ", tiles, " blocks exceed ", kMaxGridX);
   const c10::cuda::CUDAGuard guard(stack.device());
   repro_torch::ring_round_launch(
-      stack.data_ptr(), dtype_code(st), rs.data_ptr(),
+      stack.data_ptr(), dtype_code(st), stack.data_ptr(), dtype_code(st),
+      nullptr, rs.data_ptr(),
       dtype_code(rs.scalar_type()), ag.data_ptr(),
       dtype_code(ag.scalar_type()),
       static_cast<const float*>(div.data_ptr()), out.data_ptr(),
       acc_bf16 ? repro_torch::DType::kBF16 : repro_torch::DType::kF32, renorm,
       G, n, s, d, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void ring_round_enc(const at::Tensor& stack, const at::Tensor& enc,
+                    const std::optional<at::Tensor>& scale,
+                    const at::Tensor& rs, const at::Tensor& ag,
+                    const at::Tensor& div, at::Tensor& out, at::Tensor& part,
+                    at::Tensor& amax, bool renorm, bool acc_bf16,
+                    int64_t levels) {
+  std::vector<const at::Tensor*> ts{&stack, &enc, &rs, &ag, &div, &out};
+  if (scale.has_value()) ts.push_back(&scale.value());
+  if (levels > 0) {
+    ts.push_back(&part);
+    ts.push_back(&amax);
+  }
+  for (const at::Tensor* t : ts) {
+    TORCH_CHECK(t->is_cuda() && t->device() == stack.device(),
+                "ring_round_enc: tensors must be on one CUDA device");
+    TORCH_CHECK(t->is_contiguous(),
+                "ring_round_enc: tensors must be contiguous");
+  }
+  TORCH_CHECK(stack.dim() == 4 && rs.dim() == 3 && ag.dim() == 3 &&
+                  div.dim() == 2,
+              "ring_round_enc: want stack, enc and out (G, n, s, d), rs and "
+              "ag (G, n, s), div (G, s)");
+  const int64_t G = stack.size(0), n = stack.size(1), s = stack.size(2),
+                d = stack.size(3);
+  TORCH_CHECK(out.sizes() == stack.sizes() && enc.sizes() == stack.sizes() &&
+                  rs.size(0) == G && rs.size(1) == n && rs.size(2) == s &&
+                  ag.sizes() == rs.sizes() && div.size(0) == G &&
+                  div.size(1) == s,
+              "ring_round_enc: shape mismatch");
+  const c10::ScalarType st = stack.scalar_type();
+  TORCH_CHECK(st == c10::ScalarType::Float || st == c10::ScalarType::BFloat16,
+              "ring_round_enc: stack must be float32 or bfloat16");
+  TORCH_CHECK(out.scalar_type() == st,
+              "ring_round_enc: out dtype must equal stack's");
+  TORCH_CHECK(div.scalar_type() == c10::ScalarType::Float,
+              "ring_round_enc: div must be float32");
+  const bool int8 = enc.scalar_type() == c10::ScalarType::Char;
+  if (int8) {
+    TORCH_CHECK(scale.has_value() &&
+                    scale->scalar_type() == c10::ScalarType::Float &&
+                    scale->sizes() == rs.sizes(),
+                "ring_round_enc: an int8 enc needs float32 scale (G, n, s)");
+    TORCH_CHECK(!acc_bf16, "ring_round_enc: an int8 enc sums in float32");
+  } else {
+    TORCH_CHECK(enc.scalar_type() == st && !scale.has_value(),
+                "ring_round_enc: enc must be int8 with scale, or stack's "
+                "dtype without");
+  }
+  TORCH_CHECK(levels >= 0 && levels <= kMaxLevels,
+              "ring_round_enc: levels = ", levels, ", want 0..", kMaxLevels);
+  if (levels > 0) {
+    TORCH_CHECK(int8, "ring_round_enc: levels > 0 needs an int8 enc");
+    TORCH_CHECK(part.scalar_type() == c10::ScalarType::Float &&
+                    part.numel() == G * s * d,
+                "ring_round_enc: part must be float32 (G, s, d)");
+    TORCH_CHECK(amax.scalar_type() == c10::ScalarType::Int &&
+                    amax.numel() == G * s * n,
+                "ring_round_enc: amax must be int32 (G * s, n)");
+  }
+  // without the re-encode the (g, j) column stages 2 * n floats of masks
+  // (3 * n with the int8 scales) beside the divisor in shared memory
+  const int64_t most =
+      levels > 0 ? kMaxWorkers
+                 : (repro_torch::kRingSmemFloats - 1) / (int8 ? 3 : 2);
+  TORCH_CHECK(n >= 1 && n <= most, "ring_round_enc: n = ", n,
+              " ranks, want 1..", most);
+  TORCH_CHECK(G >= 1 && s >= 1 && d >= 1,
+              "ring_round_enc: need G, s, d >= 1");
+  const int64_t tiles =
+      (d + repro_torch::kRingTileCols - 1) / repro_torch::kRingTileCols;
+  TORCH_CHECK(G * s <= kMaxGridX / tiles, "ring_round_enc: G * s * tiles = ",
+              G, " * ", s, " * ", tiles, " blocks exceed ", kMaxGridX);
+  const c10::cuda::CUDAGuard guard(stack.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  const float* sc =
+      scale.has_value() ? static_cast<const float*>(scale->data_ptr())
+                        : nullptr;
+  if (levels > 0) {
+    C10_CUDA_CHECK(repro_torch::ring_requant_launch(
+        stack.data_ptr(), dtype_code(st), enc.data_ptr(), sc, rs.data_ptr(),
+        dtype_code(rs.scalar_type()), ag.data_ptr(),
+        dtype_code(ag.scalar_type()),
+        static_cast<const float*>(div.data_ptr()), out.data_ptr(),
+        static_cast<float*>(part.data_ptr()),
+        static_cast<unsigned int*>(amax.data_ptr()),
+        static_cast<int>(levels), renorm, G, n, s, d, stream));
+  } else {
+    repro_torch::ring_round_launch(
+        stack.data_ptr(), dtype_code(st), enc.data_ptr(),
+        dtype_code(enc.scalar_type()), sc, rs.data_ptr(),
+        dtype_code(rs.scalar_type()), ag.data_ptr(),
+        dtype_code(ag.scalar_type()),
+        static_cast<const float*>(div.data_ptr()), out.data_ptr(),
+        acc_bf16 ? repro_torch::DType::kBF16 : repro_torch::DType::kF32,
+        renorm, G, n, s, d, stream);
+  }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -239,4 +346,8 @@ TORCH_LIBRARY(repro_torch, m) {
   m.def("ring_round(Tensor stack, Tensor rs, Tensor ag, Tensor div, "
         "Tensor(a!) out, bool renorm, bool acc_bf16) -> ()",
         &ring_round);
+  m.def("ring_round_enc(Tensor stack, Tensor enc, Tensor? scale, "
+        "Tensor rs, Tensor ag, Tensor div, Tensor(a!) out, Tensor(b!) part, "
+        "Tensor(c!) amax, bool renorm, bool acc_bf16, int levels) -> ()",
+        &ring_round_enc);
 }

@@ -11,8 +11,8 @@ namespace repro_torch {
 
 // Element types the kernels read. masked_avg blocks, rwkv6 inputs and
 // rglru x: kF32, kBF16, kF16. rglru a: kF32 or x's type. ring_round
-// payload and accumulation: kF32, kBF16. masked_avg and ring_round masks:
-// any.
+// payload and accumulation: kF32, kBF16; its encoded table: kI8 or the
+// payload type. masked_avg and ring_round masks: any.
 enum class DType : int {
   kF32 = 0,
   kBF16 = 1,
@@ -58,21 +58,46 @@ void rglru_fwd_launch(const void* x, DType x_dtype, const void* a,
                       DType a_dtype, void* out, float* h_last, int64_t B,
                       int64_t S, int64_t d, cudaStream_t stream);
 
-// Enqueues the drop-masked ring round of one exchange group: for the
-// contiguous (G, n, s, d) payload `stack` (f32 or bf16), (G, n, s) masks rs
-// and ag of any of the DType types, the (G, s) f32 divisor `div` and the
+// Enqueues the drop-masked ring round of one exchange group (ring.cu): for
+// the contiguous (G, n, s, d) payload `stack` (f32 or bf16), (G, n, s) masks
+// rs and ag of any of the DType types, the (G, s) f32 divisor `div` and the
 // accumulation type `acc_dtype` (kF32 or kBF16), writes out (G, n, s, d) in
-// the payload type: block j's rs-gated contributions summed in ring order
-// owner+1, ..., owner (owner = j % n) in acc_dtype, divided by div, and
-// selected per rank by ag against the rank's own block (`renorm`) or zero.
-// One thread block per (g, j, column tile); needs n >= 1 and
-// G * s * tiles <= 2^31 - 1. Does not synchronise; the caller checks
-// cudaGetLastError() right after.
-void ring_round_launch(const void* stack, DType dtype, const void* rs,
+// the payload type: block j's rs-gated contributions from `enc` summed in
+// ring order owner+1, ..., owner (owner = j % n), divided by div, and
+// selected per rank by ag against the rank's own block of `stack`
+// (`renorm`) or zero. `enc` is `stack` itself for the plain round, a
+// separate table of the payload type (the EF send; scale null) summed in
+// acc_dtype, or an int8 table (enc_dtype kI8) times its (G, n, s) f32 row
+// `scale`, rounded to the payload type and summed in f32. One thread block
+// per (g, j, column tile); needs n >= 1, (2 or, for int8, 3) * n + 1 <=
+// kRingSmemFloats and G * s * tiles <= 2^31 - 1. Does not synchronise; the
+// caller checks cudaGetLastError() right after.
+void ring_round_launch(const void* stack, DType dtype, const void* enc,
+                       DType enc_dtype, const float* scale, const void* rs,
                        DType rs_dtype, const void* ag, DType ag_dtype,
                        const float* div, void* out, DType acc_dtype,
                        bool renorm, int64_t G, int64_t n, int64_t s,
                        int64_t d, cudaStream_t stream);
+
+// Enqueues the ring round on the int8 wire that re-encodes the running
+// partial per row onto {-levels, ..., levels} before each hop's add
+// (ring_q.cu), in one cooperative launch: as ring_round_launch with an
+// int8 `enc` and its `scale`, with the f32 scratch `part` (G, s, d) and the
+// zeroed row slots `amax` (G * s, n). Returns the launch's error
+// (cudaErrorNotSupported without cooperative launch). Does not
+// synchronise.
+cudaError_t ring_requant_launch(const void* stack, DType dtype,
+                                const void* enc, const float* scale,
+                                const void* rs, DType rs_dtype,
+                                const void* ag, DType ag_dtype,
+                                const float* div, void* out, float* part,
+                                unsigned int* amax, int levels, bool renorm,
+                                int64_t G, int64_t n, int64_t s, int64_t d,
+                                cudaStream_t stream);
+
+// Floats of shared memory a ring-round block may stage: the 48 KB of the
+// static limit.
+constexpr int64_t kRingSmemFloats = 12288;
 
 // Columns one ring-round thread block covers at the scalar width; the
 // binding sizes the grid's limit with it.

@@ -80,15 +80,29 @@ def rglru_step(x, a, state):
 
 
 def ring_round(stack, rs, ag, div, *, mode: str, rs_dtype=torch.float32,
+               enc=None, scale=None, levels: int = 0,
                backend: str = "auto"):
     """One exchange group's drop-masked ring round for all n stacked
     ranks: stack (G, n, s, d), rs / ag (G, n, s), div (G, s) f32 ->
-    (G, n, s, d) in ``stack.dtype`` (see :mod:`repro_torch.kernels.ring`)."""
+    (G, n, s, d) in ``stack.dtype`` (see :mod:`repro_torch.kernels.ring`).
+    With ``enc`` (an int8 table and its (G, n, s) ``scale``, or the EF
+    send in stack's dtype) the contributions come from ``enc`` and
+    ``levels > 0`` re-encodes the partial on every hop: the encoded
+    variant, :func:`repro_torch.kernels.ring.ring_round_enc`."""
+    if enc is None and levels:
+        raise ValueError("levels > 0 needs an int8 enc")
     if backend == "auto":
-        return _ring.ring_round(stack, rs, ag, div, mode=mode,
-                                rs_dtype=rs_dtype)
+        if enc is None:
+            return _ring.ring_round(stack, rs, ag, div, mode=mode,
+                                    rs_dtype=rs_dtype)
+        return _ring.ring_round_enc(stack, enc, scale, rs, ag, div,
+                                    mode=mode, rs_dtype=rs_dtype,
+                                    levels=levels)
     if backend == "ref":
         _ring.check_shapes(stack, rs, ag, div, mode)
+        if enc is not None:
+            _ring.check_enc(stack, enc, scale, rs_dtype, levels)
         return ring_round_ref(stack, rs, ag, div, mode=mode,
-                              rs_dtype=rs_dtype)
+                              rs_dtype=rs_dtype, enc=enc, scale=scale,
+                              levels=levels)
     raise ValueError(f"backend={backend!r}, want 'auto' or 'ref'")

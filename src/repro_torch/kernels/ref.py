@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import quant as quant_lib
+
 
 def masked_avg_ref(blocks: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Renormalised drop-masked average over the worker axis.
@@ -124,45 +126,79 @@ def masks_to_scatter(rs: torch.Tensor, ag: torch.Tensor, S: int, order):
     return rs_sc, ag_sc
 
 
-def ring_global_sums(stack, rs_g, own, *, rs_dtype=torch.float32):
+def requant_rows(x: torch.Tensor, levels: int) -> torch.Tensor:
+    """One int8-wire hop of a running f32 partial: every row (the last
+    dim) encoded onto the grid {−levels, …, levels} with its own scale
+    ``max|row| / levels``, rounded to nearest-even, and decoded — what
+    the wire carries between two adds."""
+    return quant_lib.dequantize(*quant_lib.quantize(
+        x, levels, torch.int8, lead=x.dim() - 2))
+
+
+def ring_global_sums(stack, rs_g, own, *, rs_dtype=torch.float32,
+                     codec=None):
     """Single-device replay of the ring RS arithmetic (the JAX package's
-    ``rps_ring.ring_global_sums`` for linear codecs): ``stack`` (G, n, s,
-    d) contributions, ``rs_g`` (G, n, s) masks, ``own`` (s,) block
-    owners. Returns (G, s, d) masked sums accumulated in ring order in
-    ``rs_dtype`` — block j's contributions added owner+1, …, owner+n−1,
-    owner, each cast to ``rs_dtype`` and gated first — from a zero start
-    as the reference's scan does."""
+    ``rps_ring.ring_global_sums``): ``stack`` (G, n, s, d) contributions,
+    ``rs_g`` (G, n, s) masks, ``own`` (s,) block owners. Returns (G, s, d)
+    masked sums accumulated in ring order in ``rs_dtype`` — block j's
+    contributions added owner+1, …, owner+n−1, owner, each cast to
+    ``rs_dtype`` and gated first — from a zero start as the reference's
+    scan does. A quantised ``codec`` (``levels > 0``) re-encodes the
+    running partial before every hop's add (:func:`requant_rows`, one
+    scale per (g, block)); ``stack`` then holds the decoded sends."""
     G, n, s, d = stack.shape
+    levels = codec.levels if codec is not None and codec.quantized else 0
     rs_w = rs_g.to(rs_dtype)
     cols = torch.arange(s, device=stack.device)
     own = own.to(stack.device)
     acc = torch.zeros((G, s, d), dtype=rs_dtype, device=stack.device)
     for t in range(1, n + 1):
+        if levels:
+            acc = requant_rows(acc, levels)
         idx = (own + t) % n
         acc = acc + stack[:, idx, cols, :].to(rs_dtype) \
             * rs_w[:, idx, cols][..., None]
     return acc
 
 
+def decode_contrib(enc: torch.Tensor, scale, dtype: torch.dtype
+                   ) -> torch.Tensor:
+    """The contribution table an encoded source stands for: an int8
+    payload times its (G, n, s) f32 row scales, rounded to the payload
+    ``dtype`` (as the global path's fake-quant send is); a payload-dtype
+    table (the EF send on a linear wire) as it is."""
+    if enc.dtype == torch.int8:
+        return quant_lib.dequantize(enc, scale[..., None]).to(dtype)
+    return enc
+
+
 def ring_round_ref(stack, rs_g, ag_g, div_g, *, mode: str,
-                   rs_dtype=torch.float32):
+                   rs_dtype=torch.float32, enc=None, scale=None,
+                   levels: int = 0):
     """The drop-masked ring round over n stacked ranks, hop for hop as
     the JAX package's interpret ring (``rps_ring._ring_schedule_jax``)
-    runs it on n devices; the plain version of the ring-round kernel.
+    runs it on n devices; the plain version of the ring-round kernel and
+    of its encoded variant.
 
     stack: (G, n, s, d) payload in block order (rank i's blocks in row
     i); rs_g, ag_g: (G, n, s) masks, nonzero = delivered; div_g: (G, s)
     f32 recovery divisor; mode: "model", "grad" or "grad_renorm";
-    rs_dtype: the accumulation (wire) dtype. Works in the collective
+    rs_dtype: the accumulation (wire) dtype. The encoded variant takes
+    the contributions from ``enc`` instead of ``stack`` (which stays the
+    all-gather fallback): an int8 (G, n, s, d) payload with its (G, n, s)
+    f32 ``scale`` — decoded and rounded to the payload dtype, summed in
+    f32 — or a payload-dtype table (the EF send on a linear wire).
+    ``levels > 0`` re-encodes every chunk's partial onto the int8 grid
+    before each hop's add (:func:`requant_rows`). Works in the collective
     path's scatter layout — blocks padded with dummy blocks to S = k·n
-    and permuted owner-major, so rank i owns chunk i (rows i·k … i·k+k−1)
-    — with the ranks on dim 1 and ``torch.roll`` over it as the ring's
-    ``ppermute``:
+    and permuted owner-major, so rank i owns chunk i (rows i·k …
+    i·k+k−1) — with the ranks on dim 1 and ``torch.roll`` over it as the
+    ring's ``ppermute``:
 
       RS  rank i starts chunk i−1's partial with its gated contribution;
-          n−1 hops each pass the partial to the right neighbour, which
-          adds its own (so chunk c sums ranks c+1, c+2, …, c, owner
-          last, every add in ``rs_dtype``);
+          n−1 hops each pass the partial (re-encoded when ``levels``) to
+          the right neighbour, which adds its own (so chunk c sums ranks
+          c+1, c+2, …, c, owner last, every add in ``rs_dtype``);
       div the owner divides by the chunk's divisor (cast to rs_dtype);
       AG  n−1 hops broadcast the averaged chunks in the payload dtype,
           each selected against the rank's own block (model,
@@ -175,13 +211,18 @@ def ring_round_ref(stack, rs_g, ag_g, div_g, *, mode: str,
     k, S, order, inv = scatter_layout(n, s)
     rs_sc, ag_sc = masks_to_scatter(rs_g, ag_g, S, order)
     div_sc = pad_mask_blocks(div_g.to(torch.float32), S)
-    blocks = stack
-    if S != s:
-        blocks = torch.nn.functional.pad(blocks, (0, 0, 0, S - s))
+    src = stack if enc is None else decode_contrib(enc, scale, stack.dtype)
+
+    def to_scatter(x):
+        if S != s:
+            x = torch.nn.functional.pad(x, (0, 0, 0, S - s))
+        return x if order is None else x[:, :, order.to(stack.device)]
+
+    blocks = to_scatter(stack)
+    src = blocks if enc is None else to_scatter(src)
     if order is not None:
-        order = order.to(stack.device)
-        blocks, div_sc = blocks[:, :, order], div_sc[..., order]
-    ch = blocks.reshape(G, n, n, k, d)          # (G, rank, chunk, k, d)
+        div_sc = div_sc[..., order.to(stack.device)]
+    ch = src.reshape(G, n, n, k, d)             # (G, rank, chunk, k, d)
     rs_ch = rs_sc.to(rs_dtype).reshape(G, n, n, k, 1)
     ranks = torch.arange(n, device=stack.device)
 
@@ -195,10 +236,13 @@ def ring_round_ref(stack, rs_g, ag_g, div_g, *, mode: str,
 
     acc = contrib(-1)
     for t in range(n - 1):
-        acc = torch.roll(acc, 1, dims=1) + contrib(-2 - t)
+        acc = torch.roll(acc, 1, dims=1)
+        if levels:
+            acc = requant_rows(acc, levels)
+        acc = acc + contrib(-2 - t)
     my_div = div_sc.reshape(G, n, k)[..., None].to(rs_dtype)   # chunk i
     cur = (acc / my_div).to(stack.dtype)
-    gathered = torch.zeros_like(ch)
+    gathered = torch.zeros_like(blocks).reshape(G, n, n, k, d)
     gathered[:, ranks, ranks] = cur
     for t in range(n - 1):
         cur = torch.roll(cur, 1, dims=1)

@@ -19,6 +19,14 @@ kernel in ``csrc/ring.cu`` (or raises); on a CPU tensor it computes the
 plain version :func:`repro_torch.kernels.ref.ring_round_ref`, which runs
 the ring hop for hop. The two agree bit for bit: the same adds in the
 same order and dtype, one IEEE division.
+
+:func:`ring_round_enc` is the round's encoded variant (``ring_bucket_fused``
+with ``has_enc``, and ``levels > 0``): the contributions come from a
+separate table — an int8 payload with per-row f32 scales, decoded in the
+kernel, or the EF send on a linear wire — while ``stack`` stays the
+all-gather fallback (the same kernel in ``csrc/ring.cu``); with
+``levels > 0`` every hop re-encodes the running f32 partial onto the int8
+grid (``csrc/ring_q.cu``).
 """
 from __future__ import annotations
 
@@ -32,8 +40,11 @@ ACC_DTYPES = (torch.float32, torch.bfloat16)
 MASK_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int32, torch.int64,
                torch.float32, torch.bfloat16, torch.float16)
 MODES = ("model", "grad", "grad_renorm")
-# the op ``torch.ops.repro_torch.ring_round``, loaded at first launch
+MAX_LEVELS = 127               # the int8 grid
+# the ops ``torch.ops.repro_torch.ring_round`` and ``ring_round_enc``,
+# loaded at first launch
 _op = None
+_op_enc = None
 
 
 def check_shapes(stack, rs, ag, div, mode: str) -> None:
@@ -103,3 +114,78 @@ def ring_round(stack, rs, ag, div, *, mode: str, rs_dtype=torch.float32):
 
 
 ring_round.launches = 0
+
+
+def check_enc(stack, enc, scale, rs_dtype, levels: int) -> None:
+    """enc (G, n, s, d): int8 with f32 ``scale`` (G, n, s), summed in
+    f32; or stack's dtype with no scale. ``levels > 0`` (the per-hop
+    re-encode) needs the int8 table."""
+    if tuple(enc.shape) != tuple(stack.shape):
+        raise ValueError(f"enc shape {tuple(enc.shape)} != "
+                         f"{tuple(stack.shape)}")
+    if enc.dtype == torch.int8:
+        if scale is None or tuple(scale.shape) != tuple(stack.shape[:3]):
+            raise ValueError(f"an int8 enc needs scale of shape "
+                             f"{tuple(stack.shape[:3])}")
+        if scale.dtype != torch.float32 or rs_dtype != torch.float32:
+            raise TypeError("an int8 enc takes f32 scales and sums in f32")
+    elif enc.dtype != stack.dtype or scale is not None:
+        raise TypeError(f"enc must be int8 (with scale) or stack's dtype "
+                        f"{stack.dtype} (without), got {enc.dtype}")
+    if not 0 <= levels <= MAX_LEVELS:
+        raise ValueError(f"levels={levels}, want 0..{MAX_LEVELS}")
+    if levels and enc.dtype != torch.int8:
+        raise ValueError("levels > 0 re-encodes an int8 wire; enc is "
+                         f"{enc.dtype}")
+
+
+def ring_round_enc(stack, enc, scale, rs, ag, div, *, mode: str,
+                   rs_dtype=torch.float32, levels: int = 0):
+    """One group's ring round with the contributions from an encoded
+    table, one launch for every bucket, block and rank.
+
+    stack: (G, n, s, d) f32 / bf16 payload, the all-gather fallback;
+    enc: (G, n, s, d) int8 with ``scale`` (G, n, s) f32 — contribution
+    ``float(cast_payload(q · scale))``, summed in f32 — or a table in
+    stack's dtype (the EF send on a linear wire) with ``scale=None``,
+    summed in ``rs_dtype``; rs, ag, div as :func:`ring_round`.
+    ``levels > 0``: before each hop's add the running partial is
+    re-encoded per row onto {−levels, …, levels} and decoded. Returns
+    (G, n, s, d) in ``stack.dtype``; ``ring_round_enc.launches`` counts
+    kernel launches (CPU calls run the plain version and do not
+    count)."""
+    check_shapes(stack, rs, ag, div, mode)
+    check_enc(stack, enc, scale, rs_dtype, levels)
+    if stack.device.type == "cpu":
+        return ring_round_ref(stack, rs, ag, div, mode=mode,
+                              rs_dtype=rs_dtype, enc=enc, scale=scale,
+                              levels=levels)
+    if stack.device.type != "cuda":
+        raise ValueError(f"ring_round_enc: no kernel for {stack.device}")
+    _check_cuda(stack, rs, ag, div, rs_dtype)
+    for name, t in (("enc", enc), ("scale", scale)):
+        if t is None:
+            continue
+        if t.device != stack.device:
+            raise ValueError(f"{name} on {t.device}, stack on "
+                             f"{stack.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    global _op_enc
+    if _op_enc is None:
+        _op_enc = build.load_kernels().ring_round_enc
+    G, n, s, d = stack.shape
+    out = torch.empty_like(stack)
+    # the re-encoding launch's scratch: the f32 partial between hops and
+    # each row's max|partial| per hop, as float bits (zeroed)
+    part = torch.empty((G, s, d) if levels else (0,), dtype=torch.float32,
+                       device=stack.device)
+    amax = torch.zeros((G * s, n) if levels else (0,), dtype=torch.int32,
+                       device=stack.device)
+    _op_enc(stack, enc, scale, rs, ag, div, out, part, amax,
+            mode != "grad", rs_dtype == torch.bfloat16, levels)
+    ring_round_enc.launches += 1
+    return out
+
+
+ring_round_enc.launches = 0

@@ -7,9 +7,10 @@ the synthetic char-LM task.
 
 Runs on the card unless ``--device cpu`` is given. The flags are the
 reference's for the ported features; a non-Bernoulli ``--channel`` spec
-raises ``NotImplementedError``. Not ported yet, so absent: corruption,
-``--async`` / ``--compute-ms``, the int8 wire, the ef recovery,
-``--state-pack``, telemetry, checkpoints.
+raises ``NotImplementedError``. ``--wire int8 [--recovery ef] --engine
+ring`` runs the int8 wire on the ring-round kernel's encoded variant. Not
+ported yet, so absent: corruption, ``--async`` / ``--compute-ms``, the
+robust recoveries, ``--state-pack``, telemetry, checkpoints.
 """
 from __future__ import annotations
 
@@ -55,9 +56,13 @@ def main(argv=None):
                          "ring-round kernel")
     ap.add_argument("--exchange-dtype", default="float32",
                     choices=["float32", "bfloat16"])
-    ap.add_argument("--wire", default="f32", choices=["f32", "bf16"])
+    ap.add_argument("--wire", default="f32",
+                    choices=["f32", "bf16", "int8"],
+                    help="RS-leg codec; int8: per-row scales, stochastic "
+                         "rounding, re-encoded on every ring hop")
     ap.add_argument("--recovery", default="renorm",
-                    choices=["renorm", "scale"])
+                    choices=["renorm", "scale", "ef"],
+                    help="ef: renorm plus an error-feedback residual")
     ap.add_argument("--optimizer", default="sgd",
                     choices=["sgd", "momentum", "adam"])
     ap.add_argument("--lr", type=float, default=0.05)
@@ -109,7 +114,7 @@ def main(argv=None):
           f"consensus={hist['consensus'][-1]:.3e} [{dt:.1f}s]")
     if args.out:
         keep = {k: v for k, v in hist.items()
-                if k not in ("params", "state")}
+                if k not in ("params", "state", "ef_state")}
         with open(args.out, "w") as f:
             json.dump(keep, f, indent=1)
         print("history ->", args.out)

@@ -22,12 +22,19 @@ averaging under drops), ``allreduce_model`` / ``allreduce_grad``
 ``engine="ring"`` every exchange group runs on the hand-written ring-round
 kernel; ``"xla"``/``"auto"`` take the masked-average kernel for renorm.
 
+The wire codecs (``f32``, ``bf16``, ``int8``) and the recoveries
+(``renorm``, ``scale``, ``ef``) are the reference's; under ``ef`` the
+per-worker residual rides in the step state, untouched on rounds that do
+not exchange.
+
 Torch cannot reproduce JAX's random streams: without hooks the port draws
-initial parameters and masks from ``torch.Generator``s seeded from
-``scfg.seed``; ``init_params=`` and ``masks_fn=`` inject the reference's.
-Not ported yet (raise when set off their defaults): the async schedule,
-telemetry, corruption, the ef recovery, the int8 wire, packed optimizer
-state, the non-Bernoulli channels.
+initial parameters, masks and the int8 wire's rounding noise from
+``torch.Generator``s seeded from ``scfg.seed`` (one each, so an int8 run
+and an f32 run of one seed see the same masks); ``init_params=``,
+``masks_fn=`` and ``wire_noise_fn=`` inject the reference's. Not ported
+yet (raise when set off their defaults): the async schedule, telemetry,
+corruption, the robust recoveries, packed optimizer state, the
+non-Bernoulli channels.
 """
 from __future__ import annotations
 
@@ -89,10 +96,8 @@ def _check_ported(scfg: SimulatorConfig) -> None:
         off.append("telemetry=True")
     if scfg.corruption is not None or scfg.byzantine_frac:
         off.append("corruption / byzantine_frac")
-    if scfg.recovery == "ef":
-        off.append("recovery='ef'")
-    if wire_lib.config_wire(scfg.wire, scfg.exchange_dtype) == "int8":
-        off.append("wire='int8'")
+    if scfg.recovery in wire_lib.ROBUST_RECOVERIES:
+        off.append(f"recovery={scfg.recovery!r}")
     if scfg.state_pack not in (None, "f32"):
         off.append(f"state_pack={scfg.state_pack!r}")
     if not scfg.donate:
@@ -105,8 +110,10 @@ def _check_ported(scfg: SimulatorConfig) -> None:
 
 
 def _exchange(tree, scfg: SimulatorConfig, *, is_grad: bool, masks=None,
-              plan=None, recovery=None):
-    """The aggregator's exchange of a stacked tree (leading dim n)."""
+              plan=None, recovery=None, ef_state=None, wire_noise=None):
+    """The aggregator's exchange of a stacked tree (leading dim n);
+    ``(tree, ef_state)`` when an EF residual is given (rps aggregators
+    only)."""
     n = scfg.n_workers
     agg = scfg.aggregator
     if agg == "local":
@@ -119,7 +126,8 @@ def _exchange(tree, scfg: SimulatorConfig, *, is_grad: bool, masks=None,
     return rps_lib.rps_exchange_global(
         tree, None, scfg.drop_rate, n, mode="grad" if is_grad else "model",
         masks=masks, s=scfg.n_servers, plan=plan, engine=scfg.engine,
-        rs_dtype=getattr(torch, scfg.exchange_dtype), recovery=recovery)
+        rs_dtype=getattr(torch, scfg.exchange_dtype), recovery=recovery,
+        ef_state=ef_state, wire_noise=wire_noise)
 
 
 def make_exchange_plan(params: Any, scfg: SimulatorConfig, channel=None):
@@ -176,28 +184,47 @@ def consensus_distance(params) -> torch.Tensor:
 def make_sim_step(loss_fn: Callable, scfg: SimulatorConfig, plan, opt,
                   recovery=None):
     """One simulator step:
-    ``step(params, opt_state, batch, masks, lr, exchange=True) ->
-    (params, opt_state, mean loss, consensus)``, the loss and consensus
-    as 0-dim f32 tensors on the params' device. ``masks`` is the step's
-    (rs, ag) pair (None for the non-rps aggregators). Grad mode exchanges
-    the gradients before the update, model mode the parameters after it;
-    the parameters and the optimizer state are updated in place."""
+    ``step(params, opt_state, batch, masks, lr, exchange=True,
+    ef_state=None, wire_noise=None) -> (params, opt_state, mean loss,
+    consensus)``, plus the new ``ef_state`` last under the ef recovery;
+    the loss and consensus are 0-dim f32 tensors on the params' device.
+    ``masks`` is the step's (rs, ag) pair (None for the non-rps
+    aggregators), ``wire_noise`` the int8 wire's rounding noise (a
+    generator or a ``(g_idx, shape) -> uniforms`` hook). Grad mode
+    exchanges the gradients before the update, model mode the parameters
+    after it; the parameters and the optimizer state are updated in
+    place. A round that does not exchange passes the residual through
+    untouched."""
     n = scfg.n_workers
     is_grad_mode = scfg.aggregator.endswith("_grad")
+    use_ef = scfg.aggregator.startswith("rps") and scfg.recovery == "ef"
 
-    def step(params, opt_state, batch, masks, lr, exchange=True):
+    def step(params, opt_state, batch, masks, lr, exchange=True,
+             ef_state=None, wire_noise=None):
+        if use_ef and ef_state is None:
+            raise ValueError("recovery='ef' needs the step's ef_state")
+
+        def swap(tree, is_grad):
+            nonlocal ef_state
+            out = _exchange(tree, scfg, is_grad=is_grad, masks=masks,
+                            plan=plan, recovery=recovery,
+                            ef_state=ef_state if use_ef else None,
+                            wire_noise=wire_noise)
+            if use_ef:
+                out, ef_state = out
+            return out
+
         loss, grads = _loss_and_grads(loss_fn, params, batch, n)
         if is_grad_mode and exchange:
-            grads = _exchange(grads, scfg, is_grad=True, masks=masks,
-                              plan=plan, recovery=recovery)
+            grads = swap(grads, True)
         params, opt_state = opt.update(grads, opt_state, params, lr)
         del grads
         if not is_grad_mode and exchange:
-            params = _exchange(params, scfg, is_grad=False, masks=masks,
-                               plan=plan, recovery=recovery)
+            params = swap(params, False)
         with torch.no_grad():
             consensus = consensus_distance(params)
-        return params, opt_state, loss / n, consensus
+        base = (params, opt_state, loss / n, consensus)
+        return base + (ef_state,) if use_ef else base
 
     return step
 
@@ -208,7 +235,9 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
                    state: Optional[Dict[str, Any]] = None,
                    start_step: int = 0, telemetry=None, *,
                    device="cuda", init_params=None,
-                   masks_fn: Optional[Callable] = None) -> Dict[str, Any]:
+                   masks_fn: Optional[Callable] = None,
+                   wire_noise_fn: Optional[Callable] = None
+                   ) -> Dict[str, Any]:
     """loss_fn(params, batch) -> scalar; init_fn(gen) -> one worker's
     params; batch_fn(step) -> stacked batch with leading dim n_workers.
 
@@ -217,14 +246,17 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     eval steps); ``final_loss``; ``params`` (the stacked replicas);
     ``channel`` and ``channel_effective_p``; ``exchange_plan`` (the
     plan's ``describe()``); ``step_s`` (every step's wall seconds, the
-    device synchronised at each step's end); and ``state`` to resume
-    from with ``state=`` / ``start_step=``.
+    device synchronised at each step's end); ``ef_state`` (the EF
+    residual, None without ef); and ``state`` to resume from with
+    ``state=`` / ``start_step=`` (params, optimizer, channel and EF
+    state).
 
     Runs on ``device`` (CUDA unless the caller asks for the CPU).
-    ``init_params`` (one worker's params, broadcast to n) and
-    ``masks_fn`` (step -> (rs, ag)) inject the initial parameters and the
-    per-step masks; without them both are drawn from generators seeded
-    from ``scfg.seed``.
+    ``init_params`` (one worker's params, broadcast to n), ``masks_fn``
+    (step -> (rs, ag)) and ``wire_noise_fn`` ((step, g_idx, shape) ->
+    the int8 wire's uniforms for exchange group g_idx) inject the initial
+    parameters, the per-step masks and the rounding noise; without them
+    each is drawn from its own generator seeded from ``scfg.seed``.
     """
     _check_ported(scfg)
     if telemetry is not None:
@@ -244,10 +276,16 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     channel = make_channel(scfg.channel, n, scfg.drop_rate, s=scfg.n_servers)
     mask_gen = torch.Generator(device=dev)
     mask_gen.manual_seed(scfg.seed + 1)
+    # the int8 wire's rounding noise, apart from the masks' stream
+    noise_gen = torch.Generator(device=dev)
+    noise_gen.manual_seed(scfg.seed + 2)
     ch_state = channel.init_state(mask_gen) if rps_agg else None
+    use_ef = rps_agg and scfg.recovery == "ef"
+    ef_state = wire_lib.init_ef_state(params) if use_ef else None
     if state is not None:
         params, opt_state = state["params"], state["opt_state"]
         ch_state = state.get("ch_state", ch_state)
+        ef_state = state.get("ef_state", ef_state)
     plan = make_exchange_plan(
         tree_lib.map(lambda x: torch.empty(x.shape, dtype=x.dtype,
                                            device="meta"), p1),
@@ -279,8 +317,15 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
             else:
                 rs, ag, ch_state = channel.sample(mask_gen, ch_state)
                 masks = (rs, ag)
-        params, opt_state, loss, consensus = step_fn(
-            params, opt_state, batch, masks, lr, exchange=exchange)
+        wire_noise = noise_gen if wire_noise_fn is None else (
+            lambda g, shape, t=t: wire_noise_fn(t, g, shape).to(dev))
+        outs = step_fn(params, opt_state, batch, masks, lr,
+                       exchange=exchange, ef_state=ef_state,
+                       wire_noise=wire_noise)
+        if use_ef:
+            params, opt_state, loss, consensus, ef_state = outs
+        else:
+            params, opt_state, loss, consensus = outs
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         history["step_s"].append(time.perf_counter() - t0)
@@ -294,6 +339,7 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
                 history["eval"].append(float(eval_fn(mean_params)))
     history["final_loss"] = history["loss"][-1]
     history["params"] = params
+    history["ef_state"] = ef_state
     history["state"] = {"params": params, "opt_state": opt_state,
-                        "ch_state": ch_state}
+                        "ch_state": ch_state, "ef_state": ef_state}
     return history

@@ -175,13 +175,15 @@ def test_exchange_not_ported_options_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         trps.rps_exchange_global(x, None, 0.1, 4, corruption="collude")
     with pytest.raises(NotImplementedError, match="not ported"):
-        trps.rps_exchange_global(x, None, 0.1, 4, ef_state=x)
+        trps.rps_exchange_global(x, None, 0.1, 4, recovery="median")
     with pytest.raises(NotImplementedError, match="not ported"):
         trps.rps_exchange_global(x, None, 0.1, 4, late=(x, x))
+    # the int8 wire and ef are ported (tests/test_torch_ring_int8.py); the
+    # robust recoveries still raise
     with pytest.raises(NotImplementedError):
-        twire.make_recovery("ef")
+        twire.make_recovery("trimmed")
     with pytest.raises(NotImplementedError):
-        twire.make_codec("int8")
+        twire.make_recovery("clip")
 
 
 def test_sample_masks_owner_forcing_and_marginal():

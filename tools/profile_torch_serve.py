@@ -29,10 +29,14 @@ p = 0.1 on the ring-round kernel): a one-step warm-up run, a timed run
 of two steps (host wall of each step, the device synchronised at its
 end), then the same run under ``torch.profiler``. Prints the step times,
 training tokens/s, device busy time and idle share per step, the top
-kernels, and the ring kernel's launches, device time and share of busy
-time.
+kernels, and the ring kernels' launches, device time and share of busy
+time. ``--wire int8`` and ``--recovery ef`` profile the int8 wire's load
+(chip_smoke.py phase 21), whose groups run the ring round's encoded
+variant; the int8 encode and the EF residual are the elementwise kernels
+around it.
 
     python3 tools/profile_torch_serve.py [--slice gemma3|rwkv6|recurrentgemma|train]
+        [--wire f32|bf16|int8] [--recovery renorm|scale|ef]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -165,8 +169,10 @@ def profile_static(card: str, name: str) -> dict:
         "top_kernels_generate": _top(gen_k, busy_s)}
 
 
-def profile_train(card: str, steps: int = 2) -> dict:
-    """The training slice (chip_smoke.py phase 17's load)."""
+def profile_train(card: str, steps: int = 2, wire: str = "f32",
+                  recovery: str = "renorm") -> dict:
+    """The training slice (chip_smoke.py phase 17's load; phase 21's with
+    ``wire="int8"``)."""
     load = RPS_100M_LOAD
     n = load["n"]
     model = build_model(RPS_100M, device="cuda")
@@ -185,7 +191,8 @@ def profile_train(card: str, steps: int = 2) -> dict:
         scfg = SimulatorConfig(n_workers=n, drop_rate=load["p"],
                                aggregator="rps_model", lr=load["lr"],
                                warmup=load["warmup"], steps=k,
-                               eval_every=1, engine="ring")
+                               eval_every=1, engine="ring", wire=wire,
+                               recovery=recovery)
         h = run_simulation(loss_fn, None, lambda t: batches[t], scfg,
                            device="cuda", init_params=p1)
         return h["step_s"]
@@ -193,20 +200,24 @@ def profile_train(card: str, steps: int = 2) -> dict:
     run(1)                                            # warm-up
     step_s = run(steps)
     RG.ring_round.launches = 0
+    RG.ring_round_enc.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(steps)
         torch.cuda.synchronize()
         prof_wall_s = time.perf_counter() - t0
-    launches = RG.ring_round.launches
+    launches = RG.ring_round.launches + RG.ring_round_enc.launches
     kernels = _device_kernels(prof)
     busy_s = sum(k[0] for k in kernels) / 1e6
-    ring = [k for k in kernels if "ring_round_kernel" in k[2]]
+    ring = [k for k in kernels
+            if any(name in k[2] for name in ("ring_round_kernel",
+                                             "ring_requant_kernel"))]
     ring_s = sum(k[0] for k in ring) / 1e6
     tokens = n * load["batch"] * load["seq"]
     return {
         "card": card, "slice": "train", "arch": RPS_100M.name, **load,
+        "wire": wire, "recovery": recovery,
         "steps_profiled": steps, "step_ms": [t * 1e3 for t in step_s],
         "tokens_per_s": tokens * steps / sum(step_s),
         "profiled_wall_s": prof_wall_s,
@@ -223,13 +234,18 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--slice", choices=("gemma3",) + tuple(STATIC)
                     + ("train",), default="gemma3")
+    ap.add_argument("--wire", choices=("f32", "bf16", "int8"),
+                    default="f32", help="--slice train: the RS-leg codec")
+    ap.add_argument("--recovery", choices=("renorm", "scale", "ef"),
+                    default="renorm", help="--slice train: the recovery")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
     if args.slice == "train":
-        print(json.dumps(profile_train(card), indent=1))
+        print(json.dumps(profile_train(card, wire=args.wire,
+                                       recovery=args.recovery), indent=1))
         return 0
     if args.slice in STATIC:
         print(json.dumps(profile_static(card, args.slice), indent=1))
