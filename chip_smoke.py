@@ -24,10 +24,12 @@ raises on failure; nothing is caught):
    against the dense decode, same tokens, 4 steps, logits within a bf16
    tolerance;
 6. RWKV-6 kernel against its plain version on the card: a sweep of
-   sequence lengths, head widths and dtypes within the JAX package's
-   kernel-test tolerances (2e-4 f32, 0.1 bf16), the final state within
-   2e-4 (f32); then its time at the slice shape (8, 512, 32, 64) bf16
-   beside its plain version and the card's bound;
+   sequence lengths, head widths, dtypes and decays (the kernel tests'
+   uniform ones, and every w at 1e-30, 0.999 and 0) within the JAX
+   package's kernel-test tolerances (2e-4 f32, 0.1 bf16), the final state
+   within 2e-4 (f32); then its time at the slice shape (8, 512, 32, 64)
+   bf16 beside its plain version and the card's bound (bytes, against the
+   TF32 tensor-core rate, and the f32-core bound beside it);
 7. slice: rwkv6-1.6b at full width (random bf16 weights) served by the
    static-batch engine, 8 prompts of 512 tokens, 32 new tokens, greedy;
    checks the tokens, finite logits at every step and one kernel launch
@@ -79,12 +81,17 @@ raises on failure; nothing is caught):
    the re-encode; the EF send on a linear wire summed in f32 and bf16)
    against its plain version on the card, bit for bit: payload f32 /
    bf16 x the three modes x n in {1, 2, 4, 8, 16} x s in {1, n/2, n, 2n}
-   x d in {1, 33, 64, 4096, 4097, 4104}, a block zero in every rank; and
-   every exchange group of the rps-paper-mlp and rps-100m plans at the
-   int8 wire;
-19. its time at phase 14's two shapes beside its form without the
+   x d in {1, 33, 64, 4096, 4097, 4104}, a block zero in every rank; the
+   re-encoding kernel at the widths where its cluster grows to 2, 4, 8
+   and 16 blocks, where a block holds more than half an SM's shared
+   memory, and at a row wider than the largest cluster holds (the
+   cooperative wide path); and every exchange group of the rps-paper-mlp
+   and rps-100m plans at the int8 wire;
+19. its time at phase 14's two shapes beside the cooperative wide path
+   (the first design) at the same shapes, its form without the
    re-encode, its plain version, the xla engine's int8 route and the
    card's bound (phase 14 times the linear kernel at the same shapes);
+   and the wide path's time at a row wider than a cluster holds;
 20. benchmarks/wire_bench.py section 2 on the port: replicated data,
    n = 8, rps_model, engine "auto", p in {0.2, 0.3}, 3 seeds, 200 steps;
    ef closes at least half of the bf16 and int8 wires' loss gap;
@@ -144,6 +151,7 @@ torch.backends.cudnn.allow_tf32 = False
 # NVIDIA H100 SXM data-sheet peaks at its 700 W limit (dense rates)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # TF32 on the tensor cores
 
 SERVE_SHAPE = (4, 4, 2304)     # (B, n, d) of one TP combine at gemma3-1b
 SITES_PER_STEP = 52            # 2 collective sites × 26 layers
@@ -461,10 +469,17 @@ def dense_equivalence(model, params, steps: int = 4) -> dict:
             "max_abs": worst_abs, "tol_rel_rms": 5e-2}
 
 
+# phase 6's decays beside the kernel tests' uniform (0.05, 0.995): every
+# w at 1e-30 (the clip), at 0.999, and at 0 (clipped to 1e-30 in the
+# kernel; exactly 0 in the plain version)
+RWKV_DECAYS = {"uniform": None, "tiny": 1e-30, "slow": 0.999, "zero": 0.0}
+
+
 def rwkv_inputs(gen: torch.Generator, B: int, S: int, h: int, dk: int,
-                dv: int, dtype: torch.dtype) -> list:
+                dv: int, dtype: torch.dtype, decay: str = "uniform") -> list:
     """The JAX kernel tests' input distribution on the card: r, k, v
-    normal × 0.5, w uniform in (0.05, 0.995), u normal × 0.1 (f32)."""
+    normal × 0.5, w uniform in (0.05, 0.995) (or every w at one of
+    RWKV_DECAYS), u normal × 0.1 (f32)."""
     def normal(shape, scale):
         return torch.randn(shape, generator=gen, device="cuda") * scale
     r = normal((B, S, h, dk), 0.5)
@@ -472,48 +487,65 @@ def rwkv_inputs(gen: torch.Generator, B: int, S: int, h: int, dk: int,
     v = normal((B, S, h, dv), 0.5)
     w = 0.05 + 0.945 * torch.rand((B, S, h, dk), generator=gen,
                                   device="cuda")
+    if RWKV_DECAYS[decay] is not None:
+        w = torch.full_like(w, RWKV_DECAYS[decay])
     u = normal((h, dk), 0.1)
     return [x.to(dtype) for x in (r, k, v, w)] + [u]
 
 
 def check_rwkv6(gen: torch.Generator) -> dict:
     """Phase 6a: the RWKV-6 kernel against its plain version over the
-    sweep, and at the slice shape. Returns the slice shape's errors."""
+    sweep, at every decay of RWKV_DECAYS, and at the slice shape. Returns
+    the slice shape's errors."""
     cases = [(2, S, 3, dk, dv) for S in (1, 16, 33, 130, 512)
              for dk, dv in ((8, 8), (16, 32), (64, 64))]
     cases.append(RWKV_SHAPE + (64,))
     errs = {}
+    n_cases = 0
+    # the extreme decays draw from a generator of their own, so the
+    # phases after this one see the same draws as without them
+    extreme = torch.Generator(device="cuda")
+    extreme.manual_seed(6)
     for B, S, h, dk, dv in cases:
         for dt in (torch.float32, torch.bfloat16):
-            args = rwkv_inputs(gen, B, S, h, dk, dv, dt)
-            o, state = ops.rwkv6(*args)
-            o_ref, s_ref = ops.rwkv6(*args, backend="ref")
-            torch.cuda.synchronize()
-            err_o = (o.float() - o_ref.float()).abs().max().item()
-            err_s = (state - s_ref).abs().max().item()
-            tol = RWKV_TOL[dt]
-            if o.dtype != dt or not torch.allclose(
-                    o.float(), o_ref.float(), atol=tol, rtol=tol):
-                raise AssertionError(f"rwkv6 {(B, S, h, dk, dv)} {dt}: "
-                                     f"output max abs err {err_o} > {tol}")
-            if not torch.allclose(state, s_ref, atol=RWKV_STATE_TOL,
-                                  rtol=RWKV_STATE_TOL):
-                raise AssertionError(f"rwkv6 {(B, S, h, dk, dv)} {dt}: "
-                                     f"state max abs err {err_s} > "
-                                     f"{RWKV_STATE_TOL}")
-            if (B, S, h, dk) == RWKV_SHAPE:
-                errs[str(dt).replace("torch.", "")] = {"o": err_o,
-                                                       "state": err_s}
-    print(f"rwkv6 sweep: {2 * len(cases)} cases agree with the plain "
-          f"version", flush=True)
+            for decay in RWKV_DECAYS:
+                if decay != "uniform" and (B, S, h, dk) == RWKV_SHAPE:
+                    continue
+                args = rwkv_inputs(gen if decay == "uniform" else extreme,
+                                   B, S, h, dk, dv, dt, decay)
+                o, state = ops.rwkv6(*args)
+                o_ref, s_ref = ops.rwkv6(*args, backend="ref")
+                torch.cuda.synchronize()
+                err_o = (o.float() - o_ref.float()).abs().max().item()
+                err_s = (state - s_ref).abs().max().item()
+                tol = RWKV_TOL[dt]
+                what = f"rwkv6 {(B, S, h, dk, dv)} {dt} w {decay}"
+                if o.dtype != dt or not torch.allclose(
+                        o.float(), o_ref.float(), atol=tol, rtol=tol):
+                    raise AssertionError(f"{what}: output max abs err "
+                                         f"{err_o} > {tol}")
+                if not torch.allclose(state, s_ref, atol=RWKV_STATE_TOL,
+                                      rtol=RWKV_STATE_TOL):
+                    raise AssertionError(f"{what}: state max abs err "
+                                         f"{err_s} > {RWKV_STATE_TOL}")
+                if (B, S, h, dk) == RWKV_SHAPE:
+                    errs[str(dt).replace("torch.", "")] = {"o": err_o,
+                                                           "state": err_s}
+                n_cases += 1
+    print(f"rwkv6 sweep: {n_cases} cases agree with the plain version",
+          flush=True)
     return errs
 
 
 def time_rwkv6(gen: torch.Generator) -> dict:
     """Phase 6b: times at the slice shape, bf16. The plain version is a
-    512-step Python loop, so its graph holds few calls."""
+    512-step Python loop, so its graph holds few calls. The bound: the
+    inputs read and the outputs written once, against the recurrence's
+    6 B S h dk dv operations at the TF32 tensor-core rate the kernel's
+    products run at; the same operations on the f32 cores beside it."""
     B, S, h, dk = RWKV_SHAPE
-    args = rwkv_inputs(gen, B, S, h, dk, dk, torch.bfloat16)
+    dv = dk
+    args = rwkv_inputs(gen, B, S, h, dk, dv, torch.bfloat16)
 
     def kernel():
         return RK.rwkv6(*args)
@@ -522,17 +554,25 @@ def time_rwkv6(gen: torch.Generator) -> dict:
         return ops.rwkv6(*args, backend="ref")
 
     el = args[0].element_size()
-    nbytes = (4 * B * S * h * dk * el          # r, k, v, w
+    nbytes = (3 * B * S * h * dk * el          # r, k, w
+              + B * S * h * dv * el            # v
               + h * dk * 4                     # u
-              + B * S * h * dk * el            # out
-              + B * h * dk * dk * 4)           # final state
-    flops = 6 * B * S * h * dk * dk
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return {"ms": device_ms(kernel, calls=20, reps=10),
-            "plain_ms": device_ms(plain, calls=2, reps=3),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+              + B * S * h * dv * el            # out
+              + B * h * dk * dv * 4)           # final state
+    flops = 6 * B * S * h * dk * dv
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S
+    ms = device_ms(kernel, calls=20, reps=10)
+    out = {"ms": ms, "plain_ms": device_ms(plain, calls=2, reps=3),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_f32_simt_ms": max(t_bytes,
+                                    flops / F32_FLOPS_PER_S) * 1e3,
+           "cuda_launches_per_call": 1, "memsets_per_call": 1,
+           "bytes": nbytes, "flops": flops}
+    print(f"rwkv6 {RWKV_SHAPE} bf16: {ms:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}; f32 cores "
+          f"{out['bound_f32_simt_ms']:.4f} ms)", flush=True)
+    return out
 
 
 def serve_static(model, params, gen: torch.Generator,
@@ -1039,6 +1079,17 @@ RING_ENC_VARIANTS = (("int8", "int8", INT8.levels, torch.float32),
 # about ten times the largest gap measured on an H100 80GB HBM3 at 700 W
 # (5.2e-4 with ef, 4.9e-4 with renorm; PERF.md)
 INT8_LOSS_GAP = 5e-3
+# phase 18's widths for the re-encoding kernel's plan (G, n, s, d): one
+# block per row, then its cluster grows to 2, 4, 8 and 16 blocks, a block
+# holds more than half an SM's shared memory, and a row wider than the
+# largest cluster holds takes the cooperative wide path
+# (kernels/ring.py::requant_plan)
+RING_Q_WIDTHS = ((2, 4, 1, 4096), (2, 4, 1, 16384), (2, 4, 1, 32768),
+                 (2, 16, 1, 65536),
+                 (1, 16, 4, 131072), (1, 4, 1, 2_000_000),
+                 (1, 3, 2, 3_145_729))
+# phase 19's wide-path timing shape: rows past the widest cluster
+RING_Q_WIDE = (1, 4, 4, 3_200_000)
 # phase 20: wire_bench.py section 2 (replicated data, n = 8)
 GAP_STUDY = dict(n=8, steps=200, seeds=(0, 1, 2), ps=(0.2, 0.3))
 
@@ -1064,9 +1115,12 @@ def check_ring_enc(gen: torch.Generator, plans: dict) -> tuple:
     """Phase 18: the encoded variant against its plain version, bit for
     bit: the four variants x payload f32 / bf16 x the three modes x
     n in {1, 2, 4, 8, 16} x s in {1, n/2, n, 2n} x d in RING_DS, G = 2;
-    then every exchange group of the rps-paper-mlp and rps-100m plans at
-    the int8 wire (re-encoding), every mode. Returns (cases, the largest
-    absolute difference)."""
+    the re-encoding kernel at RING_Q_WIDTHS (payload f32 / bf16 x the three
+    modes), which must reach every cluster size of its plan, a block of
+    more than half an SM's shared memory and the wide path; then every
+    exchange group of the rps-paper-mlp and rps-100m plans at the int8
+    wire (re-encoding), every mode. Returns (cases, the largest absolute
+    difference)."""
     n_cases, worst = 0, 0.0
 
     def one(args, enc, mode, levels, acc, what):
@@ -1092,6 +1146,24 @@ def check_ring_enc(gen: torch.Generator, plans: dict) -> tuple:
                                                       table, mode)
                             one(args, enc, mode, levels, acc,
                                 f"{name} n={n} s={s} d={d} {dt}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans_seen = set()
+    for G, n, s, d in RING_Q_WIDTHS:
+        cluster, chunk = RG.requant_plan(G * s, d, sms)
+        plans_seen.add(cluster)
+        if chunk > RG.HALF_CHUNK:
+            plans_seen.add("one block per SM")
+        for dt in (torch.float32, torch.bfloat16):
+            for mode in RG.MODES:
+                args, enc = ring_enc_case(gen, G, n, s, d, dt, "int8", mode)
+                one(args, enc, mode, INT8.levels, torch.float32,
+                    f"int8 n={n} s={s} d={d} {dt} (cluster {cluster})")
+                del args, enc
+    want = {0, 1, 2, 4, 8, 16, "one block per SM"}
+    if plans_seen != want:
+        raise AssertionError(f"phase 18's widths reach the plans "
+                             f"{plans_seen}, want {want}")
+    torch.cuda.empty_cache()
     for name, plan in plans.items():
         if name == "quickstart":
             continue
@@ -1109,21 +1181,42 @@ def check_ring_enc(gen: torch.Generator, plans: dict) -> tuple:
     return n_cases, worst
 
 
-def time_ring_enc(gen: torch.Generator, shape: tuple) -> dict:
+def wide_path(x, q, sc, rs, ag, div, levels: int):
+    """The re-encoding kernel's cooperative wide path (its first design)
+    at any shape, through the op itself (a yardstick: the wrapper takes it
+    only for rows wider than the largest cluster)."""
+    G, n, s, d = x.shape
+    out = torch.empty_like(x)
+    part = torch.empty((G, s, d), dtype=torch.float32, device=x.device)
+    amax = torch.zeros((G * s, n), dtype=torch.int32, device=x.device)
+    build.load_kernels().ring_round_enc(x, q, sc, rs, ag, div, out, part,
+                                        amax, True, False, levels, 0, 0)
+    return out
+
+
+def time_ring_enc(gen: torch.Generator, shape: tuple,
+                  full: bool = True) -> dict:
     """Phase 19: times of the int8 wire's ring round (re-encoding) on an
-    f32 (G, n, s, d) group in model mode, beside its no-re-encode form,
+    f32 (G, n, s, d) group in model mode, beside the kernel's cooperative
+    wide path at the same shape (its first design), its no-re-encode form,
     its plain version and the xla engine's int8 route (decode, einsum,
-    divide, where). The bound: the int8 table and scales read once, the
-    output written once, the fallback blocks read where ag dropped them."""
+    divide, where); ``full=False`` times the kernel alone. The bound: the
+    int8 table and scales read once, the output written once, the
+    fallback blocks read where ag dropped them."""
     G, n, s, d = shape
     args, enc = ring_enc_case(gen, G, n, s, d, torch.float32, "int8",
                               "model")
     x, rs, ag, div = args
     q, sc = enc["enc"], enc["scale"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cluster, chunk = RG.requant_plan(G * s, d, sms)
 
     def kernel():
         return RG.ring_round_enc(x, q, sc, rs, ag, div, mode="model",
                                  levels=INT8.levels)
+
+    def first_design():
+        return wide_path(x, q, sc, rs, ag, div, INT8.levels)
 
     def no_requant():
         return RG.ring_round_enc(x, q, sc, rs, ag, div, mode="model")
@@ -1142,7 +1235,10 @@ def time_ring_enc(gen: torch.Generator, shape: tuple) -> dict:
     if not torch.equal(_bits(got), _bits(plain())):
         raise AssertionError(f"ring_round_enc {shape}: not bitwise at the "
                              f"timing shape")
-    err_xla = (xla_route() - got).abs().max().item()
+    if cluster and not torch.equal(_bits(got), _bits(first_design())):
+        raise AssertionError(f"ring_round_enc {shape}: the cluster and "
+                             f"wide paths differ")
+    err_xla = (xla_route() - got).abs().max().item() if full else None
     del got
     torch.cuda.empty_cache()
     dropped = int((ag == 0).sum())
@@ -1156,17 +1252,27 @@ def time_ring_enc(gen: torch.Generator, shape: tuple) -> dict:
     flops = 3 * x.numel() + 3 * (n - 1) * G * s * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     big = x.numel() * x.element_size() > 2 ** 30
-    return {"shape": list(shape),
-            "ms": event_ms(kernel, 20 if big else 100),
-            "no_requant_ms": event_ms(no_requant, 20 if big else 100),
-            "plain_ms": event_ms(plain, 2, warm=1),
-            "xla_route_ms": event_ms(xla_route, 5 if big else 20),
-            "xla_route_max_abs_diff": err_xla,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes,
-            # what the design moves: the partial's f32 round trip per hop
-            "design_bytes": nbytes + 8 * (n - 1) * G * s * d}
+    calls = 20 if big else 100
+    out = {"shape": list(shape), "cluster": cluster, "chunk": chunk,
+           "ms": event_ms(kernel, calls),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes,
+           # what the first design moves besides: the partial's f32 round
+           # trip per hop through its scratch row
+           "first_design_bytes": nbytes + 8 * (n - 1) * G * s * d}
+    if full:
+        out.update({"first_design_ms": event_ms(first_design, calls),
+                    "no_requant_ms": event_ms(no_requant, calls),
+                    "plain_ms": event_ms(plain, 2, warm=1),
+                    "xla_route_ms": event_ms(xla_route, 5 if big else 20),
+                    "xla_route_max_abs_diff": err_xla,
+                    "ms_again": event_ms(kernel, calls)})
+    print(f"ring_round_enc {tuple(shape)} (cluster {cluster}): "
+          f"{out['ms']:.4f} ms, bound {out['bound_ms']:.4f} ms"
+          + (f", first design {out['first_design_ms']:.4f} ms" if full
+             else ""), flush=True)
+    return out
 
 
 def ef_gap_closure(study=GAP_STUDY) -> dict:
@@ -1417,10 +1523,12 @@ def main() -> int:
     enc_cases, enc_err = check_ring_enc(gen, plans)
     enc_group = time_ring_enc(gen, group)
     enc_bucket = time_ring_enc(gen, bucket)
+    enc_wide = time_ring_enc(gen, RING_Q_WIDE, full=False)
     print(json.dumps({"ring_enc_cases": enc_cases,
                       "ring_enc_max_abs_err": enc_err,
                       "ring_enc_timing_group": enc_group,
                       "ring_enc_timing_bucket": enc_bucket,
+                      "ring_enc_timing_wide": enc_wide,
                       "ring_linear_ms": {"group": ring_group["ms"],
                                          "bucket": ring_bucket["ms"]},
                       "card": card}), flush=True)

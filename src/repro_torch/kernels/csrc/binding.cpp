@@ -1,12 +1,13 @@
 // Binds the port's CUDA kernels to PyTorch as
 //   torch.ops.repro_torch.masked_avg_grid(blocks, mask, out, tile)
-//   torch.ops.repro_torch.rwkv6_fwd(r, k, v, w, u, out, state)
+//   torch.ops.repro_torch.rwkv6_fwd(r, k, v, w, u, out, state, scratch,
+//                                   ready)
 //   torch.ops.repro_torch.rglru_fwd(x, a, out, h_last)
 //   torch.ops.repro_torch.ring_round(stack, rs, ag, div, out, renorm,
 //                                    acc_bf16)
 //   torch.ops.repro_torch.ring_round_enc(stack, enc, scale, rs, ag, div,
 //                                        out, part, amax, renorm, acc_bf16,
-//                                        levels)
+//                                        levels, cluster, chunk)
 // The only file of the build that includes PyTorch's headers; it registers
 // the ops through torch/library.h rather than torch/extension.h and
 // pybind11, which keeps its compile short. The Python wrappers
@@ -96,9 +97,9 @@ void masked_avg_grid(const at::Tensor& blocks, const at::Tensor& mask,
 
 void rwkv6_fwd(const at::Tensor& r, const at::Tensor& k, const at::Tensor& v,
                const at::Tensor& w, const at::Tensor& u, at::Tensor& out,
-               at::Tensor& state) {
+               at::Tensor& state, at::Tensor& scratch, at::Tensor& ready) {
   for (const at::Tensor* t : std::initializer_list<const at::Tensor*>{
-           &r, &k, &v, &w, &u, &out, &state}) {
+           &r, &k, &v, &w, &u, &out, &state, &scratch, &ready}) {
     TORCH_CHECK(t->is_cuda() && t->device() == r.device(),
                 "rwkv6_fwd: tensors must be on one CUDA device");
     TORCH_CHECK(t->is_contiguous(), "rwkv6_fwd: tensors must be contiguous");
@@ -130,16 +131,27 @@ void rwkv6_fwd(const at::Tensor& r, const at::Tensor& k, const at::Tensor& v,
                   dv <= repro_torch::kRwkv6MaxDim,
               "rwkv6_fwd: dk = ", dk, ", dv = ", dv, "; the kernel takes 1..",
               repro_torch::kRwkv6MaxDim);
-  // the grid is one block per (b, h); S and H are passed as int
-  TORCH_CHECK(S >= 1 && S <= kMaxGridX && B >= 1 && H >= 1 &&
-                  B * H <= kMaxGridX,
-              "rwkv6_fwd: need S >= 1 and 1 <= B * H <= ", kMaxGridX);
+  // the grid is one block per (b, h, chunk of 64 tokens)
+  TORCH_CHECK(S >= 1 && B >= 1 && H >= 1 &&
+                  B * H <= kMaxGridX / ((S + 63) / 64),
+              "rwkv6_fwd: need S >= 1 and 1 <= B * H * ceil(S / 64) <= ",
+              kMaxGridX);
+  TORCH_CHECK(scratch.scalar_type() == c10::ScalarType::Float &&
+                  scratch.numel() >= repro_torch::rwkv6_scratch_floats(B, S, H),
+              "rwkv6_fwd: scratch must be float32 of at least ",
+              repro_torch::rwkv6_scratch_floats(B, S, H), " elements");
+  TORCH_CHECK(ready.scalar_type() == c10::ScalarType::Int &&
+                  ready.numel() == B * H * ((S + 63) / 64),
+              "rwkv6_fwd: ready must be int32, B * H * ceil(S / 64) zeroed "
+              "flags");
   const c10::cuda::CUDAGuard guard(r.device());
-  repro_torch::rwkv6_fwd_launch(
+  C10_CUDA_CHECK(repro_torch::rwkv6_fwd_launch(
       r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
       static_cast<const float*>(u.data_ptr()), dtype_code(st), out.data_ptr(),
-      static_cast<float*>(state.data_ptr()), B, S, H, dk, dv,
-      c10::cuda::getCurrentCUDAStream().stream());
+      static_cast<float*>(state.data_ptr()),
+      static_cast<float*>(scratch.data_ptr()),
+      static_cast<int*>(ready.data_ptr()), B, S, H, dk, dv,
+      c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -237,10 +249,10 @@ void ring_round_enc(const at::Tensor& stack, const at::Tensor& enc,
                     const at::Tensor& rs, const at::Tensor& ag,
                     const at::Tensor& div, at::Tensor& out, at::Tensor& part,
                     at::Tensor& amax, bool renorm, bool acc_bf16,
-                    int64_t levels) {
+                    int64_t levels, int64_t cluster, int64_t chunk) {
   std::vector<const at::Tensor*> ts{&stack, &enc, &rs, &ag, &div, &out};
   if (scale.has_value()) ts.push_back(&scale.value());
-  if (levels > 0) {
+  if (levels > 0 && cluster == 0) {
     ts.push_back(&part);
     ts.push_back(&amax);
   }
@@ -284,6 +296,22 @@ void ring_round_enc(const at::Tensor& stack, const at::Tensor& enc,
               "ring_round_enc: levels = ", levels, ", want 0..", kMaxLevels);
   if (levels > 0) {
     TORCH_CHECK(int8, "ring_round_enc: levels > 0 needs an int8 enc");
+    TORCH_CHECK(cluster >= 0 && cluster <= repro_torch::kRingQMaxCluster,
+                "ring_round_enc: cluster = ", cluster, ", want 0..",
+                repro_torch::kRingQMaxCluster);
+  }
+  if (levels > 0 && cluster > 0) {
+    TORCH_CHECK(chunk >= 16 && chunk % 16 == 0 &&
+                    chunk <= repro_torch::kRingQMaxChunk &&
+                    cluster * chunk >= d,
+                "ring_round_enc: chunk = ", chunk, " at cluster ", cluster,
+                " must be a multiple of 16 in 16..",
+                repro_torch::kRingQMaxChunk, " covering d = ", d);
+    TORCH_CHECK(G * s <= kMaxGridX / cluster, "ring_round_enc: G * s * "
+                "cluster = ", G, " * ", s, " * ", cluster, " blocks exceed ",
+                kMaxGridX);
+  }
+  if (levels > 0 && cluster == 0) {
     TORCH_CHECK(part.scalar_type() == c10::ScalarType::Float &&
                     part.numel() == G * s * d,
                 "ring_round_enc: part must be float32 (G, s, d)");
@@ -317,7 +345,8 @@ void ring_round_enc(const at::Tensor& stack, const at::Tensor& enc,
         static_cast<const float*>(div.data_ptr()), out.data_ptr(),
         static_cast<float*>(part.data_ptr()),
         static_cast<unsigned int*>(amax.data_ptr()),
-        static_cast<int>(levels), renorm, G, n, s, d, stream));
+        static_cast<int>(levels), renorm, G, n, s, d,
+        static_cast<int>(cluster), chunk, stream));
   } else {
     repro_torch::ring_round_launch(
         stack.data_ptr(), dtype_code(st), enc.data_ptr(),
@@ -338,7 +367,8 @@ TORCH_LIBRARY(repro_torch, m) {
         "int tile) -> ()",
         &masked_avg_grid);
   m.def("rwkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
-        "Tensor(a!) out, Tensor(b!) state) -> ()",
+        "Tensor(a!) out, Tensor(b!) state, Tensor(c!) scratch, "
+        "Tensor(d!) ready) -> ()",
         &rwkv6_fwd);
   m.def("rglru_fwd(Tensor x, Tensor a, Tensor(a!) out, Tensor(b!) h_last) "
         "-> ()",
@@ -348,6 +378,7 @@ TORCH_LIBRARY(repro_torch, m) {
         &ring_round);
   m.def("ring_round_enc(Tensor stack, Tensor enc, Tensor? scale, "
         "Tensor rs, Tensor ag, Tensor div, Tensor(a!) out, Tensor(b!) part, "
-        "Tensor(c!) amax, bool renorm, bool acc_bf16, int levels) -> ()",
+        "Tensor(c!) amax, bool renorm, bool acc_bf16, int levels, "
+        "int cluster, int chunk) -> ()",
         &ring_round_enc);
 }

@@ -33,20 +33,25 @@ void masked_avg_grid_launch(const void* blocks, DType blocks_dtype,
                             int64_t B, int64_t n, int64_t d, int64_t tile,
                             cudaStream_t stream);
 
-// The largest dk and dv the RWKV-6 kernel takes (one thread per state
-// column, the (dk, dv) state in registers).
+// The largest dk and dv the RWKV-6 kernel takes (both are padded to it).
 constexpr int64_t kRwkv6MaxDim = 64;
+
+// Floats of scratch the RWKV-6 launch needs: per (b, h) and chunk of 64
+// tokens, the (64, 64) state it passes on.
+int64_t rwkv6_scratch_floats(int64_t B, int64_t S, int64_t H);
 
 // Enqueues the RWKV-6 recurrence from a zero state over contiguous
 // r, k, w (B, S, H, dk) and v (B, S, H, dv), all of type `dtype`, with the
 // f32 bonus u (H, dk): writes out (B, S, H, dv) in `dtype` and the final
-// f32 state (B, H, dk, dv), one thread block per (b, h). Needs
-// 1 <= dk, dv <= kRwkv6MaxDim and S >= 1. Does not synchronise; the caller
-// checks cudaGetLastError() right after.
-void rwkv6_fwd_launch(const void* r, const void* k, const void* v,
-                      const void* w, const float* u, DType dtype, void* out,
-                      float* state, int64_t B, int64_t S, int64_t H,
-                      int64_t dk, int64_t dv, cudaStream_t stream);
+// f32 state (B, H, dk, dv), in one launch of the chunked form through the
+// f32 `scratch` of rwkv6_scratch_floats(B, S, H) and B * H * ceil(S / 64)
+// zeroed int flags `ready`. Needs 1 <= dk, dv <= kRwkv6MaxDim and S >= 1.
+// Returns the launch error. Does not synchronise.
+cudaError_t rwkv6_fwd_launch(const void* r, const void* k, const void* v,
+                             const void* w, const float* u, DType dtype,
+                             void* out, float* state, float* scratch,
+                             int* ready, int64_t B, int64_t S, int64_t H,
+                             int64_t dk, int64_t dv, cudaStream_t stream);
 
 // Enqueues the RG-LRU recurrence
 //   h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t
@@ -81,10 +86,13 @@ void ring_round_launch(const void* stack, DType dtype, const void* enc,
 
 // Enqueues the ring round on the int8 wire that re-encodes the running
 // partial per row onto {-levels, ..., levels} before each hop's add
-// (ring_q.cu), in one cooperative launch: as ring_round_launch with an
-// int8 `enc` and its `scale`, with the f32 scratch `part` (G, s, d) and the
-// zeroed row slots `amax` (G * s, n). Returns the launch's error
-// (cudaErrorNotSupported without cooperative launch). Does not
+// (ring_q.cu): as ring_round_launch with an int8 `enc` and its `scale`.
+// cluster >= 1: one cluster of `cluster` blocks per (g, j) row, each block
+// owning `chunk` columns (a multiple of 16, at most kRingQMaxChunk, with
+// cluster * chunk >= d) and carrying them as int8 in shared memory;
+// `part` and `amax` are unused. cluster == 0 (the wide path): one
+// cooperative launch with the f32 scratch `part` (G, s, d) and the zeroed
+// row slots `amax` (G * s, n). Returns the launch's error. Does not
 // synchronise.
 cudaError_t ring_requant_launch(const void* stack, DType dtype,
                                 const void* enc, const float* scale,
@@ -93,7 +101,14 @@ cudaError_t ring_requant_launch(const void* stack, DType dtype,
                                 const float* div, void* out, float* part,
                                 unsigned int* amax, int levels, bool renorm,
                                 int64_t G, int64_t n, int64_t s, int64_t d,
+                                int cluster, int64_t chunk,
                                 cudaStream_t stream);
+
+// The re-encoding kernel's cluster path: at most 16 blocks (the
+// non-portable cluster size) per row, each carrying at most 192 KiB of
+// int8 partial in shared memory.
+constexpr int64_t kRingQMaxCluster = 16;
+constexpr int64_t kRingQMaxChunk = 196608;
 
 // Floats of shared memory a ring-round block may stage: the 48 KB of the
 // static limit.

@@ -22,30 +22,55 @@
 // f32. Bit for bit equal to the plain version (kernels/ref.py::
 // ring_round_ref with enc= and levels=): every multiply, divide and add is
 // an explicit round-to-nearest intrinsic, so no multiply-add is
-// contracted; rintf rounds half to even as torch.round does; the row max
-// is exact.
+// contracted; rintf rounds half to even as torch.round does; the encode
+// goes through int as the int8 cast does, so a negative zero decodes as
+// +0; the row max is exact and independent of order; D = 1 / levels for an
+// all-zero row.
 //
-// What bounds it: bytes. The least traffic is the int8 table read once, the
-// output written once and the fallback blocks read where ag dropped them
-// (at rps-100m's largest group (3, 16, 16, 1769472) f32 about 7.3 GB, 2.2
-// ms at an H100 SXM's 3.35 TB/s, data sheet, 700 W).
+// What bounds it: bytes. The least traffic is the int8 table and its
+// scales read once, the n outputs written once and the fallback blocks
+// read where ag dropped them. At rps-100m's largest group (3, 16, 16,
+// 1769472) f32 that is 8.48 GB, 2.53 ms at an H100 SXM's 3.35 TB/s (data
+// sheet, 700 W), with the Bernoulli(0.7) masks of chip_smoke.py phase 19;
+// at the training's p = 0.1 masks about 7.3 GB, 2.2 ms. The n outputs are
+// about two thirds of it.
 //
-// What the design does about it (the first, simple form): the re-encode
-// needs max|acc| over a whole row (up to 1.77 M columns, 7 MB) before any
-// column of it can be encoded, n - 1 times. One cooperative launch per
-// group: a grid of as many blocks as fit on the card at once loops over the
-// (g, j, column tile) items; per hop each tile adds its rank's contribution
-// to the f32 partial kept in a scratch row (G, s, d), folds its max|acc|
-// into the row's slot with atomicMax on the float's bits (non-negative
-// floats order as integers, so the max is exact and independent of order),
-// and the grid synchronises (cooperative_groups grid.sync, no -rdc needed)
-// before the next hop reads the slot. A block handles the same items at
-// every hop, so each thread re-reads only what it wrote itself. The last
-// hop divides and writes the n outputs. Extra traffic over the bound: the
-// partial's round trip, 8 bytes per element per hop. Any d (16-byte
-// payload loads when d and the alignment allow), any n >= 1, any s; the
-// kernel allocates nothing (the wrapper passes the scratch row and the
-// zeroed slots) and runs on the caller's stream.
+// What the design does about it. The re-encode needs max|acc| over a whole
+// row (up to 1.77 M columns) before any column of it can be encoded, n - 1
+// times; the max spans one row (g, j) only, so the row is the unit of
+// synchronisation:
+//   - the cluster path (cluster >= 1): one thread block cluster of up to 16
+//     blocks per row, each block owning `chunk` columns. After the re-encode
+//     the partial is q * D with |q| <= levels <= 127 and one f32 D per row
+//     and hop, so the carry between hops is the int8 q, held in the block's
+//     shared memory for all n hops (up to 192 KiB; at the largest group 16
+//     blocks of 108 KiB, two per SM). A hop reads its rank's int8 table
+//     once to find the block's max|acc|, the cluster combines the blocks'
+//     maxima through distributed shared memory after one cluster barrier,
+//     and a second pass recomputes acc = q * D + c from the carry and the
+//     table (now in L2) and encodes the new carry. The f32 partial never
+//     touches device memory; there is no grid-wide barrier and no atomic;
+//     rows run independently;
+//   - the table is read 16 columns (16 bytes) a thread at a time when d is
+//     a multiple of 16 and the pointers are aligned (4 or 1 otherwise),
+//     four loads unrolled in flight; the last hop divides and writes the
+//     n outputs as 16-byte stores of neighbouring columns (4 f32 or 8
+//     bf16 a thread), and copies the dropped blocks' fallback in loops of
+//     their own, so those loads do not wait one by one;
+//   - the encode needs rint(acc / D) for every element and hop: with
+//     inv = rn(1 / D) once per hop, two fused multiply-adds give the
+//     correctly rounded quotient (encode_fma) in place of a division;
+//   - the wrapper (kernels/ring.py::requant_plan) picks the cluster size by
+//     shape: the fewest blocks whose chunk fits two blocks per SM, doubled
+//     while the card has fewer than two blocks per SM and a block keeps at
+//     least 8192 columns;
+//   - the wide path (cluster == 0), for a row wider than 16 blocks of
+//     192 KiB hold (3,145,728 columns): the first design, one cooperative
+//     launch whose f32 partial makes a round trip through a scratch row
+//     every hop, with a grid barrier and a per-tile atomicMax on the row's
+//     max after each hop.
+// Any d, any n >= 1, any s; the kernel allocates nothing (the wrapper
+// passes the wide path's scratch) and runs on the caller's stream.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -67,24 +92,310 @@ using ring::load_pack;
 using ring::Pack;
 using ring::store_pack;
 
-// the int8 wire's step from a row's max|acc| (held as its bits)
-__device__ __forceinline__ float row_delta(unsigned int amax_bits,
-                                           float levels) {
-  const float amax = __uint_as_float(amax_bits);
+// the cluster path's block: two blocks of 256 threads per SM
+constexpr int kClusterThreads = 256;
+// payload columns of one 16-byte store
+template <typename T>
+constexpr int kOutVec = static_cast<int>(sizeof(uint4) / sizeof(T));
+
+// the int8 wire's step from a row's max|acc|
+__device__ __forceinline__ float delta_of(float amax, float levels) {
   return __fdiv_rn(amax > 0.0f ? amax : 1.0f, levels);
 }
 
-// rint(a / D) clipped to +-levels, through int as the int8 cast goes (so a
-// negative zero decodes as +0), times D
-__device__ __forceinline__ float requant(float a, float delta, float levels) {
-  float q = rintf(__fdiv_rn(a, delta));
-  q = fminf(fmaxf(q, -levels), levels);
-  return __fmul_rn(static_cast<float>(static_cast<int>(q)), delta);
+// the int8 wire's step from a row's max|acc| (held as its bits)
+__device__ __forceinline__ float row_delta(unsigned int amax_bits,
+                                           float levels) {
+  return delta_of(__uint_as_float(amax_bits), levels);
 }
 
-// levels > 0: one cooperative launch; the f32 partial lives in `part`
-// (G, s, d) between hops and each row's max|acc| after hop t in
-// amax[row * n + t] (zeroed by the caller).
+// rint(a / D) clipped to +-levels, through int as the int8 cast goes (so a
+// negative zero decodes as +0)
+__device__ __forceinline__ int encode(float a, float delta, float levels) {
+  float q = rintf(__fdiv_rn(a, delta));
+  q = fminf(fmaxf(q, -levels), levels);
+  return static_cast<int>(q);
+}
+
+// The same encode at one row's step D, with its reciprocal inv = rn(1 / D)
+// computed once: q0 = rn(a * inv), r = rn(a - q0 * D) and
+// q1 = rn(q0 + r * inv) (two fused multiply-adds) is the correctly rounded
+// quotient rn(a / D) -- the correction step of an FMA division, checked
+// against exact rational arithmetic near the grid's half-integers
+// (tests/test_torch_ring_int8.py) and by the kernel's bitwise sweeps
+// against the plain version -- for a step D in [2^-100, 2^100], where the
+// residual cannot leave the normal range for any |a / D| >= 1/4 (smaller
+// quotients round to 0 either way). The caller divides outside that
+// range.
+__device__ __forceinline__ int encode_fma(float a, float delta, float inv,
+                                         float levels) {
+  const float q0 = __fmul_rn(a, inv);
+  const float r = __fmaf_rn(-q0, delta, a);
+  const float q = fminf(fmaxf(rintf(__fmaf_rn(r, inv, q0)), -levels), levels);
+  return static_cast<int>(q);
+}
+
+// encode and decode: the value the wire carries between two adds
+__device__ __forceinline__ float requant(float a, float delta, float levels) {
+  return __fmul_rn(static_cast<float>(encode(a, delta, levels)), delta);
+}
+
+// acc of the VEC columns at vector v of the block from their int8 table
+// entries q: this hop's contribution, plus (after the first hop) the
+// carried partial, int8 c times the previous hop's D
+template <typename T, int VEC, bool FIRST>
+__device__ __forceinline__ void hop_acc(const Pack<int8_t, VEC>& q,
+                                        const int8_t* carry, float sc,
+                                        float m, float delta, int64_t v,
+                                        float (&acc)[VEC]) {
+  if constexpr (FIRST) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = __fmul_rn(decode<T>(q.v[e], sc), m);
+  } else {
+    const Pack<int8_t, VEC> c = load_pack<false, int8_t, VEC>(carry + v * VEC);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      acc[e] = __fadd_rn(__fmul_rn(static_cast<float>(c.v[e]), delta),
+                         __fmul_rn(decode<T>(q.v[e], sc), m));
+  }
+}
+
+// A pass over the block's vectors, each with its int8 table entries; four
+// iterations unrolled, so four 16-byte loads a thread in flight.
+template <int VEC, typename F>
+__device__ __forceinline__ void for_vectors(const int8_t* __restrict__ src,
+                                            int64_t nvec, F body) {
+#pragma unroll 4
+  for (int64_t v = threadIdx.x; v < nvec; v += kClusterThreads)
+    body(load_pack<true, int8_t, VEC>(src + v * VEC), v);
+}
+
+// pass 1 of a hop: the block's share of max|acc|, per thread
+template <typename T, int VEC, bool FIRST>
+__device__ __forceinline__ float hop_max(const int8_t* __restrict__ src,
+                                         const int8_t* carry, float sc,
+                                         float m, float delta, int64_t nvec) {
+  float local = 0.0f;
+  for_vectors<VEC>(src, nvec, [&](const Pack<int8_t, VEC>& q, int64_t v) {
+    float acc[VEC];
+    hop_acc<T, VEC, FIRST>(q, carry, sc, m, delta, v, acc);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) local = fmaxf(local, fabsf(acc[e]));
+  });
+  return local;
+}
+
+// pass 2 of a hop: acc again (the table now from L2), encoded at the row's
+// new grid into the carry; each thread rewrites only the carry it reads
+template <typename T, int VEC, bool FIRST>
+__device__ __forceinline__ void hop_encode(const int8_t* __restrict__ src,
+                                           int8_t* carry, float sc, float m,
+                                           float delta, int64_t nvec,
+                                           float next, float levels) {
+  // the step's range decides the encode once for the whole pass, not per
+  // element
+  const auto pass = [&](auto enc) {
+    for_vectors<VEC>(src, nvec, [&](const Pack<int8_t, VEC>& q, int64_t v) {
+      float acc[VEC];
+      hop_acc<T, VEC, FIRST>(q, carry, sc, m, delta, v, acc);
+      Pack<int8_t, VEC> c;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) c.v[e] = static_cast<int8_t>(enc(acc[e]));
+      store_pack<int8_t, VEC>(carry + v * VEC, c);
+    });
+  };
+  if (next >= 0x1p-100f && next <= 0x1p100f) {
+    const float inv = __frcp_rn(next);
+    pass([&](float a) { return encode_fma(a, next, inv, levels); });
+  } else {
+    pass([&](float a) { return encode(a, next, levels); });
+  }
+}
+
+// the last hop: acc / div into every rank whose all-gather arrived, and
+// zero (grad) or the rank's own block (renorm) elsewhere. The stores of one
+// vector depend on nothing but acc; the fallback copies go in a loop of
+// their own, so their loads are many in flight and not one per store.
+template <typename T, int VEC, bool FIRST>
+__device__ __forceinline__ void hop_out(
+    const int8_t* __restrict__ src, const int8_t* carry, float sc, float m,
+    float delta, int64_t nvec, const T* __restrict__ stack,
+    T* __restrict__ out, const void* ag, DType ag_dtype, int n, int64_t g,
+    int64_t s, int64_t j, int64_t base, int64_t stride, float dv,
+    bool renorm) {
+  const auto arrived = [&](int i) {
+    return load_mask(ag, ag_dtype, (g * n + i) * s + j) != 0.0f;
+  };
+  uint32_t keep = 0;  // the all-gather masks of ranks 0..31
+  for (int i = 0; i < n && i < 32; ++i)
+    if (arrived(i)) keep |= 1u << i;
+#pragma unroll 2
+  for (int64_t v = threadIdx.x; v < nvec; v += kClusterThreads) {
+    float acc[VEC];
+    hop_acc<T, VEC, FIRST>(load_pack<true, int8_t, VEC>(src + v * VEC), carry,
+                           sc, m, delta, v, acc);
+    Pack<T, VEC> mine, zero;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      mine.v[e] = from_float<T>(__fdiv_rn(acc[e], dv));
+      zero.v[e] = from_float<T>(0.0f);
+    }
+    const int64_t at = base + v * VEC;
+    for (int i = 0; i < n; ++i) {
+      const bool on = i < 32 ? ((keep >> i) & 1u) != 0 : arrived(i);
+      if (on) {
+        store_pack<T, VEC>(out + at + i * stride, mine);
+      } else if (!renorm) {
+        store_pack<T, VEC>(out + at + i * stride, zero);
+      }
+    }
+  }
+  if (!renorm) return;
+  for (int i = 0; i < n; ++i) {
+    if (i < 32 ? ((keep >> i) & 1u) != 0 : arrived(i)) continue;
+    const T* from = stack + base + i * stride;
+    T* to = out + base + i * stride;
+#pragma unroll 4
+    for (int64_t v = threadIdx.x; v < nvec; v += kClusterThreads)
+      store_pack<T, VEC>(to + v * VEC, load_pack<true, T, VEC>(from + v * VEC));
+  }
+}
+
+// the cluster path. Row (g, j) = blockIdx.x / cluster; the block of rank
+// `part` in its cluster owns columns [part * chunk, part * chunk + chunk)
+// and keeps their int8 carry in dynamic shared memory. `chunk` is a
+// multiple of 16 (so of VEC); d is a multiple of VEC.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+    ring_requant_cluster_kernel(const T* __restrict__ stack,
+                                const int8_t* __restrict__ enc,
+                                const float* __restrict__ scale,
+                                const void* rs, DType rs_dtype,
+                                const void* ag, DType ag_dtype,
+                                const float* __restrict__ div,
+                                T* __restrict__ out, int n, int64_t s,
+                                int64_t d, int64_t chunk, float levels,
+                                bool renorm) {
+  extern __shared__ __align__(16) int8_t s_carry[];
+  __shared__ float s_warp[kClusterThreads / 32];
+  __shared__ float s_block[2];  // this block's max|acc|, by hop parity
+  cg::cluster_group cluster = cg::this_cluster();
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  const int part = static_cast<int>(cluster.block_rank());
+  const int64_t row = blockIdx.x / blocks;  // g * s + j
+  const int64_t g = row / s;
+  const int64_t j = row % s;
+  const int64_t col0 = part * chunk;
+  const int64_t cols = col0 < d ? (d - col0 < chunk ? d - col0 : chunk) : 0;
+  const int64_t nvec = cols / VEC;
+  const int owner = static_cast<int>(j % n);
+  float delta = 0.0f;            // D of the previous hop
+  for (int t = 0; t < n; ++t) {  // hop t + 1 adds rank owner + 1 + t
+    int r = owner + 1 + t;
+    if (r >= n) r -= n;
+    const int64_t mi = (g * n + r) * s + j;
+    const float m = load_mask(rs, rs_dtype, mi);
+    const float sc = scale[mi];
+    const int8_t* src = enc + mi * d + col0;
+    if (t == n - 1) {
+      // the outputs in 16-byte stores of neighbouring columns: OV columns
+      // a thread (VEC's 16 f32 columns would put 64 bytes between lanes);
+      // the carry written by other threads at the last encode is read
+      constexpr int OV = VEC < kOutVec<T> ? VEC : kOutVec<T>;
+      const int64_t base = (g * n * s + j) * d + col0;
+      const float dv = div[row];
+      __syncthreads();
+      if (t == 0) {
+        hop_out<T, OV, true>(src, s_carry, sc, m, delta, cols / OV, stack,
+                             out, ag, ag_dtype, n, g, s, j, base, s * d, dv,
+                             renorm);
+      } else {
+        hop_out<T, OV, false>(src, s_carry, sc, m, delta, cols / OV, stack,
+                              out, ag, ag_dtype, n, g, s, j, base, s * d, dv,
+                              renorm);
+      }
+      break;
+    }
+    float local = t == 0
+        ? hop_max<T, VEC, true>(src, s_carry, sc, m, delta, nvec)
+        : hop_max<T, VEC, false>(src, s_carry, sc, m, delta, nvec);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
+    if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = local;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float b = s_warp[0];
+      for (int i = 1; i < kClusterThreads / 32; ++i) b = fmaxf(b, s_warp[i]);
+      s_block[t & 1] = b;
+    }
+    // every block's max is written (and s_warp read) before any block
+    // reads the maxima or writes s_warp again; s_block alternates, so a
+    // block one hop ahead never overwrites a slot that is still read
+    cluster.sync();
+    float amax = 0.0f;
+#pragma unroll
+    for (int b = 0; b < static_cast<int>(kRingQMaxCluster); ++b) {
+      if (b < blocks)
+        amax = fmaxf(amax, *cluster.map_shared_rank(&s_block[t & 1], b));
+    }
+    const float next = delta_of(amax, levels);
+    if (t == 0) {
+      hop_encode<T, VEC, true>(src, s_carry, sc, m, delta, nvec, next,
+                               levels);
+    } else {
+      hop_encode<T, VEC, false>(src, s_carry, sc, m, delta, nvec, next,
+                                levels);
+    }
+    delta = next;
+  }
+  // no block leaves while another may still read its s_block
+  if (n > 1) cluster.sync();
+}
+
+template <typename T, int VEC>
+cudaError_t launch_cluster(const T* stack, const int8_t* enc,
+                           const float* scale, const void* rs, DType rs_dtype,
+                           const void* ag, DType ag_dtype, const float* div,
+                           T* out, int64_t G, int64_t n, int64_t s, int64_t d,
+                           int cluster, int64_t chunk, int levels,
+                           bool renorm, cudaStream_t stream) {
+  auto* kernel = &ring_requant_cluster_kernel<T, VEC>;
+  const size_t smem = static_cast<size_t>(chunk);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(G * s * cluster));
+  config.blockDim = dim3(kClusterThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &config);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidConfiguration;
+  return cudaLaunchKernelEx(&config, kernel, stack, enc, scale, rs, rs_dtype,
+                            ag, ag_dtype, div, out, static_cast<int>(n), s, d,
+                            chunk, static_cast<float>(levels), renorm);
+}
+
+// The wide path (cluster == 0: a row wider than the largest cluster holds):
+// one cooperative launch; the f32 partial lives in `part` (G, s, d) between
+// hops and each row's max|acc| after hop t in amax[row * n + t] (zeroed by
+// the caller).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
     ring_requant_kernel(const T* __restrict__ stack,
@@ -222,7 +533,8 @@ cudaError_t launch_typed(const void* stack, const void* enc,
                          const void* ag, DType ag_dtype, const float* div,
                          void* out, float* part, unsigned int* amax,
                          int levels, bool renorm, int64_t G, int64_t n,
-                         int64_t s, int64_t d, cudaStream_t stream) {
+                         int64_t s, int64_t d, int cluster, int64_t chunk,
+                         cudaStream_t stream) {
   constexpr int kVec = static_cast<int>(sizeof(uint4) / sizeof(T));
   const T* x = static_cast<const T*>(stack);
   const int8_t* q = static_cast<const int8_t*>(enc);
@@ -230,8 +542,25 @@ cudaError_t launch_typed(const void* stack, const void* enc,
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % sizeof(uint4) == 0;
   };
-  if (d % kVec == 0 && aligned(x) && aligned(y) && aligned(q) &&
-      aligned(part)) {
+  const bool al = aligned(x) && aligned(y) && aligned(q);
+  if (cluster > 0) {
+    // 16 int8 columns per load, or 4 (one word of the table, 16 bytes of
+    // an f32 output), or 1
+    if (d % 16 == 0 && al) {
+      return launch_cluster<T, 16>(x, q, scale, rs, rs_dtype, ag, ag_dtype,
+                                   div, y, G, n, s, d, cluster, chunk, levels,
+                                   renorm, stream);
+    }
+    if (d % 4 == 0 && al) {
+      return launch_cluster<T, 4>(x, q, scale, rs, rs_dtype, ag, ag_dtype,
+                                  div, y, G, n, s, d, cluster, chunk, levels,
+                                  renorm, stream);
+    }
+    return launch_cluster<T, 1>(x, q, scale, rs, rs_dtype, ag, ag_dtype, div,
+                                y, G, n, s, d, cluster, chunk, levels, renorm,
+                                stream);
+  }
+  if (d % kVec == 0 && al && aligned(part)) {
     return launch_requant<T, kVec>(x, q, scale, rs, rs_dtype, ag, ag_dtype,
                                    div, y, part, amax, G, n, s, d, levels,
                                    renorm, stream);
@@ -250,16 +579,18 @@ cudaError_t ring_requant_launch(const void* stack, DType dtype,
                                 const float* div, void* out, float* part,
                                 unsigned int* amax, int levels, bool renorm,
                                 int64_t G, int64_t n, int64_t s, int64_t d,
+                                int cluster, int64_t chunk,
                                 cudaStream_t stream) {
   switch (dtype) {
     case DType::kF32:
       return launch_typed<float>(stack, enc, scale, rs, rs_dtype, ag,
                                  ag_dtype, div, out, part, amax, levels,
-                                 renorm, G, n, s, d, stream);
+                                 renorm, G, n, s, d, cluster, chunk, stream);
     case DType::kBF16:
       return launch_typed<__nv_bfloat16>(stack, enc, scale, rs, rs_dtype, ag,
                                          ag_dtype, div, out, part, amax,
-                                         levels, renorm, G, n, s, d, stream);
+                                         levels, renorm, G, n, s, d, cluster,
+                                         chunk, stream);
     default:
       return cudaErrorInvalidValue;  // the binding admits only f32 and bf16
   }

@@ -26,7 +26,10 @@ separate table — an int8 payload with per-row f32 scales, decoded in the
 kernel, or the EF send on a linear wire — while ``stack`` stays the
 all-gather fallback (the same kernel in ``csrc/ring.cu``); with
 ``levels > 0`` every hop re-encodes the running f32 partial onto the int8
-grid (``csrc/ring_q.cu``).
+grid (``csrc/ring_q.cu``): one thread block cluster per row, which carries
+the partial as int8 in shared memory, sized by :func:`requant_plan`; a
+row wider than the largest cluster holds takes the kernel's cooperative
+wide path.
 """
 from __future__ import annotations
 
@@ -41,6 +44,14 @@ MASK_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int32, torch.int64,
                torch.float32, torch.bfloat16, torch.float16)
 MODES = ("model", "grad", "grad_renorm")
 MAX_LEVELS = 127               # the int8 grid
+# the re-encoding kernel's cluster path (kRingQMaxCluster, kRingQMaxChunk
+# in csrc/kernels.h): at most 16 blocks per row, each carrying at most
+# 192 KiB of int8 partial; HALF_CHUNK fits two blocks per SM (the SM's
+# 228 KiB of shared memory, 1 KiB reserved per block, a little static)
+MAX_CLUSTER = 16
+MAX_CHUNK = 192 * 1024
+HALF_CHUNK = 112 * 1024
+MIN_SPLIT = 8192               # columns a block keeps when a row is split
 # the ops ``torch.ops.repro_torch.ring_round`` and ``ring_round_enc``,
 # loaded at first launch
 _op = None
@@ -139,6 +150,29 @@ def check_enc(stack, enc, scale, rs_dtype, levels: int) -> None:
                          f"{enc.dtype}")
 
 
+def requant_plan(rows: int, d: int, sms: int) -> tuple:
+    """(cluster, chunk) of the re-encoding kernel for ``rows`` rows of
+    ``d`` columns on a card of ``sms`` SMs: the fewest blocks per row (a
+    power of two) whose chunk of columns (rounded up to 16) fits two
+    blocks per SM, doubled while the grid has fewer than two blocks per
+    SM and a block keeps at least MIN_SPLIT columns; a row too wide for
+    two blocks per SM takes MAX_CLUSTER blocks of up to MAX_CHUNK. (0, 0):
+    the row is wider than MAX_CLUSTER * MAX_CHUNK, the wide path."""
+    def chunk(c):  # ceil(d / c) rounded up to 16 columns
+        cols = -(-d // c)
+        return -(-cols // 16) * 16
+
+    if chunk(MAX_CLUSTER) > MAX_CHUNK:
+        return 0, 0
+    c = 1
+    while c < MAX_CLUSTER and chunk(c) > HALF_CHUNK:
+        c *= 2
+    while (c < MAX_CLUSTER and rows * c < 2 * sms
+           and chunk(2 * c) >= MIN_SPLIT):
+        c *= 2
+    return c, chunk(c)
+
+
 def ring_round_enc(stack, enc, scale, rs, ag, div, *, mode: str,
                    rs_dtype=torch.float32, levels: int = 0):
     """One group's ring round with the contributions from an encoded
@@ -176,14 +210,21 @@ def ring_round_enc(stack, enc, scale, rs, ag, div, *, mode: str,
         _op_enc = build.load_kernels().ring_round_enc
     G, n, s, d = stack.shape
     out = torch.empty_like(stack)
-    # the re-encoding launch's scratch: the f32 partial between hops and
-    # each row's max|partial| per hop, as float bits (zeroed)
-    part = torch.empty((G, s, d) if levels else (0,), dtype=torch.float32,
+    cluster = chunk = 0
+    if levels:
+        sms = torch.cuda.get_device_properties(
+            stack.device).multi_processor_count
+        cluster, chunk = requant_plan(G * s, d, sms)
+    # the wide path's scratch: the f32 partial between hops and each row's
+    # max|partial| per hop, as float bits (zeroed)
+    wide = levels and not cluster
+    part = torch.empty((G, s, d) if wide else (0,), dtype=torch.float32,
                        device=stack.device)
-    amax = torch.zeros((G * s, n) if levels else (0,), dtype=torch.int32,
+    amax = torch.zeros((G * s, n) if wide else (0,), dtype=torch.int32,
                        device=stack.device)
     _op_enc(stack, enc, scale, rs, ag, div, out, part, amax,
-            mode != "grad", rs_dtype == torch.bfloat16, levels)
+            mode != "grad", rs_dtype == torch.bfloat16, levels, cluster,
+            chunk)
     ring_round_enc.launches += 1
     return out
 

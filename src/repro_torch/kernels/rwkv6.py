@@ -4,7 +4,8 @@
 From a zero state, ``o_t = r_t·(S_{t−1} + diag(u)·k_t⊗v_t)`` and
 ``S_t = diag(w_t)·S_{t−1} + k_t⊗v_t`` for every (batch, head), with the
 (dk, dv) state in f32. On a CUDA tensor :func:`rwkv6` launches the
-hand-written Hopper kernel in ``csrc/rwkv6.cu`` (or raises); on a CPU
+hand-written Hopper kernel in ``csrc/rwkv6.cu`` — the chunked form on
+tensor cores, one CUDA launch per call — (or raises); on a CPU
 tensor it computes the plain version
 :func:`repro_torch.kernels.ref.rwkv6_ref`. Both return the final state
 beside the output: the prefill keeps it as the decode cache.
@@ -18,6 +19,7 @@ from repro_torch.kernels.ref import rwkv6_ref
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 MAX_DIM = 64          # kRwkv6MaxDim in csrc/kernels.h
+CHUNK = 64            # tokens per chunk of the kernel
 # the op ``torch.ops.repro_torch.rwkv6_fwd``, loaded at first launch
 _op = None
 
@@ -62,8 +64,9 @@ def _check_cuda(r, k, v, w, u) -> None:
 
 
 def rwkv6(r, k, v, w, u):
-    """The recurrence over the whole sequence, one launch for all
-    (batch, head) pairs.
+    """The recurrence over the whole sequence, one call for all
+    (batch, head) pairs: one CUDA launch, and a memset of the flags that
+    chain the chunks' states.
 
     r, k, w: (B, S, h, dk); v: (B, S, h, dv), all of one float dtype;
     u: (h, dk) f32. Returns (o: (B, S, h, dv) in ``r.dtype``, final state
@@ -84,7 +87,12 @@ def rwkv6(r, k, v, w, u):
     out = torch.empty((B, S, h, dv), dtype=r.dtype, device=r.device)
     state = torch.empty((B, h, dk, dv), dtype=torch.float32,
                         device=r.device)
-    _op(r, k, v, w, u, out, state)
+    # per (b, h, chunk): the (64, 64) state it passes on, and its flag
+    chunks = B * h * (-(-S // CHUNK))
+    scratch = torch.empty(chunks * MAX_DIM * MAX_DIM, dtype=torch.float32,
+                          device=r.device)
+    ready = torch.zeros(chunks, dtype=torch.int32, device=r.device)
+    _op(r, k, v, w, u, out, state, scratch, ready)
     rwkv6.launches += 1
     return out, state
 

@@ -460,6 +460,173 @@ def test_ring_round_ref_int8_equals_interpret_ring_4dev():
     assert "INTERPRET_RING_INT8_OK 12 bitwise" in r.stdout, r.stdout
 
 
+# ---- the re-encoding kernel's algebra: the int8 carry -------------------
+
+def _int8_carry_replay(stack, enc, scale, rs, ag, div, mode, levels):
+    """The ring round with the partial carried between hops as the int8 q
+    of its re-encode and one step D per (g, block) row, acc recomputed at
+    each hop from the carry and the contribution table -- the algebra of
+    ``csrc/ring_q.cu``'s cluster path, hop for hop in torch."""
+    G, n, s, d = stack.shape
+    f32 = torch.float32
+    own = torch.arange(s) % n
+    cols = torch.arange(s)
+    lv = torch.full((), float(levels))
+    rs_f = rs.to(f32)
+
+    def contrib(t):  # (G, s, d): rank own + 1 + t's decoded, gated send
+        r = (own + 1 + t) % n
+        dec = (enc[:, r, cols].to(f32) * scale[:, r, cols][..., None]
+               ).to(stack.dtype).to(f32)
+        return dec * rs_f[:, r, cols][..., None]
+
+    q = delta = None
+    for t in range(n):
+        acc = contrib(t) if t == 0 else q.to(f32) * delta + contrib(t)
+        if t < n - 1:
+            amax = acc.abs().amax(-1, keepdim=True)
+            delta = torch.where(amax > 0, amax, torch.ones(())) / lv
+            q = torch.round(acc / delta).clamp(-levels, levels).to(torch.int8)
+    mine = (acc / div[..., None].to(f32)).to(stack.dtype)
+    fallback = torch.zeros_like(stack) if mode == "grad" else stack
+    return torch.where((ag != 0)[..., None], mine[:, None], fallback)
+
+
+def _carry_case(n, s, dtype, seed):
+    """A (3, n, s, 40) stack with a row zero in every rank, a row with one
+    dominant column (its partials sit on the clip), a row whose rank 0
+    sends small negatives and whose other ranks send one large value (the
+    partials' encodes round the negatives to -0), the int8 encode and
+    Bernoulli(0.7) masks (dropped negative sends give -0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(3, n, s, 40)).astype(np.float32)
+    x[0, :, 0] = 0.0
+    if s > 1:
+        x[1, :, 1, 0] = 50.0
+    x[2, 0, 0, :] = -0.02
+    x[2, 0, 0, 0] = 0.5
+    x[2, 1:, 0, :] = 0.0
+    x[2, 1:, 0, 0] = 50.0
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    own = trps.owner_mask(n, s)
+    rs = torch.from_numpy(rng.random((3, n, s)) < 0.7) | own
+    ag = torch.from_numpy(rng.random((3, n, s)) < 0.7) | own
+    q, sc = TC.encode(xt, lead=2)
+    return xt, q, sc[..., 0], rs, ag
+
+
+@pytest.mark.parametrize("mode", ["model", "grad", "grad_renorm"])
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_carry_replay_equals_ring_round_ref(mode, n, dtype):
+    """Carrying q and D instead of the f32 partial gives the plain
+    version's bits: requant(acc) = q * D exactly, so acc recomputed from
+    the carry and the table is the partial the plain version adds to."""
+    for s in sorted({1, max(n // 2, 1), n, 2 * n}):
+        x, q, sc, rs, ag = _carry_case(n, s, dtype, seed=100 * n + s)
+        div = trps._divisor(twire.make_recovery("renorm"), mode, rs, n)
+        want = ring_round_ref(x, rs, ag, div, mode=mode, enc=q, scale=sc,
+                              levels=TC.levels)
+        got = _int8_carry_replay(x, q, sc, rs, ag, div, mode, TC.levels)
+        assert got.dtype == x.dtype
+        bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(bits), want.view(bits)), (n, s)
+
+
+def test_int8_carry_replay_reaches_the_clip_and_negative_zero():
+    """The cases the replay is built to hold: a partial on the clip
+    (|q| = levels), an all-zero row (D = 1 / levels, q = 0) and
+    encodes of small negatives that round to -0 and carry as +0."""
+    n, s = 4, 4
+    x, q, sc, rs, ag = _carry_case(n, s, "float32", seed=7)
+    rs = torch.ones_like(rs)
+    dec = q.to(torch.float32) * sc[..., None]
+
+    def encode(acc):
+        amax = acc.abs().amax(-1, keepdim=True)
+        delta = torch.where(amax > 0, amax, torch.ones(())) / TC.levels
+        return torch.round(acc / delta).clamp(-TC.levels, TC.levels)
+
+    assert int(encode(dec[1, 1, 1]).abs().max()) == TC.levels   # the clip
+    assert bool((encode(dec[0, 1, 0]) == 0).all())              # zero row
+    two = encode(dec[2, 0, 0] + dec[2, 1, 0])      # two hops' partial
+    assert bool(torch.signbit(two[1:]).all())                   # -0 ...
+    assert bool((two[1:].to(torch.int8) == 0).all())            # ... as 0
+    div = trps._divisor(twire.make_recovery("renorm"), "model", rs, n)
+    got = _int8_carry_replay(x, q, sc, rs, ag, div, "model", TC.levels)
+    want = ring_round_ref(x, rs, ag, div, mode="model", enc=q, scale=sc,
+                          levels=TC.levels)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _rn32(x):
+    """The f32 nearest to the rational x (ties to even), as a Fraction."""
+    from fractions import Fraction
+    if x == 0:
+        return Fraction(0)
+    sign = -1 if x < 0 else 1
+    x = abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    if Fraction(2) ** e > x:
+        e -= 1
+    unit = Fraction(2) ** (max(e, -126) - 23)
+    m = x / unit
+    mi = m.numerator // m.denominator
+    rest = m - mi
+    if rest > Fraction(1, 2) or (rest == Fraction(1, 2) and mi % 2):
+        mi += 1
+    return sign * mi * unit
+
+
+def test_fma_quotient_is_the_rounded_division():
+    """The re-encoding kernel's encode: with inv = rn(1 / D), q0 = rn(a *
+    inv), r = rn(a - q0 * D) and q1 = rn(q0 + r * inv) (two fused
+    multiply-adds) equal rn(a / D), emulated exactly with rationals, for
+    steps D = amax / 127 over a wide range and a near the grid's
+    half-integers (where rint would expose a wrong last bit) or uniform
+    in the row."""
+    from fractions import Fraction
+    rng = np.random.default_rng(0)
+    n = 4000
+    amax = (rng.uniform(1e-3, 1e3, n)
+            * np.exp2(rng.integers(-60, 60, n))).astype(np.float32)
+    delta = (amax / np.float32(127)).astype(np.float32)
+    inv = (np.float32(1) / delta).astype(np.float32)
+    k = rng.integers(-127, 128, n)
+    a = ((k + 0.5) * delta.astype(np.float64)).astype(np.float32)
+    a = np.nextafter(a, np.inf * rng.choice([-1, 1], n)).astype(np.float32)
+    a[::3] = (rng.uniform(-1, 1, n)[::3] * amax[::3]).astype(np.float32)
+    want = (a / delta).astype(np.float32)   # IEEE f32 division
+    for ai, di, ii, wi in zip(a, delta, inv, want):
+        fa, fd, fi = Fraction(float(ai)), Fraction(float(di)), \
+            Fraction(float(ii))
+        q0 = _rn32(fa * fi)
+        r = _rn32(fa - q0 * fd)
+        assert _rn32(q0 + r * fi) == Fraction(float(wi)), (ai, di)
+
+
+@pytest.mark.parametrize("rows,d,sms,want", [
+    (48, 1769472, 132, (16, 110592)),   # rps-100m's largest group
+    (16, 409600, 132, (16, 25600)),     # one 25 MiB f32 bucket at n = 16
+    (2, 1, 132, (1, 16)),
+    (2, 4104, 132, (1, 4112)),
+    (2, 16384, 132, (2, 8192)),
+    (2, 32768, 132, (4, 8192)),
+    (2, 65536, 132, (8, 8192)),
+    (4, 131072, 132, (16, 8192)),
+    (1, 2000000, 132, (16, 125008)),    # one block per SM
+    (1, 3145728, 132, (16, 196608)),    # the widest row a cluster holds
+    (1, 3145729, 132, (0, 0)),          # the wide path
+])
+def test_requant_plan(rows, d, sms, want):
+    cluster, chunk = ring.requant_plan(rows, d, sms)
+    assert (cluster, chunk) == want
+    if cluster:
+        assert chunk % 16 == 0 and chunk * cluster >= d
+        assert chunk <= ring.MAX_CHUNK and cluster <= ring.MAX_CLUSTER
+        assert chunk * (cluster - 1) < d          # no block left empty
+
+
 # ---- the wrapper ----------------------------------------------------------
 
 def test_ring_round_enc_routes_and_checks():
@@ -527,3 +694,31 @@ def test_ring_round_enc_kernel_bitwise_on_card(n, s, payload):
                                       backend="ref", **enc)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (d, mode, levels, acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16384, 65536, 131072, 2000000, 3145729])
+def test_ring_round_enc_kernel_cluster_sizes_on_card(d):
+    """The re-encoding kernel at the widths where its cluster grows (2, 8,
+    16 blocks; one block per SM) and at a row wider than the largest
+    cluster holds (the cooperative path): bitwise against its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(d)
+    n, s = 4, 1
+    x = torch.randn((1, n, s, d), generator=gen, device="cuda")
+    own = trps.owner_mask(n, s, device="cuda")
+    rs = (torch.rand((1, n, s), generator=gen, device="cuda") < 0.7) | own
+    ag = (torch.rand((1, n, s), generator=gen, device="cuda") < 0.7) | own
+    div = trps._divisor(twire.make_recovery("renorm"), "model", rs, n)
+    q, sc = TC.encode(x, lead=2, gen=gen)
+    before = ring.ring_round_enc.launches
+    got = ops.ring_round(x, rs, ag, div, mode="model", levels=127, enc=q,
+                         scale=sc[..., 0])
+    want = ops.ring_round(x, rs, ag, div, mode="model", levels=127, enc=q,
+                          scale=sc[..., 0], backend="ref")
+    torch.cuda.synchronize()
+    assert ring.ring_round_enc.launches == before + 1
+    assert torch.equal(got, want)

@@ -165,16 +165,133 @@ def test_cpu_route_does_not_count_launches():
     assert K.rwkv6.launches == before
 
 
+def _chunked_replay(r, k, v, w, u, chunk=64):
+    """The chunked form of ``csrc/rwkv6.cu`` in plain torch, in f32:
+    chunks of 64 tokens (S padded with r = k = v = 0, w = 1), la the
+    inclusive sum of log2(clip(w, 1e-30, 1)) in a chunk; the pairwise decay
+    inside blocks of 8 tokens, factored at the token before each 16-token
+    sub-chunk for the earlier sub-chunks and at the 8th token within one
+    (every exponent <= 0); the chunk states U_c and their scan; o = scores
+    @ v + (r . exp2(la_prev)) @ S_in. Returns (o in r's dtype, state)."""
+    f32 = torch.float32
+    B, S, h, dk = r.shape
+    dv = v.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+
+    def blocks(x, fill=0.0):   # (B, S, h, d) -> (B, h, nc, chunk, d)
+        x = x.to(f32)
+        if pad:
+            x = torch.cat([x, torch.full((B, pad, h, x.shape[-1]), fill)], 1)
+        return x.reshape(B, nc, chunk, h, -1).permute(0, 3, 1, 2, 4)
+
+    rr, kk, vv = blocks(r), blocks(k), blocks(v)
+    lw = torch.log2(blocks(w, 1.0).clamp(1e-30, 1.0))
+    la = torch.cumsum(lw, dim=-2)                       # la[t]
+    la_prev = torch.cat([torch.zeros_like(la[..., :1, :]),
+                         la[..., :-1, :]], dim=-2)      # la[t - 1]
+    la_c = la[..., -1:, :]
+    U = (kk * torch.exp2(la_c - la)).transpose(-1, -2) @ vv
+    state = torch.zeros((B, h, dk, dv))
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = state * torch.exp2(la_c[:, :, c, 0])[..., None] + U[:, :, c]
+    s_in = torch.stack(s_in, dim=2)
+
+    scores = torch.zeros(rr.shape[:-1] + (chunk,))
+    for t0 in range(16, chunk, 16):        # earlier sub-chunks
+        ref = la[..., t0 - 1:t0, :]
+        a = rr[..., t0:t0 + 16, :] * torch.exp2(la_prev[..., t0:t0 + 16, :]
+                                                - ref)
+        b = kk[..., :t0, :] * torch.exp2(ref - la[..., :t0, :])
+        scores[..., t0:t0 + 16, :t0] = a @ b.transpose(-1, -2)
+    for t0 in range(0, chunk, 16):         # the 8 x 8 block of a sub-chunk
+        ref = la[..., t0 + 7:t0 + 8, :]
+        a = rr[..., t0 + 8:t0 + 16, :] * torch.exp2(
+            la_prev[..., t0 + 8:t0 + 16, :] - ref)
+        b = kk[..., t0:t0 + 8, :] * torch.exp2(ref - la[..., t0:t0 + 8, :])
+        scores[..., t0 + 8:t0 + 16, t0:t0 + 8] = a @ b.transpose(-1, -2)
+    lower = torch.tril(torch.ones(8, 8, dtype=torch.bool), -1)
+    for t0 in range(0, chunk, 8):          # pairwise, then the bonus
+        sl = slice(t0, t0 + 8)
+        diff = la_prev[..., sl, None, :] - la[..., None, sl, :]
+        diff = torch.where(lower[..., None], diff, torch.tensor(-torch.inf))
+        pair = (rr[..., sl, None, :] * kk[..., None, sl, :]
+                * torch.exp2(diff)).sum(-1)
+        bonus = (rr[..., sl, :] * u.to(f32)[None, :, None, None, :]
+                 * kk[..., sl, :]).sum(-1)
+        scores[..., sl, sl] = pair + torch.diag_embed(bonus)
+    o = scores @ vv + (rr * torch.exp2(la_prev)) @ s_in
+    o = o.permute(0, 2, 3, 1, 4).reshape(B, nc * chunk, h, dv)[:, :S]
+    return o.to(r.dtype), state
+
+
+def _decays(arrays, kind):
+    """The inputs with w replaced: the kernel tests' uniform (0.05, 0.995),
+    or every w at 1e-30, 0.999 or 0."""
+    r, k, v, w, u = arrays
+    if kind != "uniform":
+        w = np.full_like(w, {"tiny": 1e-30, "slow": 0.999, "zero": 0.0}[kind])
+    return [r, k, v, w, u]
+
+
+@pytest.mark.parametrize("S", [1, 33, 130])
+@pytest.mark.parametrize("dk,dv", [(16, 32), (64, 64)])
+@pytest.mark.parametrize("decay", ["uniform", "tiny", "slow"])
+def test_chunked_replay_matches_reference_and_pallas(S, dk, dv, decay):
+    """The kernel's chunked, sub-chunk-factored algebra against the
+    sequential recurrence (o and state within 2e-4), f32, at extreme
+    decays too, and against the Pallas kernel run in interpret mode (o
+    within 2e-4) where that kernel is finite: at w = 1e-30 its (C, C, dk)
+    decay tensor overflows above the diagonal before the mask (inf * 0),
+    and its o is NaN."""
+    js, ts = _both(_decays(_inputs(2, S, 2, dk, dv), decay), "float32")
+    o, state = _chunked_replay(*ts)
+    o_ref, s_ref = rwkv6_ref(*ts)
+    assert o.shape == (2, S, 2, dv) and state.shape == (2, 2, dk, dv)
+    torch.testing.assert_close(o, o_ref, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    torch.testing.assert_close(state, s_ref, atol=2e-4, rtol=2e-4)
+    want = np.asarray(rwkv6_pallas(*js, chunk=32, interpret=True))
+    if decay == "tiny" and S > 1:
+        assert np.isnan(want).any()     # the reference's overflow
+    else:
+        _close(o, want, TOL["float32"])
+
+
+@pytest.mark.parametrize("S,dk,dv", [(33, 16, 32), (130, 64, 64)])
+@pytest.mark.parametrize("decay", ["zero", "tiny", "uniform"])
+def test_chunked_replay_bf16(S, dk, dv, decay):
+    """bf16 inputs, w = 0 among them (clipped to 1e-30 before the log, as
+    the TPU kernel does): o within 0.1 of the sequential recurrence, the
+    f32 state within 2e-4; o within 0.1 of the Pallas kernel at the
+    uniform decays, where that kernel is finite."""
+    js, ts = _both(_decays(_inputs(1, S, 2, dk, dv), decay), "bfloat16")
+    o, state = _chunked_replay(*ts)
+    o_ref, s_ref = rwkv6_ref(*ts)
+    assert o.dtype == torch.bfloat16
+    _close(o, o_ref.float().numpy(), TOL["bfloat16"])
+    torch.testing.assert_close(state, s_ref, atol=2e-4, rtol=2e-4)
+    if decay == "uniform":
+        _close(o, rwkv6_pallas(*js, chunk=16, interpret=True),
+               TOL["bfloat16"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
     """On the card: the CUDA kernel, its output and final state, against
-    its plain version."""
+    its plain version, at extreme decays too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for B, S, h, dk, dv in [(2, 1, 2, 8, 8), (2, 33, 2, 16, 32),
-                            (2, 130, 4, 64, 64), (1, 17, 3, 20, 12)]:
-        ts = [t.cuda() for t in _both(_inputs(B, S, h, dk, dv), dtype)[1]]
+    cases = [(2, 1, 2, 8, 8, "uniform"), (2, 33, 2, 16, 32, "uniform"),
+             (2, 130, 4, 64, 64, "uniform"), (1, 17, 3, 20, 12, "uniform"),
+             (2, 130, 2, 64, 64, "tiny"), (2, 130, 2, 64, 64, "slow"),
+             (2, 70, 2, 16, 32, "zero")]
+    for B, S, h, dk, dv, decay in cases:
+        ts = [t.cuda() for t in _both(_decays(_inputs(B, S, h, dk, dv),
+                                              decay), dtype)[1]]
         before = K.rwkv6.launches
         o, state = K.rwkv6(*ts)
         torch.cuda.synchronize()

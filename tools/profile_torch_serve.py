@@ -104,7 +104,7 @@ def _top(kernels: list, busy_s: float, n: int = 10) -> list:
 
 
 # the static-batch slices: (chip_smoke load, the kernel's CUDA name)
-STATIC = {"rwkv6": (RWKV_LOAD, "rwkv6_fwd_kernel"),
+STATIC = {"rwkv6": (RWKV_LOAD, "rwkv6_chunk_kernel"),
           "recurrentgemma": (RG_LOAD, "rglru_fwd_kernel")}
 
 
@@ -212,7 +212,8 @@ def profile_train(card: str, steps: int = 2, wire: str = "f32",
     busy_s = sum(k[0] for k in kernels) / 1e6
     ring = [k for k in kernels
             if any(name in k[2] for name in ("ring_round_kernel",
-                                             "ring_requant_kernel"))]
+                                             "ring_requant_kernel",
+                                             "ring_requant_cluster_kernel"))]
     ring_s = sum(k[0] for k in ring) / 1e6
     tokens = n * load["batch"] * load["seq"]
     return {
