@@ -12,14 +12,30 @@ raises on failure; nothing is caught):
 2. build: every kernel of the port, from the sources in
    src/repro_torch/kernels/csrc (timed);
 3. kernel against its plain version on the card: the masked-average
-   kernel over a sweep of shapes, dtypes and mask types, within the JAX
-   package's kernel-test tolerances (1e-6 f32, 2e-2 bf16); then its time
-   at the serving shape beside its plain version, a one-call PyTorch
-   yardstick and the card's bound;
+   kernel over a sweep of shapes, dtypes and mask types (the shapes the
+   xla runs of phases 15 and 20 give it, from their plans, and a grid
+   around them), within the JAX package's kernel-test tolerances (1e-6
+   f32, 2e-2 bf16); then its time at the quickstart's largest shape
+   beside its plain version, a one-call PyTorch yardstick and the card's
+   bound;
+3c. the TP-combine kernel (one drop-masked decode site in one launch)
+   against its plain version on the card: n in {2, 4, 8, 16} x s in
+   {n/2, n, 2n} x (d, B) in {(1152, 8), (24, 3), (1000, 7), (37, 5),
+   (2304, 128)} x partials f32 / bf16 x wire f32 / bf16 x receiver 0 and
+   n - 1 x sites 0 and 51 of a 52-site bool stack x Bernoulli(0.7) masks
+   (also with strided partials, and one draw broadcast over the sites
+   with stride 0), all delivered, all dropped but the owner; bit for
+   bit on integer partials, within 1e-6 (f32 wire) / 2e-2 (bf16 wire) on
+   unit-normal n * partials; bit for bit against the exchange route (the
+   unfused chain on the masked-average kernel) at the serving shape, every
+   site, both wires; then its time at the serving shape (f32 partials)
+   beside the unfused chain's, both in a CUDA graph and eager, its plain
+   version and the card's bound;
 4. slice: gemma3-1b at full width (random bf16 weights) served by the
    continuous-batching engine with lossy tensor-parallel decode (4 shards,
    Bernoulli p = 0.1), 8 requests, every decode output projection through
-   the kernel; checks tokens, finite logits and the kernel's launch count;
+   the TP-combine kernel; checks tokens, finite logits and the kernels'
+   launch counts (52 TP combines per decode step, no masked average);
 5. dense equivalence: tensor-parallel decode with every packet delivered
    against the dense decode, same tokens, 4 steps, logits within a bf16
    tolerance;
@@ -67,7 +83,8 @@ raises on failure; nothing is caught):
    heterogeneous teacher task, n = 16, 150 steps; reliable allreduce at
    p = 0, rps_model and rps_grad at p = 0.1 on the ring kernel; RPS's
    final loss < 1.15 x the baseline's + 0.02, and rps_model on the xla
-   engine within 1e-4 of the ring run;
+   engine (the masked-average kernel, once per exchange group and step)
+   within 1e-4 of the ring run;
 16. the training launcher's defaults (rps-paper-mlp, bf16, char-LM,
    n = 16, batch 32, seq 64, 200 steps) with --engine ring;
 17. rps-100m (12 layers, d 768, 12 / 4 KV heads, d_ff 3072, vocab 16384,
@@ -133,6 +150,7 @@ from repro_torch.data import (CharLMTask, TeacherTask,  # noqa: E402
 from repro_torch.kernels import rglru as GK  # noqa: E402
 from repro_torch.kernels import ring as RG  # noqa: E402
 from repro_torch.kernels import rwkv6 as RK  # noqa: E402
+from repro_torch.kernels.ref import tp_combine_ref  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.netsim import request_trace  # noqa: E402
@@ -153,8 +171,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12      # TF32 on the tensor cores
 
-SERVE_SHAPE = (4, 4, 2304)     # (B, n, d) of one TP combine at gemma3-1b
 SITES_PER_STEP = 52            # 2 collective sites × 26 layers
+# the TP-combine kernel's sweep (phase 3c): (d, B); (24, 3), (1000, 7) and
+# (37, 5) pad the decode plan at most s; (2304, 128) is a wide batch
+TP_SHAPES = ((1152, 8), (24, 3), (1000, 7), (37, 5), (2304, 128))
+TP_SERVE = (1152, 8, 4)        # gemma3-1b's (d_model, lanes, shards)
+TP_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}     # by wire dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +227,7 @@ QUICKSTART_SHAPES = {"w1": (24, 48), "w2": (48, 8)}    # the 24-48-8 MLP
 def reset_counts() -> None:
     """Zero every kernel's launch count (before a path is driven)."""
     K.masked_avg_grid.launches = 0
+    K.tp_combine.launches = 0
     RK.rwkv6.launches = 0
     GK.rglru.launches = 0
     RG.ring_round.launches = 0
@@ -275,14 +298,37 @@ def eager_ms(fn, calls: int = 1000) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
-def check_kernel(gen: torch.Generator) -> float:
-    """Phase 3a: kernel vs its plain version over the sweep. Returns the
-    largest f32 error at the serving shape with a bool mask (what the
-    serving path feeds it)."""
-    shapes = [SERVE_SHAPE] + [(B, n, d) for B in (1, 3, 16)
-                              for n in (2, 8, 16, 32)
-                              for d in (7, 512, 1000, 2304)]
-    serve_err = None
+def xla_grid_shapes() -> dict:
+    """The (G·s, n, d) block stacks the masked-average kernel takes on the
+    training phases' xla runs, one launch per exchange group and step: the
+    quickstart's per-leaf plan at n = 16 (phase 15) and the gap study's
+    two-bucket plan at n = 8 (phase 20)."""
+    runs = {"quickstart": (QUICKSTART_SHAPES, SimulatorConfig(
+                n_workers=16, aggregator="rps_model", engine="xla")),
+            "gap_study": (GAP_STUDY_SHAPES, SimulatorConfig(
+                n_workers=GAP_STUDY["n"], aggregator="rps_model",
+                n_buckets=2))}
+    out = {}
+    for name, (shapes, scfg) in runs.items():
+        tree = {k: torch.empty(shape, device="meta")
+                for k, shape in shapes.items()}
+        plan = make_exchange_plan(tree, scfg)
+        out[name] = sorted(
+            (len(idxs) * plan.s, plan.n, blk * m)
+            for (blk, m, _dt), idxs in rps_lib._global_groups(plan).items())
+    return out
+
+
+def check_kernel(gen: torch.Generator, path_shapes: dict) -> float:
+    """Phase 3a: kernel vs its plain version over the sweep: the xla runs'
+    shapes (``path_shapes``) and a grid around them. Returns the largest
+    f32 error at the quickstart's largest shape with a bool mask (what the
+    exchange feeds it)."""
+    big = path_shapes["quickstart"][-1]
+    shapes = sorted({s for v in path_shapes.values() for s in v}) + [
+        (B, n, d) for B in (1, 3, 16) for n in (2, 8, 16, 32)
+        for d in (7, 512, 1000, 2304)]
+    path_err = None
     n_cases = 0
     for shape in shapes:
         for dt, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
@@ -301,9 +347,9 @@ def check_kernel(gen: torch.Generator) -> float:
                     raise AssertionError(
                         f"masked_avg_grid {shape} {dt} mask {mdt}: max "
                         f"abs err {err} > tol {tol}")
-                if shape == SERVE_SHAPE and dt == torch.float32 \
+                if shape == big and dt == torch.float32 \
                         and mdt == torch.bool:
-                    serve_err = err
+                    path_err = err
                 n_cases += 1
     # every packet but the owner's dropped: the owner's row comes back
     x = torch.randn((4, 64), generator=gen, device="cuda")
@@ -314,13 +360,14 @@ def check_kernel(gen: torch.Generator) -> float:
         raise AssertionError("all-dropped-but-owner case differs")
     print(f"kernel sweep: {n_cases + 1} cases agree with the plain "
           f"version", flush=True)
-    return serve_err
+    return path_err
 
 
-def time_kernel(gen: torch.Generator) -> dict:
-    """Phase 3b: times at the serving shape (f32 blocks, bool mask)."""
-    B, n, d = SERVE_SHAPE
-    x = torch.randn(SERVE_SHAPE, generator=gen, device="cuda")
+def time_kernel(gen: torch.Generator, shape: tuple) -> dict:
+    """Phase 3b: times at ``shape`` (G·s, n, d), the quickstart's largest
+    (f32 blocks, bool mask)."""
+    B, n, d = shape
+    x = torch.randn(shape, generator=gen, device="cuda")
     m = torch.rand((B, n), generator=gen, device="cuda") < 0.9
     m[:, 0] = True
 
@@ -344,6 +391,158 @@ def time_kernel(gen: torch.Generator) -> dict:
     return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
             "library_ms": device_ms(library),
             "eager_ms": eager_ms(kernel), "eager_plain_ms": eager_ms(plain),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "shape": list(shape)}
+
+
+def tp_masks(gen: torch.Generator, n: int, s: int, kind: str,
+             sites: int = SITES_PER_STEP) -> tuple:
+    """A (sites, n, s) bool mask pair: Bernoulli(0.7) with the owners
+    forced at every site, and at sites 0 and sites - 1 the case ``kind``:
+    "bernoulli", "delivered" (every packet) or "owner" (every packet
+    dropped but the owner's); "broadcast": one draw expanded over the
+    sites (stride 0, as a channel on the base class's sample_packets
+    gives it)."""
+    if kind == "broadcast":
+        rs, ag = rps_lib.sample_masks(gen, n, 0.3, s)
+        return rs.expand(sites, n, s), ag.expand(sites, n, s)
+    rs, ag = rps_lib.sample_masks(gen, n, 0.3, s, n_buckets=sites)
+    own = rps_lib.owner_mask(n, s, device=gen.device)
+    for site in (0, sites - 1):
+        if kind == "delivered":
+            rs[site], ag[site] = True, True
+        elif kind == "owner":
+            rs[site], ag[site] = own, own
+    return rs, ag
+
+
+def tp_partials(gen: torch.Generator, n: int, B: int, d: int, dtype,
+                integer: bool, strided: bool) -> torch.Tensor:
+    """(n, B, 1, d) partials in ``dtype``: integers in [-6, 6], or unit
+    normals divided by n (so the exchanged n * p are unit normals, the
+    kernel tests' inputs); ``strided``: a view whose columns are not
+    contiguous."""
+    shape = (n, d, B) if strided else (n, B, d)
+    if integer:
+        x = torch.randint(-6, 7, shape, generator=gen, device="cuda")
+        x = x.to(torch.float32)
+    else:
+        x = torch.randn(shape, generator=gen, device="cuda") / n
+    x = x.to(dtype)
+    return (x.transpose(1, 2) if strided else x)[:, :, None, :]
+
+
+def check_tp_combine(gen: torch.Generator) -> dict:
+    """Phase 3c: the TP-combine kernel against its plain version over the
+    sweep, then bit for bit against the exchange route at the serving
+    shape. Returns the case count and the largest error on normal
+    partials by wire."""
+    n_cases, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for n in (2, 4, 8, 16):
+        for s in sorted({max(n // 2, 1), n, 2 * n}):
+            for kind, strided in (("bernoulli", False), ("bernoulli", True),
+                                  ("broadcast", False), ("delivered", False),
+                                  ("owner", False)):
+                rs, ag = tp_masks(gen, n, s, kind)
+                for d, B in TP_SHAPES:
+                    blk = -(-d * B // s)
+                    geom = K.CombineGeometry(s=s, blk=blk, pad=s * blk - d * B)
+                    for pdt in (torch.float32, torch.bfloat16):
+                        for integer in (True, False):
+                            x = tp_partials(gen, n, B, d, pdt, integer,
+                                            strided)
+                            for wire in (torch.float32, torch.bfloat16):
+                                for r in (0, n - 1):
+                                    for site in (0, SITES_PER_STEP - 1):
+                                        kw = dict(n=n, receiver=r,
+                                                  wire_dtype=wire)
+                                        got = K.tp_combine(
+                                            x, rs, ag, site,
+                                            plan_geometry=geom, **kw)
+                                        want = tp_combine_ref(
+                                            x, rs, ag, site, s=s, blk=blk,
+                                            pad=geom.pad, **kw)
+                                        _tp_agree(got, want, integer, wire,
+                                                  worst, (n, s, kind,
+                                                          strided, d, B,
+                                                          pdt, wire, r,
+                                                          site))
+                                        n_cases += 1
+    n_exchange = 0
+    d, B, n = TP_SERVE
+    for wire in ("f32", "bf16"):
+        tp = make_tp_context(TPDecodeConfig(n_shards=n, p=0.1, wire=wire),
+                             get_config("gemma3-1b"), B)
+        if not tp.fused:
+            raise AssertionError(f"TP at the {wire} wire is not fused")
+        masks, _ = tp.sample_site_masks(gen, None)
+        for pdt in (torch.bfloat16, torch.float32):
+            x = torch.randn((n, B, 1, d), generator=gen,
+                            device="cuda").to(pdt)
+            for site in range(tp.n_sites):
+                got = tp._exchange(x, masks, site)
+                want = tp._exchange_global(x, masks, site)
+                if not torch.equal(_bits(got), _bits(want.contiguous())):
+                    raise AssertionError(
+                        f"tp_combine differs from the exchange route at "
+                        f"the {wire} wire, {pdt} partials, site {site}")
+                n_exchange += 1
+    print(f"tp_combine sweep: {n_cases} cases agree with the plain version, "
+          f"{n_exchange} serving sites bit for bit with the exchange route",
+          flush=True)
+    return {"cases": n_cases, "exchange_cases": n_exchange,
+            "max_abs_err_f32_wire": worst[torch.float32],
+            "max_abs_err_bf16_wire": worst[torch.bfloat16]}
+
+
+def _tp_agree(got, want, integer: bool, wire, worst: dict,
+              case: tuple) -> None:
+    torch.cuda.synchronize()
+    if integer:
+        if not torch.equal(_bits(got), _bits(want.contiguous())):
+            raise AssertionError(f"tp_combine {case}: integer partials not "
+                                 f"bit for bit")
+        return
+    err = (got - want).abs().max().item()
+    worst[wire] = max(worst[wire], err)
+    tol = TP_TOL[wire]
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"tp_combine {case}: max abs err {err} > tol "
+                             f"{tol}")
+
+
+def time_tp_combine(gen: torch.Generator) -> dict:
+    """Phase 3c's times at the serving shape: f32 partials (every site but
+    layer 0's attention), the f32 wire, Bernoulli p = 0.1 masks."""
+    d, B, n = TP_SERVE
+    tp = make_tp_context(TPDecodeConfig(n_shards=n, p=0.1),
+                         get_config("gemma3-1b"), B)
+    masks, _ = tp.sample_site_masks(gen, None)
+    x = torch.randn((n, B, 1, d), generator=gen, device="cuda")
+    site = 1
+    g = tp.geometry
+
+    def kernel():
+        return tp._exchange(x, masks, site)
+
+    def unfused():
+        return tp._exchange_global(x, masks, site)
+
+    def plain():
+        return tp_combine_ref(x, masks[0], masks[1], site, n=n,
+                              receiver=tp.receiver, s=g.s, blk=g.blk,
+                              pad=g.pad, wire_dtype=tp.wire_dtype)
+
+    # each input byte read once: the partials, the site's rs rows and the
+    # receiver's ag row; the (B, 1, d) f32 output written once
+    nbytes = (x.numel() * x.element_size()
+              + (n + 1) * g.s * masks[0].element_size() + B * d * 4)
+    flops = 3 * n * B * d           # n * p, the mask product and the add
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return {"ms": device_ms(kernel), "unfused_ms": device_ms(unfused),
+            "plain_ms": device_ms(plain),
+            "eager_ms": eager_ms(kernel), "eager_unfused_ms": eager_ms(unfused),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes}
@@ -390,7 +589,8 @@ def serve_slice(model, params) -> dict:
     torch.cuda.synchronize()
     reset_counts()
     rep = eng.run(reqs, drain=True)
-    launches = K.masked_avg_grid.launches
+    launches = K.tp_combine.launches
+    unfused = K.masked_avg_grid.launches
     torch.cuda.synchronize()
     model.decode_paged = decode
     for r in rep.requests:
@@ -403,14 +603,18 @@ def serve_slice(model, params) -> dict:
         raise AssertionError("non-finite decode logits")
     want = SITES_PER_STEP * eng.chunk * rep.rounds
     if launches != want:
-        raise AssertionError(f"kernel launches {launches} != 52 × chunk "
+        raise AssertionError(f"tp_combine launches {launches} != 52 × chunk "
                              f"{eng.chunk} × rounds {rep.rounds} = {want}")
+    if unfused:
+        raise AssertionError(f"the serving path launched the masked-average "
+                             f"kernel {unfused} times")
     return {"requests": len(rep.requests), "tokens": rep.tokens,
             "wall_s": rep.wall_s, "tokens_per_s": rep.tokens_per_s,
             "p50_ms": rep.latency_quantile(0.5),
             "p99_ms": rep.latency_quantile(0.99), "rounds": rep.rounds,
             "prefills": rep.prefills, "decode_steps": eng.chunk * rep.rounds,
-            "masked_avg_grid_launches": launches}
+            "tp_combine_launches": launches,
+            "masked_avg_grid_launches": unfused}
 
 
 def dense_equivalence(model, params, steps: int = 4) -> dict:
@@ -906,11 +1110,12 @@ def time_ring(gen: torch.Generator, shape: tuple) -> dict:
             "bytes": nbytes}
 
 
-def quickstart(steps: int = 150, n: int = 16) -> dict:
+def quickstart(groups: int, steps: int = 150, n: int = 16) -> dict:
     """Phase 15: examples/quickstart.py on the port. Four runs from one
     seed (so the same initial weights and, for the three p = 0.1 runs,
-    the same drop masks); each rps run's ring-kernel launches are
-    counted."""
+    the same drop masks); each rps run's kernel launches are counted: the
+    ring kernel's, and on the xla run the masked-average kernel's, one per
+    exchange group (``groups``, whose shapes phase 3a sweeps) and step."""
     task = TeacherTask(d_in=24, n_classes=8, hetero=0.3, seed=0)
 
     def init_fn(gen):
@@ -944,6 +1149,11 @@ def quickstart(steps: int = 150, n: int = 16) -> dict:
                 and launches != 2 * steps:      # two leaves, one group each
             raise AssertionError(f"quickstart {name}: {launches} ring "
                                  f"launches, want {2 * steps}")
+        if engine == "xla" \
+                and out[name]["masked_avg_launches"] != groups * steps:
+            raise AssertionError(
+                f"quickstart {name}: {out[name]['masked_avg_launches']} "
+                f"masked-average launches, want {groups * steps}")
     base, rps = out["baseline"]["final_loss"], out["rps_model"]["final_loss"]
     if not rps < base * 1.15 + 0.02:
         raise AssertionError(f"quickstart claim fails: RPS {rps} >= 1.15 x "
@@ -1092,6 +1302,7 @@ RING_Q_WIDTHS = ((2, 4, 1, 4096), (2, 4, 1, 16384), (2, 4, 1, 32768),
 RING_Q_WIDE = (1, 4, 4, 3_200_000)
 # phase 20: wire_bench.py section 2 (replicated data, n = 8)
 GAP_STUDY = dict(n=8, steps=200, seeds=(0, 1, 2), ps=(0.2, 0.3))
+GAP_STUDY_SHAPES = {"w": (6, 4)}        # the 6 -> 4 least-squares model
 
 
 def ring_enc_case(gen: torch.Generator, G: int, n: int, s: int, d: int,
@@ -1294,7 +1505,8 @@ def ef_gap_closure(study=GAP_STUDY) -> dict:
     ys = xs @ w_true
 
     def init_fn(gen):
-        return {"w": torch.randn((6, 4), generator=gen, device="cuda") * 0.1}
+        return {k: torch.randn(shape, generator=gen, device="cuda") * 0.1
+                for k, shape in GAP_STUDY_SHAPES.items()}
 
     def loss_fn(p, b):
         x, y = b
@@ -1450,9 +1662,15 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    err = check_kernel(gen)
-    timing = time_kernel(gen)
+    xla_shapes = xla_grid_shapes()
+    err = check_kernel(gen, xla_shapes)
+    timing = time_kernel(gen, xla_shapes["quickstart"][-1])
     print(json.dumps({"kernel_timing": timing, "card": card}), flush=True)
+    tp_err = check_tp_combine(gen)
+    tp_timing = time_tp_combine(gen)
+    print(json.dumps({"tp_combine_errors": tp_err,
+                      "tp_combine_timing": tp_timing, "card": card}),
+          flush=True)
 
     model, params = init_model("gemma3-1b", gen)
     slice_ = serve_slice(model, params)
@@ -1511,7 +1729,7 @@ def main() -> int:
                       "ring_timing_bucket": ring_bucket, "card": card}),
           flush=True)
     torch.cuda.empty_cache()
-    qs = quickstart()
+    qs = quickstart(groups=len(xla_shapes["quickstart"]))
     print(json.dumps({"quickstart": qs, "card": card}), flush=True)
     la = launcher_default()
     print(json.dumps({"launcher_default": la, "card": card}), flush=True)
@@ -1542,12 +1760,21 @@ def main() -> int:
     kernel = {"name": "masked_avg_grid", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
               "replaces": "src/repro/kernels/masked_avg.py:58",
-              "launches": slice_["masked_avg_grid_launches"],
+              "launches": qs["rps_model_xla"]["masked_avg_launches"],
               "max_abs_err": err,
               "ms": timing["ms"], "plain_ms": timing["plain_ms"],
               "bound_ms": timing["bound_ms"],
               "bound_by": timing["bound_by"],
               "library_ms": timing["library_ms"], "ok": True}
+    combine = {"name": "tp_combine", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
+               "replaces": "src/repro/kernels/masked_avg.py:58",
+               "launches": slice_["tp_combine_launches"],
+               "max_abs_err": tp_err["max_abs_err_f32_wire"],
+               "ms": tp_timing["ms"], "plain_ms": tp_timing["plain_ms"],
+               "bound_ms": tp_timing["bound_ms"],
+               "bound_by": tp_timing["bound_by"],
+               "library_ms": None, "ok": True}
     rwkv = {"name": "rwkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
             "replaces": "src/repro/kernels/rwkv6_scan.py:71",
@@ -1584,7 +1811,8 @@ def main() -> int:
                 "bound_ms": enc_group["bound_ms"],
                 "bound_by": enc_group["bound_by"],
                 "library_ms": None, "ok": True}
-    print(json.dumps({"kernels": [kernel, rwkv, rglru, ring, ring_enc]}),
+    print(json.dumps({"kernels": [kernel, combine, rwkv, rglru, ring,
+                                  ring_enc]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

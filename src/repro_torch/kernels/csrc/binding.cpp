@@ -1,5 +1,7 @@
 // Binds the port's CUDA kernels to PyTorch as
 //   torch.ops.repro_torch.masked_avg_grid(blocks, mask, out, tile)
+//   torch.ops.repro_torch.tp_combine(partials, rs, ag, out, site, receiver,
+//                                    blk, wire_bf16)
 //   torch.ops.repro_torch.rwkv6_fwd(r, k, v, w, u, out, state, scratch,
 //                                   ready)
 //   torch.ops.repro_torch.rglru_fwd(x, a, out, h_last)
@@ -91,6 +93,59 @@ void masked_avg_grid(const at::Tensor& blocks, const at::Tensor& mask,
   repro_torch::masked_avg_grid_launch(
       blocks.data_ptr(), bt, mask.data_ptr(), dtype_code(mask.scalar_type()),
       out.data_ptr(), B, n, d, tile,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void tp_combine(const at::Tensor& partials, const at::Tensor& rs,
+                const at::Tensor& ag, at::Tensor& out, int64_t site,
+                int64_t receiver, int64_t blk, bool wire_bf16) {
+  for (const at::Tensor* t :
+       std::initializer_list<const at::Tensor*>{&partials, &rs, &ag, &out}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == partials.device(),
+                "tp_combine: tensors must be on one CUDA device");
+  }
+  TORCH_CHECK(out.is_contiguous(), "tp_combine: out must be contiguous");
+  TORCH_CHECK(partials.dim() == 4 && partials.size(2) == 1 && rs.dim() == 3 &&
+                  ag.dim() == 3 && out.dim() == 3,
+              "tp_combine: want partials (n, B, 1, d), rs and ag "
+              "(n_sites, n, s), out (B, 1, d)");
+  const int64_t n = partials.size(0), B = partials.size(1),
+                d = partials.size(3), s = rs.size(2);
+  TORCH_CHECK(rs.sizes() == ag.sizes() && rs.size(1) == n &&
+                  out.size(0) == B && out.size(1) == 1 && out.size(2) == d,
+              "tp_combine: shape mismatch");
+  const c10::ScalarType pt = partials.scalar_type();
+  TORCH_CHECK(pt == c10::ScalarType::Float || pt == c10::ScalarType::BFloat16,
+              "tp_combine: partials must be float32 or bfloat16");
+  TORCH_CHECK(out.scalar_type() == c10::ScalarType::Float,
+              "tp_combine: out must be float32");
+  TORCH_CHECK(rs.scalar_type() == c10::ScalarType::Bool &&
+                  ag.scalar_type() == c10::ScalarType::Bool,
+              "tp_combine: rs and ag must be bool");
+  TORCH_CHECK(site >= 0 && site < rs.size(0), "tp_combine: site ", site,
+              " not in [0, ", rs.size(0), ")");
+  TORCH_CHECK(receiver >= 0 && receiver < n, "tp_combine: receiver ",
+              receiver, " not in [0, ", n, ")");
+  // the requests are grid.y; the flat index c * B + b is int
+  TORCH_CHECK(B >= 1 && B <= kMaxGridY && d >= 1 && B * d <= kMaxGridX,
+              "tp_combine: need 1 <= B <= ", kMaxGridY,
+              ", d >= 1 and B * d <= ", kMaxGridX);
+  TORCH_CHECK(blk >= 1 && s * blk >= B * d,
+              "tp_combine: s = ", s, " blocks of ", blk,
+              " do not lay out B * d = ", B * d);
+  const c10::cuda::CUDAGuard guard(partials.device());
+  // the site's rows found by their strides: any layout of the mask stacks
+  const bool* rs_site =
+      static_cast<const bool*>(rs.data_ptr()) + site * rs.stride(0);
+  const bool* ag_row = static_cast<const bool*>(ag.data_ptr()) +
+                       site * ag.stride(0) + receiver * ag.stride(1);
+  repro_torch::tp_combine_launch(
+      partials.data_ptr(), dtype_code(pt), partials.stride(0),
+      partials.stride(1), partials.stride(3), rs_site, rs.stride(1),
+      rs.stride(2), ag_row, ag.stride(2),
+      wire_bf16 ? repro_torch::DType::kBF16 : repro_torch::DType::kF32,
+      static_cast<float*>(out.data_ptr()), n, B, d, blk, receiver,
       c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -366,6 +421,9 @@ TORCH_LIBRARY(repro_torch, m) {
   m.def("masked_avg_grid(Tensor blocks, Tensor mask, Tensor(a!) out, "
         "int tile) -> ()",
         &masked_avg_grid);
+  m.def("tp_combine(Tensor partials, Tensor rs, Tensor ag, Tensor(a!) out, "
+        "int site, int receiver, int blk, bool wire_bf16) -> ()",
+        &tp_combine);
   m.def("rwkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
         "Tensor(a!) out, Tensor(b!) state, Tensor(c!) scratch, "
         "Tensor(d!) ready) -> ()",

@@ -12,7 +12,8 @@ namespace repro_torch {
 // Element types the kernels read. masked_avg blocks, rwkv6 inputs and
 // rglru x: kF32, kBF16, kF16. rglru a: kF32 or x's type. ring_round
 // payload and accumulation: kF32, kBF16; its encoded table: kI8 or the
-// payload type. masked_avg and ring_round masks: any.
+// payload type. tp_combine partials and wire: kF32, kBF16; its masks:
+// bool. masked_avg and ring_round masks: any.
 enum class DType : int {
   kF32 = 0,
   kBF16 = 1,
@@ -32,6 +33,24 @@ void masked_avg_grid_launch(const void* blocks, DType blocks_dtype,
                             const void* mask, DType mask_dtype, void* out,
                             int64_t B, int64_t n, int64_t d, int64_t tile,
                             cudaStream_t stream);
+
+// Enqueues the tensor-parallel combine of one drop-masked decode site
+// (masked_avg.cu): for the partials (n, B, 1, d) of type partials_dtype (kF32
+// or kBF16) at element strides sn, sb, sc (worker, request, column), the
+// site's (n, s) bool rs rows at rs_site (element strides rs_sn, rs_ss:
+// worker, block) and the receiver's (s) bool ag row at ag_row (stride
+// ag_ss), writes the receiver's consensus (B, 1, d) in f32 to the contiguous
+// `out`: the plan's server block j = (c * B + b) / blk of each element,
+// renormalised over rs in the wire type wire_dtype (kF32 or kBF16) where ag
+// keeps it, else the receiver's own n * p. Needs 0 <= receiver < n,
+// B <= 65535 (grid.y) and B * d < 2^31. Does not synchronise; the caller
+// checks cudaGetLastError() right after.
+void tp_combine_launch(const void* partials, DType partials_dtype, int64_t sn,
+                       int64_t sb, int64_t sc, const bool* rs_site,
+                       int64_t rs_sn, int64_t rs_ss, const bool* ag_row,
+                       int64_t ag_ss, DType wire_dtype, float* out, int64_t n,
+                       int64_t B, int64_t d, int64_t blk, int64_t receiver,
+                       cudaStream_t stream);
 
 // The largest dk and dv the RWKV-6 kernel takes (both are padded to it).
 constexpr int64_t kRwkv6MaxDim = 64;

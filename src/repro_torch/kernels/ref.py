@@ -23,6 +23,39 @@ def masked_avg_ref(blocks: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (s / c[..., None]).to(blocks.dtype)
 
 
+def tp_combine_ref(partials: torch.Tensor, rs: torch.Tensor,
+                   ag: torch.Tensor, site: int, *, n: int, receiver: int,
+                   s: int, blk: int, pad: int,
+                   wire_dtype: torch.dtype) -> torch.Tensor:
+    """The tensor-parallel combine of one drop-masked decode site, as
+    ``serve/tp.py`` computes it through the exchange: ``n · partials``
+    in their dtype, laid out as the decode plan's f32 (d, B) leaf in ``s``
+    server blocks of ``blk`` (``pad`` zeros at the end), each block's
+    renormalised average over the site's ``rs`` rows in ``wire_dtype``,
+    kept where the receiver's ``ag`` row delivers it and the receiver's
+    own block elsewhere.
+
+    partials: (n, B, 1, d); rs, ag: (n_sites, n, s) of any dtype.
+    Returns the receiver's consensus (B, 1, d) f32, the values of the
+    exchange route on the same inputs (the same ops on the same layouts,
+    so bit for bit on the CPU).
+    """
+    _, B, _, d = partials.shape
+    f32 = torch.float32
+    y = torch.permute(partials[:, :, 0, :] * n, (0, 2, 1))    # (n, d, B)
+    flat = y.reshape(n, d * B).to(f32)
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    table = flat.reshape(n, s, blk)                 # the plan's f32 table
+    send = table.to(wire_dtype)
+    tilde = masked_avg_ref(send.transpose(0, 1).contiguous(),
+                           rs[site].transpose(0, 1).contiguous())
+    keep = ag[site][receiver].to(torch.bool)[:, None]
+    out = torch.where(keep, tilde.to(f32), table[receiver])  # (s, blk)
+    return out.reshape(s * blk)[:d * B].reshape(d, B).transpose(0, 1)[
+        :, None, :]
+
+
 def rwkv6_ref(r, k, v, w, u):
     """Sequential RWKV-6 recurrence from ``S_0 = 0``, in f32.
 

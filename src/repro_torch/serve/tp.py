@@ -21,6 +21,13 @@ As in the JAX package, the plan is built for f32, so the combine returns
 f32 and the residual stream of a bf16 model turns f32 at the first
 combine. With no channel and p = 0 the engine passes ``tp=None`` and the
 dense path runs untouched.
+
+The default configuration (the xla engine, renorm, an f32 or bf16 wire)
+runs each site as one launch of the TP-combine kernel
+(:func:`repro_torch.kernels.masked_avg.tp_combine`), which computes the
+exchange route's values from the partials and the step's mask stacks in
+place; the others (``scale``, the ring engine, the int8 wire) run the
+exchange, :func:`repro_torch.core.rps.rps_exchange_global`.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ import torch
 from repro_torch.channels.registry import make_channel
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import rps as rps_lib
+from repro_torch.core import wire as wire_lib
+from repro_torch.kernels import masked_avg as masked_avg_lib
 from repro_torch.models import layers as L
 
 
@@ -83,6 +92,15 @@ class TPContext:
         self.receiver = int(cfg.receiver)
         if not 0 <= self.receiver < n:
             raise ValueError(f"receiver={cfg.receiver} not in [0, {n})")
+        # the TP-combine kernel's route: the exchange's renorm average on
+        # the xla engine ("auto" resolves to it) over a linear wire
+        self.fused = (cfg.engine in ("xla", "auto")
+                      and self.plan.recovery == "renorm"
+                      and self.plan.wire in ("f32", "bf16"))
+        (bucket,) = self.plan.buckets
+        self.geometry = masked_avg_lib.CombineGeometry(
+            s=self.plan.s, blk=bucket.blk * bucket.m, pad=bucket.pad)
+        self.wire_dtype = wire_lib.canon_wire_dtype(self.plan.wire)
 
     # -- mask sampling (once per decode step) -------------------------------
 
@@ -99,6 +117,17 @@ class TPContext:
 
     def _exchange(self, partials, masks, site):
         """partials: (n, B, 1, d) -> the receiver's consensus (B, 1, d)."""
+        if self.fused:
+            return masked_avg_lib.tp_combine(
+                partials, masks[0], masks[1], site, n=self.n,
+                receiver=self.receiver, plan_geometry=self.geometry,
+                wire_dtype=self.wire_dtype)
+        return self._exchange_global(partials, masks, site)
+
+    def _exchange_global(self, partials, masks, site):
+        """:meth:`_exchange` through the exchange itself: the route of
+        the configurations the kernel does not take, and the unfused
+        chain it replaces."""
         rs, ag = masks[0][site], masks[1][site]
         n = self.n
         # n·partial_i as worker i's model copy; transpose so the plan's

@@ -10,9 +10,11 @@ the second is timed on the host clock (session wall, host time spent in
 each decode step and prefill call), the third runs under
 ``torch.profiler`` (device time per kernel). Prints one JSON object:
 walls, tokens/s, host ms per decode step and per prefill, kernel
-launches per decode step, device busy time and idle share (busy time
-over the timed session's wall; the profiled session's wall is inflated
-by the profiler), and the kernels with the most device time.
+launches and device busy ms per decode step (prefills included), device
+busy time and idle share (busy time over the timed session's wall; the
+profiled session's wall is inflated by the profiler), the TP-combine and
+masked-average kernels' launches and device time, and the kernels with
+the most device time.
 
 ``--slice rwkv6`` runs chip_smoke.py's phase-7 load (rwkv6-1.6b at full
 width, random bf16 weights, the static-batch engine: 8 prompts of 512
@@ -272,6 +274,7 @@ def main() -> int:
     model.prefill = _labelled(prefill, "serve.prefill")
     model.decode_paged = _labelled(decode, "serve.decode_step")
     K.masked_avg_grid.launches = 0
+    K.tp_combine.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -284,6 +287,8 @@ def main() -> int:
     busy_s = sum(k[0] for k in kernels) / 1e6
     n_kernels = sum(k[1] for k in kernels)
     mavg = [k for k in kernels if "masked_avg_grid" in k[2]]
+    combine = [k for k in kernels if "tp_combine_kernel" in k[2]]
+    combine_s = sum(k[0] for k in combine) / 1e6
     print(json.dumps({
         "card": card, "warmup_wall_s": warm.wall_s,
         "wall_s": wall_s, "tokens": timed.tokens,
@@ -301,6 +306,11 @@ def main() -> int:
         "device_idle_share": 1.0 - busy_s / wall_s,
         "kernel_launches": n_kernels,
         "kernels_per_decode_step_incl_prefills": n_kernels / steps,
+        "device_busy_ms_per_decode_step_incl_prefills":
+            busy_s * 1e3 / steps,
+        "tp_combine_launches": K.tp_combine.launches,
+        "tp_combine_device_ms": combine_s * 1e3,
+        "tp_combine_share_of_busy": combine_s / busy_s,
         "masked_avg_grid_launches": launches,
         "masked_avg_grid_device_ms": mavg[0][0] / 1e3 if mavg else None,
         "masked_avg_grid_share_of_busy":
