@@ -119,7 +119,34 @@ raises on failure; nothing is caught):
    step; step ms, tokens/s and peak memory; then one exchange of each
    run's final replicas (and residual) at full width, on the card through
    the kernels and on the CPU through the plain versions, with the same
-   masks and rounding noise: bit for bit.
+   masks and rounding noise: bit for bit;
+22. the channel families (benchmarks/channels_bench.py's recipe, uncut,
+   on the ring engine): the quickstart's teacher MLP, n = 16, batch 32,
+   150 steps, lr 0.2, warm-up 10, each family at effective_p 0.1 —
+   bernoulli, Gilbert-Elliott bursts of 4 and 16, 4 pods, the straggler
+   deadline (bisected) and the netsim trace (web priority bisected) —
+   and rps_grad on the 16-burst channel; every final loss < the
+   bernoulli run's x 1.35 + 0.05, rps_grad's above rps_model's on the
+   16-burst channel, each family's realised off-owner drop fraction
+   within CHANNEL_DRIFT of its effective_p (the trace's: its mean over
+   the periods replayed), ring launches = groups x steps;
+23. benchmarks/state_bench.py section 3, uncut: n = 4, Adam, ef, 2
+   buckets, 200 steps, seeds {0, 1, 2}, p in {0.1, 0.2, 0.3}, the f32 /
+   int8 wire x f32 / i8 pack, engine auto (the masked-average kernel, once
+   per group and step); at every p the i8 pack's loss gap <= the int8
+   wire's + 0.02, printed beside BENCH_state.json's CPU rows;
+24. rps-100m at phase 17's load with Adam (lr 3e-4, warm-up 20) on the
+   Gilbert-Elliott channel (bursts of 8, p 0.1), 4 steps under each
+   state pack (f32, bf16, i8), from phase 17's weights and batches: peak
+   memory (the earlier phases' memory freed first, the allocation at the
+   run's start beside it), the state's bytes, step ms and losses; the
+   optimizer's bytes f32 / i8 >= 2.0 and i8's peak >= 10 % below f32's
+   (state_bench.py's own acceptances), every loss finite and the bf16 and
+   i8 losses within PACK_LOSS_GAP of the f32 pack's; then one i8-packed
+   Adam update of the largest leaf (the stacked MLP weight, 453 M
+   elements) on the card and on the CPU from the same state, grads and
+   uniforms: the params, the int8 payload, its scales and the bf16 m bit
+   for bit.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -138,6 +165,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import channels as channels_lib  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import masked_avg as K  # noqa: E402
@@ -154,6 +182,9 @@ from repro_torch.kernels.ref import tp_combine_ref  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.netsim import request_trace  # noqa: E402
+from repro_torch.netsim import sim as netsim  # noqa: E402
+from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.optim import statepack  # noqa: E402
 from repro_torch.serve import (ContinuousEngine, PagedCache,  # noqa: E402
                                ServeEngine, TPDecodeConfig, make_requests,
                                make_tp_context)
@@ -1110,6 +1141,19 @@ def time_ring(gen: torch.Generator, shape: tuple) -> dict:
             "bytes": nbytes}
 
 
+def teacher_init(gen: torch.Generator) -> dict:
+    """The quickstart's 24-48-8 tanh MLP, N(0, 0.01) weights."""
+    return {k: torch.randn(shape, generator=gen, device=gen.device) * 0.1
+            for k, shape in QUICKSTART_SHAPES.items()}
+
+
+def teacher_loss(p, batch):
+    x, y = batch
+    logits = torch.tanh(x @ p["w1"]) @ p["w2"]
+    gold = torch.gather(logits, -1, y.long()[:, None])[:, 0]
+    return torch.mean(torch.logsumexp(logits, -1) - gold)
+
+
 def quickstart(groups: int, steps: int = 150, n: int = 16) -> dict:
     """Phase 15: examples/quickstart.py on the port. Four runs from one
     seed (so the same initial weights and, for the three p = 0.1 runs,
@@ -1117,17 +1161,7 @@ def quickstart(groups: int, steps: int = 150, n: int = 16) -> dict:
     ring kernel's, and on the xla run the masked-average kernel's, one per
     exchange group (``groups``, whose shapes phase 3a sweeps) and step."""
     task = TeacherTask(d_in=24, n_classes=8, hetero=0.3, seed=0)
-
-    def init_fn(gen):
-        return {k: torch.randn(shape, generator=gen, device=gen.device) * 0.1
-                for k, shape in QUICKSTART_SHAPES.items()}
-
-    def loss_fn(p, batch):
-        x, y = batch
-        logits = torch.tanh(x @ p["w1"]) @ p["w2"]
-        gold = torch.gather(logits, -1, y.long()[:, None])[:, 0]
-        return torch.mean(torch.logsumexp(logits, -1) - gold)
-
+    init_fn, loss_fn = teacher_init, teacher_loss
     batch_fn = make_worker_streams(task, n, 32)
     out = {}
     for name, agg, p, engine in (("baseline", "allreduce_model", 0.0, "ring"),
@@ -1646,6 +1680,365 @@ def rps100m_int8(setup: Rps100mSetup, f32_loss: list, steps: int = 8,
     return out
 
 
+# phase 22: benchmarks/channels_bench.py's recipe
+CHANNEL_P = 0.1                # every family at this effective_p
+# the largest |realised off-owner drop fraction - effective_p| allowed:
+# ~5 sigma at the 16-burst channel (240 links, mean sojourn 16, 150 steps)
+CHANNEL_DRIFT = 0.04
+# phase 23: benchmarks/state_bench.py section 3
+STATE_STUDY = dict(n=4, steps=200, seeds=(0, 1, 2), ps=(0.1, 0.2, 0.3))
+# phase 24: rps-100m under every state pack
+PACK_LOAD = dict(optimizer="adam", lr=3e-4, warmup=20, steps=4,
+                 channel="ge:p_bad=1.0,burst=8,p=0.1")
+PACK_LOSS_GAP = 1e-2           # |loss(bf16 / i8 pack) - loss(f32 pack)|
+
+
+class CountingChannel(channels_lib.Channel):
+    """Phase 22's probe: a channel that hands on another's masks and
+    counts, on the device, the off-owner packets they drop."""
+
+    def __init__(self, inner: channels_lib.Channel):
+        super().__init__(inner.n, inner.s)
+        self.inner, self.name = inner, inner.name
+        self.off = ~rps_lib.owner_mask(inner.n, inner.s)
+        self.dropped = None
+        self.offered = 0
+        self.draws = 0
+
+    def init_state(self, gen=None):
+        return self.inner.init_state(gen)
+
+    def _count(self, rs, ag):
+        off = self.off.to(rs.device)
+        d = (~rs & off).sum() + (~ag & off).sum()
+        self.dropped = d if self.dropped is None else self.dropped + d
+        self.offered += 2 * int(off.sum()) * (rs.numel() // off.numel())
+        self.draws += 1
+        return rs, ag
+
+    def sample(self, gen, state=None):
+        rs, ag, state = self.inner.sample(gen, state)
+        return self._count(rs, ag) + (state,)
+
+    def sample_packets(self, gen, state=None, n_buckets=1):
+        rs, ag, state = self.inner.sample_packets(gen, state, n_buckets)
+        return self._count(rs, ag) + (state,)
+
+    def effective_p(self) -> float:
+        return self.inner.effective_p()
+
+    def expected_drop(self) -> float:
+        """What the run's draws should drop: effective_p, or for a trace
+        the mean of its link drop rates over the periods it replayed."""
+        ch = self.inner
+        if not isinstance(ch, channels_lib.TraceChannel):
+            return ch.effective_p()
+        periods = np.arange(self.draws) % ch.n_periods
+        off = ~np.eye(ch.n, dtype=bool)
+        return float(ch.p_trace.numpy()[periods][:, off].mean())
+
+    def realised_drop(self) -> float:
+        return float(self.dropped) / self.offered
+
+    def __repr__(self) -> str:
+        return repr(self.inner)
+
+
+def _bisect(f, lo, hi, target, iters=8):
+    """channels_bench.py's bisection: the x with f(x) ~ target, f
+    increasing."""
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        if f(mid) < target:
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi)
+
+
+def channel_families(n: int = 16) -> list:
+    """channels_bench.py's six families, each at effective_p CHANNEL_P
+    (the deadline and the trace by its bisection)."""
+    base, jitter, q, mult = 2.0, 2.0, 0.1, 4.0
+
+    def deadline(d):
+        return channels_lib.DeadlineChannel(
+            n, deadline_ms=d, base_ms=base, jitter_ms=jitter,
+            straggler_frac=q, straggler_mult=mult)
+
+    d = _bisect(lambda x: -deadline(x).effective_p(), base * mult, 40.0,
+                -CHANNEL_P)
+    lam, cfg = 8000.0, netsim.NetConfig(sim_s=1.0)
+    prio = _bisect(lambda x: channels_lib.TraceChannel(
+        n, netsim.export_trace(lam, x, cfg)).effective_p(), 0.0, 1.0,
+        CHANNEL_P, iters=6)
+    return [
+        ("bernoulli", channels_lib.BernoulliChannel(n, CHANNEL_P)),
+        ("ge_burst4", channels_lib.GilbertElliottChannel(
+            n, p_bad=1.0, burst=4.0, p=CHANNEL_P)),
+        ("ge_burst16", channels_lib.GilbertElliottChannel(
+            n, p_bad=1.0, burst=16.0, p=CHANNEL_P)),
+        ("hetero_pods", channels_lib.HeterogeneousChannel.pods(
+            n, n_pods=4, p_intra=0.0, p_cross=CHANNEL_P * 15.0 / 12.0)),
+        ("deadline", deadline(d)),
+        ("trace", channels_lib.TraceChannel(
+            n, netsim.export_trace(lam, prio, cfg)))]
+
+
+def channels_bench(steps: int = 150, n: int = 16) -> dict:
+    """Phase 22: benchmarks/channels_bench.py on the port's ring engine.
+    Each family's run counts its masks' off-owner drops and its ring
+    launches (one per exchange group and step)."""
+    task = TeacherTask(d_in=24, n_classes=8, hetero=0.3, seed=0)
+    batch_fn = make_worker_streams(task, n, 32)
+    t0 = time.perf_counter()
+    families = channel_families(n)
+    setup_s = time.perf_counter() - t0
+    groups = len(rps_lib._global_groups(make_exchange_plan(
+        {k: torch.empty(v, device="meta")
+         for k, v in QUICKSTART_SHAPES.items()},
+        SimulatorConfig(n_workers=n))))
+    runs = [(name, ch, "rps_model") for name, ch in families]
+    runs.append(("ge_burst16_grad", families[2][1], "rps_grad"))
+    out = {"setup_s": setup_s, "groups": groups}
+    for name, ch, agg in runs:
+        probe = CountingChannel(ch)
+        scfg = SimulatorConfig(n_workers=n, aggregator=agg, lr=0.2,
+                               warmup=10, steps=steps, eval_every=steps - 1,
+                               channel=probe, engine="ring")
+        reset_counts()
+        h = run_simulation(teacher_loss, teacher_init, batch_fn, scfg)
+        launches = RG.ring_round.launches
+        realised, expected = probe.realised_drop(), probe.expected_drop()
+        out[name] = {"effective_p": ch.effective_p(),
+                     "final_loss": h["final_loss"],
+                     "consensus": h["consensus"][-1],
+                     "realised_drop": realised, "expected_drop": expected,
+                     "ring_launches": launches,
+                     "wall_s": sum(h["step_s"])}
+        if launches != groups * steps:
+            raise AssertionError(f"channels {name}: {launches} ring "
+                                 f"launches, want {groups} x {steps}")
+        if abs(realised - expected) > CHANNEL_DRIFT:
+            raise AssertionError(f"channels {name}: realised drop fraction "
+                                 f"{realised} against {expected}")
+        print(f"channels {name}: eff_p {ch.effective_p():.4f} final loss "
+              f"{h['final_loss']:.4f} realised drop {realised:.4f}",
+              flush=True)
+    base = out["bernoulli"]["final_loss"]
+    for name, _, _ in runs[:-1]:
+        if not out[name]["final_loss"] < base * 1.35 + 0.05:
+            raise AssertionError(f"channels {name} diverged at matched "
+                                 f"p={CHANNEL_P}: {out[name]}")
+    if not out["ge_burst16_grad"]["final_loss"] \
+            > out["ge_burst16"]["final_loss"]:
+        raise AssertionError("channels: naive gradient averaging did not "
+                             "degrade on the bursty channel")
+    return out
+
+
+def packed_convergence(study=STATE_STUDY) -> dict:
+    """Phase 23: benchmarks/state_bench.py section 3 on the port and the
+    card: the i8 pack's final-loss gap (against the f32 pack, f32 wire)
+    must not exceed the int8 wire's (against the f32 wire, f32 pack) +
+    0.02 at any p. Heterogeneous workers (a least-squares task per seed),
+    n = 4, Adam, ef, 2 buckets, lr 0.05, warm-up 5, engine auto."""
+    n, steps, seeds = study["n"], study["steps"], study["seeds"]
+
+    def task(seed):
+        rng = np.random.default_rng(seed)
+        xs = torch.from_numpy(rng.normal(size=(n, 16, 6)).astype(
+            np.float32)).cuda()
+        w_true = torch.from_numpy(rng.normal(size=(6, 4)).astype(
+            np.float32)).cuda()
+        return xs, xs @ w_true
+
+    def init_fn(gen):
+        return {"w": torch.randn((6, 4), generator=gen, device="cuda") * 0.1}
+
+    def loss_fn(p, b):
+        x, y = b
+        return torch.mean((x @ p["w"] - y) ** 2)
+
+    runs = 0
+
+    def final(wire, pack, p):
+        nonlocal runs
+        out = []
+        for seed in seeds:
+            batch = task(seed)
+            h = run_simulation(loss_fn, init_fn, lambda t: batch,
+                               SimulatorConfig(
+                                   n_workers=n, drop_rate=p,
+                                   aggregator="rps_model", steps=steps,
+                                   lr=0.05, warmup=5, n_buckets=2, seed=seed,
+                                   optimizer="adam", state_pack=pack,
+                                   wire=wire, recovery="ef"))
+            out.append(h["final_loss"])
+            runs += 1
+        return float(np.mean(out))
+
+    groups = len(rps_lib._global_groups(make_exchange_plan(
+        {"w": torch.empty((6, 4), device="meta")},
+        SimulatorConfig(n_workers=n, n_buckets=2))))
+    with open(Path(__file__).resolve().parent / "benchmarks"
+              / "BENCH_state.json") as f:
+        cpu_rows = {r["p"]: r for r in json.load(f)["convergence"]["rows"]}
+    t0 = time.perf_counter()
+    reset_counts()
+    rows = []
+    for p in study["ps"]:
+        base = final("f32", "f32", p)
+        wire8 = final("int8", "f32", p)
+        pack8 = final("f32", "i8", p)
+        both8 = final("int8", "i8", p)
+        row = {"p": p, "loss_f32wire_f32pack": base,
+               "loss_int8wire_f32pack": wire8,
+               "loss_f32wire_i8pack": pack8, "loss_int8wire_i8pack": both8,
+               "wire_gap": wire8 - base, "pack_gap": pack8 - base}
+        cpu = cpu_rows.get(p, {})
+        print(f"state_bench p={p}: card wire_gap {row['wire_gap']:.6e} "
+              f"pack_gap {row['pack_gap']:.6e} | the reference's CPU run "
+              f"(BENCH_state.json) wire_gap {cpu.get('wire_gap')} pack_gap "
+              f"{cpu.get('pack_gap')}", flush=True)
+        rows.append({"card": row, "reference_cpu": cpu})
+    launches = K.masked_avg_grid.launches
+    res = {"rows": rows, "runs": runs, "masked_avg_launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    if launches != groups * steps * runs:
+        raise AssertionError(f"state bench: {launches} masked-average "
+                             f"launches, want {groups} x {steps} x {runs}")
+    for r in rows:
+        row = r["card"]
+        if not row["pack_gap"] <= row["wire_gap"] + 0.02:
+            raise AssertionError(f"state bench: the i8 pack costs more than "
+                                 f"the int8 wire: {row}")
+    return res
+
+
+def _leaf_names(tree, prefix="") -> list:
+    """Leaf paths in tree_lib's flatten order."""
+    if isinstance(tree, dict):
+        return [name for k in sorted(tree)
+                for name in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [name for i, v in enumerate(tree)
+                for name in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def packed_adam_card_vs_cpu(params, opt_state, lr: float,
+                            seed: int = 0) -> dict:
+    """Phase 24's check of the packed optimizer: one i8-pack Adam update
+    of the largest leaf of rps-100m's stacked replicas (its state as the
+    run left it) on the card and on the CPU, with the same gradients and
+    rounding uniforms drawn on the CPU: the new params, the int8 payload,
+    its scales and the bf16 m must agree bit for bit."""
+    leaves = tree_lib.leaves(params)
+    i = max(range(len(leaves)), key=lambda j: leaves[j].numel())
+    m = statepack.leaf_reps(opt_state["m"], "bf16")[i][0]
+    q, sc = statepack.leaf_reps(opt_state["v"], "i8")[i]
+    p = leaves[i]
+    cpu = torch.Generator().manual_seed(seed)
+    g = torch.randn(p.shape, generator=cpu) * 1e-3
+    u = torch.rand(p.shape, generator=cpu)
+
+    def update(device):
+        opt = make_optimizer("adam", state_pack="i8")
+        x = {"x": p.to(device, copy=True)}
+        st = {"m": {"x": m.to(device, copy=True)},
+              "v": {"q": {"x": q.to(device, copy=True)},
+                    "scale": {"x": sc.to(device, copy=True)}},
+              "t": opt_state["t"].clone()}
+        opt.update({"x": g.to(device)}, st, x, lr,
+                   noise=lambda which, j, shape: u.to(device))
+        return [x["x"], st["m"]["x"], st["v"]["q"]["x"],
+                st["v"]["scale"]["x"]]
+
+    t0 = time.perf_counter()
+    card = [y.cpu() for y in update("cuda")]
+    torch.cuda.empty_cache()
+    host = update("cpu")
+    names = ("params", "m", "q", "scale")
+    for name, a, b in zip(names, card, host):
+        if not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError(f"packed Adam: the {name} of the update on "
+                                 f"the card differs from the CPU's")
+    return {"leaf": _leaf_names(params)[i], "shape": list(p.shape),
+            "elements": p.numel(), "bitwise": list(names),
+            "wall_s": time.perf_counter() - t0}
+
+
+def rps100m_packs(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
+    """Phase 24: rps-100m at phase 17's load with Adam on the
+    Gilbert-Elliott channel under each state pack, from phase 17's
+    weights and batches (the masks the same across packs: one seed). Peak
+    memory from a reset after the earlier phases' memory is freed; the
+    optimizer's bytes from the history's state_bytes."""
+    n, steps = load["n"], PACK_LOAD["steps"]
+    out = {}
+    kept = None
+    for pack in ("f32", "bf16", "i8"):
+        scfg = rps100m_config(load, state_pack=pack, **PACK_LOAD)
+        groups = len(rps_lib._global_groups(make_exchange_plan(setup.p1,
+                                                               scfg)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        h = run_simulation(setup.loss_fn, None,
+                           lambda t: setup.batches[t], scfg,
+                           init_params=setup.p1)
+        peak = torch.cuda.max_memory_allocated()
+        launches = RG.ring_round.launches
+        sb = h["state_bytes"]
+        opt_bytes = sum(v for k, v in sb.items() if k.startswith("opt_"))
+        step_s = h["step_s"]
+        out[pack] = {"peak_memory_gb": peak / 1e9,
+                     "allocated_at_start_gb": start / 1e9,
+                     "state_bytes": sb, "opt_bytes": opt_bytes,
+                     "first_step_ms": step_s[0] * 1e3,
+                     "step_ms": [t * 1e3 for t in step_s[1:]],
+                     "tokens_per_s": n * load["batch"] * load["seq"]
+                     / float(np.mean(step_s[1:])),
+                     "loss": h["loss"], "consensus": h["consensus"],
+                     "ring_launches": launches, "channel": h["channel"]}
+        print(f"rps-100m adam {pack}: peak {peak / 1e9:.3f} GB (start "
+              f"{start / 1e9:.3f}), optimizer {opt_bytes / 1e9:.3f} GB, "
+              f"losses {h['loss']}", flush=True)
+        if launches != groups * steps:
+            raise AssertionError(f"rps-100m adam {pack}: {launches} ring "
+                                 f"launches, want {groups} x {steps}")
+        if pack == "i8":
+            kept = (h["params"], h["state"]["opt_state"])
+        del h
+    ratio = out["f32"]["opt_bytes"] / out["i8"]["opt_bytes"]
+    cut = 1.0 - out["i8"]["peak_memory_gb"] / out["f32"]["peak_memory_gb"]
+    out["opt_bytes_ratio_f32_over_i8"] = ratio
+    out["peak_memory_reduction_i8"] = cut
+    gaps = {pk: max(abs(a - b) for a, b in zip(out[pk]["loss"],
+                                               out["f32"]["loss"]))
+            for pk in ("bf16", "i8")}
+    out["max_loss_gap"] = gaps
+    if not ratio >= 2.0:
+        raise AssertionError(f"state packs: optimizer bytes f32 / i8 = "
+                             f"{ratio} < 2")
+    if not cut >= 0.10:
+        raise AssertionError(f"state packs: the i8 pack's peak is only "
+                             f"{cut:.3%} below the f32 pack's")
+    if not all(np.isfinite(out[pk]["loss"]).all() for pk in
+               ("f32", "bf16", "i8")) or max(gaps.values()) > PACK_LOSS_GAP:
+        raise AssertionError(f"state packs: losses not finite or apart: "
+                             f"{gaps}")
+    # the learning rate of the step after the run's last
+    lr = PACK_LOAD["lr"] * min(1.0, (steps + 1) / PACK_LOAD["warmup"])
+    out["update_card_vs_cpu"] = packed_adam_card_vs_cpu(*kept, lr)
+    del kept
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1755,6 +2148,14 @@ def main() -> int:
     print(json.dumps({"ef_gap_closure": gap, "card": card}), flush=True)
     big_int8 = rps100m_int8(setup, big["loss"])
     print(json.dumps({"rps_100m_int8": big_int8, "card": card}), flush=True)
+    chans = channels_bench()
+    print(json.dumps({"channels": chans, "card": card}), flush=True)
+    conv = packed_convergence()
+    print(json.dumps({"state_bench_convergence": conv, "card": card}),
+          flush=True)
+    packs = rps100m_packs(setup)
+    print(json.dumps({"rps_100m_state_packs": packs, "card": card}),
+          flush=True)
     del setup
 
     kernel = {"name": "masked_avg_grid", "route": "cuda",

@@ -1,25 +1,48 @@
 """Channel registry and spec parser (port of
 :mod:`repro.channels.registry`).
 
-Specs are ``"<name>:k1=v1,k2=v2"`` strings, e.g. ``bernoulli:p=0.1``.
-Only the Bernoulli channel is ported; the JAX package's other channel
-families raise ``NotImplementedError``, and unknown names ``ValueError``.
+Benchmarks, examples and launchers select channels with compact specs,
+``"<name>:k1=v1,k2=v2"``:
+
+    bernoulli:p=0.1                     (aliases: iid, bern)
+    ge:p_bad=0.3,burst=8                (aliases: gilbert, gilbert-elliott,
+                                         gilbert_elliott)
+    ge:p_bad=1.0,burst=8,p=0.1          (matched average rate 0.1)
+    hetero:n_pods=4,p_intra=0.0,p_cross=0.3   (aliases: pods, heterogeneous)
+    deadline:deadline_ms=8,straggler_frac=0.2   (alias: straggler)
+    trace:path=colo.npz                 (or trace:lam=8000,prio=0.8 to run
+                                         the netsim colocation sim inline;
+                                         alias: netsim)
+
+``make_channel(spec, n, default_p)`` is the single entry point: a spec
+string, a built :class:`Channel` (returned as is), or ``None``
+(``BernoulliChannel(n, default_p)``). For bernoulli an omitted ``p``
+inherits ``default_p``. Unknown names raise ``ValueError`` listing the
+registered ones. The reference's corruption processes are not ported
+yet: ``corruption=`` other than ``None`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 from repro_torch.channels.base import Channel
 from repro_torch.channels.bernoulli import BernoulliChannel
+from repro_torch.channels.deadline import DeadlineChannel
+from repro_torch.channels.gilbert_elliott import GilbertElliottChannel
+from repro_torch.channels.heterogeneous import HeterogeneousChannel
+from repro_torch.channels.trace import TraceChannel
 
 ChannelSpec = Union[None, str, Channel]
 
-_REGISTRY = {"bernoulli": BernoulliChannel}
-_ALIASES = {"iid": "bernoulli", "bern": "bernoulli"}
-# the JAX package's other families (and their aliases), still to port
-_NOT_PORTED = ("ge", "gilbert", "gilbert-elliott", "gilbert_elliott",
-               "hetero", "pods", "heterogeneous", "deadline", "straggler",
-               "trace", "netsim")
+_REGISTRY: Dict[str, Callable[..., Channel]] = {}
+_ALIASES: Dict[str, str] = {}
+
+
+def register(name: str, builder: Callable[..., Channel],
+             aliases: Tuple[str, ...] = ()) -> None:
+    _REGISTRY[name] = builder
+    for a in aliases:
+        _ALIASES[a] = name
 
 
 def channel_names() -> Tuple[str, ...]:
@@ -39,7 +62,7 @@ def _coerce(v: str):
 
 
 def parse_spec(spec: str) -> Tuple[str, Dict[str, object]]:
-    """``"bernoulli:p=0.1,s=4"`` -> ``("bernoulli", {"p": 0.1, "s": 4})``."""
+    """``"ge:p_bad=0.3,burst=8"`` -> ``("ge", {"p_bad": 0.3, "burst": 8})``."""
     name, _, rest = spec.strip().partition(":")
     name = _ALIASES.get(name.lower(), name.lower())
     kwargs: Dict[str, object] = {}
@@ -53,10 +76,13 @@ def parse_spec(spec: str) -> Tuple[str, Dict[str, object]]:
 
 
 def make_channel(spec: ChannelSpec, n: int, default_p: float = 0.0,
-                 s: Optional[int] = None) -> Channel:
-    """Resolve a spec string, a built :class:`Channel` (returned as-is) or
-    ``None`` (→ ``BernoulliChannel(n, default_p)``) for an n-worker
-    exchange. For bernoulli an omitted ``p`` inherits ``default_p``."""
+                 s: Optional[int] = None, corruption=None) -> Channel:
+    """Resolve a channel spec for an n-worker exchange (see the module
+    doc). ``s`` is the number of server blocks (``None``: s = n); a spec
+    may carry ``s=<int>``, which must agree with an explicit ``s``."""
+    if corruption not in (None, ""):
+        raise NotImplementedError(
+            f"corruption={corruption!r} is not ported yet")
     if isinstance(spec, Channel):
         if spec.n != n:
             raise ValueError(f"channel built for n={spec.n}, need n={n}")
@@ -66,14 +92,11 @@ def make_channel(spec: ChannelSpec, n: int, default_p: float = 0.0,
     if spec is None or spec == "":
         return BernoulliChannel(n, default_p, s=s)
     name, kwargs = parse_spec(spec)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"channel {name!r} is not ported yet; ported: "
-            f"{', '.join(channel_names())}")
     if name not in _REGISTRY:
         raise ValueError(f"unknown channel {name!r}; "
                          f"known: {', '.join(channel_names())}")
-    kwargs.setdefault("p", default_p)
+    if name == "bernoulli":
+        kwargs.setdefault("p", default_p)
     if s is not None:
         if kwargs.get("s", s) != s:
             raise ValueError(f"spec {spec!r} sets s={kwargs['s']} but the "
@@ -83,3 +106,25 @@ def make_channel(spec: ChannelSpec, n: int, default_p: float = 0.0,
         return _REGISTRY[name](n, **kwargs)
     except TypeError as e:
         raise ValueError(f"bad args for channel {name!r}: {e}") from e
+
+
+def _build_hetero(n: int, n_pods: int = 2, p_intra: float = 0.0,
+                  p_cross: float = 0.2,
+                  s: Optional[int] = None) -> HeterogeneousChannel:
+    return HeterogeneousChannel.pods(n, n_pods, p_intra, p_cross, s=s)
+
+
+def _build_trace(n: int, path: Optional[str] = None,
+                 lam: float = 8000.0, prio: float = 0.8,
+                 s: Optional[int] = None) -> TraceChannel:
+    if path is not None:
+        return TraceChannel.from_npz(n, str(path), s=s)
+    return TraceChannel.from_netsim(n, lam, prio, s=s)
+
+
+register("bernoulli", BernoulliChannel, aliases=("iid", "bern"))
+register("ge", GilbertElliottChannel,
+         aliases=("gilbert", "gilbert-elliott", "gilbert_elliott"))
+register("hetero", _build_hetero, aliases=("pods", "heterogeneous"))
+register("deadline", DeadlineChannel, aliases=("straggler",))
+register("trace", _build_trace, aliases=("netsim",))

@@ -69,6 +69,9 @@ class ExchangePlan:
     engine: str = "xla"
     wire: str = "f32"
     recovery: str = "renorm"
+    # the async schedule's per-bucket readiness times (ms into the
+    # backward pass) in the reference; the port's plans are sync: None
+    ready_ms: Optional[Tuple[float, ...]] = None
 
     @property
     def n_buckets(self) -> int:

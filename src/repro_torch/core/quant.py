@@ -1,9 +1,10 @@
 """Block-scale quantisation core (port of :mod:`repro.core.quant`).
 
-The int8 wire codec (:class:`repro_torch.core.wire.WireCodec`) maps a
-block table onto the symmetric grid {−levels, …, +levels} with one f32
-scale per block; the packed optimizer state, the JAX package's second
-consumer of this module, is not ported yet.
+One quantisation library, two consumers: the int8 wire codec
+(:class:`repro_torch.core.wire.WireCodec`) maps a block table onto the
+symmetric grid {−levels, …, +levels} with one f32 scale per block, and
+the packed trainer state (:mod:`repro_torch.optim.statepack`) stores
+Adam's second moments and the EF residual on the same grid at rest.
 
 Conventions, as in the reference:
 
@@ -68,19 +69,21 @@ def stochastic_round(y: torch.Tensor, uniforms: torch.Tensor
 def quantize(x: torch.Tensor, levels: int, out_dtype: torch.dtype,
              uniforms: Optional[torch.Tensor] = None,
              gen: Optional[torch.Generator] = None, lead: int = 0,
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             consume: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x → (grid payload in ``out_dtype``, per-block f32 scales).
 
     Stochastic rounding with ``uniforms`` (x's shape, f32 in [0, 1)) or
-    uniforms drawn from ``gen``; round-to-nearest-even with neither."""
+    uniforms drawn from ``gen``; round-to-nearest-even with neither.
+    ``consume``: an f32 ``x`` may be overwritten (it holds the scaled
+    values afterwards), sparing one x-sized buffer."""
     xf = x.to(torch.float32)
     delta = block_delta(xf, levels, lead)
-    y = xf / delta
+    y = xf.div_(delta) if consume else xf / delta
     if uniforms is None and gen is not None:
         uniforms = torch.rand(y.shape, generator=gen, dtype=torch.float32,
                               device=y.device)
     if uniforms is None:
-        q = torch.round(y)
+        q = y.round_() if consume else torch.round(y)
     else:
         if tuple(uniforms.shape) != tuple(y.shape):
             raise ValueError(f"uniforms shape {tuple(uniforms.shape)} != "

@@ -204,7 +204,7 @@ def init_ef_state(tree: Any) -> Any:
     return tree_lib.map(torch.zeros_like, tree)
 
 
-# ---- theory constants (the reference's core.theory reads them) ------------
+# ---- theory constants (core.theory reads them) ----------------------------
 
 #: Nominal relative second moment ω = E‖decode(encode(x)) − x‖² / ‖x‖² of
 #: one codec pass: bf16 round-to-nearest at 8 mantissa bits (the
@@ -233,3 +233,23 @@ def effective_omega(wire: Any, recovery: Any = "renorm") -> float:
     renorm and scale pass ω through."""
     w = codec_omega(wire)
     return w * w if make_recovery(recovery).kind == "ef" else w
+
+
+#: Asymptotic relative efficiency of each robust aggregator against the
+#: plain mean on clean Gaussian data (median π/2, clip 1; trimmed
+#: 1/(1−2β), computed from its β): the reference's constants, kept for
+#: the robust recoveries' port.
+ROBUST_EFFICIENCY = {"median": 3.14159265 / 2.0, "clip": 1.0}
+
+
+def recovery_alpha2_extra(recovery: Any, n: int, p: float) -> float:
+    """Extra α₂-style variance of the recovery step: 0 for renorm and ef
+    (the paper's bounds price the realised count in), the count's
+    relative variance p/((1−p)n) for ``scale``, which divides by the
+    expected count. The robust kinds raise with :class:`Recovery`."""
+    rec = make_recovery(recovery)
+    if rec.kind == "scale":
+        if p >= 1.0:
+            return 1.0
+        return float(p / ((1.0 - p) * n))
+    return 0.0

@@ -6,11 +6,15 @@ the synthetic char-LM task.
       --steps 200 --drop-rate 0.1 --aggregator rps_model --engine ring
 
 Runs on the card unless ``--device cpu`` is given. The flags are the
-reference's for the ported features; a non-Bernoulli ``--channel`` spec
-raises ``NotImplementedError``. ``--wire int8 [--recovery ef] --engine
-ring`` runs the int8 wire on the ring-round kernel's encoded variant. Not
-ported yet, so absent: corruption, ``--async`` / ``--compute-ms``, the
-robust recoveries, ``--state-pack``, telemetry, checkpoints.
+reference's for the ported features: ``--channel`` takes every channel
+spec of the reference (``ge:p_bad=1.0,burst=8,p=0.1``,
+``hetero:n_pods=4,p_cross=0.3``, ``deadline:deadline_ms=8``,
+``trace:lam=8000,prio=0.8``, ...); ``--wire int8 [--recovery ef]
+--engine ring`` runs the int8 wire on the ring-round kernel's encoded
+variant; ``--optimizer adam --state-pack i8`` keeps the optimizer state
+(and the EF residual) packed at rest. Not ported yet, so absent:
+corruption, ``--async`` / ``--compute-ms``, the robust recoveries,
+telemetry, checkpoints.
 """
 from __future__ import annotations
 
@@ -65,6 +69,12 @@ def main(argv=None):
                     help="ef: renorm plus an error-feedback residual")
     ap.add_argument("--optimizer", default="sgd",
                     choices=["sgd", "momentum", "adam"])
+    ap.add_argument("--state-pack", default="f32",
+                    choices=["f32", "bf16", "i8", "int8"],
+                    help="at-rest trainer-state format: f32 (unpacked), "
+                         "bf16, or i8 (momentum bf16, Adam's second "
+                         "moments and the EF residual int8 with per-row "
+                         "scales and stochastic rounding on write)")
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -93,7 +103,8 @@ def main(argv=None):
         channel=args.channel, n_servers=args.servers,
         bucket_mb=args.bucket_mb, n_buckets=args.buckets,
         engine=args.engine, exchange_dtype=args.exchange_dtype,
-        wire=args.wire, recovery=args.recovery)
+        wire=args.wire, recovery=args.recovery,
+        state_pack=args.state_pack)
     t0 = time.time()
     hist = run_simulation(loss_fn, model.init_stacked, batch_fn, scfg,
                           device=args.device)
@@ -107,6 +118,12 @@ def main(argv=None):
               f"model_packets={ep['model_packets']}, "
               f"wire={ep['wire']}/{ep['recovery']} "
               f"(rs_bytes_ratio={ep['rs_bytes_ratio']:.2f})")
+    if args.state_pack != "f32":
+        sb = hist["state_bytes"]
+        comps = ", ".join(f"{k}={v}" for k, v in sb.items()
+                          if k != "total" and v)
+        print(f"state bytes [{args.state_pack}]: total {sb['total']} "
+              f"({comps})")
     print(f"n={args.workers} s={args.servers or args.workers} "
           f"p={args.drop_rate} agg={args.aggregator} "
           f"final_loss={hist['final_loss']:.4f} "
@@ -114,7 +131,8 @@ def main(argv=None):
           f"consensus={hist['consensus'][-1]:.3e} [{dt:.1f}s]")
     if args.out:
         keep = {k: v for k, v in hist.items()
-                if k not in ("params", "state", "ef_state")}
+                if k not in ("params", "state", "ef_state",
+                             "channel_state")}
         with open(args.out, "w") as f:
             json.dump(keep, f, indent=1)
         print("history ->", args.out)

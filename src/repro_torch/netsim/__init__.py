@@ -1,1 +1,3 @@
-from repro_torch.netsim.sim import NetConfig, request_trace  # noqa: F401
+from repro_torch.netsim.sim import (  # noqa: F401
+    NetConfig, cost_reduction_curve, export_trace, request_trace, simulate,
+    speedup_curve)

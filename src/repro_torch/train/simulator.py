@@ -25,16 +25,20 @@ kernel; ``"xla"``/``"auto"`` take the masked-average kernel for renorm.
 The wire codecs (``f32``, ``bf16``, ``int8``) and the recoveries
 (``renorm``, ``scale``, ``ef``) are the reference's; under ``ef`` the
 per-worker residual rides in the step state, untouched on rounds that do
-not exchange.
+not exchange. Every channel family of the reference draws the masks
+(``channel=``), its state advancing once per step, exchange or not.
+``state_pack`` ("f32", "bf16", "i8") stores the optimizer state and the
+EF residual packed at rest (:mod:`repro_torch.optim.statepack`); the
+history reports their bytes (``state_bytes``).
 
 Torch cannot reproduce JAX's random streams: without hooks the port draws
-initial parameters, masks and the int8 wire's rounding noise from
-``torch.Generator``s seeded from ``scfg.seed`` (one each, so an int8 run
-and an f32 run of one seed see the same masks); ``init_params=``,
-``masks_fn=`` and ``wire_noise_fn=`` inject the reference's. Not ported
-yet (raise when set off their defaults): the async schedule, telemetry,
-corruption, the robust recoveries, packed optimizer state, the
-non-Bernoulli channels.
+initial parameters, masks, the int8 wire's rounding noise and the packed
+state's rounding noise from ``torch.Generator``s seeded from
+``scfg.seed`` (one each, so an int8 run and an f32 run of one seed see
+the same masks); ``init_params=``, ``masks_fn=``, ``wire_noise_fn=`` and
+``pack_noise_fn=`` inject the reference's. Not ported yet (raise when
+set off their defaults): the async schedule, telemetry, corruption, the
+robust recoveries.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core import rps as rps_lib
 from repro_torch.core import wire as wire_lib
 from repro_torch.optim import make_optimizer
+from repro_torch.optim import statepack as statepack_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +84,7 @@ class SimulatorConfig:
     recovery: str = "renorm"
     schedule: str = "sync"          # "async" not ported yet
     compute_ms: Any = None          # async cost model (async only)
-    state_pack: str = "f32"         # packed formats not ported yet
+    state_pack: str = "f32"         # at-rest state: "f32", "bf16", "i8"
     donate: bool = True             # the port always updates in place
     telemetry: bool = False         # not ported yet
 
@@ -98,8 +103,6 @@ def _check_ported(scfg: SimulatorConfig) -> None:
         off.append("corruption / byzantine_frac")
     if scfg.recovery in wire_lib.ROBUST_RECOVERIES:
         off.append(f"recovery={scfg.recovery!r}")
-    if scfg.state_pack not in (None, "f32"):
-        off.append(f"state_pack={scfg.state_pack!r}")
     if not scfg.donate:
         off.append("donate=False (the port updates in place)")
     if off:
@@ -185,39 +188,49 @@ def make_sim_step(loss_fn: Callable, scfg: SimulatorConfig, plan, opt,
                   recovery=None):
     """One simulator step:
     ``step(params, opt_state, batch, masks, lr, exchange=True,
-    ef_state=None, wire_noise=None) -> (params, opt_state, mean loss,
-    consensus)``, plus the new ``ef_state`` last under the ef recovery;
-    the loss and consensus are 0-dim f32 tensors on the params' device.
-    ``masks`` is the step's (rs, ag) pair (None for the non-rps
-    aggregators), ``wire_noise`` the int8 wire's rounding noise (a
-    generator or a ``(g_idx, shape) -> uniforms`` hook). Grad mode
-    exchanges the gradients before the update, model mode the parameters
-    after it; the parameters and the optimizer state are updated in
-    place. A round that does not exchange passes the residual through
-    untouched."""
+    ef_state=None, wire_noise=None, pack_noise=None) -> (params,
+    opt_state, mean loss, consensus)``, plus the new ``ef_state`` last
+    under the ef recovery; the loss and consensus are 0-dim f32 tensors
+    on the params' device. ``masks`` is the step's (rs, ag) pair (None
+    for the non-rps aggregators), ``wire_noise`` the int8 wire's rounding
+    noise (a generator or a ``(g_idx, shape) -> uniforms`` hook),
+    ``pack_noise`` the packed state's (a generator or a ``(which,
+    leaf_idx, shape) -> uniforms`` hook, ``which`` "m", "v" or "ef").
+    Grad mode exchanges the gradients before the update, model mode the
+    parameters after it; the parameters and the optimizer state are
+    updated in place. The EF residual is carried in the state pack's EF
+    format: decoded for the exchange and re-encoded after it, only on
+    rounds that exchange (a skipped round passes it through untouched)."""
     n = scfg.n_workers
     is_grad_mode = scfg.aggregator.endswith("_grad")
     use_ef = scfg.aggregator.startswith("rps") and scfg.recovery == "ef"
+    ef_fmt = statepack_lib.make_state_pack(scfg.state_pack).ef_format
 
     def step(params, opt_state, batch, masks, lr, exchange=True,
-             ef_state=None, wire_noise=None):
+             ef_state=None, wire_noise=None, pack_noise=None):
         if use_ef and ef_state is None:
             raise ValueError("recovery='ef' needs the step's ef_state")
 
         def swap(tree, is_grad):
             nonlocal ef_state
-            out = _exchange(tree, scfg, is_grad=is_grad, masks=masks,
-                            plan=plan, recovery=recovery,
-                            ef_state=ef_state if use_ef else None,
-                            wire_noise=wire_noise)
-            if use_ef:
-                out, ef_state = out
+            if not use_ef:
+                return _exchange(tree, scfg, is_grad=is_grad, masks=masks,
+                                 plan=plan, recovery=recovery,
+                                 wire_noise=wire_noise)
+            out, ef_new = _exchange(
+                tree, scfg, is_grad=is_grad, masks=masks, plan=plan,
+                recovery=recovery, wire_noise=wire_noise,
+                ef_state=statepack_lib.unpack_tree(ef_state, ef_fmt))
+            ef_state = statepack_lib.pack_tree(
+                ef_new, ef_fmt,
+                noise=statepack_lib.component_noise(pack_noise, "ef"))
             return out
 
         loss, grads = _loss_and_grads(loss_fn, params, batch, n)
         if is_grad_mode and exchange:
             grads = swap(grads, True)
-        params, opt_state = opt.update(grads, opt_state, params, lr)
+        params, opt_state = opt.update(grads, opt_state, params, lr,
+                                       noise=pack_noise)
         del grads
         if not is_grad_mode and exchange:
             params = swap(params, False)
@@ -236,7 +249,8 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
                    start_step: int = 0, telemetry=None, *,
                    device="cuda", init_params=None,
                    masks_fn: Optional[Callable] = None,
-                   wire_noise_fn: Optional[Callable] = None
+                   wire_noise_fn: Optional[Callable] = None,
+                   pack_noise_fn: Optional[Callable] = None
                    ) -> Dict[str, Any]:
     """loss_fn(params, batch) -> scalar; init_fn(gen) -> one worker's
     params; batch_fn(step) -> stacked batch with leading dim n_workers.
@@ -247,16 +261,22 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     ``channel`` and ``channel_effective_p``; ``exchange_plan`` (the
     plan's ``describe()``); ``step_s`` (every step's wall seconds, the
     device synchronised at each step's end); ``ef_state`` (the EF
-    residual, None without ef); and ``state`` to resume from with
-    ``state=`` / ``start_step=`` (params, optimizer, channel and EF
-    state).
+    residual in the pack's EF format, None without ef);
+    ``channel_state`` (the channel's state after the last step);
+    ``state_bytes`` (the at-rest bytes of the params, the optimizer state
+    and the EF residual, :func:`statepack.state_bytes_breakdown`); and
+    ``state`` to resume from with ``state=`` / ``start_step=`` (params,
+    optimizer, channel and EF state).
 
     Runs on ``device`` (CUDA unless the caller asks for the CPU).
     ``init_params`` (one worker's params, broadcast to n), ``masks_fn``
-    (step -> (rs, ag)) and ``wire_noise_fn`` ((step, g_idx, shape) ->
-    the int8 wire's uniforms for exchange group g_idx) inject the initial
-    parameters, the per-step masks and the rounding noise; without them
-    each is drawn from its own generator seeded from ``scfg.seed``.
+    (step -> (rs, ag)), ``wire_noise_fn`` ((step, g_idx, shape) -> the
+    int8 wire's uniforms for exchange group g_idx) and ``pack_noise_fn``
+    ((step, which, leaf_idx, shape) -> the packed state's uniforms for
+    component ``which`` — "m", "v" or "ef" — of leaf leaf_idx) inject the
+    initial parameters, the per-step masks and the rounding noise;
+    without them each is drawn from its own generator seeded from
+    ``scfg.seed``.
     """
     _check_ported(scfg)
     if telemetry is not None:
@@ -279,9 +299,17 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     # the int8 wire's rounding noise, apart from the masks' stream
     noise_gen = torch.Generator(device=dev)
     noise_gen.manual_seed(scfg.seed + 2)
+    # the packed state's rounding noise, a stream of its own
+    pack_gen = torch.Generator(device=dev)
+    pack_gen.manual_seed(scfg.seed + 3)
     ch_state = channel.init_state(mask_gen) if rps_agg else None
     use_ef = rps_agg and scfg.recovery == "ef"
-    ef_state = wire_lib.init_ef_state(params) if use_ef else None
+    # the zero residual, at rest in the pack's EF format (zeros encode
+    # exactly)
+    ef_state = statepack_lib.pack_tree(
+        wire_lib.init_ef_state(params),
+        statepack_lib.make_state_pack(scfg.state_pack).ef_format) \
+        if use_ef else None
     if state is not None:
         params, opt_state = state["params"], state["opt_state"]
         ch_state = state.get("ch_state", ch_state)
@@ -319,9 +347,12 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
                 masks = (rs, ag)
         wire_noise = noise_gen if wire_noise_fn is None else (
             lambda g, shape, t=t: wire_noise_fn(t, g, shape).to(dev))
+        pack_noise = pack_gen if pack_noise_fn is None else (
+            lambda which, i, shape, t=t:
+            pack_noise_fn(t, which, i, shape).to(dev))
         outs = step_fn(params, opt_state, batch, masks, lr,
                        exchange=exchange, ef_state=ef_state,
-                       wire_noise=wire_noise)
+                       wire_noise=wire_noise, pack_noise=pack_noise)
         if use_ef:
             params, opt_state, loss, consensus, ef_state = outs
         else:
@@ -339,7 +370,10 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
                 history["eval"].append(float(eval_fn(mean_params)))
     history["final_loss"] = history["loss"][-1]
     history["params"] = params
+    history["channel_state"] = ch_state
     history["ef_state"] = ef_state
     history["state"] = {"params": params, "opt_state": opt_state,
                         "ch_state": ch_state, "ef_state": ef_state}
+    history["state_bytes"] = statepack_lib.state_bytes_breakdown(
+        params=params, opt_state=opt_state, ef_state=ef_state)
     return history

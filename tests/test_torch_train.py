@@ -80,8 +80,12 @@ def test_sgd_keeps_bf16_params_bf16():
 
 
 def test_optimizer_not_ported_state_pack_raises():
-    with pytest.raises(NotImplementedError, match="state_pack"):
-        tmake_optimizer("adam", state_pack="i8")
+    # the packs are ported (tests/test_torch_statepack.py); a pack the
+    # reference does not know raises as it does there
+    for pack in ("f32", "bf16", "i8"):
+        tmake_optimizer("adam", state_pack=pack)
+    with pytest.raises(ValueError, match="unknown state pack"):
+        tmake_optimizer("adam", state_pack="fp4")
 
 
 # ---- data -------------------------------------------------------------------
@@ -467,7 +471,7 @@ def test_simulator_own_draws_and_history():
     (dict(byzantine_frac=0.25), "corruption"),
     (dict(recovery="median"), "median"),
     (dict(recovery="trimmed"), "trimmed"),
-    (dict(state_pack="i8"), "state_pack"),
+    (dict(recovery="clip"), "clip"),
     (dict(donate=False), "donate"),
 ])
 def test_simulator_not_ported_fields_raise(kw, match):
