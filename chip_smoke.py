@@ -146,7 +146,56 @@ raises on failure; nothing is caught):
    Adam update of the largest leaf (the stacked MLP weight, 453 M
    elements) on the card and on the CPU from the same state, grads and
    uniforms: the params, the int8 payload, its scales and the bf16 m bit
-   for bit.
+   for bit;
+25. the Byzantine axis: (a) one exchange per corruption kind (bitflip,
+   scale, signflip, collude; a fifth of the links and the lowest quarter
+   of the workers corrupt) x wire (f32, bf16, int8) x engine (xla, ring),
+   renorm, then median, trimmed and clip on the xla engine under the
+   colluding attack, at the rps-paper-mlp plan (n = 16) and rps-100m's
+   (its first layer), on integer-valued replicas: on the card through the
+   kernels (the ring engine's corrupted offer on the encoded variant)
+   against the plain versions on the CPU with the same masks, corrupt
+   masks, uniforms and bits, the same values (NaN equal to NaN; the
+   elements whose bits differ, a sign of zero or a NaN payload, counted;
+   clip within 1e-6 of the largest contribution and an ulp of the
+   output's rounding; the xla engine under bitflip and on the int8
+   wire, whose sends are not integers: the sends alike group by group,
+   the exchange's output inside the bound of two summation orders of the
+   masked average); then at rps-100m's whole plan (groups up to (3, 16,
+   16, 1,769,472)) every kind x wire x engine through the kernels
+   against the same exchange with their plain versions on the card, the
+   same values (the xla engine under bitflip and on the int8 wire inside
+   the summation bound); (b) benchmarks/robust_bench.py sections
+   1-4, uncut (n = 8, 200 steps, collude:gamma=10, renorm / median /
+   trimmed:beta=0.4 / clip x byzantine_frac {0, 0.25} x p {0, 0.2},
+   engine auto): median and trimmed reach loss 1.0 under the attack and
+   renorm does not (at p = 0 with the final loss; at p = 0.2, where one
+   seed's final loss is a draw, with the median over seeds 0-7 of the
+   final loss; the bench's own final-loss verdict printed beside), every
+   attacked run's mean corrupt_frac within CORRUPT_FRAC_TOL of
+   expected_frac, printed beside BENCH_robust.json's CPU rows;
+26. benchmarks/async_bench.py section 2, uncut (n = 8, 300 steps, 4
+   buckets, compute_ms 8, the deadline channel's four straggler
+   scenarios, sync and async, engine auto; then one scenario on the ring
+   engine): async_speedup > 1 in every scenario, staleness 0 under sync
+   and inside (0, 1) under async, the ring run's losses within
+   ASYNC_RING_TOL of the xla run's, launches = groups x exchange steps,
+   printed beside BENCH_async.json's CPU rows;
+27. rps-100m at phase 17's load, weights, batches and masks under the
+   colluding attack (4 of 16 workers, gamma 10), 4 steps each: renorm on
+   the ring engine (the encoded variant, groups x steps launches),
+   median, trimmed:beta=0.4 and clip on the xla engine (the table
+   aggregate, no kernel); step ms, the aggregate's device ms a step,
+   peak memory, losses; median's and trimmed's within ATTACK_LOSS_GAP of
+   phase 17's, renorm's last non-finite or 1.0 above, the robust peaks
+   within ATTACK_PEAK_GB of phase 17's, one median exchange of the final
+   replicas bit for bit card against CPU;
+28. rps-100m at phase 17's load with 8 buckets on the straggler deadline
+   channel, compute_ms 8, ring engine, 4 steps, sync and async (finite
+   losses, async staleness > 0, launches = groups x steps); then the
+   backward's measured readiness profile at that plan
+   (measure_bucket_ready_ms, what compute_ms="auto" runs) beside the cost
+   model's, positive and non-increasing.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -154,6 +203,7 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -263,6 +313,7 @@ def reset_counts() -> None:
     GK.rglru.launches = 0
     RG.ring_round.launches = 0
     RG.ring_round_enc.launches = 0
+    RG.ring_round_enc.requant_launches = 0
 
 
 def card_line() -> str:
@@ -1652,6 +1703,7 @@ def rps100m_int8(setup: Rps100mSetup, f32_loss: list, steps: int = 8,
                            lambda t: setup.batches[t], scfg,
                            init_params=setup.p1)
         launches = RG.ring_round_enc.launches
+        requant = RG.ring_round_enc.requant_launches
         linear = RG.ring_round.launches
         peak = torch.cuda.max_memory_allocated() / 1e9
         loss = h["loss"]
@@ -1660,6 +1712,9 @@ def rps100m_int8(setup: Rps100mSetup, f32_loss: list, steps: int = 8,
             raise AssertionError(f"rps-100m int8 {recovery}: {launches} "
                                  f"encoded and {linear} linear ring "
                                  f"launches, want {groups} x {steps} and 0")
+        if requant != launches:
+            raise AssertionError(f"rps-100m int8 {recovery}: {requant} of "
+                                 f"{launches} encoded launches re-encode")
         if not (all(np.isfinite(loss)) and max(gaps) <= INT8_LOSS_GAP):
             raise AssertionError(f"rps-100m int8 {recovery}: losses {loss} "
                                  f"against f32 {f32_loss[:steps]}")
@@ -1667,7 +1722,8 @@ def rps100m_int8(setup: Rps100mSetup, f32_loss: list, steps: int = 8,
         step_s = h["step_s"]
         later = float(np.mean(step_s[1:]))
         out[recovery] = {
-            "ring_enc_launches": launches, "groups": groups,
+            "ring_enc_launches": launches,
+            "ring_requant_launches": requant, "groups": groups,
             "first_step_ms": step_s[0] * 1e3,
             "step_ms": [t * 1e3 for t in step_s[1:]],
             "tokens_per_s": n * load["batch"] * load["seq"] / later,
@@ -2039,6 +2095,835 @@ def rps100m_packs(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
     return out
 
 
+# ---- phases 25-28: the Byzantine axis and the async schedule --------------
+
+# phase 25a: each kind's attack on the exchange (a fifth of the links and
+# the lowest quarter of the workers corrupt), card against CPU
+BYZ_KINDS = ("bitflip", "scale", "signflip", "collude")
+BYZ_ATTACK = "frac=0.2,byzantine_frac=0.25"
+BYZ_WIRES = ("f32", "bf16", "int8")
+BYZ_P = 0.1
+ROBUST_RECOVERIES = ("median", "trimmed:beta=0.4", "clip")
+# phase 25b: benchmarks/robust_bench.py sections 1-4, uncut
+ROBUST_STUDY = dict(n=8, steps=200, lr=0.2, warmup=5, n_buckets=2, seed=0,
+                    attack="collude:gamma=10", byzs=(0.0, 0.25),
+                    ps=(0.0, 0.2),
+                    recoveries=("renorm", "median", "trimmed:beta=0.4",
+                                "clip"),
+                    robust=("median", "trimmed:beta=0.4"), target=1.0,
+                    draw_p=0.2, draw_seeds=tuple(range(8)))
+CORRUPT_FRAC_TOL = 0.03        # |mean corrupt_frac - expected_frac|
+# phase 26: benchmarks/async_bench.py section 2, uncut
+ASYNC_STUDY = dict(n=8, steps=300, n_buckets=4, compute_ms=8.0,
+                   deadline_ms=10.0, lr=0.2, warmup=5, seed=0,
+                   family=((0.2, 4.0), (0.3, 4.0), (0.3, 8.0), (0.4, 8.0)))
+ASYNC_RING_TOL = 1e-4          # |loss(ring) - loss(xla)| at every step
+# phase 27: rps-100m under the colluding attack
+ATTACK_LOAD = dict(corruption="collude:gamma=10", byzantine_frac=0.25,
+                   steps=4)
+ATTACK_LOSS_GAP = 1e-2         # robust loss against phase 17's, each step
+ATTACK_PEAK_GB = 12.0          # robust peak above phase 17's, at most
+# phase 28: rps-100m async on the straggler deadline channel
+ASYNC_LOAD = dict(n_buckets=8, steps=4, compute_ms=8.0,
+                  channel="deadline:deadline_ms=10,base_ms=1,jitter_ms=3,"
+                          "straggler_frac=0.3,straggler_mult=4")
+# the reference's CPU rows (benchmarks/BENCH_robust.json,
+# benchmarks/BENCH_async.json), printed beside the card's
+BENCH_DIR = Path(__file__).resolve().parent / "benchmarks"
+
+
+def _bench_json(name: str) -> dict:
+    with open(BENCH_DIR / name) as f:
+        return json.load(f)
+
+
+def _same_values(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Raises unless ``a`` and ``b`` hold the same values, NaN equal to
+    NaN; returns how many elements differ in their bits all the same: a
+    sign of zero (the sort may order −0 and +0 either way) or a NaN's
+    payload (the card's canonical NaN against the CPU's). Compared on
+    ``a``'s device."""
+    b = b.to(a.device)
+    same = (a == b) | (a.isnan() & b.isnan())
+    if not bool(same.all()):
+        raise AssertionError(f"{int((~same).sum())} of {a.numel()} values "
+                             f"differ")
+    return int((_bits(a) != _bits(b)).sum())
+
+
+def _avg_bound(blocks: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The probe that takes the masked average's place in a bound run:
+    per block the classical bound of two summation orders of the
+    average, 2n·u·Σ_i|m_i·x_i| / c (u = 2⁻²⁴, in f64, 64 Mi elements of
+    the stack at a time), plus one ulp of the output's own rounding (f32,
+    or the bf16 send's) times |average|; inf where the sum may overflow.
+    (B, n, d), (B, n) -> (B, d) in ``blocks.dtype``."""
+    B, n, d = blocks.shape
+    ulp = 2.0 ** -23 if blocks.dtype == torch.float32 else 2.0 ** -7
+    out = torch.empty((B, d), dtype=blocks.dtype, device=blocks.device)
+    step = max(1, 2 ** 26 // max(n * d, 1))
+    for a in range(0, B, step):
+        x, mk = blocks[a:a + step], mask[a:a + step]
+        m = (mk != 0)[..., None]
+        c = m.sum(1).clamp_min(1).double()
+        absum = torch.where(m, x.double().abs(), 0.0).sum(1) / c
+        avg = ops.masked_avg_grid(x, mk, backend="ref").double()
+        bound = 2 * n * 2.0 ** -24 * absum + ulp * avg.abs()
+        out[a:a + step] = torch.where(absum > 3.4e38 / (2 * n),
+                                      float("inf"), bound)
+    return out
+
+
+def _within_bound(a: torch.Tensor, b: torch.Tensor,
+                  bound: torch.Tensor) -> float:
+    """Raises unless ``a`` and ``b`` hold the same values (NaN equal to
+    NaN) or, both finite, differ by at most |bound| (widened by 2⁻⁷ for
+    the bound's own rounding to the output dtype), bound inf allowing
+    anything; returns the largest |a − b| / |bound| where they differ."""
+    b, bound = b.to(a.device), bound.to(a.device)
+    diff = (a.double() - b.double()).abs()
+    lim = bound.double().abs()
+    same = (a == b) | (a.isnan() & b.isnan())
+    both = torch.isfinite(a) & torch.isfinite(b)
+    ok = same | torch.isinf(lim) | (both & (diff <= lim * (1 + 2.0 ** -7)))
+    if not bool(ok.all()):
+        raise AssertionError(f"{int((~ok).sum())} of {a.numel()} values "
+                             f"beyond the summation bound")
+    sel = both & ~same & torch.isfinite(lim)
+    return float((diff[sel] / lim[sel]).max()) if bool(sel.any()) else 0.0
+
+
+class _Swapped:
+    """Puts ``fn`` in the place of ``module.name`` while inside."""
+
+    def __init__(self, module, name: str, fn):
+        self.module, self.name, self.fn = module, name, fn
+
+    def __enter__(self):
+        self.inner = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+        return False
+
+
+def _depth1(tree: dict) -> dict:
+    """rps-100m's first layer (the stacked layers' leading dim cut to 1),
+    without the embedding: the plan's exchange groups at 1/12 of their
+    width."""
+    return {"layers": tree_lib.map(lambda x: x[:1], tree["layers"])}
+
+
+def _int_stack(tree_meta, n: int, seed: int, device: str = "cpu"):
+    """Integer-valued [-8, 8] stacked worker replicas of a per-worker
+    meta tree, made on ``device`` (every sum of them is exact)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tree_lib.map(
+        lambda x: torch.randint(-8, 9, (n,) + tuple(x.shape), generator=gen,
+                                device=device).to(x.dtype), tree_meta)
+
+
+def _draw_hook(seed: int, fn, draws: str):
+    """A per-group draw hook ``(g_idx, shape, device) -> tensor`` from
+    generators on ``draws`` seeded by (seed, g_idx), so two runs see the
+    same draws; ``fn(gen, shape)`` draws on the generator's device."""
+    def hook(g_idx, shape, device):
+        g = torch.Generator(device=draws).manual_seed(seed * 1000 + g_idx)
+        return fn(g, shape).to(device)
+    return hook
+
+
+def _on(tree, device):
+    return tree_lib.map(lambda x: x.to(device), tree)
+
+
+def _byz_exchange(x, masks, cm, plan, corruption, engine, recovery, seed,
+                  device, draws: str = "cpu"):
+    """One rps_exchange_global of ``x`` on ``device`` with the masks and
+    corrupt masks given and the int8 uniforms and bitflip bits drawn by
+    group on ``draws``."""
+    noise = _draw_hook(seed, lambda g, s: torch.rand(s, generator=g,
+                                                     device=g.device),
+                       draws)
+    bits = _draw_hook(seed + 1, channels_lib.corruption.random_bits, draws)
+    out = rps_lib.rps_exchange_global(
+        _on(x, device), None, BYZ_P, plan.n, mode="model",
+        masks=tuple(m.to(device) for m in masks), plan=plan, engine=engine,
+        recovery=recovery, corruption=corruption,
+        corrupt_masks=None if cm is None else cm.to(device),
+        wire_noise=lambda g, s: noise(g, s, device),
+        corrupt_bits=lambda g, s: bits(g, s, device))
+    return tree_lib.leaves(out)
+
+
+def _xla_sends(x, masks, cm, plan, corruption, seed) -> int:
+    """The xla engine's sends where they are not integers (the bitflip
+    kind; the int8 wire's decoded rows on an f32 payload), group by group
+    on the card and the CPU: the same values (:func:`_same_values`: a
+    bf16 payload rounds the ±FLT_MAX clamp to ±inf, and the int8 wire's
+    scale of such a row is inf, so NaNs appear). Returns the elements
+    whose bits differ."""
+    noise = _draw_hook(seed, lambda g, s: torch.rand(s, generator=g),
+                       "cpu")
+    bits = _draw_hook(seed + 1, channels_lib.corruption.random_bits, "cpu")
+    codec = rps_lib.wire_lib.make_codec(plan.wire)
+    tables = plan.gather(x, lead=1)
+    differ = 0
+    n, s = plan.n, plan.s
+    for g_idx, ((blk, m, _dt), idxs) in \
+            enumerate(rps_lib._global_groups(plan).items()):
+        G, d = len(idxs), blk * m
+        stack = rps_lib._group_stack(tables, idxs, n, s, d)
+        cm_g = torch.stack([cm[j] for j in idxs]) if cm.dim() == 3 \
+            else cm.expand(G, n, s)
+        shape = tuple(stack.shape)
+        sends = {}
+        for dev in ("cuda", "cpu"):
+            offer = corruption.apply(stack.to(dev), cm_g.to(dev)[..., None],
+                                     bits=bits(g_idx, shape, dev))
+            if codec.quantized:
+                enc, sc = codec.encode(offer, lead=2,
+                                       uniforms=noise(g_idx, shape, dev))
+                sends[dev] = codec.decode(enc, sc).to(stack.dtype)
+            else:
+                sends[dev] = codec.to_wire(offer)
+        try:
+            differ += _same_values(sends["cuda"], sends["cpu"])
+        except AssertionError as e:
+            raise AssertionError(f"{corruption.kind} {plan.wire}: the send "
+                                 f"differs on the card: {e}") from None
+        del sends
+    return differ
+
+
+def byzantine_exchanges(trees: dict) -> dict:
+    """Phase 25a: every corruption kind x wire x engine, renorm, and the
+    robust recoveries on the xla engine, at the rps-paper-mlp plan (n =
+    16, whole) and rps-100m's (its first layer), on integer-valued
+    replicas: the exchange on the card through the kernels (the ring
+    engine's corrupted offer on the encoded variant) against the plain
+    versions on the CPU, with the same masks, corrupt masks, int8
+    uniforms and bitflip bits. The same values (:func:`_same_values`:
+    NaN equal to NaN, and the elements whose bits differ counted), but
+    for the xla engine under bitflip or on the int8 wire, whose sends are
+    not integers (the sends alike, :func:`_xla_sends`; the exchange's
+    output within the bound of two summation orders of the masked
+    average, from a bound run on the CPU with :func:`_avg_bound` in the
+    average's place), and clip (within 1e-6 of the largest contribution
+    and an ulp of the output's rounding; its clip factors are not
+    integers). Then every kind x wire x engine at rps-100m's whole plan
+    on the card (:func:`byzantine_full`)."""
+    n = 16
+    out = {"cases": 0, "equal_elems": 0, "bits_differ": 0,
+           "xla_worst_bound_ratio": 0.0}
+    cases = {"rps-paper-mlp": trees["rps-paper-mlp"],
+             "rps-100m-layer0": _depth1(trees["rps-100m"])}
+    for c_idx, (name, meta) in enumerate(cases.items()):
+        x = _int_stack(meta, n, seed=25 + c_idx)
+        t0 = time.perf_counter()
+        combos = [(k, w, e, "renorm") for k in BYZ_KINDS for w in BYZ_WIRES
+                  for e in ("xla", "ring")]
+        combos += [("collude", "f32", "xla", r) for r in ROBUST_RECOVERIES]
+        for i, (kind, wire, engine, recovery) in enumerate(combos):
+            seed = 1000 * c_idx + i
+            plan = make_exchange_plan(meta, SimulatorConfig(
+                n_workers=n, wire=wire, engine=engine, recovery=recovery))
+            cpu = torch.Generator().manual_seed(seed)
+            nb = plan.n_buckets if plan.per_bucket_masks else None
+            masks = rps_lib.sample_masks(cpu, n, BYZ_P, plan.s, nb)
+            attack = BYZ_ATTACK if recovery == "renorm" else \
+                "gamma=10,byzantine_frac=0.25"
+            corr = channels_lib.make_corruption(f"{kind}:{attack}")
+            cm = corr.sample(cpu, n, plan.s, nb)
+            reset_counts()
+            card = _byz_exchange(x, masks, cm, plan, corr, engine, recovery,
+                                 seed, "cuda")
+            launched = (K.masked_avg_grid.launches + RG.ring_round.launches
+                        + RG.ring_round_enc.launches)
+            groups = len(rps_lib._global_groups(plan))
+            want_launches = 0 if recovery != "renorm" else groups
+            if launched != want_launches or (
+                    engine == "ring" and RG.ring_round.launches):
+                raise AssertionError(
+                    f"{name} {kind} {wire} {engine} {recovery}: "
+                    f"{launched} launches, want {want_launches} (the ring "
+                    f"engine on the encoded variant)")
+            host = _byz_exchange(x, masks, cm, plan, corr, engine, recovery,
+                                 seed, "cpu")
+            if engine == "xla" and recovery == "renorm" and (
+                    kind == "bitflip" or wire == "int8"):
+                out["bits_differ"] += _xla_sends(x, masks, cm, plan, corr,
+                                                 seed)
+                with _Swapped(K, "masked_avg_grid", _avg_bound):
+                    bound = _byz_exchange(x, masks, cm, plan, corr, engine,
+                                          recovery, seed, "cpu")
+                for a, b, lim in zip(card, host, bound):
+                    try:
+                        r = _within_bound(a, b, lim)
+                    except AssertionError as e:
+                        raise AssertionError(
+                            f"{name} {kind} {wire} xla: card against CPU: "
+                            f"{e}") from None
+                    out["xla_worst_bound_ratio"] = max(
+                        out["xla_worst_bound_ratio"], r)
+                out["cases"] += 1
+                del card, host, bound
+                continue
+            for a, b in zip(card, host):
+                a = a.cpu()
+                if recovery.startswith("clip"):
+                    # 1e-6 of the largest contribution (|gamma x| <= 80),
+                    # and one ulp of the output's own rounding on top
+                    ulp = 2.0 ** -7 if a.dtype == torch.bfloat16 \
+                        else 2.0 ** -23
+                    tol = 1e-6 * 80.0 + ulp * b.double().abs()
+                    if not bool(((a.double() - b.double()).abs()
+                                 <= tol).all()):
+                        raise AssertionError(f"{name} clip: card against "
+                                             f"CPU beyond 1e-6 x 80 + 1 ulp")
+                    continue
+                try:
+                    out["bits_differ"] += _same_values(a, b)
+                except AssertionError as e:
+                    raise AssertionError(
+                        f"{name} {kind} {wire} {engine} {recovery}: the "
+                        f"exchange on the card differs from the CPU's: "
+                        f"{e}") from None
+                out["equal_elems"] += a.numel()
+            out["cases"] += 1
+            del card, host
+        out[f"{name}_s"] = time.perf_counter() - t0
+        print(f"byzantine exchanges at {name}: {len(combos)} cases agree "
+              f"({out[f'{name}_s']:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["rps-100m"] = byzantine_full(trees["rps-100m"])
+    out["rps-100m_s"] = time.perf_counter() - t0
+    print(f"byzantine exchanges at rps-100m (whole plan): "
+          f"{out['rps-100m']['cases']} cases agree with the plain versions "
+          f"({out['rps-100m_s']:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def byzantine_full(meta: dict, seed: int = 2500) -> dict:
+    """Phase 25a at rps-100m's whole plan (n = 16, exchange groups up to
+    (3, 16, 16, 1,769,472)): every corruption kind x wire x engine,
+    renorm, on integer-valued replicas made on the card, through the
+    kernels — on the ring engine ring.cu's encoded variant takes the f32
+    and bf16 wires' corrupted offers and ring_q.cu's re-encode the int8
+    wire's, on the xla engine the masked-average kernel, one launch a
+    group — against the same exchange with the kernel's plain version on
+    the card, the same draws made on the card: the same values
+    (:func:`_same_values`), but for the xla engine under bitflip or on
+    the int8 wire, inside the bound of two summation orders (a bound run
+    with :func:`_avg_bound` in the average's place)."""
+    n = 16
+    x = _int_stack(meta, n, seed, device="cuda")
+    out = {"cases": 0, "equal_elems": 0, "bits_differ": 0,
+           "xla_worst_bound_ratio": 0.0, "largest_group": None}
+    plain = {"ring": _Swapped(ops, "ring_round",
+                              functools.partial(ops.ring_round,
+                                                backend="ref")),
+             "xla": _Swapped(K, "masked_avg_grid",
+                             functools.partial(ops.masked_avg_grid,
+                                               backend="ref"))}
+    combos = [(k, w, e) for k in BYZ_KINDS for w in BYZ_WIRES
+              for e in ("xla", "ring")]
+    for i, (kind, wire, engine) in enumerate(combos):
+        s_i = seed + i
+        what = f"rps-100m {kind} {wire} {engine}"
+        plan = make_exchange_plan(meta, SimulatorConfig(
+            n_workers=n, wire=wire, engine=engine))
+        out["largest_group"] = list(largest_group(plan))
+        cpu = torch.Generator().manual_seed(s_i)
+        nb = plan.n_buckets if plan.per_bucket_masks else None
+        masks = rps_lib.sample_masks(cpu, n, BYZ_P, plan.s, nb)
+        corr = channels_lib.make_corruption(f"{kind}:{BYZ_ATTACK}")
+        cm = corr.sample(cpu, n, plan.s, nb)
+        groups = len(rps_lib._global_groups(plan))
+
+        def exchange():
+            return _byz_exchange(x, masks, cm, plan, corr, engine, "renorm",
+                                 s_i, "cuda", draws="cuda")
+
+        reset_counts()
+        got = exchange()
+        launches = {"masked_avg": K.masked_avg_grid.launches,
+                    "ring": RG.ring_round.launches,
+                    "enc": RG.ring_round_enc.launches,
+                    "requant": RG.ring_round_enc.requant_launches}
+        want = dict.fromkeys(launches, 0)
+        if engine == "xla":
+            want["masked_avg"] = groups
+        else:
+            want["enc"] = groups
+            want["requant"] = groups if wire == "int8" else 0
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, want "
+                                 f"{want}")
+        with plain[engine]:
+            ref = exchange()
+        if engine == "xla" and (kind == "bitflip" or wire == "int8"):
+            ref = [t.cpu() for t in ref]  # host memory, for the bound run
+            with _Swapped(K, "masked_avg_grid", _avg_bound):
+                bound = exchange()
+            for a, b, lim in zip(got, ref, bound):
+                try:
+                    r = _within_bound(a, b, lim)
+                except AssertionError as e:
+                    raise AssertionError(f"{what}: the kernel against the "
+                                         f"plain version: {e}") from None
+                out["xla_worst_bound_ratio"] = max(
+                    out["xla_worst_bound_ratio"], r)
+            del bound
+        else:
+            for a, b in zip(got, ref):
+                try:
+                    out["bits_differ"] += _same_values(a, b)
+                except AssertionError as e:
+                    raise AssertionError(f"{what}: the kernels against the "
+                                         f"plain version: {e}") from None
+                out["equal_elems"] += a.numel()
+        out["cases"] += 1
+        del got, ref
+    del x
+    return out
+
+
+def robust_task(n: int):
+    """robust_bench.py's task: per-worker linear regressions (x (n, 16,
+    6), w_true (6, 4), numpy seed 0), made on the card."""
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.normal(size=(n, 16, 6)).astype(np.float32))
+    w_true = torch.from_numpy(rng.normal(size=(6, 4)).astype(np.float32))
+    xs = xs.cuda()
+    ys = xs @ w_true.cuda()
+
+    def init_fn(gen):
+        return {"w": torch.randn((6, 4), generator=gen,
+                                 device=gen.device) * 0.1}
+
+    def loss_fn(p, b):
+        x, y = b
+        return torch.mean((x @ p["w"] - y) ** 2)
+
+    return loss_fn, init_fn, (lambda t: (xs, ys))
+
+
+def robust_bench(study=ROBUST_STUDY) -> dict:
+    """Phase 25b: benchmarks/robust_bench.py sections 1-4 on the port and
+    the card, uncut: recovery x byzantine_frac x p under the colluding
+    attack, engine auto (renorm on the masked-average kernel, once per
+    group and step; the robust kinds' table aggregate is plain torch).
+    Gates: the bench's claim that under the attack median and trimmed
+    reach the target loss and renorm does not — at p = 0 with the final
+    loss, as the bench states it; at p = 0.2, where the final loss of one
+    seed is a draw, with the median of the final losses over seeds 0-7
+    (the bench's own verdict on seed 0's final losses is reported
+    beside) — and every attacked run's mean corrupt_frac within
+    CORRUPT_FRAC_TOL of expected_frac."""
+    from repro_torch.channels import Corruption
+    from repro_torch.core import theory
+    n, steps = study["n"], study["steps"]
+    loss_fn, init_fn, batch_fn = robust_task(n)
+    expected = Corruption("collude", byzantine_frac=0.25).expected_frac(n)
+    out = {"sweep": {}, "expected_corrupt_frac": expected}
+    groups = None
+
+    def run(rec, byz, p, seed):
+        nonlocal groups
+        scfg = SimulatorConfig(
+            n_workers=n, drop_rate=p, aggregator="rps_model", steps=steps,
+            lr=study["lr"], warmup=study["warmup"],
+            n_buckets=study["n_buckets"], seed=seed, recovery=rec,
+            corruption=study["attack"] if byz > 0 else None,
+            byzantine_frac=byz)
+        if groups is None:
+            groups = len(rps_lib._global_groups(make_exchange_plan(
+                {"w": torch.empty((6, 4), device="meta")}, scfg)))
+        reset_counts()
+        h = run_simulation(loss_fn, init_fn, batch_fn, scfg)
+        launches = K.masked_avg_grid.launches
+        want = groups * steps if rec == "renorm" else 0
+        if launches != want:
+            raise AssertionError(f"robust {rec} byz {byz} p {p} seed "
+                                 f"{seed}: {launches} masked-average "
+                                 f"launches, want {want}")
+        cf = h["corrupt_frac"]
+        if byz > 0 and abs(np.mean(cf) - expected) > CORRUPT_FRAC_TOL:
+            raise AssertionError(f"robust {rec} byz {byz} p {p} seed "
+                                 f"{seed}: mean corrupt_frac "
+                                 f"{np.mean(cf)} against {expected}")
+        return h, launches
+
+    for rec in study["recoveries"]:
+        for byz in study["byzs"]:
+            for p in study["ps"]:
+                h, launches = run(rec, byz, p, study["seed"])
+                cf = h["corrupt_frac"]
+                key = f"{rec}_byz{byz}_p{p}"
+                out["sweep"][key] = {
+                    "final_loss": h["final_loss"],
+                    "min_loss": float(np.nanmin(h["loss"])),
+                    "loss": h["loss"],
+                    "corrupt_frac_mean": float(np.mean(cf)) if cf else 0.0,
+                    "masked_avg_launches": launches,
+                    "wall_s": sum(h["step_s"])}
+                print(f"robust {key}: final loss {h['final_loss']:.3e}",
+                      flush=True)
+    # the bench's verdict on the final losses, and the gate: under the
+    # attack, median and trimmed reach the target (at p = 0, where every
+    # packet arrives, with their final loss; at draw_p with the median
+    # over draw_seeds of the final loss: a drawn round whose delivered
+    # rows are half colluders kicks the loss up, and it recovers — so the
+    # final loss of one seed is a draw, as the reference shows at seed 0
+    # on this JAX, 1.31) and renorm never does
+    target = study["target"]
+    draw_p = study["draw_p"]
+    bench_ok, ok = True, True
+    for p in study["ps"]:
+        ren = out["sweep"][f"renorm_byz0.25_p{p}"]
+        bench_ok &= not (np.isfinite(ren["final_loss"])
+                         and ren["final_loss"] <= target)
+        ok &= not (np.isfinite(ren["final_loss"])
+                   and ren["final_loss"] <= target)
+        ok &= not ren["min_loss"] <= target
+        for rec in study["robust"]:
+            la = out["sweep"][f"{rec}_byz0.25_p{p}"]
+            fin = bool(np.isfinite(la["final_loss"]))
+            bench_ok &= fin and la["final_loss"] <= target
+            if p != draw_p:
+                ok &= fin and la["final_loss"] <= target
+    out["draws"] = {}
+    for rec in study["robust"]:
+        finals = []
+        for seed in study["draw_seeds"]:
+            if seed == study["seed"]:
+                la = out["sweep"][f"{rec}_byz0.25_p{draw_p}"]
+                finals.append(la["final_loss"])
+            else:
+                finals.append(run(rec, 0.25, draw_p, seed)[0]["final_loss"])
+        med = float(np.median(finals))
+        out["draws"][rec] = {"seeds": list(study["draw_seeds"]),
+                             "final_loss": finals, "median": med}
+        print(f"robust {rec}_byz0.25_p{draw_p} over seeds "
+              f"{study['draw_seeds']}: final losses {finals}, median "
+              f"{med:.4e}", flush=True)
+        ok &= med <= target
+    out["bench_final_loss_claim"] = bool(bench_ok)
+    out["robust_recovery_ok"] = bool(ok)
+    out["theory"] = {
+        "breakdown_point": {r: theory.robust_breakdown_point(r)
+                            for r in study["recoveries"]},
+        "byzantine_rate": {f"byz{b}": theory.byzantine_rate(n, steps, b)
+                           for b in (0.0, 0.125, 0.25)},
+        "robust_rate_median_p0.2": theory.robust_rate(
+            n, 0.2, steps, byz_frac=0.25, recovery="median")}
+    ref = _bench_json("BENCH_robust.json")
+    out["reference_cpu"] = {k: v["final_loss"]
+                            for k, v in ref["sweep"].items()}
+    for k, v in out["sweep"].items():
+        print(f"robust_bench {k}: card {v['final_loss']:.4e} "
+              f"(reference CPU {out['reference_cpu'].get(k)})", flush=True)
+    if not ok:
+        raise AssertionError(f"robust_bench claim fails: {out['sweep']}")
+    return out
+
+
+def _time_to(losses, target: float, step_ms: float) -> float:
+    for t, loss in enumerate(losses):
+        if loss <= target:
+            return (t + 1) * step_ms
+    return float("inf")
+
+
+def async_bench(study=ASYNC_STUDY) -> dict:
+    """Phase 26: benchmarks/async_bench.py section 2 on the port and the
+    card, uncut: the straggler family, sync against async, engine auto
+    (the masked-average kernel, once per group and exchange step), then
+    the third scenario again on the ring engine. Gates: async_speedup > 1
+    in every scenario; staleness 0 under sync, inside (0, 1) under async;
+    the ring run's per-step losses within ASYNC_RING_TOL of the xla
+    run's; launches = groups x exchange steps."""
+    n, steps = study["n"], study["steps"]
+    loss_fn, init_fn, batch_fn = robust_task(n)
+    step_sync = study["compute_ms"] + study["deadline_ms"]
+    step_async = max(study["compute_ms"], study["deadline_ms"])
+    out = {"step_ms_sync": step_sync, "step_ms_async": step_async,
+           "scenarios": {}}
+    runs = {}
+
+    def run(schedule, chan, engine):
+        scfg = SimulatorConfig(
+            n_workers=n, aggregator="rps_model", steps=steps,
+            lr=study["lr"], warmup=study["warmup"], eval_every=1,
+            n_buckets=study["n_buckets"], seed=study["seed"], channel=chan,
+            schedule=schedule, engine=engine,
+            compute_ms=study["compute_ms"] if schedule == "async" else None)
+        groups = len(rps_lib._global_groups(make_exchange_plan(
+            {"w": torch.empty((6, 4), device="meta")}, scfg)))
+        reset_counts()
+        h = run_simulation(loss_fn, init_fn, batch_fn, scfg)
+        launches = RG.ring_round.launches if engine == "ring" \
+            else K.masked_avg_grid.launches
+        if launches != groups * steps:
+            raise AssertionError(f"async {schedule} {engine}: {launches} "
+                                 f"launches, want {groups} x {steps}")
+        stale = h["staleness"]
+        mean = float(np.mean(stale)) if stale else 0.0
+        if schedule == "sync" and mean != 0.0:
+            raise AssertionError(f"sync staleness {mean}")
+        if schedule == "async" and not 0.0 < mean < 1.0:
+            raise AssertionError(f"async staleness {mean}")
+        return h, launches, mean
+
+    launches = {"masked_avg": 0, "ring": 0}
+    for frac, mult in study["family"]:
+        chan = (f"deadline:deadline_ms={study['deadline_ms']},base_ms=1,"
+                f"jitter_ms=3,straggler_frac={frac},straggler_mult={mult}")
+        hs, ls, _ = run("sync", chan, "auto")
+        ha, la, stale = run("async", chan, "auto")
+        launches["masked_avg"] += ls + la
+        target = max(min(hs["loss"]), min(ha["loss"])) * 1.02
+        ts = _time_to(hs["loss"], target, step_sync)
+        ta = _time_to(ha["loss"], target, step_async)
+        key = f"frac{frac}_mult{mult}"
+        out["scenarios"][key] = {
+            "target_loss": target, "sync_ms": ts, "async_ms": ta,
+            "async_speedup": ts / ta, "async_staleness_mean": stale,
+            "final_loss_sync": hs["final_loss"],
+            "final_loss_async": ha["final_loss"],
+            "wall_s": sum(hs["step_s"]) + sum(ha["step_s"])}
+        runs[key] = ha
+        print(f"async {key}: speedup {ts / ta:.3f} staleness {stale:.3f}",
+              flush=True)
+    frac, mult = study["family"][2]
+    key = f"frac{frac}_mult{mult}"
+    chan = (f"deadline:deadline_ms={study['deadline_ms']},base_ms=1,"
+            f"jitter_ms=3,straggler_frac={frac},straggler_mult={mult}")
+    hr, lr_, _ = run("async", chan, "ring")
+    launches["ring"] += lr_
+    gap = max(abs(a - b) for a, b in zip(hr["loss"], runs[key]["loss"]))
+    out["ring_vs_xla_max_abs"] = gap
+    out["launches"] = launches
+    ref = _bench_json("BENCH_async.json")["time_to_loss"]["scenarios"]
+    out["reference_cpu"] = {k: {"async_speedup": v["async_speedup"],
+                                "async_staleness_mean":
+                                v["async_staleness_mean"]}
+                            for k, v in ref.items()}
+    speedups = [v["async_speedup"] for v in out["scenarios"].values()]
+    out["async_speedup_min"] = min(speedups)
+    if not min(speedups) > 1.0:
+        raise AssertionError(f"async_bench: speedups {speedups}")
+    if gap > ASYNC_RING_TOL:
+        raise AssertionError(f"async ring against xla: {gap}")
+    return out
+
+
+class _AggTimer:
+    """Phase 27's probe: wraps the robust aggregate and times each call
+    between CUDA events (device ms, summed per run)."""
+
+    def __init__(self):
+        self.inner = rps_lib.robust_lib.robust_aggregate
+        self.events = []
+
+    def __call__(self, *args, **kw):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = self.inner(*args, **kw)
+        t1.record()
+        self.events.append((t0, t1))
+        return out
+
+    def __enter__(self):
+        rps_lib.robust_lib.robust_aggregate = self
+        return self
+
+    def __exit__(self, *exc):
+        rps_lib.robust_lib.robust_aggregate = self.inner
+        return False
+
+    def total_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def robust_card_vs_cpu(params, scfg, seed: int = 0) -> int:
+    """Phase 27's check of the robust exchange: one median exchange with
+    the colluding attack of rps-100m's embedding and first layer at full
+    width (the stacked replicas ``params``), on the card and on the CPU,
+    with the same masks and corrupt masks drawn on the CPU: the same
+    values (:func:`_same_values`). Returns the elements compared and how
+    many of them differ in their bits."""
+    sub = {"embed": params["embed"],
+           "layers": tree_lib.map(lambda x: x[:, :1].contiguous(),
+                                  params["layers"])}
+    n = scfg.n_workers
+    plan = make_exchange_plan(tree_lib.map(lambda x: x[0], sub), scfg)
+    cpu = torch.Generator().manual_seed(seed)
+    masks = rps_lib.sample_masks(cpu, n, scfg.drop_rate, plan.s)
+    corr = channels_lib.make_corruption(scfg.corruption,
+                                        scfg.byzantine_frac)
+    cm = corr.sample(cpu, n, plan.s)
+    card = _byz_exchange(sub, masks, cm, plan, corr, "xla", scfg.recovery,
+                         seed, "cuda")
+    host = _byz_exchange(_on(sub, "cpu"), masks, cm, plan, corr, "xla",
+                         scfg.recovery, seed, "cpu")
+    differ = sum(_same_values(a, b) for a, b in zip(card, host))
+    return {"elems": sum(x.numel() for x in host), "bits_differ": differ}
+
+
+def rps100m_attack(setup: Rps100mSetup, clean: dict,
+                   load=RPS_100M_LOAD) -> dict:
+    """Phase 27: rps-100m at phase 17's load, weights, batches and masks
+    under the colluding attack (4 of 16 workers), 4 steps each: renorm on
+    the ring engine (the corrupted offer on the encoded variant, the
+    honest stack the fallback: launches = groups x steps) and median,
+    trimmed and clip on the xla engine (no kernel: the table aggregate).
+    Gates: median's and trimmed's losses finite and within
+    ATTACK_LOSS_GAP of phase 17's at every step; renorm's last loss
+    non-finite or more than 1.0 above phase 17's; the robust runs' peak
+    within ATTACK_PEAK_GB of phase 17's; one median exchange of the final
+    replicas alike on the card and the CPU (checked before the next run,
+    so no run holds another's replicas)."""
+    steps = ATTACK_LOAD["steps"]
+    clean_loss = clean["loss"][:steps]
+    out = {}
+    for rec, engine in (("renorm", "ring"), ("median", "xla"),
+                        ("trimmed:beta=0.4", "xla"), ("clip", "xla")):
+        scfg = rps100m_config(load, engine=engine, recovery=rec,
+                              **ATTACK_LOAD)
+        groups = len(rps_lib._global_groups(make_exchange_plan(setup.p1,
+                                                               scfg)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with _AggTimer() as timer:
+            h = run_simulation(setup.loss_fn, None,
+                               lambda t: setup.batches[t], scfg,
+                               init_params=setup.p1)
+            agg_ms = timer.total_ms()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        enc, lin = RG.ring_round_enc.launches, RG.ring_round.launches
+        requant = RG.ring_round_enc.requant_launches
+        loss = h["loss"]
+        step_s = h["step_s"]
+        out[rec] = {"engine": engine, "loss": loss,
+                    "clean_loss": clean_loss, "peak_memory_gb": peak,
+                    "first_step_ms": step_s[0] * 1e3,
+                    "step_ms": [t * 1e3 for t in step_s[1:]],
+                    "aggregate_device_ms_per_step": agg_ms / steps,
+                    "ring_enc_launches": enc, "ring_launches": lin,
+                    "ring_requant_launches": requant,
+                    "masked_avg_launches": K.masked_avg_grid.launches,
+                    "corrupt_frac": h["corrupt_frac"], "groups": groups}
+        print(f"rps-100m attacked {rec}: losses {loss} (clean "
+              f"{clean_loss}), peak {peak:.3f} GB, aggregate "
+              f"{agg_ms / steps:.2f} ms a step", flush=True)
+        if engine == "ring" and (enc != groups * steps or lin != 0
+                                 or requant != 0):
+            raise AssertionError(f"rps-100m attacked renorm: {enc} encoded "
+                                 f"({requant} re-encoding) and {lin} "
+                                 f"linear launches, want {groups} x "
+                                 f"{steps} (0) and 0")
+        if engine == "xla" and (enc or lin or K.masked_avg_grid.launches):
+            raise AssertionError(f"rps-100m attacked {rec}: a kernel "
+                                 f"launched on the robust path")
+        if rec in ("median", "trimmed:beta=0.4"):
+            gaps = [abs(a - b) for a, b in zip(loss, clean_loss)]
+            out[rec]["max_loss_gap"] = max(gaps)
+            if not (np.isfinite(loss).all() and max(gaps) <= ATTACK_LOSS_GAP):
+                raise AssertionError(f"rps-100m attacked {rec}: losses "
+                                     f"{loss} against clean {clean_loss}")
+        if engine == "xla" and peak > clean["peak_memory_gb"] \
+                + ATTACK_PEAK_GB:
+            raise AssertionError(f"rps-100m attacked {rec}: peak {peak} GB "
+                                 f"against phase 17's "
+                                 f"{clean['peak_memory_gb']} + "
+                                 f"{ATTACK_PEAK_GB}")
+        if rec == "median":
+            out["median_exchange_card_vs_cpu"] = robust_card_vs_cpu(
+                h["params"], scfg)
+        del h
+    last = out["renorm"]["loss"][-1]
+    if np.isfinite(last) and last <= clean_loss[-1] + 1.0:
+        raise AssertionError(f"rps-100m attacked renorm: last loss {last} "
+                             f"against clean {clean_loss[-1]}: the attack "
+                             f"did not bite")
+    torch.cuda.empty_cache()
+    return out
+
+
+def rps100m_async(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
+    """Phase 28: rps-100m at phase 17's load with 8 buckets on the
+    straggler deadline channel, compute_ms 8, ring engine, 4 steps, sync
+    and async (finite losses, async staleness > 0, launches = groups x
+    steps); then the backward's measured readiness profile at this plan
+    (measure_bucket_ready_ms, what compute_ms="auto" runs) beside the
+    cost model's: positive and non-increasing."""
+    from repro_torch.train import simulator as sim_lib
+    steps = ASYNC_LOAD["steps"]
+    out = {}
+    for schedule in ("sync", "async"):
+        scfg = rps100m_config(
+            load, steps=steps, n_buckets=ASYNC_LOAD["n_buckets"],
+            channel=ASYNC_LOAD["channel"], schedule=schedule,
+            compute_ms=ASYNC_LOAD["compute_ms"]
+            if schedule == "async" else None)
+        plan = make_exchange_plan(setup.p1, scfg)
+        groups = len(rps_lib._global_groups(plan))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        h = run_simulation(setup.loss_fn, None,
+                           lambda t: setup.batches[t], scfg,
+                           init_params=setup.p1)
+        launches = RG.ring_round.launches
+        step_s = h["step_s"]
+        out[schedule] = {"loss": h["loss"], "staleness": h["staleness"],
+                         "ring_launches": launches, "groups": groups,
+                         "ready_ms": list(plan.ready_ms or ()),
+                         "first_step_ms": step_s[0] * 1e3,
+                         "step_ms": [t * 1e3 for t in step_s[1:]],
+                         "peak_memory_gb":
+                         torch.cuda.max_memory_allocated() / 1e9}
+        print(f"rps-100m {schedule}: losses {h['loss']} staleness "
+              f"{h['staleness']}", flush=True)
+        if launches != groups * steps:
+            raise AssertionError(f"rps-100m {schedule}: {launches} ring "
+                                 f"launches, want {groups} x {steps}")
+        if not np.isfinite(h["loss"]).all():
+            raise AssertionError(f"rps-100m {schedule}: losses {h['loss']}")
+        if schedule == "async" and not np.mean(h["staleness"]) > 0:
+            raise AssertionError("rps-100m async: no packet was late")
+        del h
+    params = tree_lib.map(
+        lambda x: x[None].expand((load["n"],) + tuple(x.shape)).clone(),
+        setup.p1)
+    batch = setup.batches[0]
+    t0 = time.perf_counter()
+    measured = sim_lib.measure_bucket_ready_ms(setup.loss_fn, params, batch,
+                                               plan, reps=1)
+    out["measured_ready_ms"] = measured
+    out["measure_s"] = time.perf_counter() - t0
+    out["model_ready_ms"] = list(plan.ready_ms)
+    del params
+    torch.cuda.empty_cache()
+    print(f"rps-100m readiness (ms), measured {measured}, cost model "
+          f"{list(plan.ready_ms)}", flush=True)
+    if not (all(r > 0 for r in measured)
+            and all(a >= b for a, b in zip(measured, measured[1:]))):
+        raise AssertionError(f"measured readiness {measured}: not positive "
+                             f"and non-increasing")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2156,12 +3041,36 @@ def main() -> int:
     packs = rps100m_packs(setup)
     print(json.dumps({"rps_100m_state_packs": packs, "card": card}),
           flush=True)
+
+    t0 = time.perf_counter()
+    byz = byzantine_exchanges(trees)
+    byz["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"byzantine_exchanges": byz, "card": card}), flush=True)
+    t0 = time.perf_counter()
+    rb = robust_bench()
+    rb["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"robust_bench": rb, "card": card}), flush=True)
+    t0 = time.perf_counter()
+    ab = async_bench()
+    ab["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"async_bench": ab, "card": card}), flush=True)
+    t0 = time.perf_counter()
+    attack = rps100m_attack(setup, big)
+    attack["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"rps_100m_attack": attack, "card": card}), flush=True)
+    t0 = time.perf_counter()
+    asy = rps100m_async(setup)
+    asy["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"rps_100m_async": asy, "card": card}), flush=True)
     del setup
+    robust_launches = sum(v["masked_avg_launches"]
+                          for v in rb["sweep"].values())
 
     kernel = {"name": "masked_avg_grid", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
               "replaces": "src/repro/kernels/masked_avg.py:58",
-              "launches": qs["rps_model_xla"]["masked_avg_launches"],
+              "launches": qs["rps_model_xla"]["masked_avg_launches"]
+              + robust_launches + ab["launches"]["masked_avg"],
               "max_abs_err": err,
               "ms": timing["ms"], "plain_ms": timing["plain_ms"],
               "bound_ms": timing["bound_ms"],
@@ -2197,7 +3106,11 @@ def main() -> int:
     ring = {"name": "ring_round", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ring.cu",
             "replaces": "src/repro/kernels/rps_ring.py:331",
-            "launches": big["ring_launches"],
+            # with ring.cu's encoded variant (levels 0), which takes the
+            # attacked renorm run's corrupted f32 offers
+            "launches": big["ring_launches"] + ab["launches"]["ring"]
+            + asy["sync"]["ring_launches"] + asy["async"]["ring_launches"]
+            + attack["renorm"]["ring_enc_launches"],
             "max_abs_err": ring_err,
             "ms": ring_group["ms"], "plain_ms": ring_group["plain_ms"],
             "bound_ms": ring_group["bound_ms"],
@@ -2206,7 +3119,7 @@ def main() -> int:
     ring_enc = {"name": "ring_round_enc", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ring_q.cu",
                 "replaces": "src/repro/kernels/rps_ring.py:331",
-                "launches": big_int8["renorm"]["ring_enc_launches"],
+                "launches": big_int8["renorm"]["ring_requant_launches"],
                 "max_abs_err": enc_err,
                 "ms": enc_group["ms"], "plain_ms": enc_group["plain_ms"],
                 "bound_ms": enc_group["bound_ms"],

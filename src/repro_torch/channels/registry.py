@@ -18,21 +18,27 @@ Benchmarks, examples and launchers select channels with compact specs,
 string, a built :class:`Channel` (returned as is), or ``None``
 (``BernoulliChannel(n, default_p)``). For bernoulli an omitted ``p``
 inherits ``default_p``. Unknown names raise ``ValueError`` listing the
-registered ones. The reference's corruption processes are not ported
-yet: ``corruption=`` other than ``None`` raises ``NotImplementedError``.
+registered ones. ``corruption=`` (a ``"kind:k=v"`` spec over
+``bitflip``, ``scale``, ``signflip``, ``collude``, a built
+:class:`Corruption`, or ``None``; :func:`make_corruption`) wraps the
+channel in a :class:`CorruptionChannel`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple, Union
 
+from repro_torch.channels import corruption as corruption_lib
 from repro_torch.channels.base import Channel
 from repro_torch.channels.bernoulli import BernoulliChannel
+from repro_torch.channels.corruption import Corruption
 from repro_torch.channels.deadline import DeadlineChannel
 from repro_torch.channels.gilbert_elliott import GilbertElliottChannel
 from repro_torch.channels.heterogeneous import HeterogeneousChannel
 from repro_torch.channels.trace import TraceChannel
 
 ChannelSpec = Union[None, str, Channel]
+CorruptionSpec = Union[None, str, Corruption]
 
 _REGISTRY: Dict[str, Callable[..., Channel]] = {}
 _ALIASES: Dict[str, str] = {}
@@ -75,22 +81,56 @@ def parse_spec(spec: str) -> Tuple[str, Dict[str, object]]:
     return name, kwargs
 
 
+def corruption_names() -> Tuple[str, ...]:
+    return tuple(corruption_lib.CORRUPTIONS)
+
+
+def make_corruption(spec: CorruptionSpec,
+                    byzantine_frac: Optional[float] = None
+                    ) -> Optional[Corruption]:
+    """A corruption process from a ``"kind:k=v,..."`` spec, a built
+    :class:`Corruption` or ``None``. A separate ``byzantine_frac``
+    overlays the spec's own; given alone (no spec) it selects the
+    ``collude`` attack. ``None`` when nothing corrupts."""
+    if isinstance(spec, Corruption):
+        if byzantine_frac is not None:
+            spec = dataclasses.replace(spec,
+                                       byzantine_frac=float(byzantine_frac))
+        return spec
+    if spec is None or spec == "":
+        if not byzantine_frac:
+            return None
+        return Corruption("collude", byzantine_frac=float(byzantine_frac))
+    name, kwargs = parse_spec(spec)
+    if name not in corruption_lib.CORRUPTIONS:
+        raise ValueError(f"unknown corruption {name!r}; "
+                         f"known: {', '.join(corruption_names())}")
+    if byzantine_frac is not None:
+        kwargs["byzantine_frac"] = float(byzantine_frac)
+    try:
+        return Corruption(name, **kwargs)
+    except TypeError as e:
+        raise ValueError(f"bad args for corruption {name!r}: {e}") from e
+
+
 def make_channel(spec: ChannelSpec, n: int, default_p: float = 0.0,
-                 s: Optional[int] = None, corruption=None) -> Channel:
+                 s: Optional[int] = None,
+                 corruption: CorruptionSpec = None) -> Channel:
     """Resolve a channel spec for an n-worker exchange (see the module
     doc). ``s`` is the number of server blocks (``None``: s = n); a spec
-    may carry ``s=<int>``, which must agree with an explicit ``s``."""
-    if corruption not in (None, ""):
-        raise NotImplementedError(
-            f"corruption={corruption!r} is not ported yet")
+    may carry ``s=<int>``, which must agree with an explicit ``s``.
+    ``corruption`` wraps the built channel (a process that corrupts
+    nothing leaves it unwrapped)."""
+    corr = make_corruption(corruption)
     if isinstance(spec, Channel):
         if spec.n != n:
             raise ValueError(f"channel built for n={spec.n}, need n={n}")
         if s is not None and spec.s != s:
             raise ValueError(f"channel built for s={spec.s}, need s={s}")
-        return spec
+        return corruption_lib.wrap(spec, corr)
     if spec is None or spec == "":
-        return BernoulliChannel(n, default_p, s=s)
+        return corruption_lib.wrap(BernoulliChannel(n, default_p, s=s),
+                                   corr)
     name, kwargs = parse_spec(spec)
     if name not in _REGISTRY:
         raise ValueError(f"unknown channel {name!r}; "
@@ -103,7 +143,7 @@ def make_channel(spec: ChannelSpec, n: int, default_p: float = 0.0,
                              f"harness is configured for s={s}")
         kwargs["s"] = s
     try:
-        return _REGISTRY[name](n, **kwargs)
+        return corruption_lib.wrap(_REGISTRY[name](n, **kwargs), corr)
     except TypeError as e:
         raise ValueError(f"bad args for channel {name!r}: {e}") from e
 

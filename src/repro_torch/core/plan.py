@@ -15,8 +15,12 @@ padding computed once at setup:
 - :func:`decode_plan`: the tensor-parallel serving path's one
   ``(d_model, batch)`` leaf.
 
-Model-dim (tensor-parallel) buckets and the async schedule are not ported
-yet and raise.
+``schedule="async"`` (with ``compute_ms``) ships the buckets in reverse
+plan order as the backward pass makes their gradients ready: the plan
+carries each bucket's readiness time (:func:`bucket_ready_ms`, or measured
+times through :meth:`ExchangePlan.with_ready_ms`) and
+:meth:`ExchangePlan.slack_ms` turns a deadline into per-bucket budgets.
+Model-dim (tensor-parallel) buckets are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -69,8 +73,11 @@ class ExchangePlan:
     engine: str = "xla"
     wire: str = "f32"
     recovery: str = "renorm"
-    # the async schedule's per-bucket readiness times (ms into the
-    # backward pass) in the reference; the port's plans are sync: None
+    # "sync": every bucket ships at the iteration barrier; "async": in
+    # reverse plan order as its gradients become ready
+    schedule: str = "sync"
+    # per-bucket readiness times (ms into the backward pass); set iff
+    # schedule == "async"
     ready_ms: Optional[Tuple[float, ...]] = None
 
     @property
@@ -87,6 +94,37 @@ class ExchangePlan:
 
     def payload_elems(self) -> int:
         return sum(self.s * b.blk * b.m for b in self.buckets)
+
+    @property
+    def ship_order(self) -> Tuple[int, ...]:
+        """Bucket dispatch order: plan order under sync, reversed under
+        async (the tree is layer-ordered and the backward pass finishes
+        the last layers first)."""
+        if self.schedule == "async":
+            return tuple(range(self.n_buckets - 1, -1, -1))
+        return tuple(range(self.n_buckets))
+
+    def with_ready_ms(self, ready_ms: Sequence[float]) -> "ExchangePlan":
+        """The same async plan with measured readiness times in place of
+        the cost model's (``compute_ms="auto"``)."""
+        if self.schedule != "async":
+            raise ValueError("ready_ms only applies to schedule='async'")
+        ready = tuple(float(r) for r in ready_ms)
+        if len(ready) != self.n_buckets:
+            raise ValueError(f"got {len(ready)} readiness times for "
+                             f"{self.n_buckets} buckets")
+        if any(r < 0 for r in ready):
+            raise ValueError(f"negative readiness time in {ready}")
+        return dataclasses.replace(self, ready_ms=ready)
+
+    def slack_ms(self, deadline_ms: float) -> np.ndarray:
+        """Per-bucket deadline budget under async, ``max(deadline −
+        ready, 0)`` in plan order (``(n_buckets,)`` f64)."""
+        if self.ready_ms is None:
+            raise ValueError("slack_ms needs an async plan with ready_ms "
+                             "(build with schedule='async')")
+        return np.maximum(float(deadline_ms)
+                          - np.asarray(self.ready_ms, np.float64), 0.0)
 
     def rs_leg_bytes(self, wire=None) -> int:
         """Bytes one device moves on the RS leg per round (every bucket's
@@ -116,7 +154,9 @@ class ExchangePlan:
                 "engine": self.engine,
                 "wire": wire,
                 "recovery": self.recovery,
-                "schedule": "sync",
+                "schedule": self.schedule,
+                **({"ready_ms": [float(r) for r in self.ready_ms]}
+                   if self.ready_ms is not None else {}),
                 "per_bucket_masks": self.per_bucket_masks,
                 "model_packets": self.model_packets,
                 "payload_bytes": int(sum(
@@ -208,9 +248,41 @@ def _flat_bucket(ids, shapes, dtypes, sizes, s: int) -> Bucket:
                   pad=s * blk - free, dtype=wire_lib.dtype_name(dt))
 
 
+def bucket_ready_ms(buckets: Sequence[Bucket],
+                    compute_ms: float) -> Tuple[float, ...]:
+    """Per-bucket gradient readiness times of the backward-pass cost
+    model: bucket b is ready once the backward has covered buckets
+    b..B−1, the cost proportional to their payload; ``ready[0] ==
+    compute_ms``."""
+    if compute_ms <= 0:
+        raise ValueError(f"compute_ms={compute_ms} must be > 0")
+    sizes = np.array([b.free * b.m for b in buckets], np.float64)
+    rev_cum = np.cumsum(sizes[::-1])[::-1]          # Σ sizes[b:]
+    return tuple(float(compute_ms) * rev_cum / rev_cum[0])
+
+
 def _canon_pipeline(wire, recovery) -> Tuple[str, str]:
+    """(wire, recovery) plan fields; a parameterised robust spec
+    ("trimmed:beta=0.3") keeps its canonical spelling."""
     wire = wire_lib.canon_wire_name("f32" if wire is None else wire)
-    return wire, wire_lib.make_recovery(recovery).kind
+    recovery = "renorm" if recovery is None else str(recovery)
+    return wire, wire_lib.make_recovery(recovery).spec
+
+
+def _schedule(schedule, compute_ms, buckets):
+    """(schedule, ready_ms) of a plan from the schedule knobs."""
+    schedule = "sync" if schedule is None else str(schedule)
+    if schedule not in ("sync", "async"):
+        raise ValueError(f"schedule={schedule!r}, want 'sync' or 'async'")
+    if schedule == "async":
+        if compute_ms is None:
+            raise ValueError("schedule='async' needs compute_ms (the "
+                             "modelled backward-pass duration readiness "
+                             "times are derived from)")
+        return schedule, bucket_ready_ms(buckets, float(compute_ms))
+    if compute_ms is not None:
+        raise ValueError("compute_ms only applies to schedule='async'")
+    return schedule, None
 
 
 def _check_ns(n: int, s: Optional[int]) -> int:
@@ -222,13 +294,10 @@ def _check_ns(n: int, s: Optional[int]) -> int:
     return s
 
 
-def _not_ported(model_dims, schedule) -> None:
+def _not_ported(model_dims) -> None:
     if model_dims is not None:
         raise NotImplementedError("model_dims (tensor-parallel buckets) "
                                   "are not ported yet")
-    if schedule not in (None, "sync"):
-        raise NotImplementedError(f"schedule={schedule!r} is not ported "
-                                  f"yet; ported: 'sync'")
 
 
 def make_plan(tree: Any, n: int, s: Optional[int] = None, *,
@@ -237,16 +306,17 @@ def make_plan(tree: Any, n: int, s: Optional[int] = None, *,
               model_dims: Any = None,
               per_bucket_masks: Optional[bool] = None,
               engine: str = "xla", wire: str = "f32",
-              recovery: str = "renorm",
-              schedule: str = "sync") -> ExchangePlan:
+              recovery: str = "renorm", schedule: str = "sync",
+              compute_ms: Optional[float] = None) -> ExchangePlan:
     """The plan of ``tree`` (real or ``meta`` tensors: only shapes and
     dtypes are read). ``bucket_bytes``: greedy fixed-byte coalescing in
     tree order (a leaf larger than the budget gets its own bucket; leaves
     are never split). ``n_buckets``: that many size-balanced contiguous
     groups. Neither: one bucket. ``per_bucket_masks`` defaults to True
-    exactly when a bucketing knob is given."""
+    exactly when a bucketing knob is given. ``schedule="async"`` needs
+    ``compute_ms``, the modelled backward duration."""
     s = _check_ns(n, s)
-    _not_ported(model_dims, schedule)
+    _not_ported(model_dims)
     if bucket_bytes is not None and n_buckets is not None:
         raise ValueError("give bucket_bytes or n_buckets, not both")
     if n_buckets is not None and int(n_buckets) < 1:
@@ -294,21 +364,22 @@ def make_plan(tree: Any, n: int, s: Optional[int] = None, *,
     if per_bucket_masks is None:
         per_bucket_masks = bucket_bytes is not None or n_buckets is not None
     wire, recovery = _canon_pipeline(wire, recovery)
+    schedule, ready = _schedule(schedule, compute_ms, buckets)
     return ExchangePlan(n=int(n), s=s, buckets=buckets,
                         n_leaves=len(leaves),
                         per_bucket_masks=bool(per_bucket_masks),
                         treedef=treedef, engine=str(engine), wire=wire,
-                        recovery=recovery)
+                        recovery=recovery, schedule=schedule,
+                        ready_ms=ready)
 
 
 def per_leaf_plan(tree: Any, n: int, s: Optional[int] = None, *,
                   engine: str = "xla", wire: str = "f32",
-                  recovery: str = "renorm",
-                  schedule: str = "sync") -> ExchangePlan:
+                  recovery: str = "renorm", schedule: str = "sync",
+                  compute_ms: Optional[float] = None) -> ExchangePlan:
     """One bucket per leaf (each leaf fully flattened), one shared mask
     draw per round."""
     s = _check_ns(n, s)
-    _not_ported(None, schedule)
     leaves, treedef = tree_lib.flatten(tree)
     if not leaves:
         raise ValueError("cannot plan an empty tree")
@@ -316,10 +387,12 @@ def per_leaf_plan(tree: Any, n: int, s: Optional[int] = None, *,
     buckets = tuple(_flat_bucket([i], shapes, dtypes, sizes, s)
                     for i in range(len(leaves)))
     wire, recovery = _canon_pipeline(wire, recovery)
+    schedule, ready = _schedule(schedule, compute_ms, buckets)
     return ExchangePlan(n=int(n), s=s, buckets=buckets,
                         n_leaves=len(leaves), per_bucket_masks=False,
                         treedef=treedef, engine=str(engine), wire=wire,
-                        recovery=recovery)
+                        recovery=recovery, schedule=schedule,
+                        ready_ms=ready)
 
 
 def single_bucket_plan(tree: Any, n: int, s: Optional[int] = None, *,
@@ -334,19 +407,22 @@ def plan_from_config(tree: Any, n: int, s: Optional[int] = None, *,
                      bucket_mb: Optional[float] = None,
                      n_buckets: Optional[int] = None,
                      engine: str = "xla", wire: str = "f32",
-                     recovery: str = "renorm",
-                     schedule: str = "sync") -> ExchangePlan:
+                     recovery: str = "renorm", schedule: str = "sync",
+                     compute_ms: Optional[float] = None) -> ExchangePlan:
     """The config-knob → plan policy of the simulator: ``bucket_mb`` MiB
     fixed-byte buckets or ``n_buckets`` size-balanced ones (per-bucket
-    masks), both unset → the per-leaf plan."""
+    masks), both unset → the per-leaf plan; ``schedule`` / ``compute_ms``
+    the async schedule."""
     if bucket_mb is not None or n_buckets is not None:
         return make_plan(tree, n, s,
                          bucket_bytes=(bucket_mb * 2 ** 20
                                        if bucket_mb is not None else None),
                          n_buckets=n_buckets, engine=engine, wire=wire,
-                         recovery=recovery, schedule=schedule)
+                         recovery=recovery, schedule=schedule,
+                         compute_ms=compute_ms)
     return per_leaf_plan(tree, n, s, engine=engine, wire=wire,
-                         recovery=recovery, schedule=schedule)
+                         recovery=recovery, schedule=schedule,
+                         compute_ms=compute_ms)
 
 
 def decode_plan(d_model: int, batch: int, n: int,

@@ -24,12 +24,16 @@ batched call per group of equal-width buckets, under two engines:
 
 The int8 wire's ring engine runs the kernel's encoded variant (int8
 contributions decoded in the kernel, the partial re-encoded on every hop),
-and the error-feedback recovery sends through the same variant. On a CUDA
-stack every kernel launches or raises; there is no fallback to the plain
-versions. Ported so far: the global path with the f32 / bf16 / int8 wires
-and the renorm / scale / ef recoveries, any plan, shared or per-bucket
-masks. The collective paths, async lateness, corruption, the robust
-recoveries and telemetry taps are still to port.
+and the error-feedback recovery sends through the same variant, as does a
+corrupted offer (Byzantine senders transform what they send, before the
+codec; the honest stack stays the all-gather fallback). The robust
+recoveries (median, trimmed, clip) aggregate the pre-reduce table on the
+xla engine (:mod:`repro_torch.core.robust`). On a CUDA stack every kernel
+launches or raises; there is no fallback to the plain versions. Ported:
+the global path with the f32 / bf16 / int8 wires, every recovery, any
+plan, shared or per-bucket masks, corruption, and the async schedule's
+lateness masks. The collective paths and telemetry taps are still to
+port.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.core import plan as plan_lib
+from repro_torch.core import robust as robust_lib
 from repro_torch.core import wire as wire_lib
 from repro_torch.kernels import masked_avg as masked_avg_lib
 from repro_torch.kernels import ops
@@ -149,6 +154,50 @@ def _group_noise(wire_noise, g_idx: int, shape: tuple) -> dict:
     return {"uniforms": wire_noise(g_idx, shape)}
 
 
+def _resolve_corruption(corruption, corrupt_masks, gen, n: int, s: int,
+                        n_buckets=None):
+    """The round's corruption masks: the given ``corrupt_masks`` (shared
+    ``(n, s)`` or per-bucket), else the process's own draw from ``gen``;
+    None without a process."""
+    if corruption is None:
+        if corrupt_masks is not None:
+            raise ValueError("corrupt_masks without a corruption process")
+        return None
+    if corrupt_masks is None:
+        if gen is None:
+            raise ValueError("give corrupt_masks= or a generator to draw "
+                             "them")
+        return corruption.sample(gen, n, s, n_buckets=n_buckets)
+    if corrupt_masks.dim() == 3 and n_buckets is not None \
+            and corrupt_masks.shape[0] != n_buckets:
+        raise ValueError(f"corrupt_masks carry {corrupt_masks.shape[0]} "
+                         f"buckets, plan has {n_buckets}")
+    return corrupt_masks
+
+
+def _check_late(late, rs: torch.Tensor, ag: torch.Tensor) -> None:
+    """The async lateness masks ``{"rs": …, "ag": …}`` match the drop
+    masks' shapes. They move no value: the masks are already
+    deadline-arbitrated."""
+    if not isinstance(late, dict) or set(late) != {"rs", "ag"}:
+        raise ValueError("late= takes {'rs': mask, 'ag': mask}")
+    for leg, m in (("rs", rs), ("ag", ag)):
+        if tuple(late[leg].shape) != tuple(m.shape):
+            raise ValueError(f"late[{leg!r}] shape "
+                             f"{tuple(late[leg].shape)} != the masks' "
+                             f"{tuple(m.shape)}")
+
+
+def _group_bits(corruption, corrupt_bits, g_idx: int, shape: tuple) -> dict:
+    """The bitflip positions of group ``g_idx`` as ``apply`` keywords: a
+    hook's bits or a generator (nothing for the deterministic kinds)."""
+    if corruption.kind != "bitflip":
+        return {}
+    if corrupt_bits is None or isinstance(corrupt_bits, torch.Generator):
+        return {"gen": corrupt_bits}
+    return {"bits": corrupt_bits(g_idx, shape)}
+
+
 def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
                         n: int, *, mode: str = "model", masks=None,
                         s: Optional[int] = None,
@@ -156,7 +205,8 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
                         engine: str = "xla",
                         rs_dtype=torch.float32, wire=None,
                         recovery=None, ef_state=None, wire_noise=None,
-                        late=None, corruption=None, corrupt_masks=None):
+                        late=None, corruption=None, corrupt_masks=None,
+                        corrupt_bits=None):
     """Global-view exchange of a stacked tree (every leaf has the worker
     dim n first).
 
@@ -190,12 +240,22 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
     ``(out_tree, new_ef_state)``, the residual ``intent − send`` where the
     block was delivered and ``e`` where it was dropped.
 
+    ``corruption`` (a :class:`repro_torch.channels.Corruption`)
+    transforms each corrupted sender's offer before the codec, at
+    ``corrupt_masks`` (shared ``(n, s)`` or per-bucket; drawn from ``gen``
+    when not given); the bitflip kind's bit positions come from
+    ``corrupt_bits``, a generator or a hook ``(g_idx, shape) -> bits``
+    (default ``gen``). The ring engine sums the corrupted offer through
+    the kernel's encoded variant, so the input stack stays the fallback.
+    A robust ``recovery`` (median, trimmed, clip) aggregates the
+    ``(G, s, n, d)`` table of each group's send over the RS masks, on the
+    xla engine and in the renormalising modes. ``late`` (the async
+    schedule's ``{"rs", "ag"}`` lateness masks) is shape-checked and moves
+    no value.
+
     The AG fallback is the input stack (model / grad_renorm) or zero
-    (grad). ``late``, ``corruption`` and ``corrupt_masks`` (async
-    lateness, Byzantine corruption) are not ported yet and raise.
+    (grad).
     """
-    if any(a is not None for a in (late, corruption, corrupt_masks)):
-        raise NotImplementedError("late / corruption are not ported yet")
     if plan is None:
         per_worker = tree_lib.map(
             lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
@@ -211,24 +271,50 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
     if use_ef and ef_state is None:
         raise ValueError("recovery='ef' needs ef_state= (the stacked "
                          "residual; wire.init_ef_state(tree) to start)")
+    if use_ef and corruption is not None:
+        raise ValueError(
+            "corruption with recovery='ef' is unsupported: the EF "
+            "residual telescopes an *honest* sender's codec error — an "
+            "adversarial wire breaks the feedback loop; use a robust "
+            "recovery (median/trimmed/clip)")
+    rs, ag = _resolve_masks(gen, n, p, plan, masks)
+    cmasks = _resolve_corruption(
+        corruption, corrupt_masks, gen, n, plan.s,
+        n_buckets=plan.n_buckets if plan.per_bucket_masks else None)
+    if late is not None:
+        _check_late(late, rs, ag)
     if mode not in ("model", "grad", "grad_renorm"):
         raise ValueError(mode)
     if engine in (None, "auto"):
         engine = "xla"
     elif engine not in ("xla", "ring"):
         raise ValueError(f"engine={engine!r}")
+    if rec.needs_table:
+        if mode == "grad":
+            raise ValueError(
+                f"recovery={rec.kind!r} needs the renormalising modes "
+                "(model/grad_renorm); the naive 'grad' mode has no "
+                "per-contribution table semantics")
+        if engine == "ring":
+            raise ValueError(
+                f"recovery={rec.kind!r} needs the pre-reduce per-worker "
+                "table; the ring engine reduces on the hops and never "
+                "materialises it — use engine='xla' (the 'auto' default "
+                "falls back to xla automatically)")
+    corrupt_bits = gen if corrupt_bits is None else corrupt_bits
     if codec.quantized and not use_ef:
         wire_noise = gen if wire_noise is None else wire_noise
         if wire_noise is None:
             raise ValueError("the int8 wire rounds stochastically: give "
                              "wire_noise= (a generator, or a hook "
                              "(g_idx, shape) -> uniforms) or gen")
-    rs, ag = _resolve_masks(gen, n, p, plan, masks)
     s = plan.s
     renorm = mode in ("model", "grad_renorm")
     # the masked-average kernel renormalises by the received count
-    # internally; the scale divisor takes the einsum path
-    use_kernel = engine == "xla" and renorm and rec.kind != "scale"
+    # internally; the scale divisor takes the einsum path, the robust
+    # kinds their table aggregate
+    use_kernel = engine == "xla" and renorm and rec.kind != "scale" \
+        and not rec.needs_table
 
     tables = plan.gather(tree, lead=1)               # each (n, s, blk, m)
     ef_tables = plan.gather(ef_state, lead=1) if use_ef else None
@@ -241,6 +327,17 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
         pairs = [_bucket_masks(rs, ag, j) for j in idxs]
         rs_g = torch.stack([pair[0] for pair in pairs])         # (G, n, s)
         ag_g = torch.stack([pair[1] for pair in pairs])
+        # what the senders offer: the stack, or its corrupted copy (the
+        # stack itself stays every worker's honest local copy)
+        offer = stack
+        if cmasks is not None:
+            cm_g = torch.stack([cmasks[j] for j in idxs]) \
+                if cmasks.dim() == 3 else cmasks.expand(G, n, s)
+            offer = corruption.apply(
+                stack, cm_g[..., None],
+                **_group_bits(corruption, corrupt_bits, g_idx,
+                              tuple(stack.shape)))
+            del cm_g
         # the contributions: ``send`` decoded in the payload dtype (the
         # xla engine's), ``enc`` / ``scale`` encoded (the ring engine's)
         send = enc = scale = None
@@ -261,10 +358,28 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
                 ef_outs[j] = resid[pos].reshape(n, s, blk, m)
         elif codec.quantized:
             enc, scale = codec.encode(
-                stack, lead=2,
+                offer, lead=2,
                 **_group_noise(wire_noise, g_idx, tuple(stack.shape)))
-        if engine == "ring":
+        if rec.needs_table:
+            if send is None:
+                send = codec.to_wire(offer) if enc is None \
+                    else codec.decode(enc, scale).to(stack.dtype)
+            del offer, enc, scale
+            # (G, s, n, d) views of the send and (G, s, n) masks: the
+            # aggregate copies one column chunk at a time
+            tilde = robust_lib.robust_aggregate(
+                send.transpose(1, 2), rs_g.transpose(1, 2) != 0, rec,
+                dtype=torch.float32)
             del send
+            gathered = tilde.to(stack.dtype)[:, None]
+            out = torch.where(ag_g.to(torch.bool)[..., None], gathered,
+                              stack)
+        elif engine == "ring":
+            del send
+            if enc is None and offer is not stack:
+                # a corrupted linear offer, in the stack's dtype
+                enc = offer.contiguous()
+            del offer
             div_g = _divisor(rec, mode, rs_g, n)                 # (G, s)
             out = ops.ring_round(
                 stack.contiguous(), rs_g, ag_g, div_g, mode=mode,
@@ -273,8 +388,9 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
                 levels=codec.levels)
         else:
             if send is None:
-                send = codec.to_wire(stack) if enc is None \
+                send = codec.to_wire(offer) if enc is None \
                     else codec.decode(enc, scale).to(stack.dtype)
+            del offer
             if use_kernel:
                 # (G·s, n, d) per-block stacks and the raw mask: the
                 # kernel casts the mask itself

@@ -1,8 +1,7 @@
 """Closed-form α₁/α₂ bounds (Lemmas 7 & 8) and the Corollary-2 rate — a
 numpy copy of :mod:`repro.core.theory`, op for op, reading the port's
-wire constants (:mod:`repro_torch.core.wire`). The robust-aggregation
-rates (``robust_breakdown_point``, ``byzantine_rate``, ``robust_rate``)
-come with the robust recoveries' port.
+wire constants (:mod:`repro_torch.core.wire`), with the Byzantine axis's
+rates (``robust_breakdown_point``, ``byzantine_rate``, ``robust_rate``).
 
 All formulas are verbatim from the paper's supplement:
 
@@ -328,3 +327,41 @@ def corollary2_rate_channel(channel, T: int, n: int = None, **kw) -> float:
     """Corollary-2 rate prediction at the channel's matched i.i.d. rate."""
     return corollary2_rate(_channel_n(channel, n), effective_p(channel), T,
                            **kw)
+
+
+# ---- Byzantine corruption: robust statistical rates -------------------------
+#
+# With an α fraction of Byzantine workers, coordinate-wise median and the
+# β-trimmed mean reach the order-optimal error O(α/√n + 1/√(nT)) (Yin et
+# al.). A drop removes a sample, a corruption replaces one: the 2-axis
+# prediction adds the corrupted-fraction term to the Corollary-2 rate
+# with the robust recovery's clean-data efficiency folded into α₂.
+
+def robust_breakdown_point(recovery) -> float:
+    """Largest corrupted worker fraction the recovery's aggregate
+    tolerates: median / clip 1/2, trimmed β, the averaging kinds 0."""
+    from repro_torch.core import wire as wire_lib
+    return wire_lib.make_recovery(recovery).breakdown_point()
+
+
+def byzantine_rate(n: int, T: int, byz_frac: float,
+                   sigma: float = 1.0) -> float:
+    """σ(α/√n + 1/√(nT)) + 1/T, up to constants."""
+    if not 0.0 <= byz_frac < 1.0:
+        raise ValueError(f"byz_frac={byz_frac} not in [0, 1)")
+    a = float(byz_frac)
+    return float(sigma * (a / np.sqrt(n) + 1.0 / np.sqrt(n * T)) + 1.0 / T)
+
+
+def robust_rate(n: int, p: float, T: int, byz_frac: float = 0.0,
+                recovery="median", sigma: float = 1.0, **kw) -> float:
+    """The drop × corruption rate: the Corollary-2 rate at drop rate
+    ``p`` with the recovery's efficiency loss in α₂, plus σ·α/√n; ``inf``
+    past the recovery's breakdown point."""
+    from repro_torch.core import wire as wire_lib
+    rec = wire_lib.make_recovery(recovery)
+    if byz_frac > rec.breakdown_point():
+        return float("inf")
+    kw.setdefault("a2_extra", wire_lib.recovery_alpha2_extra(rec, n, p))
+    erasure = corollary2_rate(n, p, T, sigma=sigma, **kw)
+    return float(erasure + sigma * byz_frac / np.sqrt(n))

@@ -15,8 +15,10 @@ Recoveries — what the receiver does about missing contributions:
 by the expected count n(1−p); the simulator takes p from its channel's
 ``effective_p``) and ``ef``, renorm plus an error-feedback residual
 e' = (x + e) − decode(encode(x + e)) carried per worker across rounds
-(:func:`init_ef_state`). The robust aggregators (``median``, ``trimmed``,
-``clip``) raise ``NotImplementedError``.
+(:func:`init_ef_state`); and the Byzantine-robust aggregators
+(:mod:`repro_torch.core.robust`) over the pre-reduce table: ``median``,
+``trimmed`` (β-trimmed mean, ``"trimmed:beta=0.2"``) and ``clip``
+(norm-clip at ``clip_mult`` × the median delivered norm).
 """
 from __future__ import annotations
 
@@ -29,8 +31,8 @@ from repro_torch import tree as tree_lib
 from repro_torch.core import quant as quant_lib
 
 WIRES = ("f32", "bf16", "int8")
-RECOVERIES = ("renorm", "scale", "ef")
-#: the Byzantine-robust kinds, not ported yet
+RECOVERIES = ("renorm", "scale", "ef", "median", "trimmed", "clip")
+#: the Byzantine-robust kinds: they aggregate the per-worker table
 ROBUST_RECOVERIES = ("median", "trimmed", "clip")
 
 _ALIASES = {"f32": torch.float32, "fp32": torch.float32,
@@ -160,42 +162,85 @@ def config_wire(wire: Any, exchange_dtype: Any = "float32") -> str:
 @dataclasses.dataclass(frozen=True)
 class Recovery:
     """Receiver-side loss recovery. ``p`` is the expected drop rate the
-    ``scale`` divisor needs; unused by ``renorm`` and ``ef``."""
+    ``scale`` divisor needs; ``beta`` the per-side trim fraction of
+    ``trimmed``, ``clip_mult`` the clip threshold multiple of ``clip``
+    (both inert for the other kinds)."""
     kind: str = "renorm"
     p: Optional[float] = None
+    beta: float = 0.1
+    clip_mult: float = 2.0
 
     def __post_init__(self):
-        if self.kind in ROBUST_RECOVERIES:
-            raise NotImplementedError(
-                f"recovery={self.kind!r} is not ported yet; ported: "
-                f"{RECOVERIES}")
         if self.kind not in RECOVERIES:
             raise ValueError(
                 f"recovery={self.kind!r}, want one of {RECOVERIES}")
+        if not 0.0 <= float(self.beta) < 0.5:
+            raise ValueError(f"recovery beta={self.beta} not in [0, 0.5)")
+        if not float(self.clip_mult) > 0.0:
+            raise ValueError(
+                f"recovery clip_mult={self.clip_mult} must be > 0")
 
     @property
     def needs_state(self) -> bool:
         """EF carries a params-shaped residual across rounds."""
         return self.kind == "ef"
 
+    @property
+    def needs_table(self) -> bool:
+        """The robust kinds aggregate the per-worker contribution table
+        before any reduce, so the exchange materialises it."""
+        return self.kind in ROBUST_RECOVERIES
+
+    @property
+    def spec(self) -> str:
+        """Canonical spec string, round-trippable through
+        :func:`make_recovery` ("trimmed:beta=0.2"; the bare kind when
+        every knob is at its default)."""
+        d = Recovery(self.kind)
+        args = [f"{f}={getattr(self, f):g}" for f in ("beta", "clip_mult")
+                if getattr(self, f) != getattr(d, f)]
+        return self.kind if not args else f"{self.kind}:{','.join(args)}"
+
     def expected_count(self, n: int) -> float:
         """The static ``scale`` divisor n(1−p), clamped to ≥ 1."""
         if self.p is None:
             raise ValueError("recovery='scale' needs the expected drop "
-                             "rate p")
+                             "rate p (pass p= or a channel effective_p)")
         return max(float(n) * (1.0 - float(self.p)), 1.0)
+
+    def breakdown_point(self) -> float:
+        """Largest corrupted fraction the aggregate tolerates: median and
+        clip 1/2, trimmed β, the averaging kinds 0."""
+        return {"median": 0.5, "trimmed": float(self.beta),
+                "clip": 0.5}.get(self.kind, 0.0)
 
 
 def make_recovery(recovery: Any, p: Optional[float] = None) -> Recovery:
-    """Recovery from a kind name or instance, binding ``p`` for ``scale``
-    when the instance carries none. ``None`` is renorm."""
+    """Recovery from a spec string (``"kind"`` or
+    ``"kind:beta=0.2,clip_mult=3,p=0.1"``) or an instance, binding ``p``
+    for ``scale`` when the instance carries none. ``None`` is renorm."""
     if recovery is None:
         return Recovery("renorm")
     if isinstance(recovery, Recovery):
         if recovery.kind == "scale" and recovery.p is None:
             return dataclasses.replace(recovery, p=p)
         return recovery
-    return Recovery(str(recovery), p=p)
+    spec = str(recovery)
+    kind, _, argstr = spec.partition(":")
+    kw = {}
+    if argstr:
+        for item in argstr.split(","):
+            if not item:
+                continue
+            k, eq, v = item.partition("=")
+            if not eq:
+                raise ValueError(f"recovery spec {spec!r}: want k=v args")
+            if k not in ("beta", "clip_mult", "p"):
+                raise ValueError(f"recovery spec {spec!r}: unknown arg "
+                                 f"{k!r} (want beta, clip_mult, p)")
+            kw[k] = float(v)
+    kw.setdefault("p", p)
+    return Recovery(kind, **kw)
 
 
 def init_ef_state(tree: Any) -> Any:
@@ -230,15 +275,14 @@ def codec_omega(wire: Any) -> float:
 
 def effective_omega(wire: Any, recovery: Any = "renorm") -> float:
     """Codec variance after recovery: EF leaves the higher-order ω²,
-    renorm and scale pass ω through."""
+    renorm, scale and the robust kinds pass ω through."""
     w = codec_omega(wire)
     return w * w if make_recovery(recovery).kind == "ef" else w
 
 
 #: Asymptotic relative efficiency of each robust aggregator against the
 #: plain mean on clean Gaussian data (median π/2, clip 1; trimmed
-#: 1/(1−2β), computed from its β): the reference's constants, kept for
-#: the robust recoveries' port.
+#: 1/(1−2β), computed from its β).
 ROBUST_EFFICIENCY = {"median": 3.14159265 / 2.0, "clip": 1.0}
 
 
@@ -246,10 +290,15 @@ def recovery_alpha2_extra(recovery: Any, n: int, p: float) -> float:
     """Extra α₂-style variance of the recovery step: 0 for renorm and ef
     (the paper's bounds price the realised count in), the count's
     relative variance p/((1−p)n) for ``scale``, which divides by the
-    expected count. The robust kinds raise with :class:`Recovery`."""
+    expected count, and (eff − 1)/n for the robust kinds, eff their
+    clean-data efficiency loss."""
     rec = make_recovery(recovery)
     if rec.kind == "scale":
         if p >= 1.0:
             return 1.0
         return float(p / ((1.0 - p) * n))
+    if rec.kind in ROBUST_RECOVERIES:
+        eff = ROBUST_EFFICIENCY.get(rec.kind,
+                                    1.0 / max(1.0 - 2.0 * rec.beta, 1e-9))
+        return float((eff - 1.0) / max(n, 1))
     return 0.0

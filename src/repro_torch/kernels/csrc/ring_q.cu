@@ -25,7 +25,9 @@
 // contracted; rintf rounds half to even as torch.round does; the encode
 // goes through int as the int8 cast does, so a negative zero decodes as
 // +0; the row max is exact and independent of order; D = 1 / levels for an
-// all-zero row.
+// all-zero row. Non-finite partials go as in torch: a NaN in the row makes
+// its max NaN and D = 1 / levels, an inf makes D inf, and a NaN quotient
+// encodes as 0.
 //
 // What bounds it: bytes. The least traffic is the int8 table and its
 // scales read once, the n outputs written once and the fallback blocks
@@ -98,7 +100,22 @@ constexpr int kClusterThreads = 256;
 template <typename T>
 constexpr int kOutVec = static_cast<int>(sizeof(uint4) / sizeof(T));
 
-// the int8 wire's step from a row's max|acc|
+// the larger of two non-negative floats (|acc| values and their maxima),
+// NaN winning as torch.amax lets it: on their bits a sign-cleared NaN lies
+// above +inf, and fmaxf would drop it
+__device__ __forceinline__ float abs_max(float a, float b) {
+  return __uint_as_float(max(__float_as_uint(a), __float_as_uint(b)));
+}
+
+// q clipped to +-levels, a NaN (from a non-finite partial or step) to 0 as
+// the int8 cast of torch.clamp's NaN goes; fminf / fmaxf alone would give
+// -levels
+__device__ __forceinline__ float clip_q(float q, float levels) {
+  return q != q ? 0.0f : fminf(fmaxf(q, -levels), levels);
+}
+
+// the int8 wire's step from a row's max|acc| (a NaN max gives 1 / levels,
+// as torch.where(amax > 0, amax, 1) does)
 __device__ __forceinline__ float delta_of(float amax, float levels) {
   return __fdiv_rn(amax > 0.0f ? amax : 1.0f, levels);
 }
@@ -112,9 +129,7 @@ __device__ __forceinline__ float row_delta(unsigned int amax_bits,
 // rint(a / D) clipped to +-levels, through int as the int8 cast goes (so a
 // negative zero decodes as +0)
 __device__ __forceinline__ int encode(float a, float delta, float levels) {
-  float q = rintf(__fdiv_rn(a, delta));
-  q = fminf(fmaxf(q, -levels), levels);
-  return static_cast<int>(q);
+  return static_cast<int>(clip_q(rintf(__fdiv_rn(a, delta)), levels));
 }
 
 // The same encode at one row's step D, with its reciprocal inv = rn(1 / D)
@@ -125,8 +140,11 @@ __device__ __forceinline__ int encode(float a, float delta, float levels) {
 // (tests/test_torch_ring_int8.py) and by the kernel's bitwise sweeps
 // against the plain version -- for a step D in [2^-100, 2^100], where the
 // residual cannot leave the normal range for any |a / D| >= 1/4 (smaller
-// quotients round to 0 either way). The caller divides outside that
-// range.
+// quotients round to 0 either way), and for a finite row, where every
+// |a| <= max|a| bounds |a / D| by about levels. The caller divides
+// outside that range and in a row whose max is not finite (a NaN there
+// makes D 1 / levels whatever the rest holds, so an inf or a huge a would
+// turn the residual to NaN).
 __device__ __forceinline__ int encode_fma(float a, float delta, float inv,
                                          float levels) {
   const float q0 = __fmul_rn(a, inv);
@@ -180,7 +198,7 @@ __device__ __forceinline__ float hop_max(const int8_t* __restrict__ src,
     float acc[VEC];
     hop_acc<T, VEC, FIRST>(q, carry, sc, m, delta, v, acc);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) local = fmaxf(local, fabsf(acc[e]));
+    for (int e = 0; e < VEC; ++e) local = abs_max(local, fabsf(acc[e]));
   });
   return local;
 }
@@ -191,9 +209,10 @@ template <typename T, int VEC, bool FIRST>
 __device__ __forceinline__ void hop_encode(const int8_t* __restrict__ src,
                                            int8_t* carry, float sc, float m,
                                            float delta, int64_t nvec,
-                                           float next, float levels) {
-  // the step's range decides the encode once for the whole pass, not per
-  // element
+                                           float next, float levels,
+                                           float amax) {
+  // the row's max and the step's range decide the encode once for the
+  // whole pass, not per element
   const auto pass = [&](auto enc) {
     for_vectors<VEC>(src, nvec, [&](const Pack<int8_t, VEC>& q, int64_t v) {
       float acc[VEC];
@@ -204,7 +223,7 @@ __device__ __forceinline__ void hop_encode(const int8_t* __restrict__ src,
       store_pack<int8_t, VEC>(carry + v * VEC, c);
     });
   };
-  if (next >= 0x1p-100f && next <= 0x1p100f) {
+  if (amax <= 0x1.fffffep127f && next >= 0x1p-100f && next <= 0x1p100f) {
     const float inv = __frcp_rn(next);
     pass([&](float a) { return encode_fma(a, next, inv, levels); });
   } else {
@@ -321,12 +340,14 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
         : hop_max<T, VEC, false>(src, s_carry, sc, m, delta, nvec);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
+      local = abs_max(local, __shfl_xor_sync(0xffffffffu, local, off));
     if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = local;
     __syncthreads();
     if (threadIdx.x == 0) {
       float b = s_warp[0];
-      for (int i = 1; i < kClusterThreads / 32; ++i) b = fmaxf(b, s_warp[i]);
+      for (int i = 1; i < kClusterThreads / 32; ++i) {
+        b = abs_max(b, s_warp[i]);
+      }
       s_block[t & 1] = b;
     }
     // every block's max is written (and s_warp read) before any block
@@ -337,15 +358,15 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
 #pragma unroll
     for (int b = 0; b < static_cast<int>(kRingQMaxCluster); ++b) {
       if (b < blocks)
-        amax = fmaxf(amax, *cluster.map_shared_rank(&s_block[t & 1], b));
+        amax = abs_max(amax, *cluster.map_shared_rank(&s_block[t & 1], b));
     }
     const float next = delta_of(amax, levels);
     if (t == 0) {
       hop_encode<T, VEC, true>(src, s_carry, sc, m, delta, nvec, next,
-                               levels);
+                               levels, amax);
     } else {
       hop_encode<T, VEC, false>(src, s_carry, sc, m, delta, nvec, next,
-                                levels);
+                                levels, amax);
     }
     delta = next;
   }
@@ -449,7 +470,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int v = 0; v < VEC; ++v) {
             keep.v[v] = acc[v];
-            local = fmaxf(local, fabsf(acc[v]));
+            local = abs_max(local, fabsf(acc[v]));
           }
           store_pack<float, VEC>(mine_part, keep);
         } else {
@@ -477,12 +498,12 @@ __global__ void __launch_bounds__(kThreads)
       if (!last) {  // the tile's max|acc| into the row's slot
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
-          local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
+          local = abs_max(local, __shfl_xor_sync(0xffffffffu, local, off));
         if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = local;
         __syncthreads();
         if (threadIdx.x == 0) {
           float b = s_max[0];
-          for (int i = 1; i < kThreads / 32; ++i) b = fmaxf(b, s_max[i]);
+          for (int i = 1; i < kThreads / 32; ++i) b = abs_max(b, s_max[i]);
           atomicMax(amax + row * n + t, __float_as_uint(b));
         }
         __syncthreads();

@@ -186,8 +186,10 @@ def ring_round_enc(stack, enc, scale, rs, ag, div, *, mode: str,
     ``levels > 0``: before each hop's add the running partial is
     re-encoded per row onto {−levels, …, levels} and decoded. Returns
     (G, n, s, d) in ``stack.dtype``; ``ring_round_enc.launches`` counts
-    kernel launches (CPU calls run the plain version and do not
-    count)."""
+    kernel launches (CPU calls run the plain version and do not count),
+    ``ring_round_enc.requant_launches`` those with ``levels > 0`` (the
+    re-encoding kernel of ring_q.cu; the others run ring.cu's encoded
+    variant)."""
     check_shapes(stack, rs, ag, div, mode)
     check_enc(stack, enc, scale, rs_dtype, levels)
     if stack.device.type == "cpu":
@@ -226,7 +228,10 @@ def ring_round_enc(stack, enc, scale, rs, ag, div, *, mode: str,
             mode != "grad", rs_dtype == torch.bfloat16, levels, cluster,
             chunk)
     ring_round_enc.launches += 1
+    if levels:
+        ring_round_enc.requant_launches += 1
     return out
 
 
 ring_round_enc.launches = 0
+ring_round_enc.requant_launches = 0

@@ -12,8 +12,11 @@ spec of the reference (``ge:p_bad=1.0,burst=8,p=0.1``,
 ``trace:lam=8000,prio=0.8``, ...); ``--wire int8 [--recovery ef]
 --engine ring`` runs the int8 wire on the ring-round kernel's encoded
 variant; ``--optimizer adam --state-pack i8`` keeps the optimizer state
-(and the EF residual) packed at rest. Not ported yet, so absent:
-corruption, ``--async`` / ``--compute-ms``, the robust recoveries,
+(and the EF residual) packed at rest; ``--corruption collude:gamma=10
+--byzantine-frac 0.25 --recovery median`` runs the Byzantine axis (the
+robust recoveries on the xla engine); ``--async --compute-ms 8`` (or
+``auto``, the backward timed per bucket) ships the buckets as the backward
+readies them, against a ``deadline:`` channel. Not ported yet, so absent:
 telemetry, checkpoints.
 """
 from __future__ import annotations
@@ -22,12 +25,21 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import CharLMTask, make_worker_streams
 from repro_torch.models import build_model
 from repro_torch.train.simulator import SimulatorConfig, run_simulation
+
+
+def _float_or_auto(v: str):
+    """--compute-ms: a float (the modelled backward duration) or 'auto'
+    (time the real backward per bucket)."""
+    if str(v).lower() == "auto":
+        return "auto"
+    return float(v)
 
 
 def main(argv=None):
@@ -65,8 +77,30 @@ def main(argv=None):
                     help="RS-leg codec; int8: per-row scales, stochastic "
                          "rounding, re-encoded on every ring hop")
     ap.add_argument("--recovery", default="renorm",
-                    choices=["renorm", "scale", "ef"],
-                    help="ef: renorm plus an error-feedback residual")
+                    help="renorm, scale, ef (renorm plus an error-feedback "
+                         "residual), or a robust kind for corrupted links: "
+                         "median, trimmed (β-trimmed mean, "
+                         "'trimmed:beta=0.2'), clip (norm-clip at "
+                         "clip_mult x the median norm)")
+    ap.add_argument("--corruption", default=None,
+                    help="corruption-process spec over bitflip / scale / "
+                         "signflip / collude, e.g. 'signflip:frac=0.1' or "
+                         "'collude:gamma=10,byzantine_frac=0.2'; default: "
+                         "none")
+    ap.add_argument("--byzantine-frac", type=float, default=0.0,
+                    help="fraction of colluding workers (lowest ids, every "
+                         "packet corrupted); overlays the --corruption "
+                         "spec's own field and alone selects collude")
+    ap.add_argument("--async", dest="async_", action="store_true",
+                    help="async schedule: buckets ship in reverse-layer "
+                         "order as their gradients become ready; against a "
+                         "deadline channel each faces its reduced slack and "
+                         "late packets are written off (the history's "
+                         "staleness)")
+    ap.add_argument("--compute-ms", type=_float_or_auto, default=None,
+                    help="async cost model's backward duration (default "
+                         "0.8 x the channel deadline, else 1.0); 'auto' "
+                         "times the real backward per bucket")
     ap.add_argument("--optimizer", default="sgd",
                     choices=["sgd", "momentum", "adam"])
     ap.add_argument("--state-pack", default="f32",
@@ -101,10 +135,12 @@ def main(argv=None):
         lr=args.lr, steps=args.steps,
         warmup=args.warmup, batch_size=args.batch_size, seed=args.seed,
         channel=args.channel, n_servers=args.servers,
+        corruption=args.corruption, byzantine_frac=args.byzantine_frac,
         bucket_mb=args.bucket_mb, n_buckets=args.buckets,
         engine=args.engine, exchange_dtype=args.exchange_dtype,
         wire=args.wire, recovery=args.recovery,
-        state_pack=args.state_pack)
+        schedule="async" if args.async_ else "sync",
+        compute_ms=args.compute_ms, state_pack=args.state_pack)
     t0 = time.time()
     hist = run_simulation(loss_fn, model.init_stacked, batch_fn, scfg,
                           device=args.device)
@@ -129,6 +165,14 @@ def main(argv=None):
           f"final_loss={hist['final_loss']:.4f} "
           f"(entropy floor {task.entropy_floor():.4f}) "
           f"consensus={hist['consensus'][-1]:.3e} [{dt:.1f}s]")
+    if hist["staleness"]:
+        print(f"async staleness: mean late_frac="
+              f"{float(np.mean(hist['staleness'])):.3f} "
+              f"(max {float(np.max(hist['staleness'])):.3f})")
+    if hist["corrupt_frac"]:
+        print(f"corruption: mean corrupt_frac="
+              f"{float(np.mean(hist['corrupt_frac'])):.3f} "
+              f"(max {float(np.max(hist['corrupt_frac'])):.3f})")
     if args.out:
         keep = {k: v for k, v in hist.items()
                 if k not in ("params", "state", "ef_state",

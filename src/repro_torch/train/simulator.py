@@ -31,14 +31,25 @@ not exchange. Every channel family of the reference draws the masks
 EF residual packed at rest (:mod:`repro_torch.optim.statepack`); the
 history reports their bytes (``state_bytes``).
 
+``schedule="async"`` ships the buckets as the backward pass readies them
+(:mod:`repro_torch.core.plan`): the channel draws per-bucket masks at each
+bucket's slack (``sample_async``), and the history's ``staleness`` is the
+fraction of offered packets written off as late. ``corruption`` /
+``byzantine_frac`` wrap the channel in a corruption process whose senders
+corrupt their offers, and ``recovery`` may be one of the robust
+aggregators (``median``, ``trimmed[:beta=…]``, ``clip[:clip_mult=…]``); the
+history's ``corrupt_frac`` is the fraction of delivered packets that
+arrived wrong.
+
 Torch cannot reproduce JAX's random streams: without hooks the port draws
-initial parameters, masks, the int8 wire's rounding noise and the packed
-state's rounding noise from ``torch.Generator``s seeded from
-``scfg.seed`` (one each, so an int8 run and an f32 run of one seed see
-the same masks); ``init_params=``, ``masks_fn=``, ``wire_noise_fn=`` and
-``pack_noise_fn=`` inject the reference's. Not ported yet (raise when
-set off their defaults): the async schedule, telemetry, corruption, the
-robust recoveries.
+initial parameters, masks, the int8 wire's rounding noise, the packed
+state's rounding noise and the corruption masks and bits from
+``torch.Generator``s seeded from ``scfg.seed`` (one each, so an int8 run
+and an f32 run of one seed see the same masks); ``init_params=``,
+``masks_fn=``, ``wire_noise_fn=``, ``pack_noise_fn=``,
+``corrupt_masks_fn=`` and ``corrupt_bits_fn=`` inject the reference's.
+Not ported yet (raise when set off their defaults): telemetry,
+``donate=False``.
 """
 from __future__ import annotations
 
@@ -46,16 +57,18 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
-from repro_torch.channels import make_channel
+from repro_torch.channels import make_channel, make_corruption
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import rps as rps_lib
 from repro_torch.core import wire as wire_lib
 from repro_torch.optim import make_optimizer
 from repro_torch.optim import statepack as statepack_lib
+from repro_torch.telemetry import counters as counters_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +86,8 @@ class SimulatorConfig:
     eval_every: int = 10
     exchange_every: int = 1         # >1: local-SGD variant (beyond-paper)
     channel: Any = None             # channel spec; None = Bernoulli
-    corruption: Any = None          # not ported yet
-    byzantine_frac: float = 0.0     # not ported yet
+    corruption: Any = None          # corruption spec; None = none
+    byzantine_frac: float = 0.0     # colluders (alone: "collude")
     n_servers: Optional[int] = None  # server blocks s; None = n_workers
     bucket_mb: Optional[float] = None
     n_buckets: Optional[int] = None
@@ -82,8 +95,8 @@ class SimulatorConfig:
     exchange_dtype: str = "float32"
     wire: str = "f32"
     recovery: str = "renorm"
-    schedule: str = "sync"          # "async" not ported yet
-    compute_ms: Any = None          # async cost model (async only)
+    schedule: str = "sync"          # "sync" or "async"
+    compute_ms: Any = None          # async cost model: ms, or "auto"
     state_pack: str = "f32"         # at-rest state: "f32", "bf16", "i8"
     donate: bool = True             # the port always updates in place
     telemetry: bool = False         # not ported yet
@@ -95,14 +108,8 @@ class SimulatorConfig:
 def _check_ported(scfg: SimulatorConfig) -> None:
     """Raise on a field whose feature is not ported, set off its default."""
     off = []
-    if scfg.schedule != "sync":
-        off.append(f"schedule={scfg.schedule!r}")
     if scfg.telemetry:
         off.append("telemetry=True")
-    if scfg.corruption is not None or scfg.byzantine_frac:
-        off.append("corruption / byzantine_frac")
-    if scfg.recovery in wire_lib.ROBUST_RECOVERIES:
-        off.append(f"recovery={scfg.recovery!r}")
     if not scfg.donate:
         off.append("donate=False (the port updates in place)")
     if off:
@@ -113,7 +120,9 @@ def _check_ported(scfg: SimulatorConfig) -> None:
 
 
 def _exchange(tree, scfg: SimulatorConfig, *, is_grad: bool, masks=None,
-              plan=None, recovery=None, ef_state=None, wire_noise=None):
+              plan=None, recovery=None, ef_state=None, wire_noise=None,
+              late=None, corruption=None, corrupt_masks=None,
+              corrupt_bits=None):
     """The aggregator's exchange of a stacked tree (leading dim n);
     ``(tree, ef_state)`` when an EF residual is given (rps aggregators
     only)."""
@@ -130,14 +139,99 @@ def _exchange(tree, scfg: SimulatorConfig, *, is_grad: bool, masks=None,
         tree, None, scfg.drop_rate, n, mode="grad" if is_grad else "model",
         masks=masks, s=scfg.n_servers, plan=plan, engine=scfg.engine,
         rs_dtype=getattr(torch, scfg.exchange_dtype), recovery=recovery,
-        ef_state=ef_state, wire_noise=wire_noise)
+        ef_state=ef_state, wire_noise=wire_noise, late=late,
+        corruption=corruption, corrupt_masks=corrupt_masks,
+        corrupt_bits=corrupt_bits)
+
+
+def wants_measured_ready(scfg) -> bool:
+    """True when ``compute_ms="auto"``: the plan's readiness times come
+    from timing the real backward (:func:`measure_bucket_ready_ms`)."""
+    return (getattr(scfg, "schedule", "sync") == "async"
+            and isinstance(scfg.compute_ms, str)
+            and scfg.compute_ms.lower() == "auto")
+
+
+def resolve_compute_ms(scfg, channel=None) -> Optional[float]:
+    """The async cost model's backward duration: the explicit
+    ``compute_ms``, or (unset, or "auto" before the measurement replaces
+    it) 0.8 × the channel's deadline when it has one, else 1.0. None for
+    sync configs."""
+    if getattr(scfg, "schedule", "sync") != "async":
+        return None
+    if scfg.compute_ms is not None and not wants_measured_ready(scfg):
+        return float(scfg.compute_ms)
+    deadline = getattr(channel, "deadline_ms", None)
+    return 0.8 * float(deadline) if deadline is not None else 1.0
+
+
+def _suffix_backward(loss_fn: Callable, leaves: list, treedef, batch,
+                     n: int, sfx: list) -> None:
+    """The gradient of Σ_i loss_fn(params_i, batch_i) with respect to the
+    leaves ``sfx`` only (the others held constant), worker by worker as
+    the step computes it."""
+    b_leaves, b_def = tree_lib.flatten(batch)
+    sfx_set = set(sfx)
+    for i in range(n):
+        mine = [x[i].detach().requires_grad_(j in sfx_set)
+                for j, x in enumerate(leaves)]
+        with torch.enable_grad():
+            loss = loss_fn(tree_lib.unflatten(treedef, mine),
+                           tree_lib.unflatten(b_def,
+                                              [b[i] for b in b_leaves]))
+            torch.autograd.grad(loss, [mine[j] for j in sfx],
+                                allow_unused=True)
+
+
+def measure_bucket_ready_ms(loss_fn: Callable, params: Any, batch: Any,
+                            plan, reps: int = 2, iters: int = 1) -> list:
+    """Measured per-bucket gradient readiness times (``compute_ms=
+    "auto"``), plan order, in ms: bucket b's time is that of the suffix
+    backward — the gradient of the stacked loss with respect to buckets
+    b..B−1 only. One call, max(1, iters // 2) more, then the best of
+    ``reps`` batches of ``iters`` calls, timed between CUDA events on the
+    card and by ``time.perf_counter`` on the CPU; the times are then
+    projected onto the non-increasing profile the cost model has by
+    construction (a suffix contains every later suffix)."""
+    leaves, treedef = tree_lib.flatten(params)
+    n = leaves[0].shape[0]
+    cuda = leaves[0].device.type == "cuda"
+    times = []
+    for b in range(plan.n_buckets):
+        sfx = sorted(i for bk in plan.buckets[b:] for i in bk.leaf_ids)
+
+        def call(sfx=sfx):
+            _suffix_backward(loss_fn, leaves, treedef, batch, n, sfx)
+
+        for _ in range(1 + max(1, iters // 2)):
+            call()
+        best = float("inf")
+        for _ in range(max(1, reps)):
+            if cuda:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(max(1, iters)):
+                    call()
+                t1.record()
+                t1.synchronize()
+                ms = t0.elapsed_time(t1)
+            else:
+                c0 = time.perf_counter()
+                for _ in range(max(1, iters)):
+                    call()
+                ms = (time.perf_counter() - c0) * 1e3
+            best = min(best, ms / max(1, iters))
+        times.append(best)
+    ready = np.maximum.accumulate(np.asarray(times)[::-1])[::-1]
+    return [float(r) for r in ready]
 
 
 def make_exchange_plan(params: Any, scfg: SimulatorConfig, channel=None):
     """The plan the config prescribes over a per-worker tree (no stacked
     dim): per-leaf when the bucket knobs are unset, fixed-byte /
-    count-balanced buckets otherwise. None for the non-rps
-    aggregators."""
+    count-balanced buckets otherwise; ``channel`` sizes the async cost
+    model's default ``compute_ms``. None for the non-rps aggregators."""
     if not scfg.aggregator.startswith("rps"):
         return None
     return plan_lib.plan_from_config(params, scfg.n_workers, scfg.n_servers,
@@ -147,7 +241,9 @@ def make_exchange_plan(params: Any, scfg: SimulatorConfig, channel=None):
                                      wire=wire_lib.config_wire(
                                          scfg.wire, scfg.exchange_dtype),
                                      recovery=scfg.recovery,
-                                     schedule=scfg.schedule)
+                                     schedule=scfg.schedule,
+                                     compute_ms=resolve_compute_ms(
+                                         scfg, channel))
 
 
 def _loss_and_grads(loss_fn: Callable, params, batch, n: int):
@@ -185,17 +281,21 @@ def consensus_distance(params) -> torch.Tensor:
 
 
 def make_sim_step(loss_fn: Callable, scfg: SimulatorConfig, plan, opt,
-                  recovery=None):
+                  recovery=None, corruption=None):
     """One simulator step:
     ``step(params, opt_state, batch, masks, lr, exchange=True,
-    ef_state=None, wire_noise=None, pack_noise=None) -> (params,
-    opt_state, mean loss, consensus)``, plus the new ``ef_state`` last
-    under the ef recovery; the loss and consensus are 0-dim f32 tensors
-    on the params' device. ``masks`` is the step's (rs, ag) pair (None
-    for the non-rps aggregators), ``wire_noise`` the int8 wire's rounding
-    noise (a generator or a ``(g_idx, shape) -> uniforms`` hook),
-    ``pack_noise`` the packed state's (a generator or a ``(which,
-    leaf_idx, shape) -> uniforms`` hook, ``which`` "m", "v" or "ef").
+    ef_state=None, wire_noise=None, pack_noise=None, late=None,
+    corrupt_masks=None, corrupt_bits=None) -> (params, opt_state, mean
+    loss, consensus)``, plus the new ``ef_state`` last under the ef
+    recovery; the loss and consensus are 0-dim f32 tensors on the params'
+    device. ``masks`` is the step's (rs, ag) pair (None for the non-rps
+    aggregators), ``wire_noise`` the int8 wire's rounding noise (a
+    generator or a ``(g_idx, shape) -> uniforms`` hook), ``pack_noise``
+    the packed state's (a generator or a ``(which, leaf_idx, shape) ->
+    uniforms`` hook, ``which`` "m", "v" or "ef"); ``late`` the async
+    lateness masks, ``corrupt_masks`` and ``corrupt_bits`` (a generator
+    or a ``(g_idx, shape) -> bits`` hook) the ``corruption`` process's
+    draws.
     Grad mode exchanges the gradients before the update, model mode the
     parameters after it; the parameters and the optimizer state are
     updated in place. The EF residual is carried in the state pack's EF
@@ -204,22 +304,30 @@ def make_sim_step(loss_fn: Callable, scfg: SimulatorConfig, plan, opt,
     n = scfg.n_workers
     is_grad_mode = scfg.aggregator.endswith("_grad")
     use_ef = scfg.aggregator.startswith("rps") and scfg.recovery == "ef"
+    if use_ef and corruption is not None:
+        raise ValueError(
+            "corruption with recovery='ef' is unsupported: the EF residual "
+            "telescopes an *honest* sender's codec error; use a robust "
+            "recovery (median/trimmed/clip) instead")
     ef_fmt = statepack_lib.make_state_pack(scfg.state_pack).ef_format
 
     def step(params, opt_state, batch, masks, lr, exchange=True,
-             ef_state=None, wire_noise=None, pack_noise=None):
+             ef_state=None, wire_noise=None, pack_noise=None, late=None,
+             corrupt_masks=None, corrupt_bits=None):
         if use_ef and ef_state is None:
             raise ValueError("recovery='ef' needs the step's ef_state")
+        axis = dict(late=late, corruption=corruption,
+                    corrupt_masks=corrupt_masks, corrupt_bits=corrupt_bits)
 
         def swap(tree, is_grad):
             nonlocal ef_state
             if not use_ef:
                 return _exchange(tree, scfg, is_grad=is_grad, masks=masks,
                                  plan=plan, recovery=recovery,
-                                 wire_noise=wire_noise)
+                                 wire_noise=wire_noise, **axis)
             out, ef_new = _exchange(
                 tree, scfg, is_grad=is_grad, masks=masks, plan=plan,
-                recovery=recovery, wire_noise=wire_noise,
+                recovery=recovery, wire_noise=wire_noise, **axis,
                 ef_state=statepack_lib.unpack_tree(ef_state, ef_fmt))
             ef_state = statepack_lib.pack_tree(
                 ef_new, ef_fmt,
@@ -250,7 +358,9 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
                    device="cuda", init_params=None,
                    masks_fn: Optional[Callable] = None,
                    wire_noise_fn: Optional[Callable] = None,
-                   pack_noise_fn: Optional[Callable] = None
+                   pack_noise_fn: Optional[Callable] = None,
+                   corrupt_masks_fn: Optional[Callable] = None,
+                   corrupt_bits_fn: Optional[Callable] = None
                    ) -> Dict[str, Any]:
     """loss_fn(params, batch) -> scalar; init_fn(gen) -> one worker's
     params; batch_fn(step) -> stacked batch with leading dim n_workers.
@@ -264,19 +374,27 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     residual in the pack's EF format, None without ef);
     ``channel_state`` (the channel's state after the last step);
     ``state_bytes`` (the at-rest bytes of the params, the optimizer state
-    and the EF residual, :func:`statepack.state_bytes_breakdown`); and
-    ``state`` to resume from with ``state=`` / ``start_step=`` (params,
-    optimizer, channel and EF state).
+    and the EF residual, :func:`statepack.state_bytes_breakdown`);
+    ``staleness`` (per eval step, the late fraction of the offered
+    packets; empty under sync) and ``corrupt_frac`` (per eval step, the
+    corrupt fraction of the delivered packets; empty without corruption);
+    and ``state`` to resume from with ``state=`` / ``start_step=``
+    (params, optimizer, channel and EF state).
 
     Runs on ``device`` (CUDA unless the caller asks for the CPU).
     ``init_params`` (one worker's params, broadcast to n), ``masks_fn``
-    (step -> (rs, ag)), ``wire_noise_fn`` ((step, g_idx, shape) -> the
-    int8 wire's uniforms for exchange group g_idx) and ``pack_noise_fn``
-    ((step, which, leaf_idx, shape) -> the packed state's uniforms for
-    component ``which`` — "m", "v" or "ef" — of leaf leaf_idx) inject the
-    initial parameters, the per-step masks and the rounding noise;
-    without them each is drawn from its own generator seeded from
-    ``scfg.seed``.
+    (step -> (rs, ag), or (rs, ag, late) under async, late the
+    ``{"rs", "ag"}`` lateness masks), ``wire_noise_fn`` ((step, g_idx,
+    shape) -> the int8 wire's uniforms for exchange group g_idx),
+    ``pack_noise_fn`` ((step, which, leaf_idx, shape) -> the packed
+    state's uniforms for component ``which`` — "m", "v" or "ef" — of leaf
+    leaf_idx), ``corrupt_masks_fn`` (step -> the corruption mask) and
+    ``corrupt_bits_fn`` ((step, g_idx, shape) -> the bitflip positions)
+    inject the initial parameters, the per-step masks, the rounding noise
+    and the corruption draws; without them each is drawn from its own
+    generator seeded from ``scfg.seed``. ``compute_ms="auto"`` times the
+    backward per bucket (:func:`measure_bucket_ready_ms`) on the first
+    step's batch before the run.
     """
     _check_ported(scfg)
     if telemetry is not None:
@@ -293,7 +411,11 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     opt = make_optimizer(scfg.optimizer, state_pack=scfg.state_pack)
     opt_state = opt.init(params)
     rps_agg = scfg.aggregator.startswith("rps")
-    channel = make_channel(scfg.channel, n, scfg.drop_rate, s=scfg.n_servers)
+    channel = make_channel(scfg.channel, n, scfg.drop_rate, s=scfg.n_servers,
+                           corruption=make_corruption(
+                               scfg.corruption, scfg.byzantine_frac or None))
+    corruption = getattr(channel, "corruption", None) if rps_agg else None
+    async_mode = rps_agg and scfg.schedule == "async"
     mask_gen = torch.Generator(device=dev)
     mask_gen.manual_seed(scfg.seed + 1)
     # the int8 wire's rounding noise, apart from the masks' stream
@@ -302,6 +424,9 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     # the packed state's rounding noise, a stream of its own
     pack_gen = torch.Generator(device=dev)
     pack_gen.manual_seed(scfg.seed + 3)
+    # the corruption masks and bits, apart from the drop masks' stream
+    corrupt_gen = torch.Generator(device=dev)
+    corrupt_gen.manual_seed(scfg.seed + 4)
     ch_state = channel.init_state(mask_gen) if rps_agg else None
     use_ef = rps_agg and scfg.recovery == "ef"
     # the zero residual, at rest in the pack's EF format (zeros encode
@@ -318,14 +443,25 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
         tree_lib.map(lambda x: torch.empty(x.shape, dtype=x.dtype,
                                            device="meta"), p1),
         scfg, channel)
+    if plan is not None and wants_measured_ready(scfg):
+        plan = plan.with_ready_ms(measure_bucket_ready_ms(
+            loss_fn, params, batch_fn(start_step), plan))
+    slack = None
+    if async_mode:
+        # per-bucket deadline budgets; a channel without a latency model
+        # ignores them (its sample_async is the sync draw, nothing late)
+        deadline = getattr(channel, "deadline_ms", None)
+        slack = plan.slack_ms(float(deadline)) if deadline is not None \
+            else np.zeros(plan.n_buckets, np.float64)
     # the scale divisor takes the channel's stationary drop rate
     recovery = wire_lib.make_recovery(scfg.recovery,
                                       p=channel.effective_p()) \
         if rps_agg else None
-    step_fn = make_sim_step(loss_fn, scfg, plan, opt, recovery)
+    step_fn = make_sim_step(loss_fn, scfg, plan, opt, recovery, corruption)
 
     history: Dict[str, Any] = {
         "step": [], "loss": [], "consensus": [], "eval": [], "step_s": [],
+        "staleness": [], "corrupt_frac": [],
         "channel": repr(channel),
         "channel_effective_p": channel.effective_p() if rps_agg else 0.0,
         "exchange_plan": plan.describe() if plan is not None else None}
@@ -334,10 +470,17 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
         lr = scfg.lr * min(1.0, (t + 1) / max(scfg.warmup, 1))
         batch = batch_fn(t)
         exchange = t % scfg.exchange_every == 0
-        masks = None
+        masks = late = cmask = None
         if rps_agg:     # channel time advances every step, exchange or not
             if masks_fn is not None:
-                masks = tuple(m.to(dev) for m in masks_fn(t))
+                masks = tuple(masks_fn(t))
+                if len(masks) == 3:
+                    late = {k: v.to(dev) for k, v in masks[2].items()}
+                masks = tuple(m.to(dev) for m in masks[:2])
+            elif async_mode:
+                rs, ag, late, ch_state = channel.sample_async(
+                    mask_gen, ch_state, slack)
+                masks = (rs, ag)
             elif plan.per_bucket_masks:
                 rs, ag, ch_state = channel.sample_packets(
                     mask_gen, ch_state, plan.n_buckets)
@@ -345,14 +488,32 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
             else:
                 rs, ag, ch_state = channel.sample(mask_gen, ch_state)
                 masks = (rs, ag)
+            if corruption is not None:
+                nb = masks[0].shape[0] if masks[0].dim() == 3 else None
+                cmask = corrupt_masks_fn(t).to(dev) \
+                    if corrupt_masks_fn is not None \
+                    else channel.sample_corruption(corrupt_gen, nb)
+        # the step's staleness and contamination (0 on a step that does
+        # not exchange: no exchange consumes the draw)
+        late_frac = corrupt_frac = 0.0
+        if exchange and async_mode:
+            late_frac = counters_lib.staleness_stats(
+                late["rs"], late["ag"])["late_frac"]
+        if exchange and corruption is not None:
+            corrupt_frac = counters_lib.corruption_stats(
+                cmask, masks[0])["corrupt_frac"]
         wire_noise = noise_gen if wire_noise_fn is None else (
             lambda g, shape, t=t: wire_noise_fn(t, g, shape).to(dev))
+        corrupt_bits = corrupt_gen if corrupt_bits_fn is None else (
+            lambda g, shape, t=t: corrupt_bits_fn(t, g, shape).to(dev))
         pack_noise = pack_gen if pack_noise_fn is None else (
             lambda which, i, shape, t=t:
             pack_noise_fn(t, which, i, shape).to(dev))
         outs = step_fn(params, opt_state, batch, masks, lr,
                        exchange=exchange, ef_state=ef_state,
-                       wire_noise=wire_noise, pack_noise=pack_noise)
+                       wire_noise=wire_noise, pack_noise=pack_noise,
+                       late=late if exchange else None,
+                       corrupt_masks=cmask, corrupt_bits=corrupt_bits)
         if use_ef:
             params, opt_state, loss, consensus, ef_state = outs
         else:
@@ -364,6 +525,10 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
             history["step"].append(t)
             history["loss"].append(float(loss))
             history["consensus"].append(float(consensus))
+            if async_mode:
+                history["staleness"].append(float(late_frac))
+            if corruption is not None:
+                history["corrupt_frac"].append(float(corrupt_frac))
             if eval_fn is not None:
                 mean_params = tree_lib.map(lambda x: torch.mean(x, 0),
                                            params)

@@ -347,8 +347,11 @@ def test_registry_instances_register_and_corruption():
         T.make_channel(ch, 8)
     with pytest.raises(ValueError, match="need s=2"):
         T.make_channel(ch, 4, s=2)
-    with pytest.raises(NotImplementedError, match="corruption"):
-        T.make_channel("ge", 4, corruption="signflip:byzantine_frac=0.25")
+    got = T.make_channel("ge", 4, corruption="signflip:byzantine_frac=0.25")
+    want = J.make_channel("ge", 4, corruption="signflip:byzantine_frac=0.25")
+    assert isinstance(got, T.CorruptionChannel)
+    assert repr(got.corruption) == repr(want.corruption)
+    assert got.effective_p() == want.effective_p()
     assert T.make_channel(None, 4, 0.3, corruption=None).p == 0.3
     T.register("ge2", T.GilbertElliottChannel, aliases=("ge_two",))
     try:

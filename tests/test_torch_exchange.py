@@ -170,20 +170,42 @@ def test_exchange_default_plan_and_per_bucket_masks():
 
 
 def test_exchange_not_ported_options_raise():
-    x = torch.zeros((4, 8))
-    # engine="ring" is ported: its parity cases are in test_torch_ring.py
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trps.rps_exchange_global(x, None, 0.1, 4, corruption="collude")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trps.rps_exchange_global(x, None, 0.1, 4, recovery="median")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trps.rps_exchange_global(x, None, 0.1, 4, late=(x, x))
-    # the int8 wire and ef are ported (tests/test_torch_ring_int8.py); the
-    # robust recoveries still raise
-    with pytest.raises(NotImplementedError):
-        twire.make_recovery("trimmed")
-    with pytest.raises(NotImplementedError):
-        twire.make_recovery("clip")
+    """Corruption, the robust recoveries and the lateness masks, once
+    refused, now run: on an integer-valued stack with the reference's
+    masks each output equals the reference's bit for bit (the full sweep
+    is in tests/test_torch_robust.py). ``late`` moves no value, and a
+    wrong-shaped one raises."""
+    from repro.channels.corruption import Corruption as JCorruption
+    from repro_torch.channels import Corruption as TCorruption
+    x = RNG.integers(-8, 9, size=(4, 8)).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    rs, ag = jrps.sample_masks(key, 4, 0.3)
+    cm = JCorruption("collude", byzantine_frac=0.25).sample(key, 4, 4)
+    for kw in (dict(corruption=True), dict(recovery="median"),
+               dict(recovery="trimmed:beta=0.3"), dict(recovery="clip")):
+        jkw, tkw = dict(kw), dict(kw)
+        if kw.pop("corruption", False):
+            jkw = dict(corruption=JCorruption("collude", byzantine_frac=0.25),
+                       corrupt_masks=cm)
+            tkw = dict(corruption=TCorruption("collude", byzantine_frac=0.25),
+                       corrupt_masks=_t(cm))
+        want = jrps.rps_exchange_global(jnp.asarray(x), key, 0.3, 4,
+                                        masks=(rs, ag), **jkw)
+        got = trps.rps_exchange_global(_t(x), None, 0.3, 4,
+                                       masks=(_t(rs), _t(ag)), **tkw)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    late = {"rs": torch.zeros((4, 4), dtype=torch.bool),
+            "ag": torch.zeros((4, 4), dtype=torch.bool)}
+    plain = trps.rps_exchange_global(_t(x), None, 0.3, 4,
+                                     masks=(_t(rs), _t(ag)))
+    with_late = trps.rps_exchange_global(_t(x), None, 0.3, 4,
+                                         masks=(_t(rs), _t(ag)), late=late)
+    assert torch.equal(plain, with_late)
+    with pytest.raises(ValueError, match="late"):
+        trps.rps_exchange_global(_t(x), None, 0.3, 4,
+                                 masks=(_t(rs), _t(ag)),
+                                 late={"rs": late["rs"][None],
+                                       "ag": late["ag"]})
 
 
 def test_sample_masks_owner_forcing_and_marginal():
@@ -344,11 +366,15 @@ def test_plan_leaf_order_is_jax_tree_order():
 
 
 def test_plan_not_ported_knobs_raise():
-    _, tt = _trees(_TREE_SHAPES)
+    """model_dims still raises; the async schedule is ported: its plan
+    (readiness times, ship order, describe) equals the reference's."""
+    jt, tt = _trees(_TREE_SHAPES)
     with pytest.raises(NotImplementedError, match="model_dims"):
         tplan.make_plan(tt, 4, model_dims={k: None for k in tt})
-    with pytest.raises(NotImplementedError, match="schedule"):
-        tplan.per_leaf_plan(tt, 4, schedule="async")
+    tp_ = tplan.per_leaf_plan(tt, 4, schedule="async", compute_ms=8.0)
+    jp = jplan.per_leaf_plan(jt, 4, schedule="async", compute_ms=8.0)
+    assert tp_.ready_ms == jp.ready_ms and tp_.ship_order == jp.ship_order
+    assert tp_.describe() == jp.describe()
     with pytest.raises(ValueError, match="not both"):
         tplan.make_plan(tt, 4, n_buckets=2, bucket_bytes=64)
     with pytest.raises(ValueError, match="n_buckets"):

@@ -162,7 +162,7 @@ def test_ef_recovery_and_initial_state():
     rec = twire.make_recovery("ef")
     assert rec.kind == "ef" and rec.needs_state
     assert not twire.make_recovery("renorm").needs_state
-    assert twire.RECOVERIES == ("renorm", "scale", "ef")
+    assert twire.RECOVERIES == jwire.RECOVERIES
     tree = {"a": torch.ones((4, 3)), "b": [torch.ones(2, dtype=torch.bfloat16)]}
     ef = twire.init_ef_state(tree)
     assert ef["a"].shape == (4, 3) and not ef["a"].any()
@@ -171,8 +171,17 @@ def test_ef_recovery_and_initial_state():
 
 @pytest.mark.parametrize("kind", ["median", "trimmed", "clip"])
 def test_robust_recoveries_still_raise(kind):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        twire.make_recovery(kind)
+    """The robust recoveries, once refused, are ported: each kind's
+    Recovery (its knobs, spec, table need and breakdown point) equals the
+    reference's, bare and with knobs (the grammar's full sweep is in
+    tests/test_torch_robust.py)."""
+    for spec in (kind, f"{kind}:beta=0.3,clip_mult=3"):
+        t, j = twire.make_recovery(spec), jwire.make_recovery(spec)
+        assert (t.kind, t.p, t.beta, t.clip_mult) == \
+            (j.kind, j.p, j.beta, j.clip_mult)
+        assert t.spec == j.spec and t.needs_table and j.needs_table
+        assert t.breakdown_point() == j.breakdown_point()
+        assert not t.needs_state
 
 
 @pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])

@@ -637,9 +637,11 @@ def test_ring_round_enc_routes_and_checks():
     q, sc = TC.encode(x, lead=2)
     sc = sc[..., 0]
     before = ring.ring_round_enc.launches
+    before_requant = ring.ring_round_enc.requant_launches
     out = ops.ring_round(x, rs, rs, div, mode="model", enc=q, scale=sc,
                          levels=127)
     assert ring.ring_round_enc.launches == before  # the CPU runs the ref
+    assert ring.ring_round_enc.requant_launches == before_requant
     assert out.shape == x.shape and out.dtype == x.dtype
     with pytest.raises(ValueError, match="needs an int8 enc"):
         ops.ring_round(x, rs, rs, div, mode="model", levels=127)
@@ -715,10 +717,12 @@ def test_ring_round_enc_kernel_cluster_sizes_on_card(d):
     div = trps._divisor(twire.make_recovery("renorm"), "model", rs, n)
     q, sc = TC.encode(x, lead=2, gen=gen)
     before = ring.ring_round_enc.launches
+    before_requant = ring.ring_round_enc.requant_launches
     got = ops.ring_round(x, rs, ag, div, mode="model", levels=127, enc=q,
                          scale=sc[..., 0])
     want = ops.ring_round(x, rs, ag, div, mode="model", levels=127, enc=q,
                           scale=sc[..., 0], backend="ref")
     torch.cuda.synchronize()
     assert ring.ring_round_enc.launches == before + 1
+    assert ring.ring_round_enc.requant_launches == before_requant + 1
     assert torch.equal(got, want)

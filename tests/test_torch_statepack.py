@@ -10,10 +10,10 @@ pack), SR keeps the packed EMA unbiased where RNE stalls, the packed state
 is updated in place and resumes bitwise, the state-bytes breakdown on
 ``meta`` tensors shows the ≥ 2x Adam reduction and equals
 benchmarks/BENCH_state.json's section 1, and the launcher's
-``--state-pack`` runs. The reference's launch/env.py and the async
-schedule's measured readiness are not ported; their tests have no
-counterpart yet (the plan's ``ready_ms`` stays None, and the theory takes
-its sync path).
+``--state-pack`` runs. The reference's launch/env.py is not ported; its
+tests have no counterpart yet. A sync plan's ``ready_ms`` is None, and the
+theory takes its sync path (the async schedule's tests are in
+tests/test_torch_async.py).
 
 Bitwise against the reference run op by op (``jax.disable_jit()``); the
 jitted reference computes the scale ``amax / 127`` as ``amax * (1/127)``,

@@ -57,11 +57,9 @@ def _public(mod):
 
 
 def test_public_functions_are_the_references():
-    """Every public function of the reference's theory has a copy, but
-    the robust trio, which waits for the robust recoveries; wmatrix is
-    copied whole."""
-    robust = {"robust_breakdown_point", "byzantine_rate", "robust_rate"}
-    assert set(_public(ttheory)) == set(_public(jtheory)) - robust
+    """Every public function of the reference's theory has a copy, the
+    robust trio included; wmatrix is copied whole."""
+    assert _public(ttheory) == _public(jtheory)
     assert _public(tw) == _public(jw)
 
 
@@ -154,10 +152,14 @@ def test_plan_bounds_equal_reference(wire, recovery):
 
 
 def test_robust_constants_equal_reference():
+    """The robust kinds' efficiency constants and their α₂ term (once
+    refused) equal the reference's."""
     assert twire.ROBUST_EFFICIENCY == jwire.ROBUST_EFFICIENCY
-    # the robust kinds' α₂ term waits for their recoveries
-    with pytest.raises(NotImplementedError, match="not ported"):
-        twire.recovery_alpha2_extra("median", 4, 0.1)
+    for rec in ("median", "trimmed", "trimmed:beta=0.3", "clip"):
+        for n in NS:
+            for p in PS:
+                _same(twire.recovery_alpha2_extra(rec, n, p),
+                      jwire.recovery_alpha2_extra(rec, n, p))
 
 
 CHANNELS = ("bernoulli:p=0.1", "ge:p_bad=1.0,burst=8,p=0.1",

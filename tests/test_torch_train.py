@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro import channels as jchannels
 from repro.configs import get_config as jget_config
 from repro.core import plan as jplan
 from repro.core import rps as jrps
@@ -32,6 +31,7 @@ from repro_torch.data import synthetic as tdata
 from repro_torch.models import build_model as tbuild_model
 from repro_torch.optim import make_optimizer as tmake_optimizer
 from repro_torch.train import simulator as tsim
+from _torch_sim import mlp_init, mlp_loss_j, mlp_loss_t, run_both
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -218,99 +218,8 @@ def test_model_tree_exchange_equals_reference(engine, bucket_mb):
 
 # ---- the simulator ------------------------------------------------------------
 
-def _mlp_init(key):
-    k1, k2 = jax.random.split(key)
-    return {"w1": jax.random.normal(k1, (24, 48)) * 0.1,
-            "w2": jax.random.normal(k2, (48, 8)) * 0.1}
-
-
-def _mlp_loss_j(p, batch):
-    x, y = batch
-    logits = jnp.tanh(x @ p["w1"]) @ p["w2"]
-    logz = jax.nn.logsumexp(logits, -1)
-    gold = jnp.take_along_axis(logits, y[:, None], -1)[:, 0]
-    return jnp.mean(logz - gold)
-
-
-def _mlp_loss_t(p, batch):
-    x, y = batch
-    logits = torch.tanh(x @ p["w1"]) @ p["w2"]
-    gold = torch.gather(logits, -1, y.long()[:, None])[:, 0]
-    return torch.mean(torch.logsumexp(logits, -1) - gold)
-
-
-def _reference_noise(scfg):
-    """The reference simulator's int8-wire uniforms for step t and
-    exchange group g (simulator.py:459-460, 531; rps.py:1045):
-    uniform(fold_in(fold_in(kt, 'wire'), g)) over the group's stack,
-    kt = fold_in(split(PRNGKey(seed))[1], t)."""
-    key = jax.random.split(jax.random.PRNGKey(scfg.seed))[1]
-
-    def noise(t, g_idx, shape):
-        kt = jax.random.fold_in(key, t)
-        k = jax.random.fold_in(jax.random.fold_in(kt, 0x77697265), g_idx)
-        return torch.from_numpy(np.array(jax.random.uniform(k, shape)))
-
-    return noise
-
-
-def _reference_draws(init_fn, scfg):
-    """The reference simulator's initial parameters and per-step masks,
-    drawn as simulator.py:459-531 draws them."""
-    key = jax.random.PRNGKey(scfg.seed)
-    k_init, key = jax.random.split(key)
-    p1 = init_fn(k_init)
-    if not scfg.aggregator.startswith("rps"):
-        return p1, None
-    channel = jchannels.make_channel(scfg.channel, scfg.n_workers,
-                                     scfg.drop_rate, s=scfg.n_servers)
-    ch_state = channel.init_state(jax.random.fold_in(key, 0x636831))
-    plan = jsim.make_exchange_plan(p1, scfg, channel)
-    masks = []
-    for t in range(scfg.steps):
-        kt = jax.random.fold_in(key, t)
-        if plan.per_bucket_masks:
-            rs, ag, ch_state = channel.sample_packets(kt, ch_state,
-                                                      plan.n_buckets)
-        else:
-            rs, ag, ch_state = channel.sample(kt, ch_state)
-        masks.append((torch.from_numpy(np.array(rs)),
-                      torch.from_numpy(np.array(ag))))
-    return p1, masks
-
-
-def _run_both(kw, jloss, jinit, jbatch, tloss, tbatch, n=4, steps=5,
-              eager=False, chaotic_from=None):
-    """The reference simulator (jitted, or op by op with ``eager``) and
-    the port's on its initial parameters, masks and int8 uniforms; the
-    per-step loss within 1e-4, the consensus within 1e-4 — from step
-    ``chaotic_from`` on, where a run on the int8 grid has turned chaotic,
-    within 1e-2."""
-    base = dict(n_workers=n, steps=steps, eval_every=1, lr=0.2, warmup=2,
-                seed=0)
-    base.update(kw)
-    jscfg = jsim.SimulatorConfig(**base)
-    if eager:
-        with jax.disable_jit():
-            jh = jsim.run_simulation(jloss, jinit, jbatch, jscfg)
-    else:
-        jh = jsim.run_simulation(jloss, jinit, jbatch, jscfg)
-    p1, masks = _reference_draws(jinit, jscfg)
-    th = tsim.run_simulation(
-        tloss, None, tbatch, tsim.SimulatorConfig(**base), device="cpu",
-        init_params=_torch(_np(p1)),
-        masks_fn=None if masks is None else (lambda t: masks[t]),
-        wire_noise_fn=_reference_noise(jscfg))
-    assert th["step"] == jh["step"] == list(range(steps))
-    np.testing.assert_allclose(th["loss"], jh["loss"], rtol=1e-4)
-    k = steps if chaotic_from is None else chaotic_from
-    np.testing.assert_allclose(th["consensus"][:k], jh["consensus"][:k],
-                               rtol=1e-4, atol=1e-9)
-    np.testing.assert_allclose(th["consensus"][k:], jh["consensus"][k:],
-                               rtol=1e-2, atol=1e-9)
-    assert th["exchange_plan"] == jh["exchange_plan"]
-    assert th["channel_effective_p"] == jh["channel_effective_p"]
-    return th, jh
+_mlp_init, _mlp_loss_j, _mlp_loss_t = mlp_init, mlp_loss_j, mlp_loss_t
+_run_both = run_both
 
 
 @pytest.mark.parametrize("kw", [
@@ -465,19 +374,38 @@ def test_simulator_own_draws_and_history():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(schedule="async"), "schedule"),
+    (dict(schedule="async"), None),
     (dict(telemetry=True), "telemetry"),
-    (dict(corruption="signflip:frac=0.1"), "corruption"),
-    (dict(byzantine_frac=0.25), "corruption"),
-    (dict(recovery="median"), "median"),
-    (dict(recovery="trimmed"), "trimmed"),
-    (dict(recovery="clip"), "clip"),
+    (dict(corruption="signflip:frac=0.1"), None),
+    (dict(byzantine_frac=0.25), None),
+    (dict(recovery="median"), None),
+    (dict(recovery="trimmed"), None),
+    (dict(recovery="clip"), None),
     (dict(donate=False), "donate"),
 ])
 def test_simulator_not_ported_fields_raise(kw, match):
-    scfg = tsim.SimulatorConfig(n_workers=2, steps=1, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        tsim.run_simulation(_mlp_loss_t, None, None, scfg, device="cpu")
+    """Telemetry and donate=False still raise. The async schedule, the
+    corruption processes and the robust recoveries are ported: each runs
+    rps_model at p = 0.3 on the teacher MLP against the reference, with
+    its draws injected (per-step loss and consensus to 1e-4, staleness
+    and corrupt_frac equal)."""
+    if match is not None:
+        scfg = tsim.SimulatorConfig(n_workers=2, steps=1, **kw)
+        with pytest.raises(NotImplementedError, match=match):
+            tsim.run_simulation(_mlp_loss_t, None, None, scfg,
+                                device="cpu")
+        return
+    jtask = jdata.TeacherTask(d_in=24, n_classes=8, hetero=0.3, seed=0)
+    ttask = tdata.TeacherTask(d_in=24, n_classes=8, hetero=0.3, seed=0,
+                              device="cpu")
+    th, jh = _run_both(dict(aggregator="rps_model", drop_rate=0.3, **kw),
+                       _mlp_loss_j, _mlp_init,
+                       jdata.make_worker_streams(jtask, 4, 16), _mlp_loss_t,
+                       tdata.make_worker_streams(ttask, 4, 16))
+    if "schedule" in kw:
+        assert th["staleness"] == [0.0] * 5     # no latency model
+    if "corruption" in kw or "byzantine_frac" in kw:
+        assert len(th["corrupt_frac"]) == 5
 
 
 # ---- the launcher ------------------------------------------------------------
