@@ -195,7 +195,35 @@ raises on failure; nothing is caught):
    losses, async staleness > 0, launches = groups x steps); then the
    backward's measured readiness profile at that plan
    (measure_bucket_ready_ms, what compute_ms="auto" runs) beside the cost
-   model's, positive and non-increasing.
+   model's, positive and non-increasing;
+29. rps-100m at phase 17's load, weights, batches and masks on the ring
+   engine, 4 steps with telemetry off and then on (a Telemetry writing
+   into a temporary directory), then off and on again: losses,
+   consensus and every parameter leaf bit for bit equal, a record per
+   step, every record's link_offered the plan's layout, ring launches =
+   groups x steps in both runs, the trace accepted by ``python -m
+   repro_torch.telemetry.trace --validate``; printed: the mean rs_drop_rate, the drift verdict, step
+   ms off against on over both pairs, one norm pass's device time and
+   peak memory off against on. Then the int8 wire (renorm) with
+   telemetry, 8 steps (the alpha2 check): per step the consensus, the
+   parameters' squared norm and their ratio beside the bound's alpha2
+   and the wire's extra (a finding, not a gate);
+30. benchmarks/convergence.py's run on the port, recipe unchanged, each
+   run inside timing.wallclock under a Telemetry: Fig 4a (the 24-48-8
+   MLP, n 16, 150 steps, p in {0, 0.01, 0.05, 0.1, 0.2}, engine auto)
+   and Fig 4b (rps-paper-mlp on the char-LM task, n 8, 40 steps, p 0
+   allreduce against p 0.1 rps_model) with the bench's two assertions,
+   masked-average launches = groups x steps of the rps runs; the table
+   with each run's time from the registry;
+31. the launchers: ``python -m repro_torch.launch.train`` at its
+   defaults, 20 steps, with --telemetry-dir and --checkpoint (the three
+   files, the trace validates, tools/render_experiments.py renders them,
+   the checkpoint loads back bit for bit equal to the mean parameters);
+   ``python -m repro_torch.launch.serve`` on gemma3-1b at full width,
+   continuous, lossy 4-shard TP decode, with and without --telemetry-dir
+   (serve_trace.json validates and holds serve.request for every
+   request, serve.prefill and serve.queue; the greedy tokens and the
+   TP-combine launches equal).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -205,8 +233,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2924,6 +2954,357 @@ def rps100m_async(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
     return out
 
 
+# ---- phases 29-31: telemetry, the convergence bench, the launchers --------
+
+# phase 29: rps-100m with telemetry off and on, then the int8 wire with it
+TEL_STEPS = 4
+TEL_INT8_STEPS = 8
+# phase 30: benchmarks/convergence.py's run, recipe unchanged
+FIG4A = dict(n=16, batch=32, lr=0.2, warmup=10, steps=150,
+             drop_rates=(0.0, 0.01, 0.05, 0.1, 0.2))
+FIG4B = dict(arch="rps-paper-mlp", n=8, batch=16, seq=32, lr=0.5,
+             warmup=5, steps=40)
+# phase 31: the launchers as a user runs them
+LAUNCH_STEPS = 20
+SERVE_ARGS = ["--serve", "continuous", "--full", "--tp-shards", "4", "-p",
+              "0.1", "--drain"]
+ROOT = Path(__file__).resolve().parent
+
+
+def _cli(args: list) -> subprocess.CompletedProcess:
+    """Run ``python args...`` from the repository root with the port on
+    the path; raises with its output unless it exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable] + args, cwd=str(ROOT), env=env,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} exited {r.returncode}: "
+                             f"{r.stdout}{r.stderr}")
+    return r
+
+
+def _validate(path: Path) -> None:
+    _cli(["-m", "repro_torch.telemetry.trace", "--validate", str(path)])
+
+
+def _tel_run(setup: Rps100mSetup, scfg, reg) -> tuple:
+    """One phase-29 run from phase 17's weights and batches: the history,
+    the ring kernels' launches, and the peak memory above the run's start
+    allocation."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    h = run_simulation(setup.loss_fn, None, lambda t: setup.batches[t],
+                       scfg, init_params=setup.p1, telemetry=reg)
+    launches = {"ring": RG.ring_round.launches,
+                "ring_enc": RG.ring_round_enc.launches,
+                "ring_requant": RG.ring_round_enc.requant_launches}
+    peak = (torch.cuda.max_memory_allocated() - start) / 1e9
+    return h, launches, peak
+
+
+def rps100m_telemetry(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
+    """Phase 29: rps-100m at phase 17's load, weights, batches and masks
+    on the ring engine, TEL_STEPS steps with telemetry off and then on.
+    Gates: the losses, consensus and every parameter leaf bit for bit
+    equal; a record per step; every record's link_offered the plan's
+    layout (counters.link_offered); launches = groups x steps in both
+    runs; the run's trace.json accepted by the port's --validate.
+    Printed: the mean rs_drop_rate, the drift verdict (and the flagged
+    links), the cost (step ms of steps 2 on, off against on over both
+    pairs; the device time of one norm pass over the stacked replicas;
+    peak memory above the start, off against on). Then the
+    int8 wire (renorm) with telemetry, TEL_INT8_STEPS steps: per step the
+    consensus, the parameters' squared norm and their ratio beside the
+    bound's alpha2 and the wire's extra (theory.plan_wire_alpha2_extra):
+    a finding, not a gate."""
+    from repro_torch import telemetry as telemetry_lib
+    from repro_torch.core import theory
+    from repro_torch.telemetry import counters
+    n = load["n"]
+    scfg = rps100m_config(load, steps=TEL_STEPS)
+    plan = make_exchange_plan(setup.p1, scfg)
+    groups = len(rps_lib._global_groups(plan))
+    offered = counters.link_offered(
+        n, plan.s, plan.n_buckets if plan.per_bucket_masks else None)
+    out = {"groups": groups, "steps": TEL_STEPS}
+    with tempfile.TemporaryDirectory() as tmp:
+        h_off, l_off, peak_off = _tel_run(setup, scfg, None)
+        reg = telemetry_lib.Telemetry(out_dir=tmp)
+        h_on, l_on, peak_on = _tel_run(setup, scfg, reg)
+        summary = reg.finalize()
+        _validate(Path(tmp) / "trace.json")
+        files = sorted(os.listdir(tmp))
+    same = h_off["loss"] == h_on["loss"] \
+        and h_off["consensus"] == h_on["consensus"] \
+        and all(torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(h_off["params"]), tree_lib.leaves(h_on["params"])))
+    # the device time of one of the two norm passes telemetry adds a step
+    norm_ms = event_ms(lambda: counters.global_norm(h_on["params"]), 10)
+    step_ms = {"off": [t * 1e3 for t in h_off["step_s"][1:]],
+               "on": [t * 1e3 for t in h_on["step_s"][1:]]}
+    del h_off
+    # a second pair in the same call, off then on again, for the spread
+    for name, r in (("off2", None), ("on2", telemetry_lib.Telemetry())):
+        h, _, _ = _tel_run(setup, scfg, r)
+        step_ms[name] = [t * 1e3 for t in h["step_s"][1:]]
+        del h
+    recs = h_on.records
+    rs_drop = [r["rs_drop_rate"] for r in recs]
+    link = summary["link_p"]
+    flagged = {leg: [{"link": i, "observed_p": d["observed_p"][i],
+                      "tolerance": d["tolerance"][i],
+                      "packets": d["packets"][i]}
+                     for i, f in enumerate(d["drifted"]) if f]
+               for leg, d in link.items()}
+    off = np.mean(step_ms["off"] + step_ms["off2"])
+    on = np.mean(step_ms["on"] + step_ms["on2"])
+    out.update({
+        "bitwise_off_on": same, "records": len(recs), "files": files,
+        "loss": h_on["loss"], "consensus": h_on["consensus"],
+        "rs_drop_rate": rs_drop, "rs_drop_rate_mean": float(np.mean(rs_drop)),
+        "drift": {leg: d["any_drift"] for leg, d in link.items()},
+        "drifted_links": flagged,
+        "observed_p_mean": float(np.mean(link["rs"]["observed_p"])),
+        "alpha_bounds": summary["meta"]["alpha_bounds"],
+        "grad_norm": [r["grad_norm"] for r in recs],
+        "param_norm": [r["param_norm"] for r in recs],
+        "step_ms": step_ms, "step_ms_mean_off": off, "step_ms_mean_on": on,
+        "overhead": on / off - 1.0, "global_norm_device_ms": norm_ms,
+        "peak_above_start_gb_off": peak_off,
+        "peak_above_start_gb_on": peak_on,
+        "launches_off": l_off, "launches_on": l_on,
+        "spans_ms": {e["name"]: e["dur"] / 1e3 for e in reg.trace.events
+                     if e["ph"] == "X"}})
+    print(f"rps-100m telemetry: bitwise {same}, rs_drop_rate mean "
+          f"{out['rs_drop_rate_mean']:.4f}, drift {out['drift']} "
+          f"{flagged}, step ms {step_ms}, mean off {off:.1f} on {on:.1f} "
+          f"({100 * (on / off - 1):+.2f} %), global_norm {norm_ms:.3f} ms "
+          f"on the device, peak above start off {peak_off:.3f} on "
+          f"{peak_on:.3f} GB", flush=True)
+    if not same:
+        raise AssertionError("rps-100m: telemetry changed the run's losses, "
+                             "consensus or parameters")
+    if len(recs) != TEL_STEPS or any(r["link_offered"] != offered.tolist()
+                                     for r in recs):
+        raise AssertionError(f"rps-100m telemetry: {len(recs)} records, "
+                             f"link_offered {recs[0]['link_offered']} "
+                             f"against {offered.tolist()}")
+    for launches in (l_off, l_on):
+        if launches["ring"] != groups * TEL_STEPS:
+            raise AssertionError(f"rps-100m telemetry: {launches} ring "
+                                 f"launches, want {groups} x {TEL_STEPS}")
+    del h_on
+    torch.cuda.empty_cache()
+
+    scfg8 = rps100m_config(load, steps=TEL_INT8_STEPS, wire="int8")
+    plan8 = make_exchange_plan(setup.p1, scfg8)
+    reg8 = telemetry_lib.Telemetry()
+    h8, l8, peak8 = _tel_run(setup, scfg8, reg8)
+    groups8 = len(rps_lib._global_groups(plan8))
+    if l8["ring_enc"] != groups8 * TEL_INT8_STEPS or l8["ring"] != 0:
+        raise AssertionError(f"rps-100m int8 telemetry: launches {l8}")
+    cons = h8["consensus"]
+    pn2 = [r["param_norm"] ** 2 for r in h8.records]
+    ratio = [c / q for c, q in zip(cons, pn2)]
+    extra = theory.plan_wire_alpha2_extra(plan8, n, load["p"])
+    bounds = h8.summary["meta"]["alpha_bounds"]
+    under = [r < extra for r in ratio]
+    out["int8_alpha2"] = {
+        "consensus": cons, "param_norm_sq": pn2, "ratio": ratio,
+        "alpha_bounds": bounds, "wire_alpha2_extra": extra,
+        "ratio_under_extra": under,
+        "under_from_step_2": all(under[1:]),
+        "loss": h8["loss"], "launches": l8, "peak_above_start_gb": peak8,
+        "step_ms": [t * 1e3 for t in h8["step_s"][1:]]}
+    for t, (c, q, r) in enumerate(zip(cons, pn2, ratio)):
+        print(f"int8 alpha2 step {t}: consensus {c:.6g} param_norm^2 "
+              f"{q:.6g} ratio {r:.6g} (alpha2 {bounds['alpha2']:.6g}, "
+              f"wire extra {extra:.6g})", flush=True)
+    if not (len(h8.records) == TEL_INT8_STEPS
+            and np.isfinite(cons).all() and np.isfinite(pn2).all()):
+        raise AssertionError(f"rps-100m int8 telemetry: consensus {cons}, "
+                             f"param_norm^2 {pn2}")
+    del h8
+    torch.cuda.empty_cache()
+    return out
+
+
+def convergence_bench() -> dict:
+    """Phase 30: benchmarks/convergence.py's run on the port, recipe
+    unchanged, each run inside the port's timing.wallclock under a
+    Telemetry registry. Fig 4a: the 24-48-8 tanh MLP, n 16, batch 32, lr
+    0.2, warm-up 10, 150 steps, p in {0, 0.01, 0.05, 0.1, 0.2} (allreduce
+    at p 0, rps_model otherwise, engine auto: the masked-average kernel
+    once per exchange group and step), its assertion final_loss < base x
+    1.2 + 0.05. Fig 4b: rps-paper-mlp on the char-LM task (seq 32), n 8,
+    batch 16, lr 0.5, warm-up 5, 40 steps, allreduce at p 0 against
+    rps_model at p 0.1, its assertion res[0.1] < res[0.0] x 1.25 + 0.05.
+    The table as the bench prints it, each run's time from the registry's
+    timings_s."""
+    from repro_torch import telemetry as telemetry_lib
+    from repro_torch.telemetry.timing import wallclock
+    reg = telemetry_lib.Telemetry()
+    out = {"fig4a": {}, "fig4b": {}}
+    expected = 0
+    task = TeacherTask(d_in=24, n_classes=8, hetero=0.3, seed=0)
+    batch_fn = make_worker_streams(task, FIG4A["n"], FIG4A["batch"])
+    cfg = get_config(FIG4B["arch"])
+    model = build_model(cfg, device="cuda")
+    lm = CharLMTask(vocab=cfg.vocab_size, seq_len=FIG4B["seq"], seed=0)
+    lm_batch = make_worker_streams(lm, FIG4B["n"], FIG4B["batch"])
+
+    def lm_loss(p, b):
+        return model.loss(p, b)[0]
+
+    reset_counts()
+    with telemetry_lib.enabled(reg):
+        steps, base = FIG4A["steps"], None
+        for p in FIG4A["drop_rates"]:
+            agg = "allreduce_model" if p == 0.0 else "rps_model"
+            scfg = SimulatorConfig(n_workers=FIG4A["n"], drop_rate=p,
+                                   aggregator=agg, lr=FIG4A["lr"],
+                                   warmup=FIG4A["warmup"], steps=steps,
+                                   eval_every=steps - 1)
+            with wallclock(f"convergence.p{p}"):
+                h = run_simulation(teacher_loss, teacher_init, batch_fn,
+                                   scfg)
+            if agg == "rps_model":
+                plan = make_exchange_plan(
+                    {k: torch.empty(s, device="meta")
+                     for k, s in QUICKSTART_SHAPES.items()}, scfg)
+                expected += len(rps_lib._global_groups(plan)) * steps
+            if p == 0.0:
+                base = h["final_loss"]
+            out["fig4a"][p] = {"aggregator": agg,
+                               "final_loss": h["final_loss"],
+                               "consensus": h["consensus"][-1]}
+            if not h["final_loss"] < base * 1.2 + 0.05:
+                raise AssertionError(f"Fig 4a: p={p} final loss "
+                                     f"{h['final_loss']} diverged from the "
+                                     f"baseline {base}")
+        steps = FIG4B["steps"]
+        for p, agg in ((0.0, "allreduce_model"), (0.1, "rps_model")):
+            scfg = SimulatorConfig(n_workers=FIG4B["n"], drop_rate=p,
+                                   aggregator=agg, lr=FIG4B["lr"],
+                                   warmup=FIG4B["warmup"], steps=steps,
+                                   eval_every=steps - 1)
+            with wallclock(f"convergence.lm_p{p}"):
+                h = run_simulation(lm_loss, model.init_stacked, lm_batch,
+                                   scfg)
+            if agg == "rps_model":
+                meta = tree_lib.map(
+                    lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), h["params"])
+                plan = make_exchange_plan(tree_lib.map(lambda x: x[0], meta),
+                                          scfg)
+                expected += len(rps_lib._global_groups(plan)) * steps
+            out["fig4b"][p] = {"aggregator": agg,
+                               "final_loss": h["final_loss"]}
+    launches = K.masked_avg_grid.launches
+    timings = reg.summary()["timings_s"]
+    print("# Fig 4a — drop-rate sweep (teacher-student, n=16, SGD+warmup)")
+    print("drop_rate,aggregator,final_loss,consensus,ms")
+    for p, r in out["fig4a"].items():
+        print(f"{p},{r['aggregator']},{r['final_loss']:.4f},"
+              f"{r['consensus']:.3e},"
+              f"{timings[f'convergence.p{p}']['best'] * 1e3:.1f}")
+    print("# Fig 4b — char-LM transformer spot check (entropy floor "
+          f"{lm.entropy_floor():.3f})")
+    for p, r in out["fig4b"].items():
+        print(f"{p},{r['aggregator']},{r['final_loss']:.4f},"
+              f"{timings[f'convergence.lm_p{p}']['best'] * 1e3:.1f}",
+              flush=True)
+    res = {p: r["final_loss"] for p, r in out["fig4b"].items()}
+    if not res[0.1] < res[0.0] * 1.25 + 0.05:
+        raise AssertionError(f"Fig 4b: rps {res[0.1]} against allreduce "
+                             f"{res[0.0]}")
+    if launches != expected:
+        raise AssertionError(f"convergence: {launches} masked-average "
+                             f"launches, want {expected}")
+    out["timings_s"] = timings
+    out["masked_avg_launches"] = launches
+    out["entropy_floor"] = lm.entropy_floor()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def launchers() -> dict:
+    """Phase 31: the launchers as a user runs them. ``python -m
+    repro_torch.launch.train`` at its defaults with --steps LAUNCH_STEPS
+    --telemetry-dir D --checkpoint C: D holds telemetry.jsonl,
+    summary.json and trace.json, the port's --validate accepts the trace,
+    tools/render_experiments.py --telemetry D exits 0, and C loads back
+    through load_pytree bit for bit equal to the run's mean parameters
+    (the masked-average kernel launched). ``python -m
+    repro_torch.launch.serve`` on gemma3-1b at full width, continuous,
+    lossy 4-shard TP decode, with --telemetry-dir: serve_trace.json
+    validates and holds serve.request for every request, serve.prefill
+    and serve.queue, and the greedy tokens and TP-combine launches equal
+    those of a run without telemetry."""
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.launch import serve as serve_launcher
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tel, ck = Path(tmp) / "train", Path(tmp) / "mean.npz"
+        reset_counts()
+        t0 = time.perf_counter()
+        h = train_launcher.main(["--steps", str(LAUNCH_STEPS),
+                                 "--telemetry-dir", str(tel),
+                                 "--checkpoint", str(ck)])
+        out["train_s"] = time.perf_counter() - t0
+        out["train_masked_avg_launches"] = K.masked_avg_grid.launches
+        files = sorted(os.listdir(tel))
+        if files != ["summary.json", "telemetry.jsonl", "trace.json"]:
+            raise AssertionError(f"train launcher: {tel} holds {files}")
+        _validate(tel / "trace.json")
+        _cli([str(ROOT / "tools" / "render_experiments.py"), "--telemetry",
+              str(tel)])
+        mean = tree_lib.map(lambda x: torch.mean(x, 0), h["params"])
+        back = load_pytree(str(ck), mean)
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(back), tree_lib.leaves(mean)))
+        if not same or out["train_masked_avg_launches"] == 0:
+            raise AssertionError(f"train launcher: checkpoint equal {same}, "
+                                 f"{out['train_masked_avg_launches']} "
+                                 f"masked-average launches")
+        out.update({"train_final_loss": h["final_loss"],
+                    "train_records": len(h.records),
+                    "checkpoint_bitwise": same})
+
+        srv = Path(tmp) / "serve"
+        reset_counts()
+        rep = serve_launcher.main(SERVE_ARGS + ["--telemetry-dir", str(srv)])
+        tel_launches = K.tp_combine.launches
+        reset_counts()
+        plain = serve_launcher.main(SERVE_ARGS)
+        plain_launches = K.tp_combine.launches
+        path = srv / "serve_trace.json"
+        _validate(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events}
+    rids = {e["args"]["rid"] for e in events if e["name"] == "serve.request"}
+    out.update({"serve_tokens": rep.tokens,
+                "serve_tokens_per_s_tel": rep.tokens_per_s,
+                "serve_tokens_per_s_plain": plain.tokens_per_s,
+                "serve_events": len(events),
+                "tp_combine_launches": tel_launches + plain_launches})
+    if rep.outputs() != plain.outputs():
+        raise AssertionError("serve launcher: telemetry changed the tokens")
+    if not ({"serve.request", "serve.prefill", "serve.queue"} <= names
+            and rids == {r.rid for r in rep.requests}):
+        raise AssertionError(f"serve trace: events {names}, requests {rids}")
+    if tel_launches == 0 or tel_launches != plain_launches:
+        raise AssertionError(f"serve launcher: {tel_launches} and "
+                             f"{plain_launches} TP-combine launches")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3062,7 +3443,20 @@ def main() -> int:
     asy = rps100m_async(setup)
     asy["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"rps_100m_async": asy, "card": card}), flush=True)
+    t0 = time.perf_counter()
+    tel = rps100m_telemetry(setup)
+    tel["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"rps_100m_telemetry": tel, "card": card}), flush=True)
     del setup
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fig4 = convergence_bench()
+    fig4["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"convergence_bench": fig4, "card": card}), flush=True)
+    t0 = time.perf_counter()
+    launch = launchers()
+    launch["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"launchers": launch, "card": card}), flush=True)
     robust_launches = sum(v["masked_avg_launches"]
                           for v in rb["sweep"].values())
 
@@ -3070,7 +3464,9 @@ def main() -> int:
               "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
               "replaces": "src/repro/kernels/masked_avg.py:58",
               "launches": qs["rps_model_xla"]["masked_avg_launches"]
-              + robust_launches + ab["launches"]["masked_avg"],
+              + robust_launches + ab["launches"]["masked_avg"]
+              + fig4["masked_avg_launches"]
+              + launch["train_masked_avg_launches"],
               "max_abs_err": err,
               "ms": timing["ms"], "plain_ms": timing["plain_ms"],
               "bound_ms": timing["bound_ms"],
@@ -3079,7 +3475,8 @@ def main() -> int:
     combine = {"name": "tp_combine", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
                "replaces": "src/repro/kernels/masked_avg.py:58",
-               "launches": slice_["tp_combine_launches"],
+               "launches": slice_["tp_combine_launches"]
+               + launch["tp_combine_launches"],
                "max_abs_err": tp_err["max_abs_err_f32_wire"],
                "ms": tp_timing["ms"], "plain_ms": tp_timing["plain_ms"],
                "bound_ms": tp_timing["bound_ms"],
@@ -3110,7 +3507,8 @@ def main() -> int:
             # attacked renorm run's corrupted f32 offers
             "launches": big["ring_launches"] + ab["launches"]["ring"]
             + asy["sync"]["ring_launches"] + asy["async"]["ring_launches"]
-            + attack["renorm"]["ring_enc_launches"],
+            + attack["renorm"]["ring_enc_launches"]
+            + tel["launches_off"]["ring"] + tel["launches_on"]["ring"],
             "max_abs_err": ring_err,
             "ms": ring_group["ms"], "plain_ms": ring_group["plain_ms"],
             "bound_ms": ring_group["bound_ms"],
@@ -3119,7 +3517,8 @@ def main() -> int:
     ring_enc = {"name": "ring_round_enc", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ring_q.cu",
                 "replaces": "src/repro/kernels/rps_ring.py:331",
-                "launches": big_int8["renorm"]["ring_requant_launches"],
+                "launches": big_int8["renorm"]["ring_requant_launches"]
+                + tel["int8_alpha2"]["launches"]["ring_requant"],
                 "max_abs_err": enc_err,
                 "ms": enc_group["ms"], "plain_ms": enc_group["plain_ms"],
                 "bound_ms": enc_group["bound_ms"],

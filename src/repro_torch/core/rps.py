@@ -32,8 +32,11 @@ xla engine (:mod:`repro_torch.core.robust`). On a CUDA stack every kernel
 launches or raises; there is no fallback to the plain versions. Ported:
 the global path with the f32 / bf16 / int8 wires, every recovery, any
 plan, shared or per-bucket masks, corruption, and the async schedule's
-lateness masks. The collective paths and telemetry taps are still to
-port.
+lateness masks. With a tap collector installed
+(:mod:`repro_torch.telemetry.taps`) the exchange taps the reference's
+counters: the step's delivery, lateness and corruption bundles, the
+per-bucket delivered counts, and per group the EF residual's squared
+norm and the divisor table. The collective paths are still to port.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import masks_to_scatter as _masks_to_scatter
 from repro_torch.kernels.ref import pad_mask_blocks as _pad_mask_blocks
 from repro_torch.kernels.ref import scatter_layout as _scatter_layout
+from repro_torch.telemetry import taps
 
 
 def owners(n: int, s: Optional[int] = None, *,
@@ -198,6 +202,32 @@ def _group_bits(corruption, corrupt_bits, g_idx: int, shape: tuple) -> dict:
     return {"bits": corrupt_bits(g_idx, shape)}
 
 
+def _tap_step(rs, ag, late, cmasks, n: int, plan, codec, rec, mode: str,
+              engine: str) -> None:
+    """The reference's step-level taps: the whole draw's per-link bundle
+    (summed over the bucket dim of per-bucket masks), the lateness and
+    corruption bundles, the per-bucket x per-link delivered RS counts,
+    and the plan and exchange annotations (owner entries excluded)."""
+    from repro_torch.telemetry import counters
+    for k, v in counters.mask_step_stats(rs, ag).items():
+        taps.emit(k, v)
+    if late is not None:
+        for k, v in counters.staleness_stats(late["rs"], late["ag"]).items():
+            taps.emit(k, v)
+    if cmasks is not None:
+        for k, v in counters.corruption_stats(cmasks, rs).items():
+            taps.emit(k, v)
+    if rs.dim() == 3:
+        non_own = ~owner_mask(n, plan.s, device=rs.device)
+        taps.emit("rs_bucket_link_delivered",
+                  (rs.to(torch.bool) & non_own).sum(-1, dtype=torch.int32))
+    taps.annotate("plan", {"n_buckets": plan.n_buckets, "s": plan.s,
+                           "rs_leg_bytes": int(plan.rs_leg_bytes(codec))})
+    taps.annotate("exchange", {"n": n, "s": plan.s, "mode": mode,
+                               "engine": engine, "codec": codec.name,
+                               "recovery": rec.kind})
+
+
 def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
                         n: int, *, mode: str = "model", masks=None,
                         s: Optional[int] = None,
@@ -283,6 +313,8 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
         n_buckets=plan.n_buckets if plan.per_bucket_masks else None)
     if late is not None:
         _check_late(late, rs, ag)
+    if taps.active() is not None:
+        _tap_step(rs, ag, late, cmasks, n, plan, codec, rec, mode, engine)
     if mode not in ("model", "grad", "grad_renorm"):
         raise ValueError(mode)
     if engine in (None, "auto"):
@@ -353,6 +385,9 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
             # intent itself; a dropped block's residual stays outstanding
             err = intent - send if send is intent else intent.sub_(send)
             resid = torch.where(rs_g[..., None] != 0, err, ef_stack)
+            if taps.active() is not None:
+                taps.emit("ef_resid_sq", torch.linalg.vector_norm(
+                    ef_stack, dtype=torch.float32).square())
             del intent, err, ef_stack
             for pos, j in enumerate(idxs):
                 ef_outs[j] = resid[pos].reshape(n, s, blk, m)
@@ -360,6 +395,10 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
             enc, scale = codec.encode(
                 offer, lead=2,
                 **_group_noise(wire_noise, g_idx, tuple(stack.shape)))
+        div_g = None
+        if taps.active() is not None:
+            div_g = _divisor(rec, mode, rs_g, n)                 # (G, s)
+            taps.emit("divisor", div_g)
         if rec.needs_table:
             if send is None:
                 send = codec.to_wire(offer) if enc is None \
@@ -380,7 +419,8 @@ def rps_exchange_global(tree, gen: Optional[torch.Generator], p: float,
                 # a corrupted linear offer, in the stack's dtype
                 enc = offer.contiguous()
             del offer
-            div_g = _divisor(rec, mode, rs_g, n)                 # (G, s)
+            if div_g is None:
+                div_g = _divisor(rec, mode, rs_g, n)             # (G, s)
             out = ops.ring_round(
                 stack.contiguous(), rs_g, ag_g, div_g, mode=mode,
                 rs_dtype=codec.accum_dtype, enc=enc,

@@ -28,11 +28,14 @@ attention layers keep the reference's ring buffer, which holds the right
 positions only when ``--prompt-len`` is a multiple of the window; the
 port reproduces the reference's output at other lengths too (ROADMAP
 C). ``--serve continuous`` serves the dense
-family. ``--telemetry-dir`` is not ported yet and raises.
+family; with ``--telemetry-dir D`` it writes the session's Chrome trace
+(``serve.prefill`` spans, a ``serve.request`` event per request, the
+``serve.queue`` counter) to ``D/serve_trace.json``.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -43,6 +46,7 @@ from repro_torch.models import build_model
 from repro_torch.netsim import request_trace
 from repro_torch.serve import (ContinuousEngine, ServeEngine, TPDecodeConfig,
                                make_requests)
+from repro_torch.telemetry import Telemetry
 
 
 def main(argv=None):
@@ -82,13 +86,11 @@ def main(argv=None):
                     choices=("renorm", "scale"))
     ap.add_argument("--engine", default="xla", choices=("xla", "ring"))
     ap.add_argument("--telemetry-dir", default=None,
-                    help="(not ported yet)")
+                    help="write a Chrome trace of the serving session here "
+                         "(continuous batching)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a GPU")
     args = ap.parse_args(argv)
-
-    if args.telemetry_dir:
-        raise NotImplementedError("--telemetry-dir is not ported yet")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -108,11 +110,14 @@ def main(argv=None):
         tp = TPDecodeConfig(n_shards=args.tp_shards, p=args.drop_rate,
                             channel=args.channel, wire=args.wire,
                             recovery=args.recovery, engine=args.engine)
+    telemetry = None
+    if args.telemetry_dir:
+        telemetry = Telemetry(out_dir=args.telemetry_dir)
     eng = ContinuousEngine(
         model=model, params=params, page=args.page,
         n_blocks=args.kv_blocks, max_batch=args.max_batch,
         chunk=args.chunk, max_len=args.prompt_len + args.new_tokens,
-        temperature=args.temperature, tp=tp)
+        temperature=args.temperature, tp=tp, telemetry=telemetry)
     trace = request_trace(args.lam, n_requests=args.requests,
                           prompt_lens=(args.prompt_len // 2,
                                        args.prompt_len),
@@ -127,6 +132,10 @@ def main(argv=None):
     print(f"latency p50={rep.latency_quantile(0.5):.1f}ms "
           f"p99={rep.latency_quantile(0.99):.1f}ms  "
           f"preempts={sum(r.n_preempt for r in rep.requests)}")
+    if telemetry is not None:
+        path = os.path.join(args.telemetry_dir, "serve_trace.json")
+        telemetry.trace.write(path)
+        print(f"trace -> {path}")
     return rep
 
 

@@ -16,8 +16,23 @@ variant; ``--optimizer adam --state-pack i8`` keeps the optimizer state
 --byzantine-frac 0.25 --recovery median`` runs the Byzantine axis (the
 robust recoveries on the xla engine); ``--async --compute-ms 8`` (or
 ``auto``, the backward timed per bucket) ships the buckets as the backward
-readies them, against a ``deadline:`` channel. Not ported yet, so absent:
-telemetry, checkpoints.
+readies them, against a ``deadline:`` channel.
+
+``--telemetry`` records per-step counters (per-link delivery, drop rates,
+norms) and the per-link drop-rate estimate against the theory's bounds,
+bit for bit the same run; ``--telemetry-dir D`` (implies it) writes
+``D/telemetry.jsonl``, ``D/summary.json`` and ``D/trace.json`` and prints
+the summary:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 3 \
+      --workers 4 --device cpu --telemetry-dir runs/tel
+  PYTHONPATH=src python -m repro_torch.telemetry.trace \
+      --validate runs/tel/trace.json
+  python tools/render_experiments.py --telemetry runs/tel
+
+``--checkpoint C`` saves the workers' mean parameters to C in the npz
+layout of :mod:`repro_torch.checkpoint` (which the JAX package's
+``load_pytree`` reads too).
 """
 from __future__ import annotations
 
@@ -28,9 +43,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
+from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import CharLMTask, make_worker_streams
 from repro_torch.models import build_model
+from repro_torch.telemetry import Telemetry
 from repro_torch.train.simulator import SimulatorConfig, run_simulation
 
 
@@ -112,7 +130,19 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint", default=None,
+                    help="save the workers' mean parameters here (npz)")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--telemetry", action="store_true",
+                    help="exchange telemetry: per-step records (per-link "
+                         "delivery, drop rates, norms), the per-link "
+                         "drop-rate estimate against the theory bounds, "
+                         "Chrome-trace spans; bit-identical to a run "
+                         "without it")
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="write telemetry.jsonl / summary.json / trace.json "
+                         "here (implies --telemetry); render with "
+                         "tools/render_experiments.py --telemetry DIR")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -141,9 +171,12 @@ def main(argv=None):
         wire=args.wire, recovery=args.recovery,
         schedule="async" if args.async_ else "sync",
         compute_ms=args.compute_ms, state_pack=args.state_pack)
+    reg = None
+    if args.telemetry or args.telemetry_dir:
+        reg = Telemetry(out_dir=args.telemetry_dir)
     t0 = time.time()
     hist = run_simulation(loss_fn, model.init_stacked, batch_fn, scfg,
-                          device=args.device)
+                          telemetry=reg, device=args.device)
     dt = time.time() - t0
     print(f"channel={hist['channel']} "
           f"eff_p={hist['channel_effective_p']:.4f}")
@@ -173,6 +206,15 @@ def main(argv=None):
         print(f"corruption: mean corrupt_frac="
               f"{float(np.mean(hist['corrupt_frac'])):.3f} "
               f"(max {float(np.max(hist['corrupt_frac'])):.3f})")
+    if args.checkpoint:
+        mean_params = tree_lib.map(lambda x: torch.mean(x, 0),
+                                   hist["params"])
+        save_pytree(args.checkpoint, mean_params)
+        print("checkpoint ->", args.checkpoint)
+    if reg is not None:
+        reg.finalize(print_summary=True)
+        if args.telemetry_dir:
+            print("telemetry ->", args.telemetry_dir)
     if args.out:
         keep = {k: v for k, v in hist.items()
                 if k not in ("params", "state", "ef_state",

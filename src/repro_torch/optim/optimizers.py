@@ -16,7 +16,9 @@ a 16-replica model is never held twice. ``noise`` feeds the i8 pack's
 stochastic rounding: a ``torch.Generator``, or a hook ``(which, leaf_idx,
 shape) -> uniforms`` with ``which`` "m" or "v" (the reference's
 ``uniform(fold_in(fold_in(key, 0x6d or 0x76), i), shape)``); ``None``
-rounds to nearest-even.
+rounds to nearest-even. With a tap collector installed, a packed update
+taps its write's quantisation-error norm as ``quant_err_opt_m`` /
+``quant_err_opt_v``, as the reference does.
 """
 from __future__ import annotations
 
@@ -27,6 +29,14 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.optim import statepack as statepack_lib
+from repro_torch.telemetry import taps as taps_lib
+
+
+def _emit_quant_err(tap: str, err_sq: list) -> None:
+    """The per-leaf squared encode errors as the ``quant_err_<tap>``
+    counter ``statepack.pack_tree`` taps."""
+    if err_sq:
+        taps_lib.emit(f"quant_err_{tap}", torch.sqrt(sum(err_sq)))
 
 
 class Optimizer(NamedTuple):
@@ -100,6 +110,8 @@ def momentum(beta: float = 0.9,
             return params, state
         # packed: decode -> update -> encode, one leaf at a time
         m_noise = statepack_lib.component_noise(noise, "m")
+        collect = taps_lib.active() is not None and fmt != "f32"
+        err_sq = []
         for i, (p, rep, g) in enumerate(zip(
                 tree_lib.leaves(params),
                 statepack_lib.leaf_reps(state, fmt),
@@ -107,8 +119,12 @@ def momentum(beta: float = 0.9,
             m = statepack_lib.unpack_leaf(rep, fmt)
             m.mul_(beta).add_(g.to(torch.float32))
             _apply_step(p, lr * m)
-            statepack_lib.store_leaf(rep, m, fmt, m_noise, i, consume=True)
+            statepack_lib.store_leaf(rep, m, fmt, m_noise, i,
+                                     consume=not collect)
+            if collect:
+                err_sq.append(statepack_lib.leaf_error_sq(m, rep, fmt))
             del m
+        _emit_quant_err("opt_m", err_sq)
         return params, state
 
     return Optimizer(init, update)
@@ -149,6 +165,10 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         # working set one leaf's m, v and denominator
         m_noise = statepack_lib.component_noise(noise, "m")
         v_noise = statepack_lib.component_noise(noise, "v")
+        collect = taps_lib.active() is not None
+        collect_m = collect and m_fmt != "f32"
+        collect_v = collect and v_fmt != "f32"
+        m_err, v_err = [], []
         for i, (p, mrep, vrep, g) in enumerate(zip(
                 tree_lib.leaves(params),
                 statepack_lib.leaf_reps(state["m"], m_fmt),
@@ -160,6 +180,8 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 m = m.clone()
             m.mul_(b1).add_((1 - b1) * gf)
             statepack_lib.store_leaf(mrep, m, m_fmt, m_noise, i)
+            if collect_m:
+                m_err.append(statepack_lib.leaf_error_sq(m, mrep, m_fmt))
             v = statepack_lib.unpack_leaf(vrep, v_fmt)
             if v is vrep[0]:
                 v = v.clone()
@@ -176,8 +198,13 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             del den
             _apply_step(p, m)
             del m
-            statepack_lib.store_leaf(vrep, v, v_fmt, v_noise, i, consume=True)
+            statepack_lib.store_leaf(vrep, v, v_fmt, v_noise, i,
+                                     consume=not collect_v)
+            if collect_v:
+                v_err.append(statepack_lib.leaf_error_sq(v, vrep, v_fmt))
             del v
+        _emit_quant_err("opt_m", m_err)
+        _emit_quant_err("opt_v", v_err)
         return params, state
 
     return Optimizer(init, update)

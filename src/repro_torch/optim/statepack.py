@@ -38,6 +38,7 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.core import quant as quant_lib
+from repro_torch.telemetry import taps as taps_lib
 
 I8_LEVELS = 127          # symmetric int8 grid {-127..127}, as the wire's
 
@@ -160,9 +161,9 @@ def pack_tree(tree: Any, fmt: str, noise: Noise = None,
               tap: Optional[str] = None) -> Any:
     """Encode a tree of f32 buffers into its at-rest format, leaf by leaf
     (leaf i's uniforms from ``noise``). "f32" returns ``tree`` itself.
-    ``tap`` names the reference's quantisation-error counter: a no-op
-    until telemetry is ported."""
-    del tap
+    With ``tap`` set and a tap collector installed, the write's
+    quantisation-error norm ‖tree − unpack(pack(tree))‖ is tapped as
+    ``quant_err_<tap>``; without a collector nothing is computed."""
     if fmt == "f32":
         return tree
     if fmt not in ("bf16", "i8"):
@@ -170,7 +171,10 @@ def pack_tree(tree: Any, fmt: str, noise: Noise = None,
     leaves, treedef = tree_lib.flatten(tree)
     reps = [pack_leaf(x, fmt, **_leaf_noise(noise, i, tuple(x.shape)))
             for i, x in enumerate(leaves)]
-    return tree_from_reps(reps, fmt, treedef)
+    packed = tree_from_reps(reps, fmt, treedef)
+    if tap is not None and taps_lib.active() is not None:
+        taps_lib.emit(f"quant_err_{tap}", quant_error_norm(tree, packed, fmt))
+    return packed
 
 
 def leaf_reps(packed: Any, fmt: str) -> list:
@@ -204,14 +208,19 @@ def unpack_tree(packed: Any, fmt: str) -> Any:
 
 
 def quant_error_norm(tree: Any, packed: Any, fmt: str) -> torch.Tensor:
-    """‖tree − unpack(packed)‖ over all leaves, in f32."""
-    back = unpack_tree(packed, fmt)
+    """‖tree − unpack(packed)‖ over all leaves, in f32, decoding one leaf
+    at a time."""
     total = None
-    for a, b in zip(tree_lib.leaves(tree), tree_lib.leaves(back)):
-        d = a.to(torch.float32) - b.to(torch.float32)
-        sq = torch.sum(d * d)
+    for a, rep in zip(tree_lib.leaves(tree), leaf_reps(packed, fmt)):
+        sq = leaf_error_sq(a, rep, fmt)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+def leaf_error_sq(x: torch.Tensor, rep: tuple, fmt: str) -> torch.Tensor:
+    """Σ (x − unpack(rep))² in f32: one leaf's squared encode error."""
+    d = x.to(torch.float32) - unpack_leaf(rep, fmt).to(torch.float32)
+    return torch.sum(d * d)
 
 
 def tree_bytes(tree: Any) -> int:

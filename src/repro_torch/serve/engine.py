@@ -127,7 +127,9 @@ class ContinuousEngine:
     admission with iteration-level join/evict, per-request prefill
     scattered into the paged pool, and ``chunk``-step decode rounds over
     ``max_batch`` lanes. ``tp`` sends every decode output projection
-    through the drop-masked exchange. Random draws (drop masks, sampling
+    through the drop-masked exchange; ``telemetry`` (a
+    :class:`repro_torch.telemetry.Telemetry`) receives the session's
+    serving trace. Random draws (drop masks, sampling
     at temperature > 0) come from one ``torch.Generator`` seeded with
     ``seed`` at the start of each session.
     """
@@ -141,6 +143,7 @@ class ContinuousEngine:
     temperature: float = 0.0
     tp: Optional[TPDecodeConfig] = None
     seed: int = 0
+    telemetry: Any = None
 
     def __post_init__(self):
         if self.max_len % self.page:
@@ -206,6 +209,7 @@ class ContinuousEngine:
         gen.manual_seed(self.seed)
         ch_state = (self.tp_ctx.init_state(gen)
                     if self.tp_ctx is not None else None)
+        tel = self.telemetry.trace if self.telemetry is not None else None
         t0 = time.perf_counter()
         now = lambda: (time.perf_counter() - t0) * 1e3     # noqa: E731
         rounds = prefills = 0
@@ -229,13 +233,18 @@ class ContinuousEngine:
             for r in admitted:
                 full = np.concatenate(
                     [r.prompt, np.asarray(r.generated, np.int32)])
-                last, pcache = self.model.prefill(
-                    self.params, {"tokens": self._tensor(full[None, :])},
-                    paged=True)
+                if tel is not None:
+                    with tel.span("serve.prefill", rid=r.rid,
+                                  tokens=int(full.size)):
+                        last, pcache = self._prefill(full)
+                else:
+                    last, pcache = self._prefill(full)
                 cache.write_prefill(pcache, r.blocks, int(full.size))
                 prefills += 1
                 if r.admitted_ms is None:
                     r.admitted_ms = now()
+                if tel is not None and getattr(r, "_ts_us", None) is None:
+                    r._ts_us = tel.now_us()
                 tok0 = int(torch.argmax(last[0]))
                 if r.first_token_ms is None:
                     r.first_token_ms = now()
@@ -245,7 +254,7 @@ class ContinuousEngine:
                     lanes[lane] = r
                     r.lane = lane
                 elif r.state == FINISHED:
-                    r.finish_ms = now()
+                    self._finish(r, now(), tel)
 
             if any(r is not None for r in lanes):
                 bt = np.zeros((self.max_batch, self.max_pages), np.int64)
@@ -272,12 +281,33 @@ class ContinuousEngine:
                     sched.advance(r, toks_np[:k, i].tolist())
                     if r.state == FINISHED:
                         lanes[i] = None
-                        r.finish_ms = t_end
+                        self._finish(r, t_end, tel)
+            if tel is not None:
+                tel.counter("serve.queue", {
+                    "waiting": len(sched.waiting),
+                    "running": len(sched.running),
+                    "kv_blocks_used": cache.alloc.capacity
+                    - cache.alloc.n_free,
+                    "kv_blocks_free": cache.alloc.n_free})
 
         wall = time.perf_counter() - t0
         done = sorted(requests, key=lambda r: r.rid)
         return ServeReport(requests=list(done), wall_s=wall,
                            rounds=rounds, prefills=prefills)
+
+    def _prefill(self, full: np.ndarray):
+        return self.model.prefill(
+            self.params, {"tokens": self._tensor(full[None, :])}, paged=True)
+
+    @staticmethod
+    def _finish(r: Request, t_ms: float, tel) -> None:
+        r.finish_ms = t_ms
+        if tel is not None and getattr(r, "_ts_us", None) is not None:
+            tel.complete("serve.request", r._ts_us,
+                         tel.now_us() - r._ts_us, rid=r.rid,
+                         prompt_len=int(len(r.prompt)),
+                         max_new=int(r.max_new),
+                         n_preempt=int(r.n_preempt))
 
 
 def make_requests(trace: Sequence[Tuple[float, int, int]], vocab: int,

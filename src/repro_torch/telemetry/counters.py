@@ -1,8 +1,7 @@
-"""Delivery counters derived from RPS masks (port of the part of
-:mod:`repro.telemetry.counters` the simulator's history reads: the
-offered, delivered, late and corrupt counts and the ``late_frac`` /
-``corrupt_frac`` bundles). The rest of the reference's telemetry — taps,
-records, the drift monitor, traces — is still to port.
+"""Delivery counters and norms derived from RPS masks (port of
+:mod:`repro.telemetry.counters`): the offered, delivered, late and
+corrupt counts, the per-step bundles the exchange taps, the divisor
+statistics and the norms the simulator taps.
 
 Masks are the unpadded ``(n, s)`` or per-bucket ``(n_buckets, n, s)``
 ones of the channel contract, and the forced owner entries are excluded:
@@ -11,11 +10,12 @@ sender row i of the mask.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.core import rps as rps_lib
 
 
@@ -51,6 +51,56 @@ def _offered_total(mask: torch.Tensor) -> int:
     n, s = mask.shape[-2], mask.shape[-1]
     nb = mask.shape[0] if mask.dim() == 3 else None
     return int(link_offered(n, s, nb).sum())
+
+
+def divisor_stats(div: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """min / mean / max of the renorm divisor table (any shape), in f32:
+    how thin the received averages ran this round."""
+    d = div.to(torch.float32)
+    return {"min": d.min(), "mean": d.mean(), "max": d.max()}
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """l2 norm over every leaf of a tree, accumulated in f32: one
+    multi-tensor ``_foreach_norm`` per device and dtype (no f32 copy of a
+    leaf), then the root of the summed squares."""
+    leaves = [x for x in tree_lib.leaves(tree) if x is not None]
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    groups: Dict[tuple, list] = {}
+    for x in leaves:
+        groups.setdefault((x.device, x.dtype), []).append(x)
+    total = None
+    for xs in groups.values():
+        norms = torch._foreach_norm(xs, 2, dtype=torch.float32)
+        sq = torch.stack(norms).square().sum()
+        total = sq if total is None else total + sq.to(total.device)
+    return total.sqrt()
+
+
+def consensus_distance(stacked: torch.Tensor) -> torch.Tensor:
+    """Mean squared distance to the worker mean of one stacked ``(n,
+    …)`` leaf, in f32 (summed over leaves by the caller)."""
+    x = stacked.to(torch.float32)
+    dev = x - x.mean(0, keepdim=True)
+    return (dev * dev).sum(tuple(range(1, x.dim()))).mean()
+
+
+def mask_step_stats(rs: torch.Tensor,
+                    ag: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The per-step counter bundle of one (rs, ag) draw: per-sender
+    delivered counts of both legs, the offered counts and each leg's
+    drop rate over the offered packets."""
+    rs_d = link_delivered(rs)
+    ag_d = link_delivered(ag)
+    n, s = rs.shape[-2], rs.shape[-1]
+    nb = rs.shape[0] if rs.dim() == 3 else None
+    offered = link_offered(n, s, nb)
+    tot = max(int(offered.sum()), 1)
+    return {"rs_link_delivered": rs_d, "ag_link_delivered": ag_d,
+            "link_offered": torch.from_numpy(offered),
+            "rs_drop_rate": 1.0 - rs_d.sum().to(torch.float32) / tot,
+            "ag_drop_rate": 1.0 - ag_d.sum().to(torch.float32) / tot}
 
 
 def link_late(late_mask: torch.Tensor) -> torch.Tensor:

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import telemetry as telemetry_lib
 from repro_torch import tree as tree_lib
 from repro_torch.channels import make_channel, make_corruption
 from repro_torch.core import plan as plan_lib
@@ -69,6 +70,7 @@ from repro_torch.core import wire as wire_lib
 from repro_torch.optim import make_optimizer
 from repro_torch.optim import statepack as statepack_lib
 from repro_torch.telemetry import counters as counters_lib
+from repro_torch.telemetry import taps as taps_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,21 +101,18 @@ class SimulatorConfig:
     compute_ms: Any = None          # async cost model: ms, or "auto"
     state_pack: str = "f32"         # at-rest state: "f32", "bf16", "i8"
     donate: bool = True             # the port always updates in place
-    telemetry: bool = False         # not ported yet
+    telemetry: bool = False         # per-step counters and records
 
     AGGREGATORS = ("rps_model", "rps_grad", "allreduce_model",
                    "allreduce_grad", "local")
 
 
 def _check_ported(scfg: SimulatorConfig) -> None:
-    """Raise on a field whose feature is not ported, set off its default."""
-    off = []
-    if scfg.telemetry:
-        off.append("telemetry=True")
+    """Raise on ``donate=False`` (a departure by design: the port updates
+    in place) and on an unknown aggregator."""
     if not scfg.donate:
-        off.append("donate=False (the port updates in place)")
-    if off:
-        raise NotImplementedError("not ported yet: " + ", ".join(off))
+        raise NotImplementedError(
+            "not ported: donate=False (the port updates in place)")
     if scfg.aggregator not in SimulatorConfig.AGGREGATORS:
         raise ValueError(f"aggregator={scfg.aggregator!r}, want one of "
                          f"{SimulatorConfig.AGGREGATORS}")
@@ -281,14 +280,20 @@ def consensus_distance(params) -> torch.Tensor:
 
 
 def make_sim_step(loss_fn: Callable, scfg: SimulatorConfig, plan, opt,
-                  recovery=None, corruption=None):
+                  recovery=None, corruption=None,
+                  telemetry: Optional[bool] = None):
     """One simulator step:
     ``step(params, opt_state, batch, masks, lr, exchange=True,
     ef_state=None, wire_noise=None, pack_noise=None, late=None,
     corrupt_masks=None, corrupt_bits=None) -> (params, opt_state, mean
-    loss, consensus)``, plus the new ``ef_state`` last under the ef
-    recovery; the loss and consensus are 0-dim f32 tensors on the params'
-    device. ``masks`` is the step's (rs, ag) pair (None for the non-rps
+    loss, consensus)``, plus the new ``ef_state`` under the ef recovery,
+    plus the tap dict last with ``telemetry`` (default
+    ``scfg.telemetry``); the loss and consensus are 0-dim f32 tensors on
+    the params' device. The taps are the exchange's counters and the
+    quantisation errors, ``grad_norm`` (after the backward, before the
+    update consumes the gradients) and ``param_norm`` (after the
+    exchange); each is a reduction, none a view of a buffer the step
+    updates. ``masks`` is the step's (rs, ag) pair (None for the non-rps
     aggregators), ``wire_noise`` the int8 wire's rounding noise (a
     generator or a ``(g_idx, shape) -> uniforms`` hook), ``pack_noise``
     the packed state's (a generator or a ``(which, leaf_idx, shape) ->
@@ -310,8 +315,9 @@ def make_sim_step(loss_fn: Callable, scfg: SimulatorConfig, plan, opt,
             "telescopes an *honest* sender's codec error; use a robust "
             "recovery (median/trimmed/clip) instead")
     ef_fmt = statepack_lib.make_state_pack(scfg.state_pack).ef_format
+    telemetry = scfg.telemetry if telemetry is None else telemetry
 
-    def step(params, opt_state, batch, masks, lr, exchange=True,
+    def body(params, opt_state, batch, masks, lr, exchange=True,
              ef_state=None, wire_noise=None, pack_noise=None, late=None,
              corrupt_masks=None, corrupt_bits=None):
         if use_ef and ef_state is None:
@@ -331,10 +337,13 @@ def make_sim_step(loss_fn: Callable, scfg: SimulatorConfig, plan, opt,
                 ef_state=statepack_lib.unpack_tree(ef_state, ef_fmt))
             ef_state = statepack_lib.pack_tree(
                 ef_new, ef_fmt,
-                noise=statepack_lib.component_noise(pack_noise, "ef"))
+                noise=statepack_lib.component_noise(pack_noise, "ef"),
+                tap="ef")
             return out
 
         loss, grads = _loss_and_grads(loss_fn, params, batch, n)
+        if taps_lib.active() is not None:
+            taps_lib.emit("grad_norm", counters_lib.global_norm(grads))
         if is_grad_mode and exchange:
             grads = swap(grads, True)
         params, opt_state = opt.update(grads, opt_state, params, lr,
@@ -344,10 +353,42 @@ def make_sim_step(loss_fn: Callable, scfg: SimulatorConfig, plan, opt,
             params = swap(params, False)
         with torch.no_grad():
             consensus = consensus_distance(params)
+            if taps_lib.active() is not None:
+                taps_lib.emit("param_norm", counters_lib.global_norm(params))
         base = (params, opt_state, loss / n, consensus)
         return base + (ef_state,) if use_ef else base
 
+    if not telemetry:
+        return body
+
+    def step(*args, **kwargs):
+        with taps_lib.tap_collector() as tap:
+            outs = body(*args, **kwargs)
+        return outs + (tap.tree(),)
+
     return step
+
+
+def _drain(reg, pending: list) -> None:
+    """Materialise the run's taps into the registry's records (the one
+    host copy of them), with the lateness and corruption counter tracks
+    in its trace."""
+    with reg.span("record_drain", steps=len(pending)):
+        for (t, lr, loss, consensus, staleness, corrupt_frac,
+             stats) in pending:
+            extra = {}
+            if staleness is not None:
+                extra["staleness"] = float(staleness)
+            if corrupt_frac is not None:
+                extra["corrupt_frac"] = float(corrupt_frac)
+            reg.record_step(t, stats, loss=loss, consensus=consensus, lr=lr,
+                            **extra)
+            if staleness is not None:
+                reg.trace.counter("lateness",
+                                  {"late_frac": float(staleness)})
+            if corrupt_frac is not None:
+                reg.trace.counter("corruption",
+                                  {"corrupt_frac": float(corrupt_frac)})
 
 
 def run_simulation(loss_fn: Callable, init_fn: Callable,
@@ -361,7 +402,7 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
                    pack_noise_fn: Optional[Callable] = None,
                    corrupt_masks_fn: Optional[Callable] = None,
                    corrupt_bits_fn: Optional[Callable] = None
-                   ) -> Dict[str, Any]:
+                   ) -> telemetry_lib.RunHistory:
     """loss_fn(params, batch) -> scalar; init_fn(gen) -> one worker's
     params; batch_fn(step) -> stacked batch with leading dim n_workers.
 
@@ -381,6 +422,17 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     and ``state`` to resume from with ``state=`` / ``start_step=``
     (params, optimizer, channel and EF state).
 
+    Telemetry: ``telemetry`` takes a
+    :class:`repro_torch.telemetry.Telemetry` to report into (the
+    launchers pass theirs); ``scfg.telemetry`` alone builds a private
+    in-memory one. The history is a :class:`repro_torch.telemetry.
+    RunHistory` either way: the mapping above, plus ``.records`` (one
+    record per step, drained after the loop; empty without telemetry) and
+    ``.summary`` (the per-link observed against expected drop rates, with
+    the α bounds). The plan's build and the drain are spans of the
+    registry's trace; under async and corruption each record's
+    ``staleness`` / ``corrupt_frac`` is also a counter track of it.
+
     Runs on ``device`` (CUDA unless the caller asks for the CPU).
     ``init_params`` (one worker's params, broadcast to n), ``masks_fn``
     (step -> (rs, ag), or (rs, ag, late) under async, late the
@@ -397,8 +449,6 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     step's batch before the run.
     """
     _check_ported(scfg)
-    if telemetry is not None:
-        raise NotImplementedError("telemetry is not ported yet")
     dev = resolve_device(device)
     n = scfg.n_workers
     if init_params is None:
@@ -439,10 +489,21 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
         params, opt_state = state["params"], state["opt_state"]
         ch_state = state.get("ch_state", ch_state)
         ef_state = state.get("ef_state", ef_state)
-    plan = make_exchange_plan(
-        tree_lib.map(lambda x: torch.empty(x.shape, dtype=x.dtype,
-                                           device="meta"), p1),
-        scfg, channel)
+    reg = telemetry
+    use_tel = scfg.telemetry or reg is not None
+    if use_tel and reg is None:
+        reg = telemetry_lib.Telemetry()
+    meta_p1 = tree_lib.map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                                 device="meta"), p1)
+    if use_tel:
+        with reg.span("plan_build"):
+            plan = make_exchange_plan(meta_p1, scfg, channel)
+        reg.bind(plan=plan, n=n,
+                 p=channel.effective_p() if rps_agg else None,
+                 channel=channel if rps_agg else None,
+                 aggregator=scfg.aggregator)
+    else:
+        plan = make_exchange_plan(meta_p1, scfg, channel)
     if plan is not None and wants_measured_ready(scfg):
         plan = plan.with_ready_ms(measure_bucket_ready_ms(
             loss_fn, params, batch_fn(start_step), plan))
@@ -457,14 +518,18 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
     recovery = wire_lib.make_recovery(scfg.recovery,
                                       p=channel.effective_p()) \
         if rps_agg else None
-    step_fn = make_sim_step(loss_fn, scfg, plan, opt, recovery, corruption)
+    step_fn = make_sim_step(loss_fn, scfg, plan, opt, recovery, corruption,
+                            telemetry=use_tel)
 
-    history: Dict[str, Any] = {
+    history = telemetry_lib.RunHistory({
         "step": [], "loss": [], "consensus": [], "eval": [], "step_s": [],
         "staleness": [], "corrupt_frac": [],
         "channel": repr(channel),
         "channel_effective_p": channel.effective_p() if rps_agg else 0.0,
-        "exchange_plan": plan.describe() if plan is not None else None}
+        "exchange_plan": plan.describe() if plan is not None else None})
+    # (t, lr, loss, consensus, staleness, corrupt_frac, taps) per step,
+    # on the device until the drain after the loop
+    pending = []
     for t in range(start_step, scfg.steps):
         t0 = time.perf_counter()
         lr = scfg.lr * min(1.0, (t + 1) / max(scfg.warmup, 1))
@@ -514,6 +579,8 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
                        wire_noise=wire_noise, pack_noise=pack_noise,
                        late=late if exchange else None,
                        corrupt_masks=cmask, corrupt_bits=corrupt_bits)
+        if use_tel:
+            stats, outs = outs[-1], outs[:-1]
         if use_ef:
             params, opt_state, loss, consensus, ef_state = outs
         else:
@@ -521,6 +588,11 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         history["step_s"].append(time.perf_counter() - t0)
+        if use_tel:
+            pending.append((t, lr, loss, consensus,
+                            late_frac if async_mode else None,
+                            corrupt_frac if corruption is not None else None,
+                            stats))
         if t % scfg.eval_every == 0 or t == scfg.steps - 1:
             history["step"].append(t)
             history["loss"].append(float(loss))
@@ -533,6 +605,10 @@ def run_simulation(loss_fn: Callable, init_fn: Callable,
                 mean_params = tree_lib.map(lambda x: torch.mean(x, 0),
                                            params)
                 history["eval"].append(float(eval_fn(mean_params)))
+    if use_tel:
+        _drain(reg, pending)
+        history.records = list(reg.memory.records)
+        history.summary = reg.summary()
     history["final_loss"] = history["loss"][-1]
     history["params"] = params
     history["channel_state"] = ch_state

@@ -3,7 +3,8 @@ initial parameters and per-step draws (drop masks, async lateness,
 corruption masks, int8 rounding noise, bitflip positions), made as
 ``repro.train.simulator.run_simulation`` makes them, for injection into
 the port's ``run_simulation`` (``init_params=``, ``masks_fn=``,
-``wire_noise_fn=``, ``corrupt_masks_fn=``, ``corrupt_bits_fn=``)."""
+``wire_noise_fn=``, ``pack_noise_fn=``, ``corrupt_masks_fn=``,
+``corrupt_bits_fn=``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,6 +67,23 @@ def reference_noise(scfg):
         k = jax.random.fold_in(
             jax.random.fold_in(_step_key(scfg, t), WIRE_TAG), g_idx)
         return t_(jax.random.uniform(k, shape))
+
+    return noise
+
+
+def reference_pack_noise(scfg):
+    """The reference's packed-state uniforms for step t, component
+    ``which`` and leaf i (simulator.py:365-366, optimizers.py, statepack
+    .py): uniform(fold_in(k, i)) with k = fold_in(fold_in(kt, 'pak'),
+    0x6d / 0x76) for the moments, fold_in(kt, 'ef') for the residual."""
+    def noise(t, which, i, shape):
+        kt = _step_key(scfg, t)
+        if which == "ef":
+            k = jax.random.fold_in(kt, 0x6566)
+        else:
+            k = jax.random.fold_in(jax.random.fold_in(kt, 0x70616b),
+                                   {"m": 0x6d, "v": 0x76}[which])
+        return t_(jax.random.uniform(jax.random.fold_in(k, i), shape))
 
     return noise
 
@@ -134,8 +152,8 @@ def reference_draws(init_fn, scfg):
 def run_both(kw, jloss, jinit, jbatch, tloss, tbatch, n=4, steps=5,
              eager=False, chaotic_from=None):
     """The reference simulator (jitted, or op by op with ``eager``) and
-    the port's on its initial parameters, masks, int8 uniforms and
-    corruption draws; the per-step loss within 1e-4, the consensus within
+    the port's on its initial parameters, masks, int8 and packed-state
+    uniforms and corruption draws; the per-step loss within 1e-4, the consensus within
     1e-4 — from step ``chaotic_from`` on, where a run on the int8 grid
     has turned chaotic, within 1e-2."""
     base = dict(n_workers=n, steps=steps, eval_every=1, lr=0.2, warmup=2,
@@ -153,6 +171,7 @@ def run_both(kw, jloss, jinit, jbatch, tloss, tbatch, n=4, steps=5,
         init_params=to_torch(np_tree(p1)),
         masks_fn=None if masks is None else (lambda t: masks[t]),
         wire_noise_fn=reference_noise(jscfg),
+        pack_noise_fn=reference_pack_noise(jscfg),
         corrupt_masks_fn=None if cmasks is None else (lambda t: cmasks[t]),
         corrupt_bits_fn=reference_bits(jscfg))
     assert th["step"] == jh["step"] == list(range(steps))

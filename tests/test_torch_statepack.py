@@ -44,6 +44,7 @@ from repro_torch.optim.statepack import (I8_LEVELS, canon_pack, is_packed_i8,
                                          make_state_pack, pack_tree,
                                          state_bytes_breakdown, tree_bytes,
                                          unpack_tree)
+from repro_torch.telemetry import taps
 from repro_torch.train import simulator as tsim
 
 KEY = jax.random.PRNGKey(21)
@@ -655,8 +656,8 @@ def test_simulator_packed_state_matches_reference(kw):
 
 def test_quant_error_norm_equals_reference():
     """The quantisation-error norm the reference's telemetry reports
-    (quant_err_<tap>); the port's telemetry is not ported, so the
-    simulator refuses it."""
+    (quant_err_<tap>), and pack_tree's tap of it under a collector
+    (nothing tapped without one)."""
     rng = np.random.default_rng(5)
     t = {"a": rng.normal(size=(4, 32)).astype(np.float32),
          "b": rng.normal(size=(3, 5, 16)).astype(np.float32)}
@@ -669,10 +670,11 @@ def test_quant_error_norm_equals_reference():
     got = float(tpack.quant_error_norm(tree_lib.map(torch.from_numpy, t),
                                        tp, "i8"))
     assert got == pytest.approx(want, rel=1e-6)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tsim.run_simulation(None, None, None, tsim.SimulatorConfig(
-            n_workers=2, steps=1, state_pack="i8", telemetry=True),
-            device="cpu")
+    with taps.tap_collector() as col:
+        pack_tree(tree_lib.map(torch.from_numpy, t), "i8",
+                  noise=_uniforms_fn(KEY), tap="ef")
+    assert set(col.tree()) == {"quant_err_ef"}
+    assert float(col.tree()["quant_err_ef"]) == got
 
 
 # ---- launch CLI -----------------------------------------------------------
