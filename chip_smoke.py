@@ -155,7 +155,7 @@ raises on failure; nothing is caught):
    (its first layer), on integer-valued replicas: on the card through the
    kernels (the ring engine's corrupted offer on the encoded variant)
    against the plain versions on the CPU with the same masks, corrupt
-   masks, uniforms and bits, the same values (NaN equal to NaN; the
+   masks, uniforms and bits (drawn on the card), the same values (NaN equal to NaN; the
    elements whose bits differ, a sign of zero or a NaN payload, counted;
    clip within 1e-6 of the largest contribution and an ulp of the
    output's rounding; the xla engine under bitflip and on the int8
@@ -223,7 +223,44 @@ raises on failure; nothing is caught):
    continuous, lossy 4-shard TP decode, with and without --telemetry-dir
    (serve_trace.json validates and holds serve.request for every
    request, serve.prefill and serve.queue; the greedy tokens and the
-   TP-combine launches equal).
+   TP-combine launches equal);
+32. deepseek-7b whole at full width (30 layers, 13.8 GB of random bf16
+   weights) on the continuous engine with lossy 4-shard TP decode
+   (Bernoulli p = 0.1): 8 prompts of 4,096 tokens (the chunked attention
+   route in prefill), 32 new tokens each; checks the tokens, finite
+   logits, TP-combine launches = 2 sites x 30 layers x decode steps, no
+   other kernel, and layer 0's chunked route against full attention on
+   the first prompt (ROUTE_TOL, bf16);
+33. starcoder2-15b whole (40 layers, 44.0 GB): 2 prompts of 12,288 tokens
+   (3 x its 4,096-token window: the blocked local route), the same
+   checks, layer 0's blocked route against full attention head group by
+   head group;
+34. llama3-405b at full width cut to 4 layers (33.9 GB): 8 prompts of
+   512 tokens, the TP combine at d = 16,384;
+35. mixtral-8x22b at full width cut to 4 layers (20.8 GB), then kimi-k2
+   cut to 1 layer (38.7 GB; 384 experts, top 8), the first freed before
+   the second: 8 prompts of 512 tokens, TP-combine launches = the
+   attention sites x decode steps (the MoE FFN keeps its dense expert
+   path); printed: the prefills' expert-load histogram, the share of
+   assignments the capacity dropped, the mean aux loss; then the TP
+   combine at d 4,096 / 6,144 / 7,168 / 16,384 ((8, 1, d) f32 partials,
+   n 4): bit for bit against its plain version on integer partials and
+   against the exchange route on normal ones, and its time in a CUDA
+   graph beside its plain version, the unfused chain and its bytes
+   bound;
+36. training through launch/train.py's main (the char-LM task at a
+   256-token vocabulary, ring engine, p = 0.1, seq 512, batch 2, 4
+   steps) at full width: rwkv6-1.6b whole at n = 4, recurrentgemma-9b
+   cut to one repeat of its block pattern (3 layers) at n = 2,
+   mixtral-8x22b cut to 1 layer at n = 2: finite losses and consensus,
+   ring launches = groups x steps, no RWKV-6, RG-LRU, TP-combine or
+   masked-average launch (the train kinds take the reference's XLA
+   routes), one exchange at the first layers' shapes, on integer
+   replicas that differ from worker to worker, bit for bit against
+   ring.cu's plain version on the card; step ms and peak memory.
+
+The phases' wall seconds are printed on one line before the kernels'
+line.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -239,6 +276,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -261,6 +299,8 @@ from repro_torch.kernels import rwkv6 as RK  # noqa: E402
 from repro_torch.kernels.ref import tp_combine_ref  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import layers as LM  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.netsim import request_trace  # noqa: E402
 from repro_torch.netsim import sim as netsim  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
@@ -268,6 +308,7 @@ from repro_torch.optim import statepack  # noqa: E402
 from repro_torch.serve import (ContinuousEngine, PagedCache,  # noqa: E402
                                ServeEngine, TPDecodeConfig, make_requests,
                                make_tp_context)
+from repro_torch.serve.scheduler import Request  # noqa: E402
 from repro_torch.train import (SimulatorConfig,  # noqa: E402
                                make_exchange_plan, run_simulation)
 
@@ -2255,12 +2296,12 @@ def _int_stack(tree_meta, n: int, seed: int, device: str = "cpu"):
                                 device=device).to(x.dtype), tree_meta)
 
 
-def _draw_hook(seed: int, fn, draws: str):
+def _draw_hook(seed: int, fn):
     """A per-group draw hook ``(g_idx, shape, device) -> tensor`` from
-    generators on ``draws`` seeded by (seed, g_idx), so two runs see the
+    generators on the card seeded by (seed, g_idx), so two runs see the
     same draws; ``fn(gen, shape)`` draws on the generator's device."""
     def hook(g_idx, shape, device):
-        g = torch.Generator(device=draws).manual_seed(seed * 1000 + g_idx)
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + g_idx)
         return fn(g, shape).to(device)
     return hook
 
@@ -2269,15 +2310,18 @@ def _on(tree, device):
     return tree_lib.map(lambda x: x.to(device), tree)
 
 
+def _uniforms(g: torch.Generator, shape) -> torch.Tensor:
+    return torch.rand(shape, generator=g, device=g.device)
+
+
 def _byz_exchange(x, masks, cm, plan, corruption, engine, recovery, seed,
-                  device, draws: str = "cpu"):
+                  device):
     """One rps_exchange_global of ``x`` on ``device`` with the masks and
     corrupt masks given and the int8 uniforms and bitflip bits drawn by
-    group on ``draws``."""
-    noise = _draw_hook(seed, lambda g, s: torch.rand(s, generator=g,
-                                                     device=g.device),
-                       draws)
-    bits = _draw_hook(seed + 1, channels_lib.corruption.random_bits, draws)
+    group on the card (the CPU's generator would take longer than the
+    exchange)."""
+    noise = _draw_hook(seed, _uniforms)
+    bits = _draw_hook(seed + 1, channels_lib.corruption.random_bits)
     out = rps_lib.rps_exchange_global(
         _on(x, device), None, BYZ_P, plan.n, mode="model",
         masks=tuple(m.to(device) for m in masks), plan=plan, engine=engine,
@@ -2295,9 +2339,8 @@ def _xla_sends(x, masks, cm, plan, corruption, seed) -> int:
     bf16 payload rounds the ±FLT_MAX clamp to ±inf, and the int8 wire's
     scale of such a row is inf, so NaNs appear). Returns the elements
     whose bits differ."""
-    noise = _draw_hook(seed, lambda g, s: torch.rand(s, generator=g),
-                       "cpu")
-    bits = _draw_hook(seed + 1, channels_lib.corruption.random_bits, "cpu")
+    noise = _draw_hook(seed, _uniforms)
+    bits = _draw_hook(seed + 1, channels_lib.corruption.random_bits)
     codec = rps_lib.wire_lib.make_codec(plan.wire)
     tables = plan.gather(x, lead=1)
     differ = 0
@@ -2477,7 +2520,7 @@ def byzantine_full(meta: dict, seed: int = 2500) -> dict:
 
         def exchange():
             return _byz_exchange(x, masks, cm, plan, corr, engine, "renorm",
-                                 s_i, "cuda", draws="cuda")
+                                 s_i, "cuda")
 
         reset_counts()
         got = exchange()
@@ -3305,7 +3348,441 @@ def launchers() -> dict:
     return out
 
 
-def main() -> int:
+class Laps:
+    """Wall seconds of the phases, lap by lap since the build; printed on
+    one line before the kernels' line."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = now - self.t
+        self.t = now
+
+    def report(self) -> None:
+        print(json.dumps({"phase_s": self.laps,
+                          "total_s": sum(self.laps.values())}), flush=True)
+
+
+# ---- phases 32-36: every decoder family at full width ----------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FullLoad:
+    """A full-width serving phase: ``arch`` cut to ``layers`` layers (None:
+    whole), ``requests`` prompts of ``prompt`` tokens, ``new`` greedy
+    tokens each, on the continuous engine with lossy 4-shard TP decode at
+    Bernoulli p = 0.1; ``route`` is the attention route its prefill takes
+    (checked against full attention on layer 0)."""
+    arch: str
+    layers: Optional[int]
+    requests: int
+    prompt: int
+    new: int
+    route: str
+
+
+# phase 32: the chunked route (prompts over 2048 tokens)
+DEEPSEEK_LOAD = FullLoad("deepseek-7b", None, 8, 4096, 32, "chunked")
+# phase 33: 3 x the 4096-token window, the blocked route; a multiple of
+# the window, where the reference's contiguous ring buffer is right too
+STARCODER_LOAD = FullLoad("starcoder2-15b", None, 2, 12_288, 32, "blocked")
+# phases 34-35: one card holds these at full width only with depth cut
+LLAMA_LOAD = FullLoad("llama3-405b", 4, 8, 512, 32, "full")
+MIXTRAL_LOAD = FullLoad("mixtral-8x22b", 4, 8, 512, 32, "full")
+KIMI_LOAD = FullLoad("kimi-k2-1t-a32b", 1, 8, 512, 32, "full")
+ROUTE_TOL = 2e-2               # a bf16 route against full attention
+ROUTE_LOGIT_BYTES = 8e9        # f32 scores of one full-attention slice
+# the TP combine at the new configs' widths: deepseek-7b, starcoder2-15b,
+# kimi-k2, llama3-405b (gemma3-1b's 1152 is row 1')
+TP_WIDTHS = (("deepseek-7b", 4096), ("starcoder2-15b", 6144),
+             ("kimi-k2-1t-a32b", 7168), ("llama3-405b", 16384))
+# phase 36: the training launcher at full width, its depth and n cut to
+# what one card holds (recurrentgemma-9b at n = 4 ran out of memory in
+# the consensus distance: the old and the new 22 GB replica stacks and an
+# f32 copy of the 4 x 1.05 B token embedding; n = 2 halves each)
+TRAIN_ARGS = ["--batch-size", "2", "--seq-len", "512", "--steps", "4",
+              "--engine", "ring", "--drop-rate", "0.1", "--task-vocab",
+              "256"]
+TRAIN_RUNS = (("rwkv6-1.6b", None, 4), ("recurrentgemma-9b", 3, 2),
+              ("mixtral-8x22b", 1, 2))
+
+
+def _full_config(arch: str, layers: Optional[int]) -> ArchConfig:
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                           n_layers=layers)
+
+
+def _gb(tree) -> float:
+    return sum(x.numel() * x.element_size()
+               for x in tree_lib.leaves(tree)) / 1e9
+
+
+class MoeStats:
+    """Records the MoE routing of every prefill (S > 1) while installed
+    in place of ``layers.moe_route``: the expert-load histogram, the
+    assignments the capacity dropped, the aux losses (device sums, one
+    host copy at the end)."""
+
+    def __init__(self, n_experts: int):
+        self.hist = torch.zeros(n_experts, dtype=torch.int64, device="cuda")
+        self.dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.aux = torch.zeros((), dtype=torch.float32, device="cuda")
+        self.assignments = self.calls = 0
+        self._orig = LM.moe_route
+
+    def __enter__(self):
+        def route(p, x, cfg):
+            rt = self._orig(p, x, cfg)
+            if x.shape[1] > 1:
+                self.hist += torch.bincount(rt["gate_idx"].reshape(-1),
+                                            minlength=self.hist.numel())
+                self.dropped += (~rt["keep"]).sum()
+                self.aux += rt["aux"]
+                self.assignments += rt["keep"].numel()
+                self.calls += 1
+            return rt
+        LM.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        LM.moe_route = self._orig
+
+    def summary(self) -> dict:
+        return {"expert_load": self.hist.tolist(),
+                "dropped_share": int(self.dropped) / max(self.assignments, 1),
+                "prefill_aux_mean": float(self.aux) / max(self.calls, 1),
+                "routed_prefill_layers": self.calls}
+
+
+def route_vs_full(attn: dict, x: torch.Tensor, cfg: ArchConfig,
+                  window: Optional[int], route: str) -> float:
+    """Layer 0's attention on ``route`` (chunked or blocked) against full
+    attention at the same q, k, v, head group by head group (at S =
+    12,288 the whole (S x S) f32 scores would be 29 GB); raises above
+    ROUTE_TOL. Returns the largest abs error."""
+    with torch.no_grad():
+        q, k, v = LM.attention_qkv(attn, x, cfg=cfg)
+        if LM.attention_route(q.shape[1], window, True) != route:
+            raise AssertionError(f"{cfg.name}: S {q.shape[1]} does not take "
+                                 f"the {route} route")
+        if route == "blocked":
+            got = LM.blocked_local_attention(q, k, v, window=window)
+        else:
+            got = LM.chunked_attention(q, k, v, causal=True, window=window)
+        B, S, h, hd = q.shape
+        kvh = k.shape[2]
+        g = h // kvh
+        per = max(1, int(ROUTE_LOGIT_BYTES // (B * g * S * S * 4)))
+        err = 0.0
+        for j in range(0, kvh, per):
+            want = LM.full_attention(q[:, :, j * g:(j + per) * g],
+                                     k[:, :, j:j + per], v[:, :, j:j + per],
+                                     causal=True, window=window)
+            part = got[:, :, j * g:(j + per) * g]
+            err = max(err, (part.float() - want.float()).abs().max().item())
+            if not torch.allclose(part.float(), want.float(), atol=ROUTE_TOL,
+                                  rtol=ROUTE_TOL):
+                raise AssertionError(f"{cfg.name}: the {route} route differs "
+                                     f"from full attention by {err}")
+            del want
+    return err
+
+
+def serve_full(load: FullLoad, gen: torch.Generator) -> dict:
+    """Phases 32-35: ``load`` at full width (random bf16 weights) on the
+    continuous engine with lossy TP decode. Checks every request's
+    tokens, finite decode logits, the TP-combine launches (each attention
+    site and each dense MLP site, once per decode step; the MoE FFN keeps
+    its dense expert path), no masked-average launch, and layer 0's
+    prefill route against full attention. Times the prefills (each
+    synchronised) apart from the rest of the wall."""
+    cfg = _full_config(load.arch, load.layers)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=load.prompt),
+                    max_new=load.new, arrival_ms=0.0)
+            for i in range(load.requests)]
+    page = 16
+    per = -(-(load.prompt + load.new) // page)
+    eng = ContinuousEngine(model, params, page=page,
+                           n_blocks=1 + per * load.requests, max_batch=8,
+                           chunk=8, max_len=load.prompt + load.new,
+                           tp=TPDecodeConfig(n_shards=4, p=0.1))
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    decode = model.decode_paged
+
+    def decode_checked(*args, **kwargs):
+        nonlocal finite
+        logits, pool = decode(*args, **kwargs)
+        finite = finite & torch.isfinite(logits).all()
+        return logits, pool
+
+    model.decode_paged = decode_checked
+    prefill, prefill_s = model.prefill, 0.0
+
+    def prefill_timed(*args, **kwargs):
+        nonlocal prefill_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(*args, **kwargs)
+        torch.cuda.synchronize()
+        prefill_s += time.perf_counter() - t0
+        return out
+
+    model.prefill = prefill_timed
+    stats = MoeStats(cfg.n_experts) if cfg.is_moe else None
+    torch.cuda.synchronize()
+    reset_counts()
+    if stats is not None:
+        with stats:
+            rep = eng.run(reqs, drain=True)
+    else:
+        rep = eng.run(reqs, drain=True)
+    torch.cuda.synchronize()
+    launches = K.tp_combine.launches
+    others = {"masked_avg_grid": K.masked_avg_grid.launches,
+              "rwkv6": RK.rwkv6.launches, "rglru": GK.rglru.launches}
+    model.decode_paged, model.prefill = decode, prefill
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for r in rep.requests:
+        if len(r.generated) != r.max_new or not all(
+                0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"{cfg.name} request {r.rid}: "
+                                 f"{len(r.generated)} tokens {r.generated}")
+    if not bool(finite):
+        raise AssertionError(f"{cfg.name}: non-finite decode logits")
+    steps = eng.chunk * rep.rounds
+    sites = cfg.n_layers if cfg.is_moe else 2 * cfg.n_layers
+    if launches != sites * steps or any(others.values()):
+        raise AssertionError(f"{cfg.name}: {launches} TP-combine launches, "
+                             f"want {sites} sites x {steps} steps; others "
+                             f"{others}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "weights_gb": _gb(params), "init_s": init_s,
+           "requests": len(rep.requests), "prompt": load.prompt,
+           "tokens": rep.tokens, "wall_s": rep.wall_s,
+           "tokens_per_s": rep.tokens_per_s, "rounds": rep.rounds,
+           "prefills": rep.prefills, "decode_steps": steps,
+           # the prefills' time, each synchronised; the rest of the wall
+           # (the decode rounds and the host's scheduling) per step
+           "prefill_s": prefill_s,
+           "decode_ms_per_step": (rep.wall_s - prefill_s) * 1e3 / steps,
+           "tp_combine_launches": launches, "peak_memory_gb": peak}
+    if stats is not None:
+        out.update(stats.summary())
+    # layer 0's route against full attention, on the first prompt
+    layer0 = params["layers"][0]
+    x = LM.rms_norm(LM.embed(params["embed"], torch.as_tensor(
+        reqs[0].prompt[None, :], device="cuda")), layer0["ln1"])
+    attn = layer0["attn"]
+    window = T.window_of(model.kinds[0])
+    del model, params, eng, layer0, decode, prefill
+    torch.cuda.empty_cache()
+    if load.route != "full":
+        out["route_max_abs_err"] = route_vs_full(attn, x, cfg, window,
+                                                 load.route)
+    out["route"] = load.route
+    del attn, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_widths(gen: torch.Generator) -> dict:
+    """The TP-combine kernel at the new configs' widths, n = 4, (8, 1, d)
+    f32 partials, the f32 wire, Bernoulli p = 0.1 masks: bit for bit
+    against its plain version on integer partials and against the
+    exchange route on normal ones (within 1e-6 of the plain version
+    there), then timed as row 1' is (a CUDA graph between events) beside
+    its plain version and its bytes bound."""
+    out = {}
+    for arch, d in TP_WIDTHS:
+        cfg = get_config(arch)
+        B, n = 8, 4
+        tp = make_tp_context(TPDecodeConfig(n_shards=n, p=0.1), cfg, B)
+        masks, _ = tp.sample_site_masks(gen, None)
+        g = tp.geometry
+        site = 1
+
+        def plain(x):
+            return tp_combine_ref(x, masks[0], masks[1], site, n=n,
+                                  receiver=tp.receiver, s=g.s, blk=g.blk,
+                                  pad=g.pad, wire_dtype=tp.wire_dtype)
+
+        xi = tp_partials(gen, n, B, d, torch.float32, True, False)
+        if not torch.equal(_bits(tp._exchange(xi, masks, site)),
+                           _bits(plain(xi).contiguous())):
+            raise AssertionError(f"tp_combine d {d}: integer partials not "
+                                 f"bit for bit with the plain version")
+        x = torch.randn((n, B, 1, d), generator=gen, device="cuda")
+        got = tp._exchange(x, masks, site)
+        if not torch.equal(_bits(got),
+                           _bits(tp._exchange_global(x, masks,
+                                                     site).contiguous())):
+            raise AssertionError(f"tp_combine d {d}: not bit for bit with "
+                                 f"the exchange route")
+        err = (got - plain(x)).abs().max().item()
+        if err > TP_TOL[torch.float32]:
+            raise AssertionError(f"tp_combine d {d}: {err} from the plain "
+                                 f"version")
+        nbytes = (x.numel() * 4 + (n + 1) * g.s * masks[0].element_size()
+                  + B * d * 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 3 * n * B * d / F32_FLOPS_PER_S
+        out[str(d)] = {
+            "arch": arch, "ms": device_ms(lambda: tp._exchange(x, masks,
+                                                               site)),
+            "plain_ms": device_ms(lambda: plain(x)),
+            "unfused_ms": device_ms(lambda: tp._exchange_global(x, masks,
+                                                                site)),
+            "max_abs_err_vs_plain": err,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes}
+    return out
+
+
+def _ring_plain_exchange(layers_meta, scfg) -> int:
+    """One model-mode exchange at the shapes and dtypes of the first
+    layer of every kind of the run's replicas (``layers_meta``, the
+    stacked ``layers`` subtree on the meta device) on the ring engine,
+    through ring.cu and through its plain version on the card, with the
+    same masks: bit for bit. The replicas are integer-valued and differ from
+    worker to worker (the trained ones may have reached consensus, where
+    a masked average is blind to its masks). Returns the elements
+    compared."""
+    n = scfg.n_workers
+    gen = torch.Generator(device="cuda").manual_seed(360)
+    sub = {"layers": tree_lib.map(
+        lambda x: torch.randint(-8, 9, (n, 1) + tuple(x.shape[2:]),
+                                generator=gen, device="cuda",
+                                dtype=x.dtype), layers_meta)}
+    if all(torch.equal(x[0], x[1]) for x in tree_lib.leaves(sub)):
+        raise AssertionError("ring exchange: the replicas are equal")
+    plan = make_exchange_plan(tree_lib.map(lambda x: x[0], sub), scfg)
+    masks = rps_lib.sample_masks(torch.Generator(device="cuda").manual_seed(
+        36), n, scfg.drop_rate, plan.s, n_buckets=plan.n_buckets)
+
+    def exchange():
+        return tree_lib.leaves(rps_lib.rps_exchange_global(
+            sub, None, scfg.drop_rate, n, mode="model", masks=masks,
+            plan=plan, engine="ring"))
+
+    card = exchange()
+    kernel = rps_lib.ops.ring_round
+    rps_lib.ops.ring_round = functools.partial(kernel, backend="ref")
+    try:
+        plain = exchange()
+    finally:
+        rps_lib.ops.ring_round = kernel
+    for a, b in zip(card, plain):
+        if not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError("ring exchange: ring.cu differs from its "
+                                 "plain version")
+    return sum(x.numel() for x in card)
+
+
+def train_families() -> dict:
+    """Phase 36: ``launch/train.py``'s path (``train_launcher.main``) at
+    full width on the char-LM task (its vocabulary 256), ring engine,
+    p = 0.1, seq 512, batch 2, 4 steps: rwkv6-1.6b whole at n = 4,
+    recurrentgemma-9b cut to one repeat of its block pattern at n = 2,
+    mixtral-8x22b cut to one layer at n = 2. Checks finite losses and
+    consensus, ring launches = groups x steps, no RWKV-6 or RG-LRU kernel launch (the train kinds
+    take the reference's XLA routes), and one exchange at the first
+    layers' shapes, on integer replicas that differ from worker to
+    worker, bit for bit against ring.cu's plain version."""
+    out = {}
+    for arch, layers, n in TRAIN_RUNS:
+        args = ["--arch", arch, "--workers", str(n)] + TRAIN_ARGS
+        if layers is not None:
+            args += ["--layers", str(layers)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        h = train_launcher.main(args)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {"ring": RG.ring_round.launches,
+                    "rwkv6": RK.rwkv6.launches, "rglru": GK.rglru.launches,
+                    "tp_combine": K.tp_combine.launches,
+                    "masked_avg_grid": K.masked_avg_grid.launches}
+        cfg = _full_config(arch, layers)
+        one = tree_lib.map(lambda x: x[0], h["params"])
+        scfg = SimulatorConfig(n_workers=n, drop_rate=0.1, engine="ring")
+        groups = len(rps_lib._global_groups(make_exchange_plan(one, scfg)))
+        steps = len(h["step_s"])
+        if not (all(np.isfinite(h["loss"]))
+                and all(np.isfinite(h["consensus"]))):
+            raise AssertionError(f"{arch}: losses {h['loss']}, consensus "
+                                 f"{h['consensus']}")
+        if launches["ring"] != groups * steps or any(
+                v for k, v in launches.items() if k != "ring"):
+            raise AssertionError(f"{arch}: launches {launches}, want "
+                                 f"{groups} groups x {steps} steps of the "
+                                 f"ring kernel alone")
+        per_worker = sum(x.numel() for x in tree_lib.leaves(one))
+        layers_meta = tree_lib.map(
+            lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+            h.pop("params")["layers"])
+        del one, h["state"], h["ef_state"]   # the card's memory for the check
+        torch.cuda.empty_cache()
+        compared = _ring_plain_exchange(layers_meta, scfg)
+        out[arch] = {"layers": cfg.n_layers, "workers": n,
+                     "params_per_worker": per_worker,
+                     "loss": h["loss"], "consensus": h["consensus"],
+                     "first_step_ms": h["step_s"][0] * 1e3,
+                     "step_ms": [t * 1e3 for t in h["step_s"][1:]],
+                     "wall_s": wall, "peak_memory_gb": peak,
+                     "groups": groups, "launches": launches,
+                     "exchange_elements_bitwise": compared}
+        del h
+        print(json.dumps({"train_family": out[arch], "arch": arch}),
+              flush=True)
+    return out
+
+
+def new_phases(gen: torch.Generator, card: str, lap: Laps) -> dict:
+    """Phases 32-36, each printing its line; returns the launches they add
+    to the kernels' line."""
+    tp_launches = 0
+    for phase, load in (("32", DEEPSEEK_LOAD), ("33", STARCODER_LOAD),
+                        ("34", LLAMA_LOAD), ("35a", MIXTRAL_LOAD),
+                        ("35b", KIMI_LOAD)):
+        got = serve_full(load, gen)
+        tp_launches += got["tp_combine_launches"]
+        print(json.dumps({"serve_full": got, "phase": phase, "card": card}),
+              flush=True)
+        lap(phase)
+    widths = tp_widths(gen)
+    print(json.dumps({"tp_combine_widths": widths, "card": card}),
+          flush=True)
+    lap("35c")
+    fams = train_families()
+    print(json.dumps({"train_families": fams, "card": card}), flush=True)
+    lap("36")
+    return {"tp_combine_launches": tp_launches,
+            "ring_launches": sum(v["launches"]["ring"]
+                                 for v in fams.values())}
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -3318,6 +3795,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load_kernels()
     print(f"build_s {time.perf_counter() - t0:.3f}", flush=True)
+    lap = Laps()
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -3325,11 +3803,13 @@ def main() -> int:
     err = check_kernel(gen, xla_shapes)
     timing = time_kernel(gen, xla_shapes["quickstart"][-1])
     print(json.dumps({"kernel_timing": timing, "card": card}), flush=True)
+    lap("3")
     tp_err = check_tp_combine(gen)
     tp_timing = time_tp_combine(gen)
     print(json.dumps({"tp_combine_errors": tp_err,
                       "tp_combine_timing": tp_timing, "card": card}),
           flush=True)
+    lap("3c")
 
     model, params = init_model("gemma3-1b", gen)
     slice_ = serve_slice(model, params)
@@ -3338,6 +3818,7 @@ def main() -> int:
     print(json.dumps({"dense_equivalence": equiv}), flush=True)
     del model, params
     torch.cuda.empty_cache()
+    lap("4-5")
 
     rwkv_err = check_rwkv6(gen)
     rwkv_timing = time_rwkv6(gen)
@@ -3350,6 +3831,7 @@ def main() -> int:
     print(json.dumps({"rwkv6_prefill_vs_decode": pvd}), flush=True)
     del model, params
     torch.cuda.empty_cache()
+    lap("6-8")
 
     rg_err = check_rglru(gen)
     rg_timing = time_rglru(gen)
@@ -3366,6 +3848,7 @@ def main() -> int:
                       torch.cuda.max_memory_allocated() / 1e9}), flush=True)
     del model, params
     torch.cuda.empty_cache()
+    lap("9-12")
 
     ring_cases, ring_err = check_ring(gen)
     # the training phases' per-leaf plans at n = 16 (shapes only)
@@ -3388,14 +3871,18 @@ def main() -> int:
                       "ring_timing_bucket": ring_bucket, "card": card}),
           flush=True)
     torch.cuda.empty_cache()
+    lap("13-14")
     qs = quickstart(groups=len(xla_shapes["quickstart"]))
     print(json.dumps({"quickstart": qs, "card": card}), flush=True)
+    lap("15")
     la = launcher_default()
     print(json.dumps({"launcher_default": la, "card": card}), flush=True)
+    lap("16")
     setup = rps100m_setup(gen)
     big = rps100m(setup)
     print(json.dumps({"rps_100m": big, "card": card}), flush=True)
     torch.cuda.empty_cache()
+    lap("17")
 
     enc_cases, enc_err = check_ring_enc(gen, plans)
     enc_group = time_ring_enc(gen, group)
@@ -3410,18 +3897,24 @@ def main() -> int:
                                          "bucket": ring_bucket["ms"]},
                       "card": card}), flush=True)
     torch.cuda.empty_cache()
+    lap("18-19")
     gap = ef_gap_closure()
     print(json.dumps({"ef_gap_closure": gap, "card": card}), flush=True)
+    lap("20")
     big_int8 = rps100m_int8(setup, big["loss"])
     print(json.dumps({"rps_100m_int8": big_int8, "card": card}), flush=True)
+    lap("21")
     chans = channels_bench()
     print(json.dumps({"channels": chans, "card": card}), flush=True)
+    lap("22")
     conv = packed_convergence()
     print(json.dumps({"state_bench_convergence": conv, "card": card}),
           flush=True)
+    lap("23")
     packs = rps100m_packs(setup)
     print(json.dumps({"rps_100m_state_packs": packs, "card": card}),
           flush=True)
+    lap("24")
 
     t0 = time.perf_counter()
     byz = byzantine_exchanges(trees)
@@ -3457,6 +3950,9 @@ def main() -> int:
     launch = launchers()
     launch["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"launchers": launch, "card": card}), flush=True)
+    lap("25-31")
+    new = new_phases(gen, card, lap)
+    lap.report()
     robust_launches = sum(v["masked_avg_launches"]
                           for v in rb["sweep"].values())
 
@@ -3476,7 +3972,8 @@ def main() -> int:
                "source": "src/repro_torch/kernels/csrc/masked_avg.cu",
                "replaces": "src/repro/kernels/masked_avg.py:58",
                "launches": slice_["tp_combine_launches"]
-               + launch["tp_combine_launches"],
+               + launch["tp_combine_launches"]
+               + new["tp_combine_launches"],
                "max_abs_err": tp_err["max_abs_err_f32_wire"],
                "ms": tp_timing["ms"], "plain_ms": tp_timing["plain_ms"],
                "bound_ms": tp_timing["bound_ms"],
@@ -3508,7 +4005,8 @@ def main() -> int:
             "launches": big["ring_launches"] + ab["launches"]["ring"]
             + asy["sync"]["ring_launches"] + asy["async"]["ring_launches"]
             + attack["renorm"]["ring_enc_launches"]
-            + tel["launches_off"]["ring"] + tel["launches_on"]["ring"],
+            + tel["launches_off"]["ring"] + tel["launches_on"]["ring"]
+            + new["ring_launches"],
             "max_abs_err": ring_err,
             "ms": ring_group["ms"], "plain_ms": ring_group["plain_ms"],
             "bound_ms": ring_group["bound_ms"],

@@ -7,12 +7,13 @@ on a machine without it raises instead of falling back.
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device="cuda") -> torch.device:
-    """The device an entry point runs on. ``"cuda"`` (the default) raises
-    when no GPU is visible — there is no silent move to the CPU."""
+def resolve_device(device="cuda"):
+    """The device (a ``torch.device``) an entry point runs on. ``"cuda"``
+    (the default) raises when no GPU is visible — there is no silent move
+    to the CPU. torch is imported here, not with the package, so that
+    :mod:`repro_torch.launch.env` can set the thread pools first."""
+    import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

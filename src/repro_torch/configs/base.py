@@ -1,7 +1,10 @@
 """Architecture config (port of :mod:`repro.configs.base`).
 
-Only the fields the ported families (dense, ssm, hybrid) read are kept;
-the other families' fields land with their models.
+Only the fields the ported families (dense with its MoE variant, ssm,
+hybrid) read are kept; the vlm and audio families' fields land with their
+models. ``rps_mode`` and ``shard_strategy`` are carried as the reference
+sets them and not acted on: they pick the mesh trainer's mode and
+sharding, and the port has no mesh yet.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class ArchConfig:
     """Architecture hyper-parameters. ``family`` selects the model:
     "dense" (decoder-only transformer: GQA, RoPE, optional sliding window
-    with a local:global pattern), "ssm" (RWKV-6, attention-free) or
+    with a local:global pattern, optional MoE FFN when ``n_experts`` > 0),
+    "ssm" (RWKV-6, attention-free) or
     "hybrid" (RecurrentGemma: RG-LRU recurrent layers interleaved with
     local attention by ``block_pattern``)."""
     name: str
@@ -33,7 +37,11 @@ class ArchConfig:
     window: Optional[int] = None              # sliding-window size
     # every `global_every`-th layer is full attention (gemma3: 6)
     global_every: Optional[int] = None
+    # MoE: n_experts experts, top_k of them per token, each holding at most
+    # ceil(tokens·top_k / n_experts · capacity_factor) assignments
     n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     # hybrid (RecurrentGemma): repeating unit, e.g. ("rec", "rec", "attn")
     block_pattern: Optional[Tuple[str, ...]] = None
     # rwkv6 / rglru recurrence width
@@ -41,6 +49,10 @@ class ArchConfig:
     max_seq: int = 131_072
     rope_theta: float = 10_000.0
     dtype: str = "bfloat16"
+    # RPS integration mode and parameter sharding of the mesh trainer
+    # (carried, not acted on: the port has no mesh yet)
+    rps_mode: str = "rps_model"               # "rps_model" | "rps_grad"
+    shard_strategy: str = "tp"                # "tp" | "fsdp"
     citation: str = ""
 
     @property
@@ -62,7 +74,8 @@ class ArchConfig:
         return _TORCH_DTYPES[self.dtype]
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: same topology, tiny dims, f32."""
+        """Smoke-test variant: same topology, tiny dims (at most 4 experts,
+        top 2), f32."""
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
@@ -78,6 +91,8 @@ class ArchConfig:
             head_dim=64,
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
             d_state=min(self.d_state, 64) if self.d_state else None,
             window=min(self.window, 64) if self.window else None,
             max_seq=4096,

@@ -22,15 +22,34 @@ drop-masked tensor-parallel decode, on the GPU unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --serve continuous \
       --full --tp-shards 4 -p 0.1
 
-The flags are the JAX launcher's. ``--serve legacy`` serves every ported
-family (dense, ssm, hybrid) on the contiguous cache. Its windowed
-attention layers keep the reference's ring buffer, which holds the right
-positions only when ``--prompt-len`` is a multiple of the window; the
-port reproduces the reference's output at other lengths too (ROADMAP
-C). ``--serve continuous`` serves the dense
-family; with ``--telemetry-dir D`` it writes the session's Chrome trace
-(``serve.prefill`` spans, a ``serve.request`` event per request, the
-``serve.queue`` counter) to ``D/serve_trace.json``.
+  # deepseek-7b (or starcoder2-15b) whole at full width, continuous,
+  # lossy TP decode; a prompt over 2048 tokens takes the chunked route
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve continuous \
+      --arch deepseek-7b --full --tp-shards 4 -p 0.1 --drain \
+      --requests 8 --prompt-len 4096 --new-tokens 32 --kv-blocks 2200
+
+  # a config one card cannot hold whole, its depth cut
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve continuous \
+      --arch mixtral-8x22b --full --layers 4 --tp-shards 4 -p 0.1 --drain
+
+  # MoE at smoke-test size on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve continuous \
+      --arch kimi-k2-1t-a32b --tp-shards 4 -p 0.1 --drain --device cpu
+
+The flags are the JAX launcher's, plus ``--device`` and ``--layers``
+(the depth cut, after ``--reduced`` / ``--full``). ``--arch`` takes
+every config of the registry but the vlm and audio families; at full
+width one 80 GB card holds gemma3-1b, rwkv6-1.6b, recurrentgemma-9b,
+deepseek-7b and starcoder2-15b whole, while llama3-405b, mixtral-8x22b
+and kimi-k2-1t-a32b need ``--layers`` (4, 4 and 1 fit). ``--serve legacy`` serves every
+ported family (dense with its MoE variant, ssm, hybrid) on the
+contiguous cache. Its windowed attention layers keep the reference's
+ring buffer, which holds the right positions only when ``--prompt-len``
+is a multiple of the window; the port reproduces the reference's output
+at other lengths too (ROADMAP C). ``--serve continuous`` serves the dense
+family, MoE included; with ``--telemetry-dir D`` it writes the session's
+Chrome trace (``serve.prefill`` spans, a ``serve.request`` event per
+request, the ``serve.queue`` counter) to ``D/serve_trace.json``.
 """
 from __future__ import annotations
 
@@ -41,7 +60,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.launch.common import add_model_flags, arch_config
 from repro_torch.models import build_model
 from repro_torch.netsim import request_trace
 from repro_torch.serve import (ContinuousEngine, ServeEngine, TPDecodeConfig,
@@ -90,11 +109,10 @@ def main(argv=None):
                          "(continuous batching)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a GPU")
+    add_model_flags(ap)
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    cfg = arch_config(args)
     model = build_model(cfg, device=args.device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(0)

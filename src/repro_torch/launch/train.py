@@ -33,6 +33,17 @@ the summary:
 ``--checkpoint C`` saves the workers' mean parameters to C in the npz
 layout of :mod:`repro_torch.checkpoint` (which the JAX package's
 ``load_pytree`` reads too).
+
+``--arch`` takes every config but the vlm and audio families; the rwkv
+and rec kinds train on the reference's XLA-route recurrences, the MoE
+kinds add their load-balance loss. ``--layers N`` cuts the depth (full
+width, as the serving launcher's):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \
+      --reduced --steps 3 --workers 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch \
+      recurrentgemma-9b --layers 3 --workers 4 --batch-size 2 \
+      --seq-len 512 --steps 4 --engine ring --task-vocab 256
 """
 from __future__ import annotations
 
@@ -45,8 +56,8 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.checkpoint import save_pytree
-from repro_torch.configs import get_config
 from repro_torch.data.synthetic import CharLMTask, make_worker_streams
+from repro_torch.launch.common import add_model_flags, arch_config
 from repro_torch.models import build_model
 from repro_torch.telemetry import Telemetry
 from repro_torch.train.simulator import SimulatorConfig, run_simulation
@@ -145,14 +156,21 @@ def main(argv=None):
                          "tools/render_experiments.py --telemetry DIR")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--task-vocab", type=int, default=None,
+                    help="the char-LM task's vocabulary (default: the "
+                         "model's); its Markov table is vocab^2 doubles, so "
+                         "a full-size vocabulary (65,536 to 256,000 "
+                         "tokens) needs a smaller one, e.g. 256")
+    add_model_flags(ap)
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    cfg = arch_config(args)
     model = build_model(cfg, device=args.device)
-    task = CharLMTask(vocab=cfg.vocab_size, seq_len=args.seq_len,
-                      seed=args.seed, device=args.device)
+    vocab = args.task_vocab or cfg.vocab_size
+    if not 1 <= vocab <= cfg.vocab_size:
+        raise ValueError(f"--task-vocab {vocab}: need 1..{cfg.vocab_size}")
+    task = CharLMTask(vocab=vocab, seq_len=args.seq_len, seed=args.seed,
+                      device=args.device)
     batch_fn = make_worker_streams(task, args.workers, args.batch_size)
 
     def loss_fn(p, b):

@@ -13,9 +13,11 @@ kernel takes mixed dtypes; the recurrence carries in f32 and its output
 comes back in the model dtype. ``jax.nn.gelu`` defaults to the tanh
 approximation, and so does :func:`_block`.
 
-Ported: parameter init, the prefill (one kernel launch per layer, whose
-final f32 carry is the decode state) and the decode step. Training waits
-for a later slice.
+Ported: parameter init, the train-mode layer pass (on the reference's
+XLA route, ``ops.rglru(backend="xla")``: the associative scan that
+autograd differentiates; the CUDA kernel is forward only), the prefill
+(one kernel launch per layer, whose final f32 carry is the decode state)
+and the decode step.
 """
 from __future__ import annotations
 
@@ -78,22 +80,33 @@ def _gates(p, u: torch.Tensor):
     return torch.exp(log_a), i
 
 
-def _block(p, xin: torch.Tensor, conv_state=None, rec_state=None):
+def _block(p, xin: torch.Tensor, conv_state=None, rec_state=None,
+           backend: str = "auto"):
     """The recurrent block over a sequence (``rec_state`` None: the
-    kernel from a zero carry) or one decode step (from ``rec_state``).
-    Returns (out, new conv state, h_last f32)."""
+    recurrence from a zero carry on ``backend``'s route) or one decode
+    step (from ``rec_state``). Returns (out, new conv state, h_last
+    f32)."""
     y = F.gelu(xin @ p["wy"], approximate="tanh")
     u = xin @ p["wx"]
     u, new_conv = _causal_conv(u, p["conv"], conv_state)
     a, i = _gates(p, u)
     gated = i * u
     if rec_state is None:
-        h_seq, h_last = K.rglru(gated, a)
+        h_seq, h_last = K.rglru(gated, a, backend=backend)
     else:
         h_last = K.rglru_step(gated[:, 0], a[:, 0], rec_state)
         h_seq = h_last[:, None, :]
     out = (h_seq.to(xin.dtype) * y) @ p["wo"]
     return out, new_conv, h_last
+
+
+def train(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The train-mode layer pass (the reference's ``train``, its rglru on
+    the XLA route). Returns x."""
+    xin = L.rms_norm(x, p["ln1"])
+    out, _, _ = _block(p, xin, backend="xla")
+    x = x + out
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
 
 
 def prefill(p, x: torch.Tensor, cfg: ArchConfig):

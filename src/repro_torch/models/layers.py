@@ -1,25 +1,29 @@
 """Model primitives (port of :mod:`repro.models.layers`): RMS norm, RoPE,
-GQA attention (prefill, contiguous and paged decode), gated MLP,
-embedding and head.
+GQA attention (full, chunked and blocked-local for prefill and training;
+contiguous and paged decode), gated MLP, sort-based MoE, embedding and
+head.
 
 Layouts are the JAX package's: ``wq``/``wk``/``wv`` are (d, h, hd), ``wo``
-is (h, hd, d), activations (B, S, …), the contiguous KV cache is
-(B, C, kvh, hd) and the paged KV pool (n_slots, kvh, hd) per layer.
-Mixed-dtype products follow JAX's type promotion (:func:`einsum`), so a
-bf16 weight meeting an f32 activation is computed in f32, as the
-reference does.
+is (h, hd, d), the experts' ``wi``/``wg`` (E, d, ff) and ``wo`` (E, ff,
+d), activations (B, S, …), the contiguous KV cache is (B, C, kvh, hd) and
+the paged KV pool (n_slots, kvh, hd) per layer. Mixed-dtype products
+follow JAX's type promotion (:func:`einsum`), so a bf16 weight meeting an
+f32 activation is computed in f32, as the reference does.
 
-Prefill runs :func:`full_attention` at every length. The JAX package
-switches to blocked local or chunked attention above 2·window or 2048
-tokens; those compute the same function and the tests hold the port to
-them within tolerance.
+:func:`attention_fwd` takes the reference's routes: blocked local
+attention above 2·window (with ``blocked``), chunked online-softmax
+attention above 2048 tokens, the quadratic form otherwise. They are plain
+torch products, as the reference's are plain XLA; no kernel replaces
+them.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -38,10 +42,22 @@ def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
 def _init(gen: torch.Generator, shape, scale: float,
           dtype: torch.dtype) -> torch.Tensor:
     """Normal(0, scale²) in f32 cast to ``dtype`` (the reference's
-    ``_init``), drawn from ``gen`` on its device."""
+    ``_init``), drawn from ``gen`` on its device (scaled in place: one f32
+    copy at a time)."""
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
+
+
+def _init_stacked(gen: torch.Generator, shape, scale: float,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_init` drawn slice by slice along the leading axis into the
+    ``dtype`` tensor: an expert stack holds one f32 slice at a time (a
+    (384, 7168, 2048) stack is 22.5 GB in f32, 11.3 GB in bf16)."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = _init(gen, shape[1:], scale, dtype)
+    return out
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -111,6 +127,127 @@ def full_attention(q, k, v, *, causal: bool = True,
     return _sdpa(q, k, v, mask)
 
 
+def _kv_step(acc, m, l, q_i, kj, vj, q_lo: int, k_lo: int, Sk: int,
+             causal: bool, window: Optional[int]):
+    """One KV chunk of the online softmax: the (qc x kc) score tile
+    against chunk ``kj``/``vj`` folded into the running (acc, max, sum)."""
+    qc, kc = q_i.shape[1], kj.shape[1]
+    s = einsum("bqkgh,bskh->bkgqs", q_i, kj).to(torch.float32)
+    s = s * (q_i.shape[-1] ** -0.5)
+    qpos = q_lo + torch.arange(qc, device=s.device)
+    kpos = k_lo + torch.arange(kc, device=s.device)
+    delta = qpos[:, None] - kpos[None, :]
+    mask = (kpos < Sk)[None, :] if not causal else delta >= 0
+    if window is not None:
+        mask = mask & (delta < window)
+    s = s.masked_fill(~mask, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    acc = acc * corr[..., None] + einsum("bkgqs,bskh->bkgqh",
+                                         p.to(vj.dtype), vj)
+    return acc, m_new, l
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None, q_chunk: int = 512,
+                      k_chunk: int = 1024):
+    """Memory-efficient (flash-style) attention in plain torch: online
+    softmax over KV chunks, the q chunks unrolled so that causally dead
+    (and out-of-window) KV chunks are skipped by their static ranges, as
+    the reference's. With grad on, each KV step is checkpointed
+    (``torch.utils.checkpoint`` where the reference has
+    ``jax.checkpoint``), so the backward recomputes the (qc x kc) score
+    tiles instead of keeping S x S f32 scores."""
+    B, S, h, hd = q.shape
+    Sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qc, kc = min(q_chunk, S), min(k_chunk, Sk)
+    pad_q, pad_k = (-S) % qc, (-Sk) % kc
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = (S + pad_q) // qc, (Sk + pad_k) // kc
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    f32 = torch.float32
+    outs = []
+    for iq in range(nq):
+        q_i = q[:, iq * qc:(iq + 1) * qc].reshape(B, qc, kvh, g, hd)
+        q_lo, q_hi = iq * qc, iq * qc + qc - 1
+        # static KV-chunk range: causal upper bound, window lower bound
+        j_hi = nk - 1 if not causal else min(nk - 1, q_hi // kc)
+        j_lo = 0 if window is None else max(0, (q_lo - int(window)) // kc)
+        acc = torch.zeros((B, kvh, g, qc, hd), dtype=f32, device=q.device)
+        m = torch.full((B, kvh, g, qc), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((B, kvh, g, qc), dtype=f32, device=q.device)
+        for j in range(j_lo, j_hi + 1):
+            args = (acc, m, l, q_i, k[:, j * kc:(j + 1) * kc],
+                    v[:, j * kc:(j + 1) * kc], q_lo, j * kc, Sk, causal,
+                    window)
+            if remat:
+                acc, m, l = checkpoint(_kv_step, *args, use_reentrant=False)
+            else:
+                acc, m, l = _kv_step(*args)
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        o = o.movedim(3, 1).reshape(B, qc, h, hd)
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :S]
+
+
+def blocked_local_attention(q, k, v, *, window: int):
+    """Exact sliding-window causal attention in O(S·window): the queries
+    of block b (block size = window) attend to key blocks b-1 and b,
+    masked to ``qpos - kpos`` in [0, window). The reference computes all
+    blocks in one product; the port loops over the blocks, the same
+    products block by block, so that one block's (w x 2w) f32 scores
+    live at a time (starcoder2-15b's 48 heads at w = 4096: 6.4 GB a
+    block, against 19 GB at S = 12,288 for all three)."""
+    B, S, h, hd = q.shape
+    kvh = k.shape[2]
+    w = int(window)
+    if S <= 2 * w:      # not worth blocking
+        return full_attention(q, k, v, causal=True, window=w)
+    pad = (-S) % w
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    nb = (S + pad) // w
+    g = h // kvh
+    # the previous block of block 0 is zeros, masked out
+    kp = F.pad(k, (0, 0, 0, 0, w, 0))
+    vp = F.pad(v, (0, 0, 0, 0, w, 0))
+    i = torch.arange(w, device=q.device)[:, None]
+    j = torch.arange(2 * w, device=q.device)[None, :]
+    delta = (i + w) - j
+    band = (delta >= 0) & (delta < w)                       # (w, 2w)
+    outs = []
+    for b in range(nb):
+        qb = q[:, b * w:(b + 1) * w].reshape(B, w, kvh, g, hd)
+        kw, vw = kp[:, b * w:(b + 2) * w], vp[:, b * w:(b + 2) * w]
+        mask = band if b > 0 else band & (j >= w)
+        # in place: neither product's backward reads the scores
+        logits = einsum("bqkgh,bskh->bkgqs", qb, kw).to(torch.float32)
+        logits.mul_(hd ** -0.5).masked_fill_(~mask, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(vw.dtype)
+        del logits
+        out = einsum("bkgqs,bskh->bqkgh", probs, vw)
+        outs.append(out.reshape(B, w, h, hd))
+    return torch.cat(outs, dim=1)[:, :S]
+
+
+def attention_route(S: int, window: Optional[int], blocked: bool) -> str:
+    """Which of the reference's routes :func:`attention_fwd` takes at
+    sequence length ``S``: "blocked", "chunked" or "full"."""
+    if blocked and window is not None and S > 2 * int(window):
+        return "blocked"
+    if S > 2048:
+        return "chunked"
+    return "full"
+
+
 def decode_attention(q, k_cache, v_cache, pos, *,
                      window: Optional[int] = None, ring: bool = False):
     """One-token attention against a contiguous cache view.
@@ -141,16 +278,31 @@ def decode_attention(q, k_cache, v_cache, pos, *,
     return out.reshape(B, 1, q.shape[2], hd)
 
 
-def attention_fwd(p, x, *, cfg: ArchConfig, window: Optional[int]):
-    """Full-sequence causal self-attention (prefill). Returns
-    (out, (k, v))."""
+def attention_qkv(p, x, *, cfg: ArchConfig):
+    """The full-sequence projections with RoPE at positions 0..S-1:
+    q (B, S, h, hd), k and v (B, S, kvh, hd)."""
     q = einsum("bsd,dhe->bshe", x, p["wq"])
     k = einsum("bsd,dhe->bshe", x, p["wk"])
     v = einsum("bsd,dhe->bshe", x, p["wv"])
     positions = torch.arange(q.shape[1], device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = full_attention(q, k, v, causal=True, window=window)
+    return (rope(q, positions, cfg.rope_theta), rope(k, positions,
+                                                     cfg.rope_theta), v)
+
+
+def attention_fwd(p, x, *, cfg: ArchConfig, window: Optional[int],
+                  blocked: bool = False):
+    """Full-sequence causal self-attention (train, prefill) on the route
+    the reference takes (:func:`attention_route`): blocked local above
+    2·window when ``blocked``, chunked above 2048 tokens, else full.
+    Returns (out, (k, v))."""
+    q, k, v = attention_qkv(p, x, cfg=cfg)
+    route = attention_route(q.shape[1], window, blocked)
+    if route == "blocked":
+        out = blocked_local_attention(q, k, v, window=int(window))
+    elif route == "chunked":
+        out = chunked_attention(q, k, v, causal=True, window=window)
+    else:
+        out = full_attention(q, k, v, causal=True, window=window)
     out = einsum("bshe,hed->bsd", out, p["wo"])
     return out, (k, v)
 
@@ -239,7 +391,7 @@ def attention_decode_paged(p, x, pool_k, pool_v, pos, *, bt, page: int,
 
 
 # ---------------------------------------------------------------------------
-# MLP, embedding, head
+# MLP, MoE, embedding, head
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -259,6 +411,84 @@ def mlp_hidden(p, x):
 
 def mlp(p, x):
     return einsum("bsf,fd->bsd", mlp_hidden(p, x), p["wo"])
+
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """The router (d, E) in f32 and the experts' gated MLPs, the expert
+    axis first; each expert stack drawn slice by slice
+    (:func:`_init_stacked`)."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = cfg.torch_dtype
+    return {"router": _init(gen, (d, E), d ** -0.5, torch.float32),
+            "wi": _init_stacked(gen, (E, d, ff), d ** -0.5, dt),
+            "wg": _init_stacked(gen, (E, d, ff), d ** -0.5, dt),
+            "wo": _init_stacked(gen, (E, ff, d), ff ** -0.5, dt)}
+
+
+def moe_route(p, x: torch.Tensor, cfg: ArchConfig) -> dict:
+    """The sort-based top-k dispatch of :func:`moe` without the experts:
+    the router's f32 probabilities, the normalised gates and their
+    experts (T, K), the Switch-style aux loss, the capacity, and per
+    assignment (token-major, (T·K,)) its rank within its expert, whether
+    the capacity kept it and its buffer slot."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    logits = x.reshape(T, d).to(torch.float32) @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    # load-balance auxiliary loss (Switch-style)
+    me = probs.mean(0)
+    ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
+    ce = ce.index_add(0, gate_idx.reshape(-1),
+                      torch.ones((T * K,), dtype=torch.float32,
+                                 device=x.device)) / (T * K)
+    aux = E * torch.sum(me * ce)
+    cap = max(int(math.ceil(T * K / E * cfg.capacity_factor)), 4)
+    flat_e = gate_idx.reshape(-1)
+    # rank of each assignment within its expert, via a stable sort
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    starts = torch.searchsorted(sorted_e, torch.arange(E, device=x.device))
+    rank = torch.empty_like(flat_e)
+    rank[order] = torch.arange(T * K, device=x.device) - starts[sorted_e]
+    keep = rank < cap
+    slot = flat_e * cap + torch.where(keep, rank, 0)
+    return {"probs": probs, "gate_vals": gate_vals, "gate_idx": gate_idx,
+            "aux": aux, "cap": cap, "rank": rank, "keep": keep,
+            "slot": slot}
+
+
+def moe(p, x: torch.Tensor, cfg: ArchConfig):
+    """Sort-based top-k MoE with per-expert capacity (the reference's
+    Megablocks-style permutation dispatch, not a (T, E, C) one-hot): the
+    kept assignments scattered into an (E·cap, d) buffer, the experts'
+    gated MLPs as batched products over the expert axis, the outputs
+    gathered back weighted by their gates. Returns (out, aux_loss).
+
+    The reference's sharding constraints on the expert buffer
+    (``expert_sharding``, ``shard_acts``) have no counterpart on one
+    device."""
+    B, S, d = x.shape
+    K = cfg.top_k
+    T = B * S
+    rt = moe_route(p, x, cfg)
+    xt = x.reshape(T, d)
+    keep, slot = rt["keep"], rt["slot"]
+    tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
+    contrib = torch.where(keep[:, None], xt[tok_idx], 0)
+    buf = torch.zeros((cfg.n_experts * rt["cap"], d), dtype=x.dtype,
+                      device=x.device).index_add(0, slot, contrib)
+    ebuf = buf.reshape(cfg.n_experts, rt["cap"], d)
+    h = einsum("ecd,edf->ecf", ebuf, p["wi"])
+    g = einsum("ecd,edf->ecf", ebuf, p["wg"])
+    out_e = einsum("ecf,efd->ecd", F.silu(g) * h, p["wo"])
+    out_e = out_e.reshape(-1, d)
+    gathered = out_e[slot] * rt["gate_vals"].reshape(-1, 1).to(x.dtype)
+    gathered = torch.where(keep[:, None], gathered, 0)
+    out = torch.zeros((T, d), dtype=x.dtype,
+                      device=x.device).index_add(0, tok_idx, gathered)
+    return out.reshape(B, S, d), rt["aux"]
 
 
 def init_embed(gen: torch.Generator, cfg: ArchConfig) -> dict:

@@ -1,6 +1,7 @@
 """Top-level model API (port of :mod:`repro.models.registry`) for the
-dense family (gemma3), the ssm family (RWKV-6) and the hybrid family
-(RecurrentGemma).
+dense family (gemma3, deepseek, starcoder2, llama3; mixtral and kimi with
+their MoE FFN), the ssm family (RWKV-6) and the hybrid family
+(RecurrentGemma). The vlm and audio families are not ported yet.
 
 ``build_model(cfg, device=...)`` returns a :class:`Model` whose methods
 work on plain parameter dicts:
@@ -20,8 +21,9 @@ work on plain parameter dicts:
 Serving keeps one parameter dict per layer (``params["layers"]`` a list);
 training keeps the JAX package's stacked layout (``params["layers"]`` a
 dict of per-kind stacks, :func:`repro_torch.models.stack.stack_layers`),
-so that the exchange's blocks fall where the reference's do. ``loss`` is
-ported for the dense family; autograd gives its gradients.
+so that the exchange's blocks fall where the reference's do. ``loss``
+runs every ported family (rwkv and rec on the reference's XLA-route
+recurrences); autograd gives its gradients.
 
 The contiguous cache (``paged=False``, ``decode_step``, ``init_cache``)
 serves every ported family (the dense kinds on the reference's
@@ -78,17 +80,14 @@ class Model:
 
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch`` ({"tokens",
-        "labels": (B, S)}) under train-layout ``params``. Returns (loss,
-        {"nll", "aux_loss"}); the dense kinds add no auxiliary loss."""
-        if self.cfg.family != "dense":
-            raise NotImplementedError(f"{self.cfg.name}: the train mode of "
-                                      f"family {self.cfg.family!r} is not "
-                                      f"ported yet")
+        "labels": (B, S)}) under train-layout ``params``. Returns (nll +
+        aux_loss, {"nll", "aux_loss"}); the aux loss is the MoE layers'
+        load-balance term (0 without experts)."""
         x = L.embed(params["embed"], batch["tokens"])
-        x = S.apply_stack_train(params["layers"], x, self.cfg, self.kinds)
+        x, aux = S.apply_stack_train(params["layers"], x, self.cfg,
+                                     self.kinds)
         logits = L.lm_head(params["embed"], x, self.cfg.vocab_size)
         nll = L.softmax_xent(logits, batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=nll.device)
         return nll + aux, {"nll": nll, "aux_loss": aux}
 
     def prefill(self, params, inputs, max_len=None, paged: bool = False):
@@ -149,7 +148,4 @@ class Model:
 def build_model(cfg: ArchConfig, *, device="cuda") -> Model:
     """The model on ``device`` (CUDA unless the caller asks for the CPU;
     raises when CUDA is asked for and absent)."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  f"yet")
     return Model(cfg, kind_sequence(cfg), resolve_device(device))

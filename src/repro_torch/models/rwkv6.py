@@ -8,9 +8,11 @@ the reference's: the decay is computed in f32 and cast to the model
 dtype, the bonus ``u`` stays f32, the recurrence runs in f32 and its
 output comes back in the model dtype.
 
-Ported: parameter init, the prefill (one kernel launch per layer, whose
-final state is the decode cache) and the decode step. Training waits
-for a later slice.
+Ported: parameter init, the train-mode layer pass (on the reference's
+XLA route, ``ops.rwkv6(backend="xla")``: the chunked scan of scans that
+autograd differentiates; the CUDA kernel is forward only), the prefill
+(one kernel launch per layer, whose final state is the decode cache) and
+the decode step.
 """
 from __future__ import annotations
 
@@ -92,6 +94,18 @@ def _cmix(p, x: torch.Tensor, shifted: torch.Tensor) -> torch.Tensor:
 def _shift(x: torch.Tensor) -> torch.Tensor:
     """x_{t-1} along S, zero at t = 0."""
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def train(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The train-mode layer pass (the reference's ``train``, its rwkv6 on
+    the XLA route). Returns x."""
+    xi = L.rms_norm(x, p["ln1"])
+    r, k, v, w, u, g = _tmix(p, xi, cfg, _shift(xi))
+    o, _ = K.rwkv6(r, k, v, w, u, backend="xla")
+    B, S = o.shape[:2]
+    x = x + (o.reshape(B, S, -1) * g).to(x.dtype) @ p["wo"]
+    xc = L.rms_norm(x, p["ln2"])
+    return x + _cmix(p, xc, _shift(xc))
 
 
 def prefill(p, x: torch.Tensor, cfg: ArchConfig):

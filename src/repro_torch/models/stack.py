@@ -2,7 +2,8 @@
 layer order only.
 
 An architecture is a *kind sequence*, one entry per layer: dense kinds
-(``"attn"``, ``"attn@<window>"``, :mod:`repro_torch.models.transformer`),
+(``"attn"``, ``"attn@<window>"``, and with an MoE FFN ``"moe_attn"``,
+``"moe_attn@<window>"``; :mod:`repro_torch.models.transformer`),
 the RWKV-6 kind (``"rwkv"``, :mod:`repro_torch.models.rwkv6`) and the
 RG-LRU kind (``"rec"``, :mod:`repro_torch.models.hybrid`). The JAX
 package can also run the layers grouped by kind (one scan per group);
@@ -15,7 +16,9 @@ The train path keeps the JAX package's stacked layout instead
 :func:`stack_layers`): the exchange partitions each leaf into server
 blocks, so only that layout puts the blocks, the buckets and the drop
 masks on the same elements as the reference. :func:`apply_stack_train`
-reads layer l's weights as views into the stacked leaves.
+reads layer l's weights as views into the stacked leaves; it runs every
+kind (rwkv and rec on the reference's XLA-route recurrences,
+:mod:`repro_torch.kernels.ops`) and sums the MoE layers' aux losses.
 
 Which kinds serve on which cache:
 
@@ -59,7 +62,8 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig,
                kinds: Sequence[str]) -> list:
     """Per-layer parameter dicts, drawn in layer order from ``gen``."""
     init = {"rwkv": R.init_rwkv, "rec": H.init_rec}
-    return [init.get(k, T.init_layer)(gen, cfg) for k in kinds]
+    return [init[k](gen, cfg) if k in init
+            else T.init_layer(gen, cfg, moe=T.is_moe(k)) for k in kinds]
 
 
 def stack_layers(layers: Sequence[dict], kinds: Sequence[str]) -> dict:
@@ -75,17 +79,20 @@ def apply_stack_train(params: dict, x, cfg: ArchConfig,
                       kinds: Sequence[str]):
     """The train-mode pass over the stacked layout, in faithful order
     (the JAX package's ``apply_stack(mode="train", grouped=False)``).
-    Dense kinds only; returns x."""
+    Returns (x, the summed per-layer aux loss, f32)."""
     pos = {kind: 0 for kind in params}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind in kinds:
-        if kind in RECURRENT:
-            raise NotImplementedError(f"kind {kind!r} has no ported train "
-                                      f"mode yet")
         i = pos[kind]
         pos[kind] += 1
         p = tree_lib.map(lambda a, i=i: a[i], params[kind])
-        x = T.train(p, x, cfg, T.window_of(kind))
-    return x
+        if kind in RECURRENT:
+            x = RECURRENT[kind].train(p, x, cfg)
+            continue
+        x, al = T.train(p, x, cfg, T.window_of(kind))
+        if al is not None:
+            aux = aux + al
+    return x, aux
 
 
 def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,

@@ -48,8 +48,7 @@ state's rounding noise and the corruption masks and bits from
 and an f32 run of one seed see the same masks); ``init_params=``,
 ``masks_fn=``, ``wire_noise_fn=``, ``pack_noise_fn=``,
 ``corrupt_masks_fn=`` and ``corrupt_bits_fn=`` inject the reference's.
-Not ported yet (raise when set off their defaults): telemetry,
-``donate=False``.
+``donate=False`` raises: the port updates in place by design.
 """
 from __future__ import annotations
 

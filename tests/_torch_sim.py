@@ -8,6 +8,7 @@ the port's ``run_simulation`` (``init_params=``, ``masks_fn=``,
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro import channels as jchannels
@@ -18,6 +19,18 @@ from repro_torch.train import simulator as tsim
 # the reference's key-domain tags (core/rps.py, simulator.py)
 WIRE_TAG = 0x77697265
 CORRUPT_TAG = 0x636F7272
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One torch intra-op thread for a module's tests (the suite runs
+    them beside five other workers on the host's cores, where torch's
+    default of one thread per core oversubscribes them), restored after
+    the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_tree(tree):

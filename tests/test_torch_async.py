@@ -26,6 +26,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.core import plan as tplan
 from repro_torch.data import synthetic as tdata
 from repro_torch.train import simulator as tsim
+from repro_torch.launch.env import host_env
 from _torch_sim import mlp_init, mlp_loss_j, mlp_loss_t, run_both
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -257,7 +258,8 @@ def test_measure_bucket_ready_ms_is_monotone_and_auto_runs():
 # ---- the launcher -------------------------------------------------------------
 
 def _launch(*flags):
-    env = dict(os.environ)
+    # one intra-op thread: the suite runs these beside other workers
+    env = dict(os.environ, **host_env(threads=1))
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",

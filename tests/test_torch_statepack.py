@@ -10,8 +10,8 @@ pack), SR keeps the packed EMA unbiased where RNE stalls, the packed state
 is updated in place and resumes bitwise, the state-bytes breakdown on
 ``meta`` tensors shows the ≥ 2x Adam reduction and equals
 benchmarks/BENCH_state.json's section 1, and the launcher's
-``--state-pack`` runs. The reference's launch/env.py is not ported; its
-tests have no counterpart yet. A sync plan's ``ready_ms`` is None, and the
+``--state-pack`` runs. The reference's launch/env.py tests have their
+counterparts in tests/test_torch_env.py. A sync plan's ``ready_ms`` is None, and the
 theory takes its sync path (the async schedule's tests are in
 tests/test_torch_async.py).
 
@@ -46,6 +46,7 @@ from repro_torch.optim.statepack import (I8_LEVELS, canon_pack, is_packed_i8,
                                          unpack_tree)
 from repro_torch.telemetry import taps
 from repro_torch.train import simulator as tsim
+from repro_torch.launch.env import host_env
 
 KEY = jax.random.PRNGKey(21)
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -681,8 +682,9 @@ def test_quant_error_norm_equals_reference():
 
 def test_launch_train_cli_state_pack_flag():
     """--state-pack / --optimizer reach the simulator; the state-bytes
-    line shows up for packed runs."""
-    env = dict(os.environ)
+    line shows up for packed runs (one intra-op thread: the suite runs
+    it beside other workers)."""
+    env = dict(os.environ, **host_env(threads=1))
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",

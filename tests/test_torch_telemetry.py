@@ -38,6 +38,7 @@ from repro_torch.telemetry.sinks import JsonlSink, MemorySink, close_all
 from repro_torch.telemetry.timing import time_fn, wallclock
 from repro_torch.telemetry.trace import TraceBuffer, validate_chrome_trace
 from repro_torch.train import simulator as tsim
+from repro_torch.launch.env import host_env
 from _torch_sim import (mlp_init, mlp_loss_j, mlp_loss_t, np_tree,
                         reference_bits, reference_draws, reference_noise,
                         reference_pack_noise, to_torch)
@@ -732,7 +733,8 @@ def test_serving_trace_schema_and_tokens(served, tp):
 # ---- the launchers -----------------------------------------------------------------
 
 def _run(args, timeout=300):
-    env = dict(os.environ, PYTHONPATH=SRC)
+    # one intra-op thread: the suite runs these beside other workers
+    env = dict(os.environ, PYTHONPATH=SRC, **host_env(threads=1))
     r = subprocess.run([sys.executable] + args, capture_output=True,
                        text=True, env=env, timeout=timeout, cwd=ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
