@@ -112,11 +112,14 @@ raises on failure; nothing is caught):
 20. benchmarks/wire_bench.py section 2 on the port: replicated data,
    n = 8, rps_model, engine "auto", p in {0.2, 0.3}, 3 seeds, 200 steps;
    ef closes at least half of the bf16 and int8 wires' loss gap;
-21. rps-100m at phase 17's load with the int8 wire on the ring engine,
-   renorm and ef, 8 steps each from phase 17's weights, batches and
-   masks: every group on the encoded variant (launches = groups x
-   steps), finite losses within INT8_LOSS_GAP of phase 17's at every
-   step; step ms, tokens/s and peak memory; then one exchange of each
+21. rps-100m cut to its first 4 of 12 layers (CUT_LAYERS: phase 17's
+   embedding, first layers and batches; width, n, batch, seq, lr and p
+   as phase 17's), as phases 24 and 27-29 are: first the cut's own f32
+   run, 8 steps (ring launches = groups x steps, finite losses); then
+   the int8 wire on the ring engine, renorm and ef, 8 steps each from
+   the cut's weights, batches and masks: every group on the encoded
+   variant (launches = groups x steps), finite losses within
+   INT8_LOSS_GAP of the cut's f32 run at every step; step ms, tokens/s and peak memory; then one exchange of each
    run's final replicas (and residual) at full width, on the card through
    the kernels and on the CPU through the plain versions, with the same
    masks and rounding noise: bit for bit;
@@ -135,16 +138,17 @@ raises on failure; nothing is caught):
    int8 wire x f32 / i8 pack, engine auto (the masked-average kernel, once
    per group and step); at every p the i8 pack's loss gap <= the int8
    wire's + 0.02, printed beside BENCH_state.json's CPU rows;
-24. rps-100m at phase 17's load with Adam (lr 3e-4, warm-up 20) on the
-   Gilbert-Elliott channel (bursts of 8, p 0.1), 4 steps under each
-   state pack (f32, bf16, i8), from phase 17's weights and batches: peak
+24. rps-100m (the cut) at phase 17's load with Adam (lr 3e-4, warm-up
+   20) on the Gilbert-Elliott channel (bursts of 8, p 0.1), 4 steps
+   under each state pack (f32, bf16, i8), from the cut's weights and
+   batches: peak
    memory (the earlier phases' memory freed first, the allocation at the
    run's start beside it), the state's bytes, step ms and losses; the
    optimizer's bytes f32 / i8 >= 2.0 and i8's peak >= 10 % below f32's
    (state_bench.py's own acceptances), every loss finite and the bf16 and
    i8 losses within PACK_LOSS_GAP of the f32 pack's; then one i8-packed
-   Adam update of the largest leaf (the stacked MLP weight, 453 M
-   elements) on the card and on the CPU from the same state, grads and
+   Adam update of the largest leaf (the LM head's 16 replicas at the cut,
+   201 M elements) on the card and on the CPU from the same state, grads and
    uniforms: the params, the int8 payload, its scales and the bf16 m bit
    for bit;
 25. the Byzantine axis: (a) one exchange per corruption kind (bitflip,
@@ -181,22 +185,25 @@ raises on failure; nothing is caught):
    and inside (0, 1) under async, the ring run's losses within
    ASYNC_RING_TOL of the xla run's, launches = groups x exchange steps,
    printed beside BENCH_async.json's CPU rows;
-27. rps-100m at phase 17's load, weights, batches and masks under the
-   colluding attack (4 of 16 workers, gamma 10), 4 steps each: renorm on
+27. rps-100m (the cut) at phase 17's load, weights, batches and masks
+   under the colluding attack (4 of 16 workers, gamma 10), 4 steps
+   each: renorm on
    the ring engine (the encoded variant, groups x steps launches),
    median, trimmed:beta=0.4 and clip on the xla engine (the table
    aggregate, no kernel); step ms, the aggregate's device ms a step,
    peak memory, losses; median's and trimmed's within ATTACK_LOSS_GAP of
-   phase 17's, renorm's last non-finite or 1.0 above, the robust peaks
-   within ATTACK_PEAK_GB of phase 17's, one median exchange of the final
-   replicas bit for bit card against CPU;
-28. rps-100m at phase 17's load with 8 buckets on the straggler deadline
+   the cut's f32 run's, renorm's last non-finite or 1.0 above, the
+   robust peaks within ATTACK_PEAK_GB of the cut's f32 run's, one median
+   exchange of the final replicas bit for bit card against CPU;
+28. rps-100m (the cut) at phase 17's load with 8 buckets on the
+   straggler deadline
    channel, compute_ms 8, ring engine, 4 steps, sync and async (finite
    losses, async staleness > 0, launches = groups x steps); then the
    backward's measured readiness profile at that plan
    (measure_bucket_ready_ms, what compute_ms="auto" runs) beside the cost
    model's, positive and non-increasing;
-29. rps-100m at phase 17's load, weights, batches and masks on the ring
+29. rps-100m (the cut) at phase 17's load, weights, batches and masks
+   on the ring
    engine, 4 steps with telemetry off and then on (a Telemetry writing
    into a temporary directory), then off and on again: losses,
    consensus and every parameter leaf bit for bit equal, a record per
@@ -257,7 +264,33 @@ raises on failure; nothing is caught):
    masked-average launch (the train kinds take the reference's XLA
    routes), one exchange at the first layers' shapes, on integer
    replicas that differ from worker to worker, bit for bit against
-   ring.cu's plain version on the card; step ms and peak memory.
+   ring.cu's plain version on the card; step ms and peak memory;
+37. whisper-large-v3 whole at full width (32 encoder and 32 decoder
+   layers, d 1,280, 4.04 GB of random bf16 weights) through
+   launch/serve.py's legacy path (its prompts, then its frames from the
+   same numpy generator; ServeEngine with extra_inputs): 8 prompts of
+   3,000 tokens with 1,500 frames (whisper's 30-second window after its
+   stride-2 conv), 32 new tokens; checks the tokens, finite logits, the
+   encoder run once per generate, no kernel launch; encoder, decoder
+   prefill and decode step times, peak memory; then through the engine
+   teacher-forced decode against one prefill of the extended sequence
+   (4 steps, the bf16 model and an f32 copy, phase 8's tolerances; the
+   engine's decode positions), and layer 0's chunked decoder route
+   against full attention;
+38. llava-next-mistral-7b whole at full width (32 layers, d 4,096, GQA
+   32 / 8, 14.5 GB): 8 prompts of 3,520 tokens after 576 patch
+   embeddings (4,096 = the window, where the ring buffer is right), 32
+   new tokens, the same checks (the engine decodes from S + 576; the f32
+   copy is the first 2 layers), the windowed chunked route;
+39. training through run_simulation on the ring engine (rps_model,
+   p = 0.1, 4 steps) on a models/inputs.py make_batch stream (seed =
+   step x n + worker): whisper-large-v3 whole at n = 4 (decoder seq 448,
+   224 frames, batch 2) and llava-next-mistral-7b at full width cut to 2
+   layers at n = 4 (576 patches + 512 tokens, batch 2): finite losses
+   and consensus, ring launches = groups x steps and no other kernel,
+   one exchange at the first layer of every kind (the encoder stack's
+   included), on integer replicas that differ from worker to worker,
+   bit for bit against ring.cu's plain version; step ms and peak memory.
 
 The phases' wall seconds are printed on one line before the kernels'
 line.
@@ -267,6 +300,7 @@ The second-to-last line is the kernels' JSON record, the last line
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
 import json
@@ -297,8 +331,10 @@ from repro_torch.kernels import rglru as GK  # noqa: E402
 from repro_torch.kernels import ring as RG  # noqa: E402
 from repro_torch.kernels import rwkv6 as RK  # noqa: E402
 from repro_torch.kernels.ref import tp_combine_ref  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import inputs as inputs_lib  # noqa: E402
 from repro_torch.models import layers as LM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.netsim import request_trace  # noqa: E402
@@ -1432,6 +1468,58 @@ def rps100m(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
             "largest_group": list(largest_group(plan)), **load}
 
 
+# phases 21, 24 and 27-29 run rps-100m cut to its first 4 of 12 layers
+# (phase 17's embedding, first layers and batches; width, n, batch, seq,
+# lr, p, engine and step counts as phase 17's): at 12 layers they took
+# 241 s of the smoke's 1,200 s limit, and the products and launches a
+# step scale with depth
+CUT_LAYERS = 4
+CUT_BASE_STEPS = 8             # the longest run the cut's baseline stands for
+
+
+def cut_setup(setup: Rps100mSetup, layers: int = CUT_LAYERS) -> Rps100mSetup:
+    """Phase 17's setup cut to its first ``layers`` layers: the same
+    embedding, the first layers of its stacked weights (views) and the
+    same batches."""
+    cfg = dataclasses.replace(RPS_100M, n_layers=layers)
+    p1 = {"embed": setup.p1["embed"],
+          "layers": tree_lib.map(lambda x: x[:layers], setup.p1["layers"])}
+    return Rps100mSetup(build_model(cfg, device="cuda"), p1, setup.batches,
+                        setup.data_s)
+
+
+def cut_baseline(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
+    """The cut's own run at phase 17's load (f32 wire, renorm, ring
+    engine), CUT_BASE_STEPS steps: the losses phases 21 and 27 hold their
+    runs to at every step, and the peak phase 27's robust runs are held
+    to, as phase 17's were at 12 layers. Launches = groups x steps, every
+    loss finite."""
+    scfg = rps100m_config(load, steps=CUT_BASE_STEPS)
+    groups = len(rps_lib._global_groups(make_exchange_plan(setup.p1, scfg)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    h = run_simulation(setup.loss_fn, None, lambda t: setup.batches[t], scfg,
+                       init_params=setup.p1)
+    launches = RG.ring_round.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != groups * CUT_BASE_STEPS:
+        raise AssertionError(f"rps-100m cut: {launches} ring launches, want "
+                             f"{groups} x {CUT_BASE_STEPS}")
+    if not np.isfinite(h["loss"]).all():
+        raise AssertionError(f"rps-100m cut: losses {h['loss']}")
+    step_s = h["step_s"]
+    out = {"layers": setup.model.cfg.n_layers, "groups": groups,
+           "ring_launches": launches, "loss": h["loss"],
+           "consensus": h["consensus"], "peak_memory_gb": peak,
+           "first_step_ms": step_s[0] * 1e3,
+           "step_ms": [t * 1e3 for t in step_s[1:]]}
+    del h
+    torch.cuda.empty_cache()
+    return out
+
+
 INT8 = rps_lib.wire_lib.make_codec("int8")
 # the encoded ring round's variants in phase 18: (name, table, levels,
 # accumulation dtype); "int8" re-encodes on every hop (the int8 wire's
@@ -1710,8 +1798,10 @@ def exchange_card_vs_cpu(params, ef_state, scfg, seed: int = 0) -> int:
     width (the stacked replicas ``params`` and, under ef, their residual)
     on the card through the kernels and on the CPU through their plain
     versions (which the tests hold against the JAX package), with the
-    same masks and rounding noise drawn on the CPU. Every output, and the
-    new residual, must agree bit for bit. Returns the elements compared."""
+    same masks (drawn on the CPU) and rounding noise (drawn once on the
+    card, a generator per group, and copied to the CPU: a CPU generator
+    draws serially). Every output, and the new residual, must agree bit
+    for bit. Returns the elements compared."""
     def part(tree):
         return {"embed": tree["embed"],
                 "layers": tree_lib.map(lambda x: x[:, :1].contiguous(),
@@ -1725,10 +1815,16 @@ def exchange_card_vs_cpu(params, ef_state, scfg, seed: int = 0) -> int:
     masks = rps_lib.sample_masks(cpu, n, scfg.drop_rate, plan.s,
                                  n_buckets=plan.n_buckets)
 
+    uniforms = {}
+
     def exchange(device):
         def noise(g_idx, shape):
-            g = torch.Generator().manual_seed(seed + 1 + g_idx)
-            return torch.rand(shape, generator=g).to(device)
+            if g_idx not in uniforms:
+                g = torch.Generator(device="cuda").manual_seed(
+                    seed + 1 + g_idx)
+                uniforms[g_idx] = torch.rand(shape, generator=g,
+                                             device="cuda")
+            return uniforms[g_idx].to(device)
 
         def on(tree):
             return None if tree is None else \
@@ -1741,7 +1837,9 @@ def exchange_card_vs_cpu(params, ef_state, scfg, seed: int = 0) -> int:
             ef_state=on(ef), wire_noise=noise)
         return tree_lib.leaves(out)
 
-    card, host = exchange("cuda"), exchange("cpu")
+    card = exchange("cuda")
+    host = exchange("cpu")
+    del uniforms
     for a, b in zip(card, host):
         if not torch.equal(_bits(a.cpu()), _bits(b)):
             raise AssertionError(f"rps-100m int8 {scfg.recovery}: the "
@@ -1753,15 +1851,16 @@ def exchange_card_vs_cpu(params, ef_state, scfg, seed: int = 0) -> int:
 def rps100m_int8(setup: Rps100mSetup, f32_loss: list, steps: int = 8,
                  load=RPS_100M_LOAD) -> dict:
     """Phase 21: rps-100m at phase 17's load with the int8 wire on the
-    ring engine, once with renorm and once with ef, from phase 17's
-    initial weights, batches and (one seed, the masks' own generator)
-    masks. Every group runs the encoded ring round (re-encoding): 6
-    launches per step and none of the linear one; each step's loss is
-    finite and within INT8_LOSS_GAP of phase 17's f32 loss at that
-    step; the run's last replicas exchange alike on the card and the CPU
+    ring engine, once with renorm and once with ef, from ``setup``'s
+    initial weights (the cut's), batches and (one seed, the masks' own
+    generator) masks. Every group runs the encoded ring round
+    (re-encoding): one launch per group and step and none of the linear
+    one; each step's loss is finite and within INT8_LOSS_GAP of the f32
+    loss at that step (``f32_loss``: the cut's baseline); the run's last
+    replicas exchange alike on the card and the CPU
     (:func:`exchange_card_vs_cpu`)."""
     n = load["n"]
-    out = {}
+    out = {"layers": setup.model.cfg.n_layers}
     for recovery in ("renorm", "ef"):
         scfg = rps100m_config(load, steps=steps, wire="int8",
                               recovery=recovery)
@@ -2059,16 +2158,17 @@ def packed_adam_card_vs_cpu(params, opt_state, lr: float,
     """Phase 24's check of the packed optimizer: one i8-pack Adam update
     of the largest leaf of rps-100m's stacked replicas (its state as the
     run left it) on the card and on the CPU, with the same gradients and
-    rounding uniforms drawn on the CPU: the new params, the int8 payload,
-    its scales and the bf16 m must agree bit for bit."""
+    rounding uniforms (drawn on the card and copied to the CPU): the new
+    params, the int8 payload, its scales and the bf16 m must agree bit
+    for bit."""
     leaves = tree_lib.leaves(params)
     i = max(range(len(leaves)), key=lambda j: leaves[j].numel())
     m = statepack.leaf_reps(opt_state["m"], "bf16")[i][0]
     q, sc = statepack.leaf_reps(opt_state["v"], "i8")[i]
     p = leaves[i]
-    cpu = torch.Generator().manual_seed(seed)
-    g = torch.randn(p.shape, generator=cpu) * 1e-3
-    u = torch.rand(p.shape, generator=cpu)
+    draw = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(p.shape, generator=draw, device="cuda") * 1e-3
+    u = torch.rand(p.shape, generator=draw, device="cuda")
 
     def update(device):
         opt = make_optimizer("adam", state_pack="i8")
@@ -2084,6 +2184,7 @@ def packed_adam_card_vs_cpu(params, opt_state, lr: float,
 
     t0 = time.perf_counter()
     card = [y.cpu() for y in update("cuda")]
+    g, u = g.cpu(), u.cpu()
     torch.cuda.empty_cache()
     host = update("cpu")
     names = ("params", "m", "q", "scale")
@@ -2098,12 +2199,12 @@ def packed_adam_card_vs_cpu(params, opt_state, lr: float,
 
 def rps100m_packs(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
     """Phase 24: rps-100m at phase 17's load with Adam on the
-    Gilbert-Elliott channel under each state pack, from phase 17's
-    weights and batches (the masks the same across packs: one seed). Peak
-    memory from a reset after the earlier phases' memory is freed; the
-    optimizer's bytes from the history's state_bytes."""
+    Gilbert-Elliott channel under each state pack, from ``setup``'s
+    weights (the cut's) and batches (the masks the same across packs: one
+    seed). Peak memory from a reset after the earlier phases' memory is
+    freed; the optimizer's bytes from the history's state_bytes."""
     n, steps = load["n"], PACK_LOAD["steps"]
-    out = {}
+    out = {"layers": setup.model.cfg.n_layers}
     kept = None
     for pack in ("f32", "bf16", "i8"):
         scfg = rps100m_config(load, state_pack=pack, **PACK_LOAD)
@@ -2853,20 +2954,21 @@ def robust_card_vs_cpu(params, scfg, seed: int = 0) -> int:
 
 def rps100m_attack(setup: Rps100mSetup, clean: dict,
                    load=RPS_100M_LOAD) -> dict:
-    """Phase 27: rps-100m at phase 17's load, weights, batches and masks
-    under the colluding attack (4 of 16 workers), 4 steps each: renorm on
-    the ring engine (the corrupted offer on the encoded variant, the
-    honest stack the fallback: launches = groups x steps) and median,
-    trimmed and clip on the xla engine (no kernel: the table aggregate).
-    Gates: median's and trimmed's losses finite and within
-    ATTACK_LOSS_GAP of phase 17's at every step; renorm's last loss
-    non-finite or more than 1.0 above phase 17's; the robust runs' peak
-    within ATTACK_PEAK_GB of phase 17's; one median exchange of the final
-    replicas alike on the card and the CPU (checked before the next run,
-    so no run holds another's replicas)."""
+    """Phase 27: rps-100m at phase 17's load, ``setup``'s weights (the
+    cut's), batches and masks under the colluding attack (4 of 16
+    workers), 4 steps each: renorm on the ring engine (the corrupted
+    offer on the encoded variant, the honest stack the fallback: launches
+    = groups x steps) and median, trimmed and clip on the xla engine (no
+    kernel: the table aggregate). Gates, against the clean run ``clean``
+    (the cut's baseline): median's and trimmed's losses finite and within
+    ATTACK_LOSS_GAP of the clean ones at every step; renorm's last loss
+    non-finite or more than 1.0 above the clean one; the robust runs'
+    peak within ATTACK_PEAK_GB of the clean run's; one median exchange of
+    the final replicas alike on the card and the CPU (checked before the
+    next run, so no run holds another's replicas)."""
     steps = ATTACK_LOAD["steps"]
     clean_loss = clean["loss"][:steps]
-    out = {}
+    out = {"layers": setup.model.cfg.n_layers}
     for rec, engine in (("renorm", "ring"), ("median", "xla"),
                         ("trimmed:beta=0.4", "xla"), ("clip", "xla")):
         scfg = rps100m_config(load, engine=engine, recovery=rec,
@@ -2917,7 +3019,7 @@ def rps100m_attack(setup: Rps100mSetup, clean: dict,
         if engine == "xla" and peak > clean["peak_memory_gb"] \
                 + ATTACK_PEAK_GB:
             raise AssertionError(f"rps-100m attacked {rec}: peak {peak} GB "
-                                 f"against phase 17's "
+                                 f"against the clean run's "
                                  f"{clean['peak_memory_gb']} + "
                                  f"{ATTACK_PEAK_GB}")
         if rec == "median":
@@ -2934,15 +3036,15 @@ def rps100m_attack(setup: Rps100mSetup, clean: dict,
 
 
 def rps100m_async(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
-    """Phase 28: rps-100m at phase 17's load with 8 buckets on the
-    straggler deadline channel, compute_ms 8, ring engine, 4 steps, sync
-    and async (finite losses, async staleness > 0, launches = groups x
-    steps); then the backward's measured readiness profile at this plan
-    (measure_bucket_ready_ms, what compute_ms="auto" runs) beside the
-    cost model's: positive and non-increasing."""
+    """Phase 28: rps-100m at phase 17's load (``setup``: the cut) with 8
+    buckets on the straggler deadline channel, compute_ms 8, ring engine,
+    4 steps, sync and async (finite losses, async staleness > 0, launches
+    = groups x steps); then the backward's measured readiness profile at
+    this plan (measure_bucket_ready_ms, what compute_ms="auto" runs)
+    beside the cost model's: positive and non-increasing."""
     from repro_torch.train import simulator as sim_lib
     steps = ASYNC_LOAD["steps"]
-    out = {}
+    out = {"layers": setup.model.cfg.n_layers}
     for schedule in ("sync", "async"):
         scfg = rps100m_config(
             load, steps=steps, n_buckets=ASYNC_LOAD["n_buckets"],
@@ -3031,7 +3133,7 @@ def _validate(path: Path) -> None:
 
 
 def _tel_run(setup: Rps100mSetup, scfg, reg) -> tuple:
-    """One phase-29 run from phase 17's weights and batches: the history,
+    """One phase-29 run from ``setup``'s weights and batches: the history,
     the ring kernels' launches, and the peak memory above the run's start
     allocation."""
     torch.cuda.synchronize()
@@ -3049,8 +3151,9 @@ def _tel_run(setup: Rps100mSetup, scfg, reg) -> tuple:
 
 
 def rps100m_telemetry(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
-    """Phase 29: rps-100m at phase 17's load, weights, batches and masks
-    on the ring engine, TEL_STEPS steps with telemetry off and then on.
+    """Phase 29: rps-100m at phase 17's load, ``setup``'s weights (the
+    cut's), batches and masks on the ring engine, TEL_STEPS steps with
+    telemetry off and then on.
     Gates: the losses, consensus and every parameter leaf bit for bit
     equal; a record per step; every record's link_offered the plan's
     layout (counters.link_offered); launches = groups x steps in both
@@ -3072,7 +3175,8 @@ def rps100m_telemetry(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
     groups = len(rps_lib._global_groups(plan))
     offered = counters.link_offered(
         n, plan.s, plan.n_buckets if plan.per_bucket_masks else None)
-    out = {"groups": groups, "steps": TEL_STEPS}
+    out = {"layers": setup.model.cfg.n_layers, "groups": groups,
+           "steps": TEL_STEPS}
     with tempfile.TemporaryDirectory() as tmp:
         h_off, l_off, peak_off = _tel_run(setup, scfg, None)
         reg = telemetry_lib.Telemetry(out_dir=tmp)
@@ -3653,21 +3757,22 @@ def tp_widths(gen: torch.Generator) -> dict:
     return out
 
 
-def _ring_plain_exchange(layers_meta, scfg) -> int:
+def _ring_plain_exchange(stacks_meta: dict, scfg) -> int:
     """One model-mode exchange at the shapes and dtypes of the first
-    layer of every kind of the run's replicas (``layers_meta``, the
-    stacked ``layers`` subtree on the meta device) on the ring engine,
-    through ring.cu and through its plain version on the card, with the
-    same masks: bit for bit. The replicas are integer-valued and differ from
-    worker to worker (the trained ones may have reached consensus, where
-    a masked average is blind to its masks). Returns the elements
-    compared."""
+    layer of every kind of the run's replicas (``stacks_meta``: the
+    stacked layer subtrees on the meta device, ``{"layers": ...}`` and the
+    audio model's ``"enc_layers"``) on the ring engine, through ring.cu
+    and through its plain version on the card, with the same masks: bit
+    for bit. The replicas are integer-valued and differ from worker to
+    worker (the trained ones may have reached consensus, where a masked
+    average is blind to its masks). Returns the elements compared."""
     n = scfg.n_workers
     gen = torch.Generator(device="cuda").manual_seed(360)
-    sub = {"layers": tree_lib.map(
+    sub = {name: tree_lib.map(
         lambda x: torch.randint(-8, 9, (n, 1) + tuple(x.shape[2:]),
                                 generator=gen, device="cuda",
-                                dtype=x.dtype), layers_meta)}
+                                dtype=x.dtype), stack)
+           for name, stack in stacks_meta.items()}
     if all(torch.equal(x[0], x[1]) for x in tree_lib.leaves(sub)):
         raise AssertionError("ring exchange: the replicas are equal")
     plan = make_exchange_plan(tree_lib.map(lambda x: x[0], sub), scfg)
@@ -3740,7 +3845,7 @@ def train_families() -> dict:
             h.pop("params")["layers"])
         del one, h["state"], h["ef_state"]   # the card's memory for the check
         torch.cuda.empty_cache()
-        compared = _ring_plain_exchange(layers_meta, scfg)
+        compared = _ring_plain_exchange({"layers": layers_meta}, scfg)
         out[arch] = {"layers": cfg.n_layers, "workers": n,
                      "params_per_worker": per_worker,
                      "loss": h["loss"], "consensus": h["consensus"],
@@ -3779,8 +3884,363 @@ def new_phases(gen: torch.Generator, card: str, lap: Laps) -> dict:
                                  for v in fams.values())}
 
 
+# ---- phases 37-39: the audio and vlm families ------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LegacyLoad:
+    """A full-width static-batch phase through launch/serve.py's legacy
+    path: ``batch`` prompts of ``prompt`` tokens (with the family's
+    patches or frames, drawn after them from the launcher's generator),
+    ``new`` greedy tokens each; the teacher-forced check runs an f32 copy of the first ``f32_layers``
+    decoder layers (None: all) beside the bf16 model."""
+    arch: str
+    batch: int
+    prompt: int
+    new: int
+    f32_layers: Optional[int]
+
+
+# phase 37: whisper's 30-second window, 1,500 frames after its stride-2
+# conv; the launcher draws prompt_len // 2 frames (the reference's
+# coupling), so its 3,000-token prompts are a stress shape of the decoder
+# (chunked route) beyond its 448-token context. The encoder stays on the
+# full route. WHISPER_CONTEXT is the decoder's context: the phase also
+# serves the 1,500 frames with prompts of WHISPER_CONTEXT - new tokens,
+# whisper's own serving shape, through ServeEngine.
+WHISPER_CONTEXT = 448
+WHISPER_LOAD = LegacyLoad("whisper-large-v3", 8, 3000, 32, None)
+# phase 38: 3,520 tokens + 576 patches = 4,096 = Mistral's window, where
+# the contiguous ring buffer is right; the chunked route, windowed
+LLAVA_LOAD = LegacyLoad("llava-next-mistral-7b", 8, 3520, 32, 2)
+# phase 39: (arch, decoder layers (None: whole), n, batch, S) through
+# run_simulation on a make_batch stream: whisper at its 448-token context
+# (224 frames), llava at 576 patches + 512 tokens
+MM_TRAIN_RUNS = (("whisper-large-v3", None, 4, 2, 448),
+                 ("llava-next-mistral-7b", 2, 4, 2, 1088))
+MM_TRAIN = dict(aggregator="rps_model", drop_rate=0.1, engine="ring",
+                steps=4, eval_every=1)
+
+
+def _extra(cfg: ArchConfig, B: int, S: int, gen: torch.Generator) -> dict:
+    """The family's extra inputs for B prompts of S tokens: the vlm's
+    patches, the audio model's S // r frames (normal x 0.02)."""
+    if cfg.family == "vlm":
+        shape, key = (B, cfg.n_patches, cfg.d_model), "patches"
+    else:
+        shape, key = (B, S // cfg.enc_frames_ratio, cfg.d_model), "frames"
+    x = torch.randn(shape, generator=gen, device="cuda") * 0.02
+    return {key: x.to(cfg.torch_dtype)}
+
+
+def _f32_model(model, params, layers: Optional[int]):
+    """An f32 copy of ``model`` cut to its first ``layers`` decoder layers
+    (None: all), the encoder stack whole."""
+    cfg = model.cfg
+    n32 = layers or cfg.n_layers
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32",
+                                              n_layers=n32), device="cuda")
+    params32 = {"embed": _f32(params["embed"]),
+                "layers": [_f32(layer) for layer in params["layers"][:n32]]}
+    if "enc_layers" in params:
+        params32["enc_layers"] = [_f32(layer)
+                                  for layer in params["enc_layers"]]
+    return model32, params32
+
+
+def engine_teacher_forced(model, params, gen: torch.Generator,
+                          load: LegacyLoad, steps: int = 4) -> dict:
+    """Phases 37-38's prefill against decode, through ServeEngine: the
+    engine prefills 2 prompts of ``load.prompt`` tokens (with their
+    patches or frames) and decodes ``steps`` tokens, each decode step's
+    token replaced by the next of a random continuation (teacher
+    forcing); its last decode logits against those of one prefill of the
+    prompt plus the continuation. The engine picks the decode positions,
+    so a decode that starts at the wrong position (the reference's at
+    the vlm: S where prefill wrote S + n_patches rows) fails here. The
+    bf16 model at PREFILL_DECODE_TOL["bfloat16"], an f32 copy (the first
+    ``load.f32_layers`` decoder layers) at PREFILL_DECODE_TOL["float32"],
+    as phases 8 and 12. Then layer 0's decoder route against full
+    attention on the first prompt (:func:`route_vs_full`)."""
+    cfg = model.cfg
+    S = load.prompt
+    P = model.prefix_len
+    toks = torch.randint(0, cfg.vocab_size, (2, S + steps), generator=gen,
+                         device="cuda")
+    extra = _extra(cfg, 2, S, gen)
+    model32, params32 = _f32_model(model, params, load.f32_layers)
+    out = {"steps": steps, "prompt_len": S, "patches": P,
+           "f32_layers": model32.cfg.n_layers}
+    for name, m, p in (("bfloat16", model, params),
+                       ("float32", model32, params32)):
+        want, _ = m.prefill(p, {"tokens": toks, **extra})
+        decode, seen, last = m.decode_step, [], []
+
+        def forced(prm, cache, inputs, pos, decode=decode, seen=seen,
+                   last=last):
+            i = len(seen)
+            seen.append(int(pos))
+            logits, cache = decode(prm, cache,
+                                   {"token": toks[:, S + i:S + i + 1]}, pos)
+            last[:] = [logits]
+            return logits, cache
+
+        m.decode_step = forced
+        try:
+            ServeEngine(m, p, max_len=S + P + steps).generate(
+                toks[:, :S], steps, extra_inputs=extra)
+        finally:
+            m.decode_step = decode
+        if seen != list(range(S + P, S + P + steps)):
+            raise AssertionError(f"{cfg.name}: the engine decoded at "
+                                 f"{seen}, want from {S + P}")
+        g, w = last[0].float(), want.float()
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{cfg.name} {name}: non-finite logits")
+        rel = ((g - w).norm() / w.norm()).item()
+        tol = PREFILL_DECODE_TOL[name]
+        if rel > tol:
+            raise AssertionError(f"{cfg.name} {name} prefill vs decode "
+                                 f"logits: relative RMS error {rel} > {tol}")
+        out[name] = {"rel_rms": rel, "max_abs": (g - w).abs().max().item(),
+                     "argmax_equal": bool((g.argmax(-1)
+                                           == w.argmax(-1)).all()),
+                     "tol_rel_rms": tol, "positions": seen}
+    del model32, params32
+    torch.cuda.empty_cache()
+    layer0 = params["layers"][0]
+    with torch.no_grad():
+        x = LM.rms_norm(model.embed_inputs(params, {
+            "tokens": toks[:1, :S], **{k: v[:1] for k, v in extra.items()}}),
+            layer0["ln1"])
+    window = T.window_of(model.kinds[0])
+    out["route"] = LM.attention_route(x.shape[1], window, True)
+    out["route_max_abs_err"] = route_vs_full(layer0["attn"], x, cfg, window,
+                                             out["route"])
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_legacy_full(load: LegacyLoad, gen: torch.Generator) -> dict:
+    """Phases 37-38: ``load.arch`` whole at full width (random bf16
+    weights from ``gen``) through launch/serve.py's legacy path
+    (``_serve_legacy``: the launcher's prompts, then its patches or
+    frames from the same numpy generator; ServeEngine with
+    ``extra_inputs``). Checks the tokens, every prefill and decode logit
+    finite, the encoder run once per generate (whisper; decode reads the
+    cross K/V from the cache), and no kernel launch (the reference serves
+    these families on the static engine without TP). Times the encoder,
+    the decoder's prefill (the prefill less the encoder) and the decode
+    steps, each between synchronisations. Whisper then serves the same
+    1,500 frames at its own context (``context_reading``: prompts of
+    WHISPER_CONTEXT - ``load.new`` tokens, timed alike). Last,
+    :func:`engine_teacher_forced`."""
+    cfg = get_config(load.arch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    times = {"encode": [], "prefill": [], "decode_step": []}
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            nonlocal finite
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            if name != "encode":
+                finite = finite & torch.isfinite(res[0]).all()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return res
+        return call
+
+    def run(fn):
+        """``fn()`` with the model's calls timed into ``times`` (emptied
+        first); returns its result and wall."""
+        for name in times:
+            times[name].clear()
+            setattr(model, name, timed(name, getattr(model, name)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+        finally:
+            for name in times:
+                delattr(model, name)
+
+    def split(wall) -> dict:
+        enc_s = sum(times["encode"])
+        return {"encoder_ms": enc_s * 1e3,
+                "encoder_runs": len(times["encode"]),
+                "decoder_prefill_ms": (times["prefill"][0] - enc_s) * 1e3,
+                "decode_ms_per_step":
+                    1e3 * sum(times["decode_step"]) / load.new,
+                "wall_s": wall, "tokens_per_s": load.batch * load.new / wall}
+
+    args = argparse.Namespace(batch=load.batch, prompt_len=load.prompt,
+                              new_tokens=load.new, temperature=0.0)
+    reset_counts()
+    tokens, wall = run(lambda: serve_launcher._serve_legacy(
+        args, model, params, torch.cuda.get_device_name(0)))
+    launches = {"masked_avg_grid": K.masked_avg_grid.launches,
+                "tp_combine": K.tp_combine.launches,
+                "rwkv6": RK.rwkv6.launches, "rglru": GK.rglru.launches,
+                "ring": RG.ring_round.launches,
+                "ring_enc": RG.ring_round_enc.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(tokens.shape) != (load.batch, load.new) or int(tokens.min()) \
+            < 0 or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: tokens {tuple(tokens.shape)} in "
+                             f"[{int(tokens.min())}, {int(tokens.max())}]")
+    if not bool(finite):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    encodes = len(times["encode"])
+    if len(times["prefill"]) != 1 or len(times["decode_step"]) != load.new \
+            or encodes != (1 if cfg.family == "audio" else 0):
+        raise AssertionError(f"{cfg.name}: {len(times['prefill'])} "
+                             f"prefills, {encodes} encoder runs, "
+                             f"{len(times['decode_step'])} decode steps")
+    if any(launches.values()):
+        raise AssertionError(f"{cfg.name}: kernel launches {launches}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "enc_layers": cfg.enc_layers, "weights_gb": _gb(params),
+           "init_s": init_s, "batch": load.batch, "prompt": load.prompt,
+           "patches": model.prefix_len,
+           "frames": load.prompt // cfg.enc_frames_ratio
+           if cfg.family == "audio" else 0,
+           "new_tokens": load.new, **split(wall),
+           "peak_memory_gb": peak, "launches": launches}
+    if cfg.family == "audio":
+        S = WHISPER_CONTEXT - load.new
+        prompts = torch.randint(0, cfg.vocab_size, (load.batch, S),
+                                generator=gen, device="cuda")
+        frames = _extra(cfg, load.batch, load.prompt, gen)
+        eng = ServeEngine(model, params, max_len=WHISPER_CONTEXT)
+        ctx, ctx_wall = run(lambda: eng.generate(prompts, load.new,
+                                                 extra_inputs=frames))
+        if tuple(ctx.shape) != (load.batch, load.new) or not bool(finite) \
+                or len(times["encode"]) != 1:
+            raise AssertionError(f"{cfg.name} at its context: tokens "
+                                 f"{tuple(ctx.shape)}, finite "
+                                 f"{bool(finite)}, {len(times['encode'])} "
+                                 f"encoder runs")
+        out["context_reading"] = {"prompt": S,
+                                  "frames": frames["frames"].shape[1],
+                                  **split(ctx_wall)}
+        del prompts, frames, eng, ctx
+    out["prefill_vs_decode"] = engine_teacher_forced(model, params, gen,
+                                                     load)
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stacked_batches(cfg: ArchConfig, n: int, B: int, S: int,
+                     steps: int) -> list:
+    """models/inputs.py's make_batch stream, made before the run: step t's
+    worker i draws seed t * n + i."""
+    out = []
+    for t in range(steps):
+        parts = [inputs_lib.make_batch(cfg, B, S, seed=t * n + i,
+                                       device="cuda") for i in range(n)]
+        out.append({k: torch.stack([b[k] for b in parts]) for k in parts[0]})
+    return out
+
+
+def train_multimodal() -> dict:
+    """Phase 39: run_simulation on the ring engine (rps_model, p = 0.1, 4
+    steps, SGD at the simulator's default lr) on a make_batch stream:
+    whisper-large-v3 whole at n = 4 (decoder seq 448, 224 frames, batch
+    2) and llava-next-mistral-7b at full width cut to 2 layers at n = 4
+    (576 patches + 512 tokens, batch 2). Checks finite losses and
+    consensus, ring launches = groups x steps and no other kernel, and
+    one exchange at the first layer of every kind (the encoder stack's
+    included), on integer replicas that differ from worker to worker,
+    bit for bit against ring.cu's plain version on the card. Step ms and
+    peak memory."""
+    out = {}
+    for arch, layers, n, B, S in MM_TRAIN_RUNS:
+        cfg = _full_config(arch, layers)
+        model = build_model(cfg, device="cuda")
+        scfg = SimulatorConfig(n_workers=n, **MM_TRAIN)
+        steps = scfg.steps
+        t0 = time.perf_counter()
+        batches = _stacked_batches(cfg, n, B, S, steps)
+        data_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        h = run_simulation(lambda p, b: model.loss(p, b)[0],
+                           model.init_stacked, lambda t: batches[t], scfg)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {"ring": RG.ring_round.launches,
+                    "ring_enc": RG.ring_round_enc.launches,
+                    "rwkv6": RK.rwkv6.launches, "rglru": GK.rglru.launches,
+                    "tp_combine": K.tp_combine.launches,
+                    "masked_avg_grid": K.masked_avg_grid.launches}
+        params = h.pop("params")
+        one = tree_lib.map(lambda x: x[0], params)
+        groups = len(rps_lib._global_groups(make_exchange_plan(one, scfg)))
+        per_worker = sum(x.numel() for x in tree_lib.leaves(one))
+        if not (all(np.isfinite(h["loss"]))
+                and all(np.isfinite(h["consensus"]))):
+            raise AssertionError(f"{arch}: losses {h['loss']}, consensus "
+                                 f"{h['consensus']}")
+        if launches["ring"] != groups * steps or any(
+                v for k, v in launches.items() if k != "ring"):
+            raise AssertionError(f"{arch}: launches {launches}, want "
+                                 f"{groups} groups x {steps} steps of the "
+                                 f"ring kernel alone")
+        stacks = {k: tree_lib.map(
+            lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), v)
+            for k, v in params.items() if k != "embed"}
+        del one, params, h["state"], h["ef_state"], batches
+        torch.cuda.empty_cache()
+        compared = _ring_plain_exchange(stacks, scfg)
+        out[arch] = {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+                     "workers": n, "batch": B, "seq": S,
+                     "params_per_worker": per_worker, "data_s": data_s,
+                     "loss": h["loss"], "consensus": h["consensus"],
+                     "first_step_ms": h["step_s"][0] * 1e3,
+                     "step_ms": [t * 1e3 for t in h["step_s"][1:]],
+                     "wall_s": wall, "peak_memory_gb": peak,
+                     "groups": groups, "launches": launches,
+                     "exchange_stacks": sorted(stacks),
+                     "exchange_elements_bitwise": compared}
+        del h, model
+        torch.cuda.empty_cache()
+        print(json.dumps({"train_multimodal": out[arch], "arch": arch}),
+              flush=True)
+    return out
+
+
+def mm_phases(gen: torch.Generator, card: str, lap: Laps) -> dict:
+    """Phases 37-39, each printing its line; returns the ring launches
+    they add to the kernels' line."""
+    for phase, load in (("37", WHISPER_LOAD), ("38", LLAVA_LOAD)):
+        got = serve_legacy_full(load, gen)
+        print(json.dumps({"serve_legacy_full": got, "phase": phase,
+                          "card": card}), flush=True)
+        lap(phase)
+    mm = train_multimodal()
+    print(json.dumps({"train_multimodal": mm, "card": card}), flush=True)
+    lap("39")
+    return {"ring_launches": sum(v["launches"]["ring"] for v in mm.values())}
+
+
 def main(argv=None) -> int:
-    import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3901,7 +4361,11 @@ def main(argv=None) -> int:
     gap = ef_gap_closure()
     print(json.dumps({"ef_gap_closure": gap, "card": card}), flush=True)
     lap("20")
-    big_int8 = rps100m_int8(setup, big["loss"])
+    cut = cut_setup(setup)
+    base = cut_baseline(cut)
+    print(json.dumps({"rps_100m_cut_baseline": base, "card": card}),
+          flush=True)
+    big_int8 = rps100m_int8(cut, base["loss"])
     print(json.dumps({"rps_100m_int8": big_int8, "card": card}), flush=True)
     lap("21")
     chans = channels_bench()
@@ -3911,7 +4375,7 @@ def main(argv=None) -> int:
     print(json.dumps({"state_bench_convergence": conv, "card": card}),
           flush=True)
     lap("23")
-    packs = rps100m_packs(setup)
+    packs = rps100m_packs(cut)
     print(json.dumps({"rps_100m_state_packs": packs, "card": card}),
           flush=True)
     lap("24")
@@ -3929,18 +4393,18 @@ def main(argv=None) -> int:
     ab["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"async_bench": ab, "card": card}), flush=True)
     t0 = time.perf_counter()
-    attack = rps100m_attack(setup, big)
+    attack = rps100m_attack(cut, base)
     attack["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"rps_100m_attack": attack, "card": card}), flush=True)
     t0 = time.perf_counter()
-    asy = rps100m_async(setup)
+    asy = rps100m_async(cut)
     asy["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"rps_100m_async": asy, "card": card}), flush=True)
     t0 = time.perf_counter()
-    tel = rps100m_telemetry(setup)
+    tel = rps100m_telemetry(cut)
     tel["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"rps_100m_telemetry": tel, "card": card}), flush=True)
-    del setup
+    del setup, cut
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     fig4 = convergence_bench()
@@ -3952,6 +4416,7 @@ def main(argv=None) -> int:
     print(json.dumps({"launchers": launch, "card": card}), flush=True)
     lap("25-31")
     new = new_phases(gen, card, lap)
+    mm = mm_phases(gen, card, lap)
     lap.report()
     robust_launches = sum(v["masked_avg_launches"]
                           for v in rb["sweep"].values())
@@ -4002,11 +4467,12 @@ def main(argv=None) -> int:
             "replaces": "src/repro/kernels/rps_ring.py:331",
             # with ring.cu's encoded variant (levels 0), which takes the
             # attacked renorm run's corrupted f32 offers
-            "launches": big["ring_launches"] + ab["launches"]["ring"]
+            "launches": big["ring_launches"] + base["ring_launches"]
+            + ab["launches"]["ring"]
             + asy["sync"]["ring_launches"] + asy["async"]["ring_launches"]
             + attack["renorm"]["ring_enc_launches"]
             + tel["launches_off"]["ring"] + tel["launches_on"]["ring"]
-            + new["ring_launches"],
+            + new["ring_launches"] + mm["ring_launches"],
             "max_abs_err": ring_err,
             "ms": ring_group["ms"], "plain_ms": ring_group["plain_ms"],
             "bound_ms": ring_group["bound_ms"],

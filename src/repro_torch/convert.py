@@ -6,11 +6,12 @@ port keeps one dict per layer, in faithful order. :func:`params_from_jax`
 scatters every kind's group back to its layer indices by the same
 first-appearance rule the JAX package stacks them by (``group_layout``).
 The tests use it to run both packages on the same weights, for every
-ported family (the dense kinds, the MoE kinds, RWKV-6's rwkv kind,
-RecurrentGemma's rec and attn kinds; nested dicts such as a layer's
-``mlp`` or ``moe`` — the f32 (d, E) ``router`` and the expert-first
-``wi`` / ``wg`` / ``wo`` — and f32 leaves such as ``lam`` carry across as
-they are).
+family (the dense kinds, the MoE kinds, RWKV-6's rwkv kind,
+RecurrentGemma's rec and attn kinds, Whisper's ``enc_layers`` stack and
+its xattn kind with ``lnx`` and the ``xattn`` projections; nested dicts
+such as a layer's ``mlp`` or ``moe`` — the f32 (d, E) ``router`` and the
+expert-first ``wi`` / ``wg`` / ``wo`` — and f32 leaves such as ``lam``
+carry across as they are).
 
 The train path keeps the JAX package's stacked layout, and
 :func:`stacked_params_from_jax` carries any tree across in it, leaf for
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.registry import kind_sequence
+from repro_torch.models.registry import enc_kind_sequence, kind_sequence
 from repro_torch.models.stack import group_layout
 
 
@@ -42,18 +43,27 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def params_from_jax(np_params: dict, cfg: ArchConfig, device="cuda") -> dict:
-    """The port's parameters from the JAX package's tree of numpy arrays."""
-    device = resolve_device(device)
-    layout = group_layout(kind_sequence(cfg))
-    layers = [None] * cfg.n_layers
-    for kind, idxs in layout.items():
-        stacked = np_params["layers"][kind]
+def _unstack(groups: dict, kinds, device) -> list:
+    """{kind: stacked leaves} -> one dict per layer, in faithful order."""
+    layers = [None] * len(kinds)
+    for kind, idxs in group_layout(kinds).items():
         for j, li in enumerate(idxs):
             layers[li] = _map(lambda a, j=j: _tensor(np.asarray(a)[j], device),
-                              stacked)
-    embed = _map(lambda a: _tensor(a, device), np_params["embed"])
-    return {"embed": embed, "layers": layers}
+                              groups[kind])
+    return layers
+
+
+def params_from_jax(np_params: dict, cfg: ArchConfig, device="cuda") -> dict:
+    """The port's parameters from the JAX package's tree of numpy arrays
+    (with the audio model's encoder stack, ``enc_layers``)."""
+    device = resolve_device(device)
+    out = {"embed": _map(lambda a: _tensor(a, device), np_params["embed"]),
+           "layers": _unstack(np_params["layers"], kind_sequence(cfg),
+                              device)}
+    enc = enc_kind_sequence(cfg)
+    if enc:
+        out["enc_layers"] = _unstack(np_params["enc_layers"], enc, device)
+    return out
 
 
 def stacked_params_from_jax(np_params, device="cuda"):

@@ -36,18 +36,34 @@ drop-masked tensor-parallel decode, on the GPU unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --serve continuous \
       --arch kimi-k2-1t-a32b --tp-shards 4 -p 0.1 --drain --device cpu
 
+  # the audio and vlm families, static batch (their only path), on the
+  # CPU at smoke-test size, then whole at full width on the card (a
+  # llava prompt of 3,520 tokens + 576 patches = the 4,096 window)
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve legacy \
+      --arch whisper-large-v3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve legacy \
+      --arch llava-next-mistral-7b --full --batch 8 --prompt-len 3520 \
+      --new-tokens 32
+
 The flags are the JAX launcher's, plus ``--device`` and ``--layers``
-(the depth cut, after ``--reduced`` / ``--full``). ``--arch`` takes
-every config of the registry but the vlm and audio families; at full
-width one 80 GB card holds gemma3-1b, rwkv6-1.6b, recurrentgemma-9b,
-deepseek-7b and starcoder2-15b whole, while llama3-405b, mixtral-8x22b
-and kimi-k2-1t-a32b need ``--layers`` (4, 4 and 1 fit). ``--serve legacy`` serves every
-ported family (dense with its MoE variant, ssm, hybrid) on the
-contiguous cache. Its windowed attention layers keep the reference's
-ring buffer, which holds the right positions only when ``--prompt-len``
-is a multiple of the window; the port reproduces the reference's output
-at other lengths too (ROADMAP C). ``--serve continuous`` serves the dense
-family, MoE included; with ``--telemetry-dir D`` it writes the session's
+(the depth cut, after ``--reduced`` / ``--full``; the decoder stack
+only, whisper's encoder stays whole). ``--arch`` takes every config of
+the registry; at full width one 80 GB card holds gemma3-1b, rwkv6-1.6b,
+recurrentgemma-9b, deepseek-7b, starcoder2-15b, whisper-large-v3 and
+llava-next-mistral-7b whole, while llama3-405b, mixtral-8x22b and
+kimi-k2-1t-a32b need ``--layers`` (4, 4 and 1 fit). ``--serve legacy``
+serves every family (dense with its MoE variant, ssm, hybrid, audio,
+vlm) on the contiguous cache: the vlm's patch embeddings
+(``n_patches`` × d) and the audio model's frames (``--prompt-len`` //
+2 × d) are drawn, after the prompts, from the prompts' numpy generator,
+as the reference's launcher draws them, and the vlm decodes from
+``--prompt-len`` + ``n_patches`` (ROADMAP C). Its windowed attention
+layers keep the reference's ring buffer, which holds the right
+positions only when the prefilled length is a multiple of the window;
+the port reproduces the reference's output at other lengths too
+(ROADMAP C). ``--serve continuous`` serves the dense family, MoE
+included (not the vlm and audio families, which have no continuous
+path in the reference either); with ``--telemetry-dir D`` it writes the session's
 Chrome trace (``serve.prefill`` spans, a ``serve.request`` event per
 request, the ``serve.queue`` counter) to ``D/serve_trace.json``.
 """
@@ -62,6 +78,7 @@ import torch
 
 from repro_torch.launch.common import add_model_flags, arch_config
 from repro_torch.models import build_model
+from repro_torch.models.inputs import float_leaf
 from repro_torch.netsim import request_trace
 from repro_torch.serve import (ContinuousEngine, ServeEngine, TPDecodeConfig,
                                make_requests)
@@ -164,21 +181,36 @@ def _sync(device: torch.device) -> None:
 
 def _serve_legacy(args, model, params, where: str) -> torch.Tensor:
     """Static-batch generation (the reference's legacy path): a random
-    (batch, prompt_len) prompt batch, ``new_tokens`` greedy or sampled
-    tokens each. Returns the (batch, new_tokens) tokens."""
+    (batch, prompt_len) prompt batch, with the vlm's patch embeddings or
+    the audio model's frames drawn after it from the same generator,
+    ``new_tokens`` greedy or sampled tokens each. Returns the
+    (batch, new_tokens) tokens."""
     cfg = model.cfg
     eng = ServeEngine(model=model, params=params,
-                      max_len=args.prompt_len + args.new_tokens,
+                      max_len=(args.prompt_len + model.prefix_len
+                               + args.new_tokens),
                       temperature=args.temperature)
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(args.batch, args.prompt_len)),
         device=model.device)
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"patches": float_leaf(
+            rng.normal(size=(args.batch, cfg.n_patches, cfg.d_model)) * 0.02,
+            cfg.torch_dtype, model.device)}
+    if cfg.family == "audio":
+        extra = {"frames": float_leaf(
+            rng.normal(size=(args.batch,
+                             args.prompt_len // cfg.enc_frames_ratio,
+                             cfg.d_model)) * 0.02,
+            cfg.torch_dtype, model.device)}
     gen = torch.Generator(device=model.device)
     gen.manual_seed(1)
     _sync(model.device)
     t0 = time.perf_counter()
-    out = eng.generate(prompts, args.new_tokens, gen=gen)
+    out = eng.generate(prompts, args.new_tokens, gen=gen,
+                       extra_inputs=extra)
     _sync(model.device)
     dt = time.perf_counter() - t0
     tps = args.batch * args.new_tokens / dt

@@ -34,7 +34,10 @@ the summary:
 layout of :mod:`repro_torch.checkpoint` (which the JAX package's
 ``load_pytree`` reads too).
 
-``--arch`` takes every config but the vlm and audio families; the rwkv
+``--arch`` takes every config but the vlm and audio families, which it
+refuses: the char-LM task has no ``patches`` or ``frames`` (the
+reference's launcher fails there too, on a KeyError; train them through
+``run_simulation`` with a ``models.inputs.make_batch`` stream). The rwkv
 and rec kinds train on the reference's XLA-route recurrences, the MoE
 kinds add their load-balance loss. ``--layers N`` cuts the depth (full
 width, as the serving launcher's):
@@ -165,6 +168,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = arch_config(args)
+    if cfg.family in ("vlm", "audio"):
+        raise ValueError(
+            f"--arch {args.arch}: the {cfg.family} family needs "
+            f"{'patches' if cfg.family == 'vlm' else 'frames'}, which the "
+            f"char-LM task does not make; train it through run_simulation "
+            f"with a repro_torch.models.inputs.make_batch stream")
     model = build_model(cfg, device=args.device)
     vocab = args.task_vocab or cfg.vocab_size
     if not 1 <= vocab <= cfg.vocab_size:

@@ -290,19 +290,20 @@ def attention_qkv(p, x, *, cfg: ArchConfig):
 
 
 def attention_fwd(p, x, *, cfg: ArchConfig, window: Optional[int],
-                  blocked: bool = False):
-    """Full-sequence causal self-attention (train, prefill) on the route
-    the reference takes (:func:`attention_route`): blocked local above
-    2·window when ``blocked``, chunked above 2048 tokens, else full.
-    Returns (out, (k, v))."""
+                  blocked: bool = False, causal: bool = True):
+    """Full-sequence self-attention (train, prefill; causal unless
+    ``causal=False``, the encoder's) on the route the reference takes
+    (:func:`attention_route`): blocked local above 2·window when
+    ``blocked``, chunked above 2048 tokens, else full. Returns
+    (out, (k, v))."""
     q, k, v = attention_qkv(p, x, cfg=cfg)
     route = attention_route(q.shape[1], window, blocked)
     if route == "blocked":
         out = blocked_local_attention(q, k, v, window=int(window))
     elif route == "chunked":
-        out = chunked_attention(q, k, v, causal=True, window=window)
+        out = chunked_attention(q, k, v, causal=causal, window=window)
     else:
-        out = full_attention(q, k, v, causal=True, window=window)
+        out = full_attention(q, k, v, causal=causal, window=window)
     out = einsum("bshe,hed->bsd", out, p["wo"])
     return out, (k, v)
 

@@ -1,16 +1,17 @@
-"""Top-level model API (port of :mod:`repro.models.registry`) for the
-dense family (gemma3, deepseek, starcoder2, llama3; mixtral and kimi with
-their MoE FFN), the ssm family (RWKV-6) and the hybrid family
-(RecurrentGemma). The vlm and audio families are not ported yet.
+"""Top-level model API (port of :mod:`repro.models.registry`) for every
+family: dense (gemma3, deepseek, starcoder2, llama3; mixtral and kimi
+with their MoE FFN), ssm (RWKV-6), hybrid (RecurrentGemma), audio
+(Whisper: an encoder stack and cross-attention decoder layers) and vlm
+(LLaVA-NeXT: the dense Mistral backbone with patch embeddings before the
+tokens).
 
 ``build_model(cfg, device=...)`` returns a :class:`Model` whose methods
 work on plain parameter dicts:
 
   init(gen)                                   -> params
   init_stacked(gen)                           -> train-layout params
-  loss(train-layout params, {"tokens", "labels": (B,S)})
-                                              -> (loss, metrics)
-  prefill(params, {"tokens": (B,S)}, max_len=None, paged=False)
+  loss(train-layout params, batch)            -> (loss, metrics)
+  prefill(params, inputs, max_len=None, paged=False)
                                               -> (last_logits, cache)
   decode_step(params, cache, {"token": (B,1)}, pos) -> (logits, cache)
   init_cache(batch_size, max_len)             -> cache
@@ -18,16 +19,31 @@ work on plain parameter dicts:
                                               -> (logits, pool)
   init_paged(n_slots)                         -> pool
 
-Serving keeps one parameter dict per layer (``params["layers"]`` a list);
-training keeps the JAX package's stacked layout (``params["layers"]`` a
-dict of per-kind stacks, :func:`repro_torch.models.stack.stack_layers`),
-so that the exchange's blocks fall where the reference's do. ``loss``
-runs every ported family (rwkv and rec on the reference's XLA-route
-recurrences); autograd gives its gradients.
+Batch and prompt layouts (:mod:`repro_torch.models.inputs`):
+
+  dense / ssm / hybrid: {tokens: (B,S), labels: (B,S)}
+  vlm:   {tokens: (B,S-P), patches: (B,P,d), labels: (B,S-P)}
+  audio: {frames: (B,S//r,d), tokens: (B,S), labels: (B,S)}
+
+(prefill's inputs drop the labels). The vlm's prefill writes the
+``n_patches`` patch rows and then the prompt's rows, so its first decode
+position is the prompt's length plus :attr:`Model.prefix_len`; the audio
+model's frames are not in the decoder's sequence, and its decode reads
+the cross K/V from the cache.
+
+Serving keeps one parameter dict per layer (``params["layers"]`` a list,
+and the audio model's ``params["enc_layers"]``); training keeps the JAX
+package's stacked layout (``params["layers"]`` a dict of per-kind
+stacks, ``params["enc_layers"]`` = {"enc": stack},
+:func:`repro_torch.models.stack.stack_layers`), so that the exchange's
+blocks fall where the reference's do. ``loss`` runs every family (rwkv
+and rec on the reference's XLA-route recurrences); autograd gives its
+gradients.
 
 The contiguous cache (``paged=False``, ``decode_step``, ``init_cache``)
-serves every ported family (the dense kinds on the reference's
-ring-buffer KV cache); the paged pool serves the dense kinds.
+serves every family (the dense kinds on the reference's ring-buffer KV
+cache); the paged pool serves the dense kinds (not the vlm and audio
+families: the reference has no continuous path for them).
 """
 from __future__ import annotations
 
@@ -45,15 +61,21 @@ from repro_torch.models.transformer import dense_kind_sequence
 
 
 def kind_sequence(cfg: ArchConfig) -> List[str]:
-    """Per-layer kind names in faithful order."""
-    if cfg.family == "dense":
+    """Per-layer decoder kind names in faithful order."""
+    if cfg.family in ("dense", "vlm"):
         return dense_kind_sequence(cfg)
     if cfg.family == "ssm":
         return ["rwkv"] * cfg.n_layers
     if cfg.family == "hybrid":
         return hybrid_kind_sequence(cfg)
-    raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
-                              f"ported yet")
+    if cfg.family == "audio":
+        return ["xattn"] * cfg.n_layers
+    raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+
+
+def enc_kind_sequence(cfg: ArchConfig) -> List[str]:
+    """The encoder stack's kinds (the audio family's; empty otherwise)."""
+    return ["enc"] * cfg.enc_layers if cfg.family == "audio" else []
 
 
 @dataclasses.dataclass
@@ -61,6 +83,15 @@ class Model:
     cfg: ArchConfig
     kinds: List[str]                      # decoder kind sequence
     device: torch.device
+    enc_kinds: List[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def prefix_len(self) -> int:
+        """The rows that stand before the tokens in the decoder's
+        sequence: the vlm's ``n_patches`` patch embeddings (0 in every
+        other family's config). Prefill writes them, so decoding starts at
+        the prompt's length plus this."""
+        return self.cfg.n_patches
 
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters at the JAX package's scales, drawn from
@@ -68,39 +99,76 @@ class Model:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
-        return {"embed": L.init_embed(gen, self.cfg),
-                "layers": S.init_stack(gen, self.cfg, self.kinds)}
+        params = {"embed": L.init_embed(gen, self.cfg),
+                  "layers": S.init_stack(gen, self.cfg, self.kinds)}
+        if self.enc_kinds:
+            params["enc_layers"] = S.init_stack(gen, self.cfg,
+                                                self.enc_kinds)
+        return params
 
     def init_stacked(self, gen: torch.Generator) -> dict:
         """Random parameters in the train path's stacked layout, drawn as
         :meth:`init` draws them."""
         params = self.init(gen)
-        return {"embed": params["embed"],
-                "layers": S.stack_layers(params["layers"], self.kinds)}
+        out = {"embed": params["embed"],
+               "layers": S.stack_layers(params["layers"], self.kinds)}
+        if self.enc_kinds:
+            out["enc_layers"] = S.stack_layers(params["enc_layers"],
+                                               self.enc_kinds)
+        return out
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The audio encoder over ``frames`` (B, S_src, d), cast to the
+        config's dtype, in train mode (both layouts): its output
+        (B, S_src, d)."""
+        x = frames.to(self.cfg.torch_dtype)
+        enc = params["enc_layers"]
+        if isinstance(enc, dict):
+            return S.apply_stack_train(enc, x, self.cfg, self.enc_kinds)[0]
+        return S.apply_stack(enc, x, self.cfg, self.enc_kinds,
+                             mode="prefill")[0]
+
+    def _aux(self, params, inputs) -> dict:
+        if self.cfg.family != "audio":
+            return {}
+        return {"enc_out": self.encode(params, inputs["frames"])}
+
+    def embed_inputs(self, params, inputs) -> torch.Tensor:
+        """The token embeddings, after the vlm's patch embeddings (cast to
+        the embedding's dtype)."""
+        tok = L.embed(params["embed"], inputs["tokens"])
+        if self.cfg.family == "vlm":
+            return torch.cat([inputs["patches"].to(tok.dtype), tok], dim=1)
+        return tok
 
     def loss(self, params, batch):
-        """Mean next-token cross-entropy of ``batch`` ({"tokens",
-        "labels": (B, S)}) under train-layout ``params``. Returns (nll +
-        aux_loss, {"nll", "aux_loss"}); the aux loss is the MoE layers'
-        load-balance term (0 without experts)."""
-        x = L.embed(params["embed"], batch["tokens"])
+        """Mean next-token cross-entropy of ``batch`` under train-layout
+        ``params`` (the vlm's patch rows dropped before the head). Returns
+        (nll + aux_loss, {"nll", "aux_loss"}); the aux loss is the MoE
+        layers' load-balance term (0 without experts)."""
+        x = self.embed_inputs(params, batch)
         x, aux = S.apply_stack_train(params["layers"], x, self.cfg,
-                                     self.kinds)
+                                     self.kinds,
+                                     aux=self._aux(params, batch))
+        x = x[:, self.prefix_len:]
         logits = L.lm_head(params["embed"], x, self.cfg.vocab_size)
         nll = L.softmax_xent(logits, batch["labels"])
         return nll + aux, {"nll": nll, "aux_loss": aux}
 
     def prefill(self, params, inputs, max_len=None, paged: bool = False):
-        """Prompt pass. Returns the last position's logits (B, vocab) and
-        the per-layer cache: with ``paged`` the K/V of every position
-        (dense kinds, for the slot pool), else the contiguous decode
-        cache (dense: the last ``window`` K/V rows, or all rows padded to
-        ``max_len`` for a global layer; rwkv: final state and token
-        shifts; rec: conv state and f32 carry)."""
-        x = L.embed(params["embed"], inputs["tokens"])
+        """Prompt pass over ``inputs`` ({"tokens"}, with the vlm's
+        "patches" or the audio model's "frames"). Returns the last
+        position's logits (B, vocab) and the per-layer cache: with
+        ``paged`` the K/V of every position (dense kinds, for the slot
+        pool), else the contiguous decode cache (dense: the last
+        ``window`` K/V rows, or all rows padded to ``max_len`` for a
+        global layer; xattn: that and the cross K/V; rwkv: final state
+        and token shifts; rec: conv state and f32 carry)."""
+        x = self.embed_inputs(params, inputs)
         x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
                                  mode="prefill", paged=paged,
-                                 max_len=max_len)
+                                 max_len=max_len,
+                                 aux=self._aux(params, inputs))
         vocab = self.cfg.vocab_size
         last = L.lm_head(params["embed"], x[:, -1:], vocab)[:, 0, :vocab]
         return last, cache
@@ -108,8 +176,9 @@ class Model:
     def decode_step(self, params, cache, inputs, pos):
         """One decode step against the contiguous cache at ``pos`` (the
         new token's position, the same for every request). Returns
-        (logits (B, vocab), new cache); the dense kinds' K/V caches are
-        written in place (the reference donates them)."""
+        (logits (B, vocab), new cache); the K/V caches are written in
+        place (the reference donates them). The audio model's cross K/V
+        come from the cache."""
         x = L.embed(params["embed"], inputs["token"])
         x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
                                  mode="decode", cache=cache, pos=pos)
@@ -148,4 +217,5 @@ class Model:
 def build_model(cfg: ArchConfig, *, device="cuda") -> Model:
     """The model on ``device`` (CUDA unless the caller asks for the CPU;
     raises when CUDA is asked for and absent)."""
-    return Model(cfg, kind_sequence(cfg), resolve_device(device))
+    return Model(cfg, kind_sequence(cfg), resolve_device(device),
+                 enc_kind_sequence(cfg))

@@ -4,8 +4,10 @@ layer order only.
 An architecture is a *kind sequence*, one entry per layer: dense kinds
 (``"attn"``, ``"attn@<window>"``, and with an MoE FFN ``"moe_attn"``,
 ``"moe_attn@<window>"``; :mod:`repro_torch.models.transformer`),
-the RWKV-6 kind (``"rwkv"``, :mod:`repro_torch.models.rwkv6`) and the
-RG-LRU kind (``"rec"``, :mod:`repro_torch.models.hybrid`). The JAX
+the RWKV-6 kind (``"rwkv"``, :mod:`repro_torch.models.rwkv6`), the
+RG-LRU kind (``"rec"``, :mod:`repro_torch.models.hybrid`) and Whisper's
+encoder and cross-attention decoder kinds (``"enc"``, ``"xattn"``,
+:mod:`repro_torch.models.whisper`). The JAX
 package can also run the layers grouped by kind (one scan per group);
 for gemma3's 5:1 pattern that runs all local layers before the global
 ones, which is not the model's order. The port follows the ungrouped,
@@ -19,13 +21,16 @@ masks on the same elements as the reference. :func:`apply_stack_train`
 reads layer l's weights as views into the stacked leaves; it runs every
 kind (rwkv and rec on the reference's XLA-route recurrences,
 :mod:`repro_torch.kernels.ops`) and sums the MoE layers' aux losses.
+``aux`` carries the side inputs of the kinds that read them: the
+encoder output ``enc_out`` for ``xattn``.
 
 Which kinds serve on which cache:
 
 - the contiguous cache (``prefill(paged=False)``, ``decode``, the
   static-batch engine): every kind — the dense kinds' ring-buffer or
   ``max_len`` KV cache, rwkv's state and token shifts, rec's conv state
-  and f32 carry;
+  and f32 carry, xattn's self K/V padded to ``max_len`` and its cross
+  K/V (the encoder's ``enc`` layers run in prefill only);
 - the paged pool (``decode_paged``, the continuous engine): the dense
   kinds.
 """
@@ -40,6 +45,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import hybrid as H
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 
 RECURRENT = {"rwkv": R, "rec": H}     # kinds with no KV cache
 
@@ -54,14 +60,15 @@ def group_layout(kinds: Sequence[str]) -> Dict[str, List[int]]:
 
 
 def _no_paged(kind: str, what: str) -> None:
-    if kind in RECURRENT:
+    if kind in RECURRENT or kind in W.KINDS:
         raise ValueError(f"kind {kind!r} has no paged {what}")
 
 
 def init_stack(gen: torch.Generator, cfg: ArchConfig,
                kinds: Sequence[str]) -> list:
     """Per-layer parameter dicts, drawn in layer order from ``gen``."""
-    init = {"rwkv": R.init_rwkv, "rec": H.init_rec}
+    init = {"rwkv": R.init_rwkv, "rec": H.init_rec, "enc": W.init_enc,
+            "xattn": W.init_xattn}
     return [init[k](gen, cfg) if k in init
             else T.init_layer(gen, cfg, moe=T.is_moe(k)) for k in kinds]
 
@@ -76,12 +83,13 @@ def stack_layers(layers: Sequence[dict], kinds: Sequence[str]) -> dict:
 
 
 def apply_stack_train(params: dict, x, cfg: ArchConfig,
-                      kinds: Sequence[str]):
+                      kinds: Sequence[str], aux: Optional[dict] = None):
     """The train-mode pass over the stacked layout, in faithful order
-    (the JAX package's ``apply_stack(mode="train", grouped=False)``).
-    Returns (x, the summed per-layer aux loss, f32)."""
+    (the JAX package's ``apply_stack(mode="train", grouped=False)``);
+    ``aux["enc_out"]`` is the encoder output the ``xattn`` layers attend
+    to. Returns (x, the summed per-layer aux loss, f32)."""
     pos = {kind: 0 for kind in params}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind in kinds:
         i = pos[kind]
         pos[kind] += 1
@@ -89,16 +97,24 @@ def apply_stack_train(params: dict, x, cfg: ArchConfig,
         if kind in RECURRENT:
             x = RECURRENT[kind].train(p, x, cfg)
             continue
+        if kind == "enc":
+            x = W.enc_train(p, x, cfg)
+            continue
+        if kind == "xattn":
+            x = W.xattn_train(p, x, aux["enc_out"], cfg)
+            continue
         x, al = T.train(p, x, cfg, T.window_of(kind))
         if al is not None:
-            aux = aux + al
-    return x, aux
+            aux_loss = aux_loss + al
+    return x, aux_loss
 
 
 def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
                 mode: str, cache=None, pos=None, paged=None,
-                max_len: Optional[int] = None):
-    """Run every layer in faithful order.
+                max_len: Optional[int] = None, aux: Optional[dict] = None):
+    """Run every layer in faithful order (``aux["enc_out"]``: the encoder
+    output that ``xattn`` prefills attend to; its decode reads the cross
+    K/V from the cache).
 
     prefill:      returns (x, per-layer caches); ``paged`` truthy keeps
                   every position's K/V for the slot pool (dense kinds),
@@ -115,6 +131,11 @@ def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
         for p, kind in zip(params, kinds):
             if kind in RECURRENT:
                 x, c = RECURRENT[kind].prefill(p, x, cfg)
+            elif kind == "enc":
+                x, c = W.enc_train(p, x, cfg), {}
+            elif kind == "xattn":
+                x, c = W.xattn_prefill(p, x, aux["enc_out"], cfg,
+                                       max_len=max_len)
             else:
                 x, c = T.prefill(p, x, cfg, T.window_of(kind),
                                  paged=bool(paged), max_len=max_len)
@@ -125,6 +146,10 @@ def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
         for p, kind, cache_l in zip(params, kinds, cache):
             if kind in RECURRENT:
                 x, c = RECURRENT[kind].decode(p, x, cache_l, cfg)
+            elif kind == "xattn":
+                x, c = W.xattn_decode(p, x, cache_l, pos, cfg)
+            elif kind == "enc":
+                raise ValueError("kind 'enc' never decodes")
             else:
                 x, c = T.decode(p, x, cache_l, pos, cfg, T.window_of(kind))
             caches.append(c)
@@ -145,6 +170,10 @@ def init_cache(cfg: ArchConfig, kinds: Sequence[str], batch: int,
     for kind in kinds:
         if kind in RECURRENT:
             out.append(RECURRENT[kind].cache_spec(cfg, batch, device))
+        elif kind == "xattn":
+            out.append(W.xattn_cache_spec(cfg, batch, max_len, device))
+        elif kind == "enc":
+            out.append({})
         else:
             out.append(T.cache_spec(cfg, batch, max_len, T.window_of(kind),
                                     device))

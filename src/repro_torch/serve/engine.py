@@ -4,8 +4,13 @@ static-batch sampler and the continuous-batching engine.
 ``make_serve_steps`` builds the prefill and decode closures, and
 :class:`ServeEngine` is a batched greedy / temperature sampler on top:
 one static batch, a prefill, then one decode step per token against the
-contiguous cache (every ported family: the dense kinds' ring-buffer KV
-cache, rwkv's and rec's recurrent states).
+contiguous cache (every family: the dense kinds' ring-buffer KV cache,
+rwkv's and rec's recurrent states, the audio decoder's self and cross
+K/V; the vlm's and the audio model's extra inputs through
+``extra_inputs``). Decoding starts at the length prefill wrote: the
+prompt's plus the model's ``prefix_len`` (the vlm's patch embeddings,
+which stand before the tokens; the reference starts at the prompt's
+length there, ROADMAP C).
 
 :class:`ContinuousEngine` serves requests with per-request admission and
 iteration-level join/evict (``serve.scheduler``), a paged KV cache
@@ -49,7 +54,8 @@ class ServeEngine:
     """Static-batch sampler: ``generate`` prefills a (B, S) batch of
     prompts and decodes ``n_new`` tokens for all of them, greedy
     (``temperature`` 0) or sampled at ``temperature`` from the caller's
-    ``torch.Generator``, on ``model.device``."""
+    ``torch.Generator``, on ``model.device``. ``max_len`` counts the
+    model's ``prefix_len`` rows too."""
     model: Model
     params: Any
     max_len: int = 512
@@ -63,19 +69,23 @@ class ServeEngine:
                  gen: Optional[torch.Generator] = None,
                  extra_inputs: Optional[Dict[str, Any]] = None
                  ) -> torch.Tensor:
-        """prompts: (B, S) int -> (B, n_new) int64 generated tokens.
-        Sampling needs ``temperature > 0`` and a generator on the model's
-        device; otherwise decoding is greedy."""
+        """prompts: (B, S) int -> (B, n_new) int64 generated tokens;
+        ``extra_inputs``: the vlm's "patches" (B, P, d) or the audio
+        model's "frames" (B, S_src, d). Sampling needs ``temperature >
+        0`` and a generator on the model's device; otherwise decoding is
+        greedy."""
         B, S = prompts.shape
-        if S + n_new > self.max_len:
+        P = self.model.prefix_len    # rows prefill writes before the prompt
+        if S + P + n_new > self.max_len:
+            patches = f" + {P} patches" if P else ""
             raise ValueError(
-                f"prompt_len {S} + n_new {n_new} = {S + n_new} exceeds "
-                f"ServeEngine.max_len {self.max_len}")
+                f"prompt_len {S}{patches} + n_new {n_new} = {S + P + n_new} "
+                f"exceeds ServeEngine.max_len {self.max_len}")
         inputs = {"tokens": prompts, **(extra_inputs or {})}
         last, cache = self._prefill(self.params, inputs)
         out = []
         tok = torch.argmax(last, dim=-1)[:, None]
-        pos = S
+        pos = S + P
         for _ in range(n_new):
             out.append(tok)
             logits, cache = self._decode(self.params, cache, tok, pos)
@@ -146,6 +156,12 @@ class ContinuousEngine:
     telemetry: Any = None
 
     def __post_init__(self):
+        if self.model.cfg.family in ("vlm", "audio"):
+            raise ValueError(
+                f"{self.model.cfg.name}: the {self.model.cfg.family} family "
+                f"has no continuous-batching path (its prefill needs "
+                f"patches / frames, and the reference has no paged form of "
+                f"its kinds); serve it with ServeEngine, --serve legacy")
         if self.max_len % self.page:
             # the block table is sized in whole pages
             self.max_len = n_pages(self.max_len, self.page) * self.page

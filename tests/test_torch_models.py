@@ -67,10 +67,17 @@ def test_configs_agree():
                 assert getattr(ct, f.name) == getattr(cj, f.name), f.name
             assert (ct.hd, ct.padded_vocab) == (cj.hd, cj.padded_vocab)
             assert ct.torch_dtype == getattr(torch, cj.jnp_dtype.name)
-    # the vlm and audio families are the ones not ported yet
+    # the vlm and audio families are ported too: their configs equal the
+    # reference's and build with its kinds
     for name in ("whisper-large-v3", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(name)
+        for reduce in (False, True):
+            cj, ct = jax_get_config(name), get_config(name)
+            if reduce:
+                cj, ct = cj.reduced(), ct.reduced()
+            for f in dataclasses.fields(ct):
+                assert getattr(ct, f.name) == getattr(cj, f.name), f.name
+        assert build_model(ct, device="cpu").kinds == \
+            jax_build_model(cj, grouped=False).kinds
 
 
 def test_kind_sequence_is_faithful(gemma):

@@ -29,6 +29,7 @@ from repro_torch.core import plan as tplan
 from repro_torch.core import rps as trps
 from repro_torch.data import synthetic as tdata
 from repro_torch.models import build_model as tbuild_model
+from repro_torch.models.inputs import make_batch
 from repro_torch.optim import make_optimizer as tmake_optimizer
 from repro_torch.train import simulator as tsim
 from repro_torch.launch.env import host_env
@@ -179,13 +180,23 @@ def test_init_stacked_layout_matches_reference():
 
 
 def test_non_dense_train_mode_raises():
-    # every decoder family trains now (tests/test_torch_train_families.py);
-    # the vlm and audio families, not ported yet, raise at build time
-    for family in ("vlm", "audio"):
-        cfg = dataclasses.replace(tget_config("gemma3-1b").reduced(),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tbuild_model(cfg, device="cpu")
+    # every family trains now (tests/test_torch_train_families.py, and
+    # the vlm and audio families' parity in tests/test_torch_vlm.py and
+    # tests/test_torch_whisper.py): they build, and their train-layout
+    # loss on a make_batch batch is finite with a gradient for every leaf
+    for arch in ("llava-next-mistral-7b", "whisper-large-v3"):
+        cfg = tget_config(arch).reduced()
+        model = tbuild_model(cfg, device="cpu")
+        params = model.init_stacked(torch.Generator().manual_seed(0))
+        leaves, td = tree_lib.flatten(params)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, _ = model.loss(tree_lib.unflatten(td, leaves),
+                             make_batch(cfg, 2, 40, device="cpu"))
+        grads = torch.autograd.grad(loss, leaves)
+        assert torch.isfinite(loss)
+        assert all(torch.isfinite(g).all() and g.abs().max() > 0
+                   for g in grads)
 
 
 # ---- the exchange on a real model tree ---------------------------------------

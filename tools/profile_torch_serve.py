@@ -37,7 +37,18 @@ time. ``--wire int8`` and ``--recovery ef`` profile the int8 wire's load
 variant; the int8 encode and the EF residual are the elementwise kernels
 around it.
 
-    python3 tools/profile_torch_serve.py [--slice gemma3|rwkv6|recurrentgemma|train]
+``--slice launcher`` profiles chip_smoke.py's phase-16 load, the training
+launcher at its defaults (``launch/train.py``'s ``main``: rps-paper-mlp,
+bf16, the char-LM task, n = 16, batch 32, seq 64) on the ring engine,
+for ``LAUNCHER_STEPS`` steps: a short warm-up run, a timed run (its history's
+step times), the same run under ``cProfile`` (the host's functions with
+the most time of their own, and the port's with the most time including
+their callees; the launcher's set-up is in both, spread over the steps)
+and under ``torch.profiler`` (device busy
+time and idle share a step, launches a step, the host ops and the
+kernels with the most time).
+
+    python3 tools/profile_torch_serve.py [--slice gemma3|rwkv6|recurrentgemma|train|launcher]
         [--wire f32|bf16|int8] [--recovery renorm|scale|ef]
 
 Needs a CUDA device; exits non-zero without one.
@@ -45,7 +56,9 @@ Needs a CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
+import pstats
 import sys
 import time
 from pathlib import Path
@@ -72,6 +85,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 LABELS = ("serve.prefill", "serve.decode_step")
+LAUNCHER_STEPS = 20    # --slice launcher: the steps of each profiled run
 
 
 def _labelled(fn, label):
@@ -233,10 +247,64 @@ def profile_train(card: str, steps: int = 2, wire: str = "f32",
         "top_kernels": _top(kernels, busy_s, n=12)}
 
 
+def profile_launcher(card: str) -> dict:
+    """The training launcher's defaults (chip_smoke.py phase 16's load) on
+    the ring engine, ``LAUNCHER_STEPS`` steps: where a step's host time
+    goes."""
+    from repro_torch.launch import train as train_launcher
+    steps = LAUNCHER_STEPS
+    args = ["--engine", "ring", "--steps", str(steps)]
+    train_launcher.main(["--engine", "ring", "--steps", "3"])   # warm-up
+    step_s = train_launcher.main(args)["step_s"][1:]
+    prof_py = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof_py.enable()
+    train_launcher.main(args)
+    prof_py.disable()
+    cprofile_wall_s = time.perf_counter() - t0
+    st = pstats.Stats(prof_py)
+    own = sorted(((v[2], v[1], f"{Path(k[0]).name}:{k[1]}:{k[2]}")
+                  for k, v in st.stats.items()), reverse=True)
+    # the port's own functions by time including their callees
+    cum = sorted(((v[3], v[1], f"{Path(k[0]).name}:{k[1]}:{k[2]}")
+                  for k, v in st.stats.items()
+                  if "repro_torch" in k[0]), reverse=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_launcher.main(args)
+        torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t0
+    kernels = _device_kernels(prof)
+    busy_s = sum(k[0] for k in kernels) / 1e6
+    host_ops = sorted(((a.self_cpu_time_total, a.count, a.key)
+                       for a in prof.key_averages()
+                       if a.device_type == DeviceType.CPU), reverse=True)
+    mean_s = sum(step_s) / len(step_s)
+    return {
+        "card": card, "slice": "launcher", "steps": steps,
+        "step_ms": [t * 1e3 for t in step_s], "step_ms_mean": mean_s * 1e3,
+        "cprofile_wall_s": cprofile_wall_s,
+        "cprofile_top_own_s_per_step": [
+            {"fn": name, "own_ms_per_step": t * 1e3 / steps,
+             "calls_per_step": c / steps} for t, c, name in own[:15]],
+        "cprofile_top_port_cum_ms_per_step": [
+            {"fn": name, "cum_ms_per_step": t * 1e3 / steps,
+             "calls_per_step": c / steps} for t, c, name in cum[:15]],
+        "profiled_wall_s": prof_wall_s,
+        "device_busy_ms_per_step": busy_s * 1e3 / steps,
+        "device_idle_share": 1.0 - busy_s / (mean_s * steps),
+        "kernel_launches_per_step": sum(k[1] for k in kernels) / steps,
+        "top_host_ops": [{"op": k[2][:90], "self_cpu_ms_per_step":
+                          k[0] / 1e3 / steps, "calls_per_step": k[1] / steps}
+                         for k in host_ops[:12]],
+        "top_kernels": _top(kernels, busy_s)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--slice", choices=("gemma3",) + tuple(STATIC)
-                    + ("train",), default="gemma3")
+                    + ("train", "launcher"), default="gemma3")
     ap.add_argument("--wire", choices=("f32", "bf16", "int8"),
                     default="f32", help="--slice train: the RS-leg codec")
     ap.add_argument("--recovery", choices=("renorm", "scale", "ef"),
@@ -246,6 +314,9 @@ def main() -> int:
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
+    if args.slice == "launcher":
+        print(json.dumps(profile_launcher(card), indent=1))
+        return 0
     if args.slice == "train":
         print(json.dumps(profile_train(card, wire=args.wire,
                                        recovery=args.recovery), indent=1))
