@@ -290,7 +290,28 @@ raises on failure; nothing is caught):
    and consensus, ring launches = groups x steps and no other kernel,
    one exchange at the first layer of every kind (the encoder stack's
    included), on integer replicas that differ from worker to worker,
-   bit for bit against ring.cu's plain version; step ms and peak memory.
+   bit for bit against ring.cu's plain version; step ms and peak memory;
+40. the collective path, four ranks on the one card in one world of
+   spawned processes over gloo (core/comm.py stages each CUDA payload
+   through pinned host buffers; the transport and staging print):
+   ring_rank.cu's hop and landing against their plain versions, bit for
+   bit, over (k, W) chunks up to rps-100m's largest bucket chunk at n = 4
+   (1 x 7,077,888), f32 / bf16 payloads and accumulation, the int8 wire,
+   non-finite rows; the hop's time beside its bound, its plain version
+   and the plain chain where(rs, x, 0) + acc; then on every rank the
+   collective exchange of rps-100m's per-leaf plan at n = 4 against the
+   port's global path on the stacked trees: the ring engine bit for bit
+   against ring.cu (f32, bf16 wires) and ring_q.cu (int8, the same
+   uniforms), the xla engine within COLL_TRAIN_TOL;
+41. the mesh trainer (train/trainer.py) at rps-100m whole on the (4,)
+   data mesh, batch 32 x seq 128 a rank, lr 0.3, p 0.1, 8 steps, on the
+   ring and the xla engines, each against run_simulation (n 4) on the
+   same init, batches and masks: every loss within COLL_TRAIN_TOL, every
+   final parameter bit for bit on the ring engine and within
+   COLL_TRAIN_TOL on the xla engine (bit equality counted),
+   ring_rank_hop and ring_rank_land launches = 4 per bucket and step on
+   every rank on the ring engine and none on the xla engine; step ms, the
+   bytes staged a step and each rank's peak memory.
 
 The phases' wall seconds are printed on one line before the kernels'
 line.
@@ -421,6 +442,8 @@ def reset_counts() -> None:
     RG.ring_round.launches = 0
     RG.ring_round_enc.launches = 0
     RG.ring_round_enc.requant_launches = 0
+    RG.ring_rank_hop.launches = 0
+    RG.ring_rank_land.launches = 0
 
 
 def card_line() -> str:
@@ -4239,6 +4262,456 @@ def mm_phases(gen: torch.Generator, card: str, lap: Laps) -> dict:
     lap("39")
     return {"ring_launches": sum(v["launches"]["ring"] for v in mm.values())}
 
+# ---- phases 40-41: the collective path, 4 ranks on the card ---------------
+
+COLL_N = 4                     # ranks, all on cuda:0 (gloo, host-staged)
+COLL_THREADS = 2               # torch threads a rank (8 cores / 4 ranks)
+# the trainer's load: rps-100m whole on a (4,) data mesh
+COLL_LOAD = dict(n=COLL_N, batch=32, seq=128, lr=0.3, p=0.1, steps=8)
+COLL_SEED = 4000
+# the trainer against run_simulation on the same init, batches and masks:
+# the losses within COLL_TRAIN_TOL; the final parameters bit for bit on
+# the ring engine (f32; the two compute each rank's gradient with the same
+# kernels, and the ring's adds are the same in both), within
+# COLL_TRAIN_TOL on the xla engine (it sums on the host in gloo's order
+# where the simulator's masked-average kernel sums in its own)
+COLL_TRAIN_TOL = 1e-4
+# ring_rank.cu's sweep: (k, W) chunk shapes, the last rps-100m's largest
+# bucket chunk at n = 4 (one row of its (12, 768, 3072) MLP leaf)
+RANK_SHAPES = ((1, 1), (1, 33), (3, 4097), (2, 65536), (1, 7_077_888))
+
+
+def _nan_eq(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements of a and b whose bits differ (NaN equal to NaN)."""
+    if a.dtype == torch.int8:
+        return int((a != b).sum())
+    a, b = a.float(), b.float()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return int((~same).sum())
+
+
+def check_ring_rank(gen: torch.Generator) -> dict:
+    """Phase 40a: ring_rank.cu's hop and landing against their plain
+    versions (kernels/ref.py) on the card, bit for bit (NaN equal to NaN):
+    (k, W) in RANK_SHAPES x S = 4k rows x every chunk of 4 x payload f32 /
+    bf16 x accumulation f32 / bf16 x the first, a middle and the last hop,
+    and the int8 wire (levels 127; middle hops re-encode, the last
+    divides) with f32 / bf16 payloads; masks with drops; a row of
+    non-finite values in every table (NaN and inf in the linear tables,
+    in the int8 scales on the int8 wire) beside normal rows; then the
+    landing in both renorm settings."""
+    from repro_torch.kernels import ref as R
+    cases = bad = 0
+    n = 4
+    for k, W in RANK_SHAPES:
+        S = k * n
+        big = W > 100_000
+        rs = (torch.rand(S, generator=gen, device="cuda") < 0.7).to(torch.uint8)
+        div = torch.randint(1, n + 1, (S,), generator=gen,
+                            device="cuda").float()
+        variants = [(pt, at, 0) for pt in (torch.float32, torch.bfloat16)
+                    for at in (torch.float32, torch.bfloat16)]
+        variants += [(pt, torch.float32, 127)
+                     for pt in (torch.float32, torch.bfloat16)]
+        for pt, at, levels in (variants[:1] + variants[-1:] if big
+                               else variants):
+            if levels:
+                src = torch.randint(-127, 128, (S, W), generator=gen,
+                                    device="cuda", dtype=torch.int8)
+                ssc = torch.rand(S, generator=gen, device="cuda") * 0.1
+                ssc[0] = float("inf")
+                recv = torch.randint(-127, 128, (k, W), generator=gen,
+                                     device="cuda", dtype=torch.int8)
+                rsc = torch.rand(k, generator=gen, device="cuda") * 0.5
+                if k > 1:
+                    rsc[1] = float("nan")
+            else:
+                src = torch.randn((S, W), generator=gen,
+                                  device="cuda").to(pt)
+                src[0, 0] = float("nan")
+                src[S - 1, -1] = float("inf")
+                ssc = None
+                recv = torch.randn((k, W), generator=gen,
+                                   device="cuda").to(at)
+                rsc = None
+            for chunk in ((0, n - 1) if big else range(n)):
+                hops = (("first", None, None, False),
+                        ("middle", recv, rsc, False),
+                        ("last", recv, rsc, True))
+                for _, rv, rc, last in hops:
+                    kw = dict(chunk=chunk, k=k, acc_dtype=at, out_dtype=pt,
+                              levels=levels, last=last)
+                    got = RG.ring_rank_hop(src, ssc, rs, rv, rc, div, **kw)
+                    want = R.ring_rank_hop_ref(src, ssc, rs, rv, rc, div,
+                                               **kw)
+                    if isinstance(got, tuple):
+                        bad += _nan_eq(got[0], want[0])
+                        bad += _nan_eq(got[1], want[1])
+                    else:
+                        bad += _nan_eq(got, want)
+                    cases += 1
+        cur = torch.randn((k, W), generator=gen, device="cuda")
+        blocks = torch.randn((S, W), generator=gen, device="cuda")
+        ag = torch.rand(S, generator=gen, device="cuda") < 0.7
+        for renorm in (True, False):
+            got = torch.full_like(blocks, 7.0)
+            want = got.clone()
+            for chunk in range(n):
+                RG.ring_rank_land(got, cur, ag, blocks, chunk=chunk, k=k,
+                                  renorm=renorm)
+                R.ring_rank_land_ref(want, cur, ag, blocks, chunk=chunk, k=k,
+                                     renorm=renorm)
+            bad += _nan_eq(got, want)
+            cases += 1
+    if bad:
+        raise AssertionError(f"ring_rank.cu: {bad} elements differ from its "
+                             f"plain version over {cases} cases")
+    return {"cases": cases, "differing_elements": bad}
+
+
+def time_ring_rank(gen: torch.Generator, W: int = RANK_SHAPES[-1][1]) -> dict:
+    """Phase 40b: one middle hop (f32 received partial, f32 chunk, f32
+    out) at the trainer's largest bucket chunk, and a landing, in a CUDA
+    graph between CUDA events, beside the plain version, the plain chain
+    ``where(rs, x, 0) + acc`` (no single PyTorch call computes a hop) and
+    the bytes bound (the partial and the chunk read once, the new partial
+    written once); then the int8 wire's re-encoding middle hop at the same
+    chunk (int8 partial and chunk with their row scales in, the int8
+    partial and its scale out; one block of 1,024 threads a row, so this
+    one-row chunk runs on one SM) beside its plain version, between CUDA
+    events around eager calls (too long a call for a graph of 100), and
+    its bytes bound (the received partial and the chunk, k W int8 each,
+    read once, the new partial written once, and the three row scales)."""
+    from repro_torch.kernels import ref as R
+    n, k = COLL_N, 1
+    S = n * k
+    src = torch.randn((S, W), generator=gen, device="cuda")
+    recv = torch.randn((k, W), generator=gen, device="cuda")
+    rs = torch.ones(S, dtype=torch.bool, device="cuda")
+    div = torch.full((S,), 4.0, device="cuda")
+    kw = dict(chunk=1, k=k, acc_dtype=torch.float32,
+              out_dtype=torch.float32)
+    hop_ms = device_ms(lambda: RG.ring_rank_hop(src, None, rs, recv, None,
+                                                div, **kw))
+    plain_ms = device_ms(lambda: R.ring_rank_hop_ref(src, None, rs, recv,
+                                                     None, div, **kw))
+    x = src[1:2]
+    chain_ms = device_ms(lambda: torch.where(rs[1:2, None], x, 0.0) + recv)
+    out = torch.empty_like(src)
+    ag = torch.ones(S, dtype=torch.bool, device="cuda")
+    land_ms = device_ms(lambda: RG.ring_rank_land(out, recv, ag, src,
+                                                  chunk=1, k=k, renorm=True))
+    nbytes = 3 * k * W * 4
+    q = torch.randint(-127, 128, (S, W), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    qs = torch.rand(S, generator=gen, device="cuda") * 0.1
+    rq = torch.randint(-127, 128, (k, W), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    rqs = torch.rand(k, generator=gen, device="cuda") * 0.5
+    qkw = dict(kw, levels=127)
+    requant_ms = event_ms(lambda: RG.ring_rank_hop(q, qs, rs, rq, rqs, div,
+                                                   **qkw), calls=10)
+    requant_plain_ms = event_ms(lambda: R.ring_rank_hop_ref(
+        q, qs, rs, rq, rqs, div, **qkw), calls=10)
+    qbytes = 3 * k * W + 3 * k * 4
+    return {"shape": [k, W], "ms": hop_ms, "plain_ms": plain_ms,
+            "plain_chain_ms": chain_ms, "land_ms": land_ms,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "requant": {"ms": requant_ms, "plain_ms": requant_plain_ms,
+                        "bytes": qbytes,
+                        "bound_ms": qbytes / HBM_BYTES_PER_S * 1e3,
+                        "bound_by": "bytes", "blocks": k}}
+
+
+def _coll_tree(meta: dict, seed: int) -> dict:
+    """A replica-shaped tree of normal values from ``seed`` on the card."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return tree_lib.map(lambda m: torch.randn(m.shape, generator=g,
+                                              device="cuda").to(m.dtype),
+                        meta)
+
+
+def _coll_exchanges(mesh, rank: int, meta: dict, masks) -> dict:
+    """Phase 40c (on every rank): the collective exchange of rps-100m's
+    per-leaf plan at n = 4 (this rank's tree of normal values, ranks
+    drawn from seeds of their own) against the port's global path on the
+    stacked trees (every rank rebuilds the stack): the ring engine on the
+    f32 and bf16 wires against ring.cu's stacked round, and on the int8
+    wire against ring_q.cu's (the same uniforms: one (G, n, s, d) draw a
+    group, each rank's bucket rows in its hook), bit for bit; the xla
+    engine (renorm) against the masked-average kernel within
+    COLL_TRAIN_TOL. Returns the differing elements and the launches."""
+    from repro_torch.core import comm
+    from repro_torch.core import plan as plan_lib
+    n = COLL_N
+    p = COLL_LOAD["p"]
+    plan = plan_lib.per_leaf_plan(meta, n)
+    stacked = tree_lib.map(lambda *xs: torch.stack(xs),
+                           *[_coll_tree(meta, COLL_SEED + 1 + r)
+                             for r in range(n)])
+    mine = tree_lib.map(lambda x: x[rank].clone(), stacked)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(COLL_SEED + 99)
+    groups = rps_lib._global_groups(plan)
+    uni = {}
+    for g_idx, ((blk, m, _), idxs) in enumerate(groups.items()):
+        uni[g_idx] = torch.rand((len(idxs), n, plan.s, blk * m),
+                                generator=g, device="cuda")
+    where = {b: (g_idx, pos) for g_idx, idxs in enumerate(groups.values())
+             for pos, b in enumerate(idxs)}
+
+    def rank_noise(b, shape):
+        g_idx, pos = where[b]
+        return uni[g_idx][pos, rank].reshape(shape)
+
+    out = {}
+    for wire in ("f32", "bf16", "int8"):
+        kw = dict(masks=masks, engine="ring", wire=wire)
+        reset_counts()
+        comm.reset_stats()
+        got = rps_lib.rps_exchange_plan(
+            mine, None, p, "data", plan=plan, mesh=mesh,
+            wire_noise=rank_noise if wire == "int8" else None, **kw)
+        hops = RG.ring_rank_hop.launches
+        staged = comm.STATS["staged_bytes"]
+        want = rps_lib.rps_exchange_global(
+            stacked, None, p, n, plan=plan,
+            wire_noise=(lambda g_idx, shape: uni[g_idx]), **kw)
+        diff = sum(_nan_eq(a, b[rank]) for a, b in
+                   zip(tree_lib.leaves(got), tree_lib.leaves(want)))
+        out[f"ring_{wire}"] = {"differing_elements": diff,
+                               "hop_launches": hops,
+                               "staged_bytes": staged}
+        del got, want
+    got = rps_lib.rps_exchange_plan(mine, None, p, "data", plan=plan,
+                                    mesh=mesh, masks=masks, engine="xla")
+    want = rps_lib.rps_exchange_global(stacked, None, p, n, plan=plan,
+                                       masks=masks, engine="xla")
+    err = max(float((a - b[rank]).abs().max()) for a, b in
+              zip(tree_lib.leaves(got), tree_lib.leaves(want)))
+    out["xla_f32"] = {"max_abs_err": err}
+    return out
+
+
+def _coll_train(mesh, rank: int, engine: str, masks: list, sim_params,
+                batches: list) -> dict:
+    """Phase 41 on one rank: the mesh trainer (rps_model, SGD) over
+    COLL_LOAD's steps, its final parameters against the simulator's row
+    ``rank`` (``sim_params``: the parent's stacked tree in shared host
+    memory; CUDA IPC would leave the parent's blocks referenced when the
+    ranks exit, and its exit then fails)."""
+    from repro_torch.core import comm
+    from repro_torch.train.trainer import TrainConfig, make_train_setup
+    load = COLL_LOAD
+    model = build_model(RPS_100M, device="cuda")
+    tcfg = TrainConfig(lr=load["lr"], drop_rate=load["p"],
+                       aggregator="rps_model", engine=engine)
+    init_state, step, _ = make_train_setup(model, RPS_100M, tcfg, mesh,
+                                           rps_axes=("data",))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(COLL_SEED)
+    params, opt_state = init_state(g)
+    batches = [{k: v[rank].cuda() for k, v in b.items()} for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    comm.reset_stats()
+    losses, step_ms = [], []
+    for t in range(load["steps"]):
+        t0 = time.perf_counter()
+        params, opt_state, met = step(params, opt_state, batches[t], t,
+                                      None, masks=masks[t])
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    err, diff = 0.0, 0
+    for a, b in zip(tree_lib.leaves(params), tree_lib.leaves(sim_params)):
+        b = b[rank].cuda()
+        err = max(err, float((a - b).abs().max()))
+        diff += _nan_eq(a, b)
+    return {"loss": losses, "step_ms": step_ms,
+            "hop_launches": RG.ring_rank_hop.launches,
+            "land_launches": RG.ring_rank_land.launches,
+            "other_launches": RG.ring_round.launches
+            + RG.ring_round_enc.launches + K.masked_avg_grid.launches,
+            "staged_bytes_per_step": comm.STATS["staged_bytes"]
+            / load["steps"],
+            "transfers_per_step": comm.STATS["transfers"] / load["steps"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_max_abs_err": err, "params_differing": diff,
+            "device": str(tree_lib.leaves(params)[0].device),
+            "n_buckets": step.plan.n_buckets}
+
+
+def _coll_rank(rank: int, world: int, masks40, masks41: list,
+               sim: dict, batches: list) -> dict:
+    """One rank of phases 40-41 (cuda:0, gloo)."""
+    from repro_torch.launch.mesh import make_sim_mesh
+    build.load_kernels()
+    mesh = make_sim_mesh(world)
+    masks40 = tuple(m.cuda() for m in masks40)
+    masks41 = [tuple(m.cuda() for m in pair) for pair in masks41]
+    model = build_model(RPS_100M, device="cuda")
+    meta = tree_lib.map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="meta"),
+                        model.init_stacked(torch.Generator(device="cuda")))
+    del model
+    t0 = time.perf_counter()
+    ex = _coll_exchanges(mesh, rank, meta, masks40)
+    ex_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    runs = {eng: _coll_train(mesh, rank, eng, masks41, sim[eng], batches)
+            for eng in ("ring", "xla")}
+    return {"exchanges": ex, "exchanges_s": ex_s, "train": runs,
+            "backend": mesh.backend,
+            "device": sorted({run["device"] for run in runs.values()})}
+
+
+def coll_phases(gen: torch.Generator, card: str, lap: Laps,
+                batches: Optional[list] = None) -> dict:
+    """Phases 40-41: the collective path, four ranks on the one card over
+    gloo (host-staged: comm.py copies each CUDA payload through pinned
+    host buffers; NCCL refuses two ranks on one card, and asking for it
+    raises), in one world of spawned processes.
+
+    40. ring_rank.cu against its plain version (check_ring_rank), its
+        time (time_ring_rank); then on every rank rps-100m's per-leaf
+        plan exchanged collectively against the port's global path
+        (_coll_exchanges: the ring engine bit for bit against ring.cu on
+        the f32 and bf16 wires and against ring_q.cu on the int8 wire,
+        the xla engine within COLL_TRAIN_TOL);
+    41. the mesh trainer (train/trainer.py) at rps-100m whole (12 layers,
+        d 768, f32, 129.0 M parameters a rank) on a (4,) data mesh, batch
+        32 x seq 128 a rank, lr 0.3, p 0.1, 8 steps, on the ring and the
+        xla engines, each against run_simulation (n 4) on the same init,
+        batches and masks: every step's loss within COLL_TRAIN_TOL, every
+        final parameter bit for bit on the ring engine and within
+        COLL_TRAIN_TOL on the xla engine (bit equality counted); the
+        batches are ``batches`` (worker-stacked, on the CPU: phase 17's
+        first four workers' first 8 steps), else drawn from phase 17's
+        char-LM task. Kernel launches: on the ring engine n = 4
+        ring_rank_hop and 4 ring_rank_land launches per bucket and step
+        on every rank (the plan's buckets x 8 steps x 4 each), on the xla
+        engine none; the step ms, the bytes staged a step and the peak
+        memory of each rank printed."""
+    from repro_torch.launch.mesh import run_world
+    load = COLL_LOAD
+    n, steps = load["n"], load["steps"]
+    rank_err = check_ring_rank(gen)
+    rank_timing = time_ring_rank(gen)
+    print(json.dumps({"ring_rank_check": rank_err,
+                      "ring_rank_timing": rank_timing, "card": card}),
+          flush=True)
+    torch.cuda.empty_cache()
+    lap("40a")
+    # the simulator on the same init, batches and masks, before the world
+    mg = torch.Generator(device="cuda")
+    mg.manual_seed(COLL_SEED + 7)
+    masks40 = tuple(m.cpu() for m in rps_lib.sample_masks(mg, n, load["p"]))
+    masks41 = [tuple(m.cpu() for m in rps_lib.sample_masks(mg, n,
+                                                           load["p"]))
+               for _ in range(steps)]
+    model = build_model(RPS_100M, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(COLL_SEED)
+    p1 = model.init_stacked(g)
+    if batches is None:
+        task = CharLMTask(vocab=RPS_100M.vocab_size, seq_len=load["seq"],
+                          seed=0)
+        stream = make_worker_streams(task, n, load["batch"])
+        batches = [{k: v.cpu() for k, v in stream(t).items()}
+                   for t in range(steps)]
+    sim, sim_out = {}, {}
+    for eng in ("ring", "xla"):
+        scfg = SimulatorConfig(n_workers=n, drop_rate=load["p"],
+                               aggregator="rps_model", lr=load["lr"],
+                               steps=steps, eval_every=1, engine=eng)
+        h = run_simulation(lambda p, b: model.loss(p, b)[0], None,
+                           lambda t: {k: v.cuda()
+                                      for k, v in batches[t].items()},
+                           scfg, init_params=p1,
+                           masks_fn=lambda t: tuple(
+                               m.cuda() for m in masks41[t]))
+        sim[eng] = tree_lib.map(lambda x: x.cpu().share_memory_(),
+                                h["params"])
+        sim_out[eng] = {"loss": h["loss"],
+                        "step_ms": [s * 1e3 for s in h["step_s"]]}
+    del model, p1
+    torch.cuda.empty_cache()
+    lap("41-sim")
+    try:                 # no silent switch of transport
+        run_world(_coll_rank, n, backend="nccl", device="cuda:0")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("phase 40: nccl with 4 ranks on one card "
+                             "did not raise")
+    t0 = time.perf_counter()
+    ranks = run_world(_coll_rank, n, masks40, masks41, sim, batches,
+                      backend="gloo", device="cuda:0",
+                      threads=COLL_THREADS, timeout_s=600)
+    world_s = time.perf_counter() - t0
+    del sim
+    torch.cuda.empty_cache()
+    for r, got in enumerate(ranks):
+        if got["backend"] != "gloo" or got["device"] != ["cuda:0"]:
+            raise AssertionError(f"rank {r}: transport {got['backend']} on "
+                                 f"{got['device']}")
+        ex = got["exchanges"]
+        for wire in ("f32", "bf16", "int8"):
+            if ex[f"ring_{wire}"]["differing_elements"]:
+                raise AssertionError(f"phase 40 rank {r}: the {wire} ring "
+                                     f"differs from the stacked round: "
+                                     f"{ex[f'ring_{wire}']}")
+        if not ex["xla_f32"]["max_abs_err"] <= COLL_TRAIN_TOL:
+            raise AssertionError(f"phase 40 rank {r}: xla engine "
+                                 f"{ex['xla_f32']}")
+        for eng, run in got["train"].items():
+            want = n * run["n_buckets"] * steps if eng == "ring" else 0
+            if (run["hop_launches"], run["land_launches"]) != (want, want) \
+                    or run["other_launches"]:
+                raise AssertionError(f"phase 41 rank {r} {eng}: launches "
+                                     f"{run['hop_launches']} / "
+                                     f"{run['land_launches']} / "
+                                     f"{run['other_launches']}, want {want}")
+            lerr = max(abs(a - b) for a, b in zip(run["loss"],
+                                                  sim_out[eng]["loss"]))
+            run["loss_max_abs_err"] = lerr
+            exact = eng == "ring" and run["params_differing"]
+            if exact or not (np.all(np.isfinite(run["loss"]))
+                             and lerr <= COLL_TRAIN_TOL
+                             and run["params_max_abs_err"] <= COLL_TRAIN_TOL):
+                raise AssertionError(f"phase 41 rank {r} {eng}: loss err "
+                                     f"{lerr}, params err "
+                                     f"{run['params_max_abs_err']}, "
+                                     f"{run['params_differing']} params "
+                                     "differ")
+    summary = {
+        "transport": "gloo, CUDA payloads staged through pinned host "
+                     "buffers (core/comm.py), 4 ranks on cuda:0",
+        "world_s": world_s, "simulator": sim_out,
+        "exchanges": [got["exchanges"] for got in ranks],
+        "exchanges_s": [got["exchanges_s"] for got in ranks],
+        "train": {eng: {k: [got["train"][eng][k] for got in ranks]
+                        for k in ("step_ms", "staged_bytes_per_step",
+                                  "transfers_per_step", "peak_memory_gb",
+                                  "params_max_abs_err", "params_differing",
+                                  "hop_launches", "land_launches",
+                                  "loss_max_abs_err")}
+                  for eng in ("ring", "xla")},
+        "loss": {eng: ranks[0]["train"][eng]["loss"]
+                 for eng in ("ring", "xla")},
+        "n_buckets": ranks[0]["train"]["ring"]["n_buckets"], **load}
+    print(json.dumps({"collective": summary, "card": card}), flush=True)
+    lap("40-41")
+    return {"rank_err": rank_err, "rank_timing": rank_timing,
+            "launches": sum(got["train"]["ring"]["hop_launches"]
+                            + got["train"]["ring"]["land_launches"]
+                            for got in ranks)}
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4404,6 +4877,8 @@ def main(argv=None) -> int:
     tel = rps100m_telemetry(cut)
     tel["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"rps_100m_telemetry": tel, "card": card}), flush=True)
+    coll_batches = [{k: v[:COLL_N].cpu() for k, v in b.items()}
+                    for b in setup.batches[:COLL_LOAD["steps"]]]
     del setup, cut
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4417,6 +4892,7 @@ def main(argv=None) -> int:
     lap("25-31")
     new = new_phases(gen, card, lap)
     mm = mm_phases(gen, card, lap)
+    coll = coll_phases(gen, card, lap, coll_batches)
     lap.report()
     robust_launches = sum(v["masked_avg_launches"]
                           for v in rb["sweep"].values())
@@ -4488,8 +4964,18 @@ def main(argv=None) -> int:
                 "bound_ms": enc_group["bound_ms"],
                 "bound_by": enc_group["bound_by"],
                 "library_ms": None, "ok": True}
+    rt = coll["rank_timing"]
+    ring_rank = {"name": "ring_rank", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ring_rank.cu",
+                 "replaces": "src/repro/kernels/rps_ring.py:331",
+                 "launches": coll["launches"],
+                 "max_abs_err": 0.0 if not
+                 coll["rank_err"]["differing_elements"] else None,
+                 "ms": rt["ms"], "plain_ms": rt["plain_ms"],
+                 "bound_ms": rt["bound_ms"], "bound_by": rt["bound_by"],
+                 "library_ms": None, "ok": True}
     print(json.dumps({"kernels": [kernel, combine, rwkv, rglru, ring,
-                                  ring_enc]}),
+                                  ring_enc, ring_rank]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

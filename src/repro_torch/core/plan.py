@@ -15,12 +15,15 @@ padding computed once at setup:
 - :func:`decode_plan`: the tensor-parallel serving path's one
   ``(d_model, batch)`` leaf.
 
+Leaves with a ``model_dims`` entry (tensor-parallel leaves) get a bucket
+of their own in every mode, the model dim kept intact as the table's
+trailing ``m`` axis (:func:`_tp_bucket`), after the coalesced buckets.
+
 ``schedule="async"`` (with ``compute_ms``) ships the buckets in reverse
 plan order as the backward pass makes their gradients ready: the plan
 carries each bucket's readiness time (:func:`bucket_ready_ms`, or measured
 times through :meth:`ExchangePlan.with_ready_ms`) and
 :meth:`ExchangePlan.slack_ms` turns a deadline into per-bucket budgets.
-Model-dim (tensor-parallel) buckets are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -190,10 +193,18 @@ class ExchangePlan:
     def gather_bucket(self, leaves: Sequence[torch.Tensor], b: int,
                       lead: int = 0) -> torch.Tensor:
         """Bucket ``b``'s (lead…, s, blk, m) block table; members are
-        promoted to the bucket dtype. A one-leaf bucket without padding
-        is a view of its leaf."""
+        promoted to the bucket dtype. A model-dim bucket moves its leaf's
+        model dim last. A one-leaf flat bucket without padding is a view
+        of its leaf."""
         bk = self.buckets[b]
         lshape = tuple(leaves[bk.leaf_ids[0]].shape[:lead])
+        if bk.model_dim is not None:
+            x = torch.movedim(leaves[bk.leaf_ids[0]], lead + bk.model_dim,
+                              -1)
+            seg = x.reshape(lshape + (bk.free, bk.m))
+            if bk.pad:
+                seg = torch.nn.functional.pad(seg, (0, 0, 0, bk.pad))
+            return seg.reshape(lshape + (self.s, bk.blk, bk.m))
         dt = getattr(torch, bk.dtype)
         parts = [leaves[i].reshape(lshape + (-1,)).to(dt)
                  for i in bk.leaf_ids]
@@ -216,6 +227,15 @@ class ExchangePlan:
         new_leaves: list = [None] * self.n_leaves
         for b, tbl in zip(self.buckets, tables):
             lshape = tuple(tbl.shape[:lead])
+            if b.model_dim is not None:
+                seg = tbl.reshape(lshape + (self.s * b.blk, b.m))
+                rest = tuple(d for j, d in enumerate(b.shapes[0])
+                             if j != b.model_dim)
+                inter = seg[..., :b.free, :].reshape(lshape + rest + (b.m,))
+                new_leaves[b.leaf_ids[0]] = torch.movedim(
+                    inter, -1, lead + b.model_dim).to(
+                        getattr(torch, b.dtypes[0]))
+                continue
             seg = tbl.reshape(lshape + (self.s * b.blk,))
             off = 0
             for lid, sz, shp, dt in zip(b.leaf_ids, b.sizes, b.shapes,
@@ -246,6 +266,32 @@ def _flat_bucket(ids, shapes, dtypes, sizes, s: int) -> Bucket:
                   sizes=tuple(sizes[i] for i in ids),
                   model_dim=None, m=1, free=free, blk=blk,
                   pad=s * blk - free, dtype=wire_lib.dtype_name(dt))
+
+
+def _tp_bucket(i, shapes, dtypes, model_dim: int, s: int) -> Bucket:
+    """Leaf ``i`` alone, its ``model_dim`` kept as the table's trailing
+    axis (m = that dim's width) and the other dims flattened into the
+    s blocks."""
+    shp = shapes[i]
+    model_dim = model_dim % len(shp)
+    m = shp[model_dim]
+    free = int(np.prod(shp, dtype=np.int64)) // m
+    blk = max(_ceil_div(free, s), 1)
+    return Bucket(leaf_ids=(i,), shapes=(shp,), dtypes=(dtypes[i],),
+                  sizes=(free,), model_dim=model_dim, m=m, free=free,
+                  blk=blk, pad=s * blk - free, dtype=dtypes[i])
+
+
+def _flatten_model_dims(model_dims: Any, n_leaves: int) -> list:
+    """The per-leaf model dims of a ``model_dims`` tree (None leaves:
+    flat), in the tree's leaf order."""
+    if model_dims is None:
+        return [None] * n_leaves
+    md = tree_lib.leaves(model_dims)
+    if len(md) != n_leaves:
+        raise ValueError(f"model_dims has {len(md)} leaves, tree has "
+                         f"{n_leaves}")
+    return md
 
 
 def bucket_ready_ms(buckets: Sequence[Bucket],
@@ -294,12 +340,6 @@ def _check_ns(n: int, s: Optional[int]) -> int:
     return s
 
 
-def _not_ported(model_dims) -> None:
-    if model_dims is not None:
-        raise NotImplementedError("model_dims (tensor-parallel buckets) "
-                                  "are not ported yet")
-
-
 def make_plan(tree: Any, n: int, s: Optional[int] = None, *,
               bucket_bytes: Optional[float] = None,
               n_buckets: Optional[int] = None,
@@ -313,10 +353,12 @@ def make_plan(tree: Any, n: int, s: Optional[int] = None, *,
     tree order (a leaf larger than the budget gets its own bucket; leaves
     are never split). ``n_buckets``: that many size-balanced contiguous
     groups. Neither: one bucket. ``per_bucket_masks`` defaults to True
-    exactly when a bucketing knob is given. ``schedule="async"`` needs
-    ``compute_ms``, the modelled backward duration."""
+    exactly when a bucketing knob is given. Leaves with a ``model_dims``
+    entry (a tree of the tree's structure, None for flat leaves) get a
+    model-dim bucket of their own in every mode, after the coalesced
+    ones. ``schedule="async"`` needs ``compute_ms``, the modelled backward
+    duration."""
     s = _check_ns(n, s)
-    _not_ported(model_dims)
     if bucket_bytes is not None and n_buckets is not None:
         raise ValueError("give bucket_bytes or n_buckets, not both")
     if n_buckets is not None and int(n_buckets) < 1:
@@ -327,11 +369,15 @@ def make_plan(tree: Any, n: int, s: Optional[int] = None, *,
     if not leaves:
         raise ValueError("cannot plan an empty tree")
     shapes, dtypes, sizes = _leaf_meta(leaves)
-    ids = list(range(len(leaves)))
+    mdims = _flatten_model_dims(model_dims, len(leaves))
+    ids = [i for i in range(len(leaves)) if mdims[i] is None]
+    tp_ids = [i for i in range(len(leaves)) if mdims[i] is not None]
     groups: list = []
-    if n_buckets is not None:
+    if not ids:
+        pass
+    elif n_buckets is not None:
         k = max(1, min(int(n_buckets), len(ids)))
-        total = sum(sizes)
+        total = sum(sizes[i] for i in ids)
         cur: list = []
         acc = 0
         for idx, i in enumerate(ids):
@@ -360,7 +406,8 @@ def make_plan(tree: Any, n: int, s: Optional[int] = None, *,
     else:
         groups.append(ids)
     buckets = tuple(_flat_bucket(g, shapes, dtypes, sizes, s)
-                    for g in groups)
+                    for g in groups) + tuple(
+        _tp_bucket(i, shapes, dtypes, mdims[i], s) for i in tp_ids)
     if per_bucket_masks is None:
         per_bucket_masks = bucket_bytes is not None or n_buckets is not None
     wire, recovery = _canon_pipeline(wire, recovery)
@@ -406,18 +453,22 @@ def single_bucket_plan(tree: Any, n: int, s: Optional[int] = None, *,
 def plan_from_config(tree: Any, n: int, s: Optional[int] = None, *,
                      bucket_mb: Optional[float] = None,
                      n_buckets: Optional[int] = None,
+                     model_dims: Any = None,
                      engine: str = "xla", wire: str = "f32",
                      recovery: str = "renorm", schedule: str = "sync",
                      compute_ms: Optional[float] = None) -> ExchangePlan:
-    """The config-knob → plan policy of the simulator: ``bucket_mb`` MiB
+    """The config-knob → plan policy of the trainer and the simulator:
+    ``bucket_mb`` MiB
     fixed-byte buckets or ``n_buckets`` size-balanced ones (per-bucket
-    masks), both unset → the per-leaf plan; ``schedule`` / ``compute_ms``
+    masks; ``model_dims`` pulls tensor-parallel leaves into buckets of
+    their own), both unset → the per-leaf plan; ``schedule`` / ``compute_ms``
     the async schedule."""
     if bucket_mb is not None or n_buckets is not None:
         return make_plan(tree, n, s,
                          bucket_bytes=(bucket_mb * 2 ** 20
                                        if bucket_mb is not None else None),
-                         n_buckets=n_buckets, engine=engine, wire=wire,
+                         n_buckets=n_buckets, model_dims=model_dims,
+                         engine=engine, wire=wire,
                          recovery=recovery, schedule=schedule,
                          compute_ms=compute_ms)
     return per_leaf_plan(tree, n, s, engine=engine, wire=wire,

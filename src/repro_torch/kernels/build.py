@@ -17,7 +17,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("masked_avg.cu", "rwkv6.cu", "rglru.cu", "ring.cu", "ring_q.cu",
-           "binding.cpp")
+           "ring_rank.cu", "binding.cpp")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 

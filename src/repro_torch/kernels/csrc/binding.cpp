@@ -10,6 +10,11 @@
 //   torch.ops.repro_torch.ring_round_enc(stack, enc, scale, rs, ag, div,
 //                                        out, part, amax, renorm, acc_bf16,
 //                                        levels, cluster, chunk)
+//   torch.ops.repro_torch.ring_rank_hop(src, src_scale, rs, recv,
+//                                       recv_scale, div, out, out_scale,
+//                                       chunk, acc_bf16, levels, last)
+//   torch.ops.repro_torch.ring_rank_land(cur, ag, blocks, out, chunk,
+//                                        renorm)
 // The only file of the build that includes PyTorch's headers; it registers
 // the ops through torch/library.h rather than torch/extension.h and
 // pybind11, which keeps its compile short. The Python wrappers
@@ -415,6 +420,137 @@ void ring_round_enc(const at::Tensor& stack, const at::Tensor& enc,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void check_cuda_contig(const char* op, const at::Tensor& ref,
+                       std::initializer_list<const at::Tensor*> ts) {
+  for (const at::Tensor* t : ts) {
+    TORCH_CHECK(t->is_cuda() && t->device() == ref.device(), op,
+                ": tensors must be on one CUDA device");
+    TORCH_CHECK(t->is_contiguous(), op, ": tensors must be contiguous");
+  }
+}
+
+void ring_rank_hop(const at::Tensor& src,
+                   const std::optional<at::Tensor>& src_scale,
+                   const at::Tensor& rs, const std::optional<at::Tensor>& recv,
+                   const std::optional<at::Tensor>& recv_scale,
+                   const at::Tensor& div, at::Tensor& out,
+                   const std::optional<at::Tensor>& out_scale, int64_t chunk,
+                   bool acc_bf16, int64_t levels, bool last) {
+  check_cuda_contig("ring_rank_hop", src, {&src, &rs, &div, &out});
+  TORCH_CHECK(src.dim() == 2 && rs.dim() == 1 && div.dim() == 1 &&
+                  out.dim() == 2,
+              "ring_rank_hop: want src (S, W), rs and div (S), out (k, W)");
+  const int64_t S = src.size(0), W = src.size(1), k = out.size(0);
+  TORCH_CHECK(k >= 1 && k <= kMaxGridY && W >= 1 && S % k == 0 &&
+                  out.size(1) == W && rs.size(0) == S && div.size(0) == S,
+              "ring_rank_hop: shape mismatch (k = ", k, ", want 1..",
+              kMaxGridY, ")");
+  TORCH_CHECK(chunk >= 0 && chunk < S / k, "ring_rank_hop: chunk = ", chunk,
+              ", want 0..", S / k - 1);
+  TORCH_CHECK(div.scalar_type() == c10::ScalarType::Float,
+              "ring_rank_hop: div must be float32");
+  const c10::ScalarType st = src.scalar_type();
+  const bool int8 = st == c10::ScalarType::Char;
+  TORCH_CHECK(int8 || st == c10::ScalarType::Float ||
+                  st == c10::ScalarType::BFloat16,
+              "ring_rank_hop: src must be float32, bfloat16 or int8");
+  const float* ssc = nullptr;
+  if (int8) {
+    TORCH_CHECK(src_scale.has_value(), "ring_rank_hop: int8 src needs scale");
+    check_cuda_contig("ring_rank_hop", src, {&*src_scale});
+    TORCH_CHECK(src_scale->scalar_type() == c10::ScalarType::Float &&
+                    src_scale->dim() == 1 && src_scale->size(0) == S,
+                "ring_rank_hop: src_scale must be float32 (S)");
+    TORCH_CHECK(!acc_bf16, "ring_rank_hop: an int8 src sums in float32");
+    ssc = static_cast<const float*>(src_scale->data_ptr());
+  }
+  TORCH_CHECK(levels >= 0 && levels <= kMaxLevels, "ring_rank_hop: levels = ",
+              levels, ", want 0..", kMaxLevels);
+  TORCH_CHECK(levels == 0 || int8,
+              "ring_rank_hop: levels > 0 re-encodes an int8 wire");
+  TORCH_CHECK(levels > 0 || !int8,
+              "ring_rank_hop: an int8 src needs levels > 0");
+  const c10::ScalarType acc =
+      acc_bf16 ? c10::ScalarType::BFloat16 : c10::ScalarType::Float;
+  const void* rv = nullptr;
+  const float* rsc = nullptr;
+  repro_torch::DType rdt = dtype_code(acc);
+  if (recv.has_value()) {
+    check_cuda_contig("ring_rank_hop", src, {&*recv});
+    TORCH_CHECK(recv->sizes() == out.sizes(),
+                "ring_rank_hop: recv must be (k, W)");
+    if (levels > 0) {
+      TORCH_CHECK(recv->scalar_type() == c10::ScalarType::Char &&
+                      recv_scale.has_value(),
+                  "ring_rank_hop: the int8 wire receives int8 with scales");
+      check_cuda_contig("ring_rank_hop", src, {&*recv_scale});
+      TORCH_CHECK(recv_scale->scalar_type() == c10::ScalarType::Float &&
+                      recv_scale->dim() == 1 && recv_scale->size(0) == k,
+                  "ring_rank_hop: recv_scale must be float32 (k)");
+      rsc = static_cast<const float*>(recv_scale->data_ptr());
+      rdt = repro_torch::DType::kI8;
+    } else {
+      TORCH_CHECK(recv->scalar_type() == acc,
+                  "ring_rank_hop: recv must be of the accumulation dtype");
+    }
+    rv = recv->data_ptr();
+  }
+  float* osc = nullptr;
+  if (last) {
+    TORCH_CHECK(out.scalar_type() == c10::ScalarType::Float ||
+                    out.scalar_type() == c10::ScalarType::BFloat16,
+                "ring_rank_hop: the last hop writes float32 or bfloat16");
+  } else if (levels > 0) {
+    TORCH_CHECK(out.scalar_type() == c10::ScalarType::Char &&
+                    out_scale.has_value(),
+                "ring_rank_hop: a re-encoding hop writes int8 with scales");
+    check_cuda_contig("ring_rank_hop", src, {&*out_scale});
+    TORCH_CHECK(out_scale->scalar_type() == c10::ScalarType::Float &&
+                    out_scale->dim() == 1 && out_scale->size(0) == k,
+                "ring_rank_hop: out_scale must be float32 (k)");
+    osc = static_cast<float*>(out_scale->data_ptr());
+  } else {
+    TORCH_CHECK(out.scalar_type() == acc,
+                "ring_rank_hop: a middle hop writes the accumulation dtype");
+  }
+  const c10::cuda::CUDAGuard guard(src.device());
+  repro_torch::ring_rank_hop_launch(
+      src.data_ptr(), dtype_code(st), ssc, rs.data_ptr(),
+      dtype_code(rs.scalar_type()), rv, rdt, rsc,
+      static_cast<const float*>(div.data_ptr()), out.data_ptr(),
+      dtype_code(out.scalar_type()), osc, dtype_code(acc),
+      static_cast<int>(levels), last, chunk, k, W,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void ring_rank_land(const at::Tensor& cur, const at::Tensor& ag,
+                    const at::Tensor& blocks, at::Tensor& out, int64_t chunk,
+                    bool renorm) {
+  check_cuda_contig("ring_rank_land", cur, {&cur, &ag, &blocks, &out});
+  TORCH_CHECK(cur.dim() == 2 && ag.dim() == 1 && blocks.dim() == 2 &&
+                  out.sizes() == blocks.sizes(),
+              "ring_rank_land: want cur (k, W), ag (S), blocks and out "
+              "(S, W)");
+  const int64_t S = out.size(0), W = out.size(1), k = cur.size(0);
+  TORCH_CHECK(k >= 1 && k <= kMaxGridY && W >= 1 && S % k == 0 &&
+                  cur.size(1) == W && ag.size(0) == S,
+              "ring_rank_land: shape mismatch");
+  TORCH_CHECK(chunk >= 0 && chunk < S / k, "ring_rank_land: chunk = ", chunk,
+              ", want 0..", S / k - 1);
+  const c10::ScalarType st = cur.scalar_type();
+  TORCH_CHECK(st == c10::ScalarType::Float || st == c10::ScalarType::BFloat16,
+              "ring_rank_land: cur must be float32 or bfloat16");
+  TORCH_CHECK(blocks.scalar_type() == st && out.scalar_type() == st,
+              "ring_rank_land: cur, blocks and out share a dtype");
+  const c10::cuda::CUDAGuard guard(cur.device());
+  repro_torch::ring_rank_land_launch(
+      cur.data_ptr(), dtype_code(st), ag.data_ptr(),
+      dtype_code(ag.scalar_type()), blocks.data_ptr(), out.data_ptr(), renorm,
+      chunk, k, W, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
@@ -439,4 +575,12 @@ TORCH_LIBRARY(repro_torch, m) {
         "Tensor(c!) amax, bool renorm, bool acc_bf16, int levels, "
         "int cluster, int chunk) -> ()",
         &ring_round_enc);
+  m.def("ring_rank_hop(Tensor src, Tensor? src_scale, Tensor rs, "
+        "Tensor? recv, Tensor? recv_scale, Tensor div, Tensor(a!) out, "
+        "Tensor(b!)? out_scale, int chunk, bool acc_bf16, int levels, "
+        "bool last) -> ()",
+        &ring_rank_hop);
+  m.def("ring_rank_land(Tensor cur, Tensor ag, Tensor blocks, "
+        "Tensor(a!) out, int chunk, bool renorm) -> ()",
+        &ring_rank_land);
 }

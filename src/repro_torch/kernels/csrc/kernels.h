@@ -123,6 +123,40 @@ cudaError_t ring_requant_launch(const void* stack, DType dtype,
                                 int cluster, int64_t chunk,
                                 cudaStream_t stream);
 
+// Enqueues one hop of one rank's share of the ring round (ring_rank.cu):
+// for chunk `chunk` (rows [chunk * k, (chunk + 1) * k)) of the contiguous
+// (S, W) contribution table `src` (f32 or bf16 payload, or int8 with its (S)
+// f32 row `src_scale`), the (S) mask row `rs` of any DType type and, after
+// the first hop, the received (k, W) partial `recv` (of the accumulation
+// type acc_dtype, or int8 with its (k) f32 `recv_scale`), writes the new
+// (k, W) partial to `out`: the gated contributions added to the received
+// partial in acc_dtype (kF32 or kBF16; f32 for an int8 table). `last`
+// divides by the (S) f32 divisor `div` and writes the payload type
+// out_dtype (kF32 or kBF16); otherwise `levels` > 0 (int8 table, f32 sums)
+// re-encodes each row onto the int8 grid into `out` and its (k) f32
+// `out_scale`, and levels == 0 writes acc_dtype. One thread block per (row,
+// column tile), one per row when re-encoding; needs k <= 65535. Does not
+// synchronise; the caller checks cudaGetLastError() right after.
+void ring_rank_hop_launch(const void* src, DType src_dtype,
+                          const float* src_scale, const void* rs,
+                          DType rs_dtype, const void* recv, DType recv_dtype,
+                          const float* recv_scale, const float* div,
+                          void* out, DType out_dtype, float* out_scale,
+                          DType acc_dtype, int levels, bool last,
+                          int64_t chunk, int64_t k, int64_t W,
+                          cudaStream_t stream);
+
+// Enqueues one landing of the ring round's all-gather (ring_rank.cu): the
+// averaged (k, W) chunk `cur` (f32 or bf16) written to rows
+// [chunk * k, (chunk + 1) * k) of the contiguous (S, W) `out` where the (S)
+// mask row `ag` (any DType type) delivered it, and the rank's own rows of
+// `blocks` (`renorm`) or zero elsewhere. Needs k <= 65535. Does not
+// synchronise; the caller checks cudaGetLastError() right after.
+void ring_rank_land_launch(const void* cur, DType dtype, const void* ag,
+                           DType ag_dtype, const void* blocks, void* out,
+                           bool renorm, int64_t chunk, int64_t k, int64_t W,
+                           cudaStream_t stream);
+
 // The re-encoding kernel's cluster path: at most 16 blocks (the
 // non-portable cluster size) per row, each carrying at most 192 KiB of
 // int8 partial in shared memory.

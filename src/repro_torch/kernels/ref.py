@@ -291,3 +291,55 @@ def ring_round_ref(stack, rs_g, ag_g, div_g, *, mode: str,
     if inv is not None:
         out = out[:, :, inv.to(stack.device)]
     return out[:, :, :s]
+
+
+def ring_rank_hop_ref(src, src_scale, rs_row, recv, recv_scale, div, *,
+                      chunk: int, k: int, acc_dtype=torch.float32,
+                      out_dtype=torch.float32, levels: int = 0,
+                      last: bool = False):
+    """One hop of rank i's share of the ring round, as the JAX package's
+    interpret ring (``rps_ring._ring_schedule_jax``) takes it between two
+    ``ppermute``s; the plain version of ``csrc/ring_rank.cu``'s hop.
+
+    src: (S, W) contribution table — the payload, or the EF send / a
+    corrupted offer on a linear wire, or int8 with its (S,) f32
+    ``src_scale`` (decoded in f32, not rounded to the payload dtype);
+    rs_row: (S,) this rank's RS mask row; recv: the received (k, W)
+    partial in ``acc_dtype`` (or int8 with its (k,) f32 ``recv_scale``),
+    None on the first hop; div: (S,) f32 divisor. Adds the gated
+    contributions of chunk ``chunk`` (rows chunk·k … chunk·k+k−1) to the
+    partial in ``acc_dtype``. The last hop (the owner's) divides and
+    returns the (k, W) chunk in ``out_dtype``; a middle hop returns the
+    partial, or with ``levels > 0`` its re-encoding ``(q, scale)`` — one
+    f32 scale per row, round-to-nearest-even — as the wire carries it."""
+    rows = slice(chunk * k, (chunk + 1) * k)
+    if src.dtype == torch.int8:
+        val = quant_lib.dequantize(src[rows], src_scale[rows, None])
+    else:
+        val = src[rows]
+    contrib = val.to(acc_dtype) * rs_row[rows].to(acc_dtype)[:, None]
+    if recv is None:
+        acc = contrib
+    else:
+        got = recv if recv_scale is None else quant_lib.dequantize(
+            recv, recv_scale[:, None])
+        acc = got + contrib
+    if last:
+        return (acc / div[rows].to(acc_dtype)[:, None]).to(out_dtype)
+    if levels:
+        q, scale = quant_lib.quantize(acc, levels, torch.int8, lead=0)
+        return q, scale[:, 0]
+    return acc
+
+
+def ring_rank_land_ref(out, cur, ag_row, blocks, *, chunk: int, k: int,
+                       renorm: bool) -> None:
+    """One landing of rank i's all-gather, in place: the averaged (k, W)
+    chunk ``cur`` written to rows chunk·k … chunk·k+k−1 of the (S, W)
+    ``out`` where ``ag_row`` delivered it, and the rank's own ``blocks``
+    (``renorm``) or zero elsewhere; the plain version of
+    ``csrc/ring_rank.cu``'s landing."""
+    rows = slice(chunk * k, (chunk + 1) * k)
+    keep = (ag_row[rows] != 0)[:, None]
+    fallback = blocks[rows] if renorm else torch.zeros_like(cur)
+    out[rows] = torch.where(keep, cur, fallback)

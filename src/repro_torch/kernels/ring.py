@@ -30,13 +30,23 @@ grid (``csrc/ring_q.cu``): one thread block cluster per row, which carries
 the partial as int8 in shared memory, sized by :func:`requant_plan`; a
 row wider than the largest cluster holds takes the kernel's cooperative
 wide path.
+
+The collective path (one process per rank, :mod:`repro_torch.core.comm`)
+runs one rank's share of the round: :func:`ring_exchange_scatter_table`
+walks the ring hop for hop (:func:`ring_schedule`), each hop's add one
+launch of ``csrc/ring_rank.cu`` (:func:`ring_rank_hop`) and each
+all-gather landing another (:func:`ring_rank_land`), between
+:func:`repro_torch.core.comm.ring_shift` transfers; the ring's order is
+the RPS axes flattened (:func:`logical_ring_ids`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ring_round_ref
+from repro_torch.kernels.ref import (ring_rank_hop_ref, ring_rank_land_ref,
+                                     ring_round_ref)
 
 PAYLOAD_DTYPES = (torch.float32, torch.bfloat16)
 ACC_DTYPES = (torch.float32, torch.bfloat16)
@@ -235,3 +245,182 @@ def ring_round_enc(stack, enc, scale, rs, ag, div, *, mode: str,
 
 ring_round_enc.launches = 0
 ring_round_enc.requant_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One rank's share of the round, between real transfers (csrc/ring_rank.cu)
+# ---------------------------------------------------------------------------
+
+def _check_rank_cuda(name: str, ref: torch.Tensor, *ts) -> None:
+    for t in ts:
+        if t is None:
+            continue
+        if t.device != ref.device:
+            raise ValueError(f"{name}: tensors on {t.device} and "
+                             f"{ref.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def ring_rank_hop(src, src_scale, rs_row, recv, recv_scale, div, *,
+                  chunk: int, k: int, acc_dtype=torch.float32,
+                  out_dtype=torch.float32, levels: int = 0,
+                  last: bool = False):
+    """One hop of this rank's ring round: the gated contributions of
+    chunk ``chunk`` of the (S, W) table ``src`` (int8 with its (S,) f32
+    ``src_scale``, or a payload-dtype table) added to the received (k, W)
+    partial ``recv`` (None on the first hop; int8 with its (k,)
+    ``recv_scale`` on the int8 wire) in ``acc_dtype``. Returns the last
+    hop's chunk divided by ``div`` in ``out_dtype``, a middle hop's
+    partial, or with ``levels > 0`` its re-encoding ``(q, scale)``.
+
+    On a CUDA tensor it launches ``csrc/ring_rank.cu``'s hop (one launch,
+    counted in ``ring_rank_hop.launches``) or raises; on a CPU tensor it
+    computes the plain version :func:`repro_torch.kernels.ref.
+    ring_rank_hop_ref`."""
+    if src.device.type == "cpu":
+        return ring_rank_hop_ref(src, src_scale, rs_row, recv, recv_scale,
+                                 div, chunk=chunk, k=k, acc_dtype=acc_dtype,
+                                 out_dtype=out_dtype, levels=levels,
+                                 last=last)
+    if src.device.type != "cuda":
+        raise ValueError(f"ring_rank_hop: no kernel for {src.device}")
+    _check_rank_cuda("ring_rank_hop", src, src, src_scale, rs_row, recv,
+                     recv_scale, div)
+    W = src.shape[1]
+    out_scale = None
+    if last:
+        out = torch.empty((k, W), dtype=out_dtype, device=src.device)
+    elif levels:
+        out = torch.empty((k, W), dtype=torch.int8, device=src.device)
+        out_scale = torch.empty((k,), dtype=torch.float32, device=src.device)
+    else:
+        out = torch.empty((k, W), dtype=acc_dtype, device=src.device)
+    build.load_kernels().ring_rank_hop(
+        src, src_scale, rs_row, recv, recv_scale, div, out, out_scale, chunk,
+        acc_dtype == torch.bfloat16, levels, last)
+    ring_rank_hop.launches += 1
+    return (out, out_scale) if out_scale is not None else out
+
+
+ring_rank_hop.launches = 0
+
+
+def ring_rank_land(out, cur, ag_row, blocks, *, chunk: int, k: int,
+                   renorm: bool) -> None:
+    """One landing of this rank's all-gather, in place: the (k, W) chunk
+    ``cur`` into rows chunk·k … of the (S, W) ``out`` where ``ag_row``
+    delivered it, this rank's ``blocks`` (``renorm``) or zero elsewhere.
+    A CUDA tensor launches ``csrc/ring_rank.cu``'s landing (counted in
+    ``ring_rank_land.launches``) or raises; a CPU tensor takes the plain
+    version."""
+    if out.device.type == "cpu":
+        ring_rank_land_ref(out, cur, ag_row, blocks, chunk=chunk, k=k,
+                           renorm=renorm)
+        return
+    if out.device.type != "cuda":
+        raise ValueError(f"ring_rank_land: no kernel for {out.device}")
+    _check_rank_cuda("ring_rank_land", out, out, cur, ag_row, blocks)
+    build.load_kernels().ring_rank_land(cur, ag_row, blocks, out, chunk,
+                                        renorm)
+    ring_rank_land.launches += 1
+
+
+ring_rank_land.launches = 0
+
+
+def logical_ring_ids(names, mesh, rank=None) -> tuple:
+    """(pos, left, right) of a rank on the ring over the mesh axes
+    ``names`` flattened major to minor: its ring position and the global
+    ranks (the reference's logical device ids) of its neighbours; the
+    other axes keep the rank's coordinates."""
+    names = (names,) if isinstance(names, str) else tuple(names)
+    order = mesh.group_ranks(names, rank)
+    pos = mesh.axis_index(names, rank)
+    n = len(order)
+    return pos, order[(pos - 1) % n], order[(pos + 1) % n]
+
+
+def ring_schedule(blocks, rs_row, ag_row, div, *, group, order, n: int,
+                  i: int, k: int, mode: str, rs_dtype=torch.float32,
+                  src=None, src_scale=None, levels: int = 0):
+    """The ring round on rank i of n, hop for hop as the reference's
+    interpret ring runs it (``rps_ring._ring_schedule_jax``), each hop's
+    arithmetic one :func:`ring_rank_hop` and each landing one
+    :func:`ring_rank_land` between :func:`repro_torch.core.comm.ring_shift`
+    transfers:
+
+      RS  hop t = 0 … n−1 adds this rank's gated contribution to chunk
+          (i − 1 − t) mod n's partial (started here at t = 0), and sends
+          it right; on the int8 wire (``levels > 0``) the partial travels
+          re-encoded, int8 with a scale per row. The last hop is the
+          owner's (chunk i): it divides by ``div`` and casts to the
+          payload dtype;
+      AG  the averaged chunk lands here and travels n−1 hops right, each
+          landing selected against this rank's ``blocks`` (or zero).
+
+    blocks: (S, W) payload in the scatter layout (the AG fallback);
+    src: the contribution table (default ``blocks``; int8 with (S,)
+    ``src_scale``); rs_row, ag_row: this rank's (S,) mask rows; div:
+    (S,) f32 divisor. Returns (S, W) in ``blocks.dtype``."""
+    src = blocks if src is None else src
+    part = scale = mine = None
+    for t in range(n):
+        last = t == n - 1
+        if t:
+            sent = [part] if scale is None else [part, scale]
+            got = comm.ring_shift(sent, group, order)
+            part, scale = got[0], (got[1] if len(got) > 1 else None)
+        res = ring_rank_hop(src, src_scale, rs_row, part, scale, div,
+                            chunk=(i - 1 - t) % n, k=k, acc_dtype=rs_dtype,
+                            out_dtype=blocks.dtype, levels=levels,
+                            last=last)
+        if last:
+            mine = res
+        elif levels:
+            part, scale = res
+        else:
+            part = res
+    renorm = mode != "grad"
+    out = torch.empty_like(blocks)
+    ring_rank_land(out, mine, ag_row, blocks, chunk=i, k=k, renorm=renorm)
+    cur = mine
+    for t in range(n - 1):
+        cur = comm.ring_shift([cur], group, order)[0]
+        ring_rank_land(out, cur, ag_row, blocks, chunk=(i - 1 - t) % n, k=k,
+                       renorm=renorm)
+    return out
+
+
+def ring_exchange_scatter_table(blocks, rs_sc, ag_sc, *, group, order,
+                                n: int, i: int, k: int, mode: str,
+                                div, rs_dtype=torch.float32, codec=None,
+                                enc=None, send=None):
+    """The ring engine's round of this rank's scatter-ordered (S, blk[, m])
+    table (the reference's ``ring_exchange_scatter_table`` off the TPU,
+    its interpret ring): ``rs_sc`` / ``ag_sc`` the (n, S) scatter-ordered
+    masks, ``div`` the (S,) f32 recovery divisor. A quantised ``codec`` takes the contributions from ``enc``,
+    the (q, scale) encode of this rank's table, and re-encodes the
+    partial on every hop; on a linear wire ``send`` (the EF intent or a
+    corrupted offer) replaces ``blocks`` as the contributions, which stay
+    the all-gather fallback. Returns the table's shape and dtype."""
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r}, want one of {MODES}")
+    shape = tuple(blocks.shape)
+    S = shape[0]
+    tbl = blocks.reshape(S, -1).contiguous()
+    src = src_scale = None
+    levels = 0
+    if codec is not None and codec.quantized:
+        q, sc = enc
+        src = q.reshape(S, -1).contiguous()
+        src_scale = sc.reshape(S, -1)[:, 0].to(torch.float32).contiguous()
+        levels = codec.levels
+    elif send is not None:
+        src = send.reshape(S, -1).to(blocks.dtype).contiguous()
+    out = ring_schedule(tbl, rs_sc[i].contiguous(), ag_sc[i].contiguous(),
+                        div.to(torch.float32).contiguous(), group=group,
+                        order=order, n=n, i=i, k=k, mode=mode,
+                        rs_dtype=rs_dtype, src=src, src_scale=src_scale,
+                        levels=levels)
+    return out.reshape(shape)

@@ -366,11 +366,15 @@ def test_plan_leaf_order_is_jax_tree_order():
 
 
 def test_plan_not_ported_knobs_raise():
-    """model_dims still raises; the async schedule is ported: its plan
-    (readiness times, ship order, describe) equals the reference's."""
+    """model_dims is ported (an all-None tree plans as the reference
+    does; tests/test_torch_plan_tp.py holds the model-dim buckets); the
+    async schedule is ported: its plan (readiness times, ship order,
+    describe) equals the reference's."""
     jt, tt = _trees(_TREE_SHAPES)
-    with pytest.raises(NotImplementedError, match="model_dims"):
-        tplan.make_plan(tt, 4, model_dims={k: None for k in tt})
+    tp_ = tplan.make_plan(tt, 4, model_dims={k: None for k in tt})
+    jp = jplan.make_plan(jt, 4, model_dims={k: None for k in jt})
+    assert _bucket_fields(tp_) == _bucket_fields(jp)
+    assert tp_.describe() == jp.describe()
     tp_ = tplan.per_leaf_plan(tt, 4, schedule="async", compute_ms=8.0)
     jp = jplan.per_leaf_plan(jt, 4, schedule="async", compute_ms=8.0)
     assert tp_.ready_ms == jp.ready_ms and tp_.ship_order == jp.ship_order
