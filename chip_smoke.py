@@ -297,8 +297,13 @@ raises on failure; nothing is caught):
    ring_rank.cu's hop and landing against their plain versions, bit for
    bit, over (k, W) chunks up to rps-100m's largest bucket chunk at n = 4
    (1 x 7,077,888), f32 / bf16 payloads and accumulation, the int8 wire,
-   non-finite rows; the hop's time beside its bound, its plain version
-   and the plain chain where(rs, x, 0) + acc; then on every rank the
+   non-finite rows, rows split over many blocks by the re-encoding hop
+   with an inf or a NaN only in their last column; the hop's and the
+   landing's times beside their bounds, the hop's plain version and the
+   plain chain where(rs, x, 0) + acc; the int8 wire's re-encoding hop at
+   every chunk shape of the exchange below, in a CUDA graph on cold
+   inputs, beside its plain version and bound, and its sum over one
+   exchange's 36 re-encoding hops; then on every rank the
    collective exchange of rps-100m's per-leaf plan at n = 4 against the
    port's global path on the stacked trees: the ring engine bit for bit
    against ring.cu (f32, bf16 wires) and ring_q.cu (int8, the same
@@ -322,8 +327,10 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -4276,9 +4283,18 @@ COLL_SEED = 4000
 # COLL_TRAIN_TOL on the xla engine (it sums on the host in gloo's order
 # where the simulator's masked-average kernel sums in its own)
 COLL_TRAIN_TOL = 1e-4
-# ring_rank.cu's sweep: (k, W) chunk shapes, the last rps-100m's largest
-# bucket chunk at n = 4 (one row of its (12, 768, 3072) MLP leaf)
-RANK_SHAPES = ((1, 1), (1, 33), (3, 4097), (2, 65536), (1, 7_077_888))
+# ring_rank.cu's sweep: (k, W) chunk shapes, (1, 7,077,888) rps-100m's
+# largest bucket chunk at n = 4 (one row of its (12, 768, 3072) MLP leaf).
+# At 132 SMs the re-encoding hop splits the rows of the last four over
+# many blocks: 16 a row at (2, 65536), 264 at (1, 7,077,888), 16 columns a
+# thread; 244 at (1, 1,000,003) (W not a multiple of 16) and 73 at (3,
+# 300,001) (k = 3, odd W: misaligned rows), a column a thread
+RANK_SHAPES = ((1, 1), (1, 33), (3, 4097), (2, 65536), (1, 1_000_003),
+               (3, 300_001), (1, 7_077_888))
+# the re-encoding hop's timing: input sets rotated so that a launch finds
+# its inputs cold (at least RANK_COLD_BYTES between two uses of a set)
+RANK_COLD_BYTES = 100_000_000
+RANK_MAX_SETS = 64
 
 
 def _nan_eq(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -4290,6 +4306,35 @@ def _nan_eq(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((~same).sum())
 
 
+def requant_edges(gen: torch.Generator, k: int, W: int, n: int) -> list:
+    """(name, src, src_scale, rs, recv, recv_scale) of the re-encoding
+    hop's edge cases at chunk 0 of an (n k, W) int8 table: ``tail_inf``
+    and ``tail_nan``, rows scaled so that |q| <= 50 stays finite and 127
+    overflows, with one overflowing column, the row's last, in the chunk
+    (and, for tail_nan, its opposite in the received partial: inf - inf);
+    ``zero``, all-zero chunk rows and partial (D = 1 / levels)."""
+    S = n * k
+    huge = 3.4e36                      # 100 * huge < FLT_MAX < 127 * huge
+    rs = torch.ones(S, dtype=torch.uint8, device="cuda")
+    out = []
+    for name in ("tail_inf", "tail_nan", "zero"):
+        src = torch.randint(-50, 51, (S, W), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        recv = torch.randint(-50, 51, (k, W), generator=gen, device="cuda",
+                             dtype=torch.int8)
+        ssc = torch.full((S,), huge, device="cuda")
+        rsc = torch.full((k,), huge, device="cuda")
+        if name == "zero":
+            src[:k] = 0
+            recv.zero_()
+        else:
+            src[:k, -1] = 127
+            if name == "tail_nan":
+                recv[:, -1] = -127
+        out.append((name, src, ssc, rs, recv, rsc))
+    return out
+
+
 def check_ring_rank(gen: torch.Generator) -> dict:
     """Phase 40a: ring_rank.cu's hop and landing against their plain
     versions (kernels/ref.py) on the card, bit for bit (NaN equal to NaN):
@@ -4298,7 +4343,9 @@ def check_ring_rank(gen: torch.Generator) -> dict:
     and the int8 wire (levels 127; middle hops re-encode, the last
     divides) with f32 / bf16 payloads; masks with drops; a row of
     non-finite values in every table (NaN and inf in the linear tables,
-    in the int8 scales on the int8 wire) beside normal rows; then the
+    in the int8 scales on the int8 wire) beside normal rows; the
+    re-encoding hop's edge cases (requant_edges: an inf or a NaN only in
+    the row's last column, all-zero rows; first and middle hop); then the
     landing in both renorm settings."""
     from repro_torch.kernels import ref as R
     cases = bad = 0
@@ -4350,6 +4397,13 @@ def check_ring_rank(gen: torch.Generator) -> dict:
                     else:
                         bad += _nan_eq(got, want)
                     cases += 1
+        for _, src, ssc, rs_e, recv, rsc in requant_edges(gen, k, W, n):
+            for rv, rc in ((None, None), (recv, rsc)):
+                kw = dict(chunk=0, k=k, levels=127)
+                got = RG.ring_rank_hop(src, ssc, rs_e, rv, rc, div, **kw)
+                want = R.ring_rank_hop_ref(src, ssc, rs_e, rv, rc, div, **kw)
+                bad += _nan_eq(got[0], want[0]) + _nan_eq(got[1], want[1])
+                cases += 1
         cur = torch.randn((k, W), generator=gen, device="cuda")
         blocks = torch.randn((S, W), generator=gen, device="cuda")
         ag = torch.rand(S, generator=gen, device="cuda") < 0.7
@@ -4369,21 +4423,84 @@ def check_ring_rank(gen: torch.Generator) -> dict:
     return {"cases": cases, "differing_elements": bad}
 
 
-def time_ring_rank(gen: torch.Generator, W: int = RANK_SHAPES[-1][1]) -> dict:
+def exchange_chunks(n: int = COLL_N) -> dict:
+    """{(k, W): buckets} of the chunks one rank's ring takes in phase
+    40c's exchange (rps-100m's per-leaf plan at n ranks)."""
+    from repro_torch.core import plan as plan_lib
+    model = build_model(RPS_100M, device="cuda")
+    meta = tree_lib.map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="meta"),
+                        model.init_stacked(torch.Generator(device="cuda")))
+    plan = plan_lib.per_leaf_plan(meta, n)
+    k = rps_lib._scatter_layout(n, plan.s)[0]
+    return collections.Counter((k, b.blk * b.m) for b in plan.buckets)
+
+
+def time_requant(gen: torch.Generator, k: int, W: int,
+                 n: int = COLL_N) -> dict:
+    """The int8 wire's re-encoding middle hop at chunk (k, W) (int8
+    partial and chunk with their row scales in, the int8 partial and its
+    scale out) and its plain version, each in a CUDA graph between CUDA
+    events, over input sets rotated so that at least RANK_COLD_BYTES
+    pass between two uses of one set (at most RANK_MAX_SETS sets): a
+    launch at a wide chunk finds its inputs cold. Its bytes bound: the
+    received partial and the chunk read once, the new partial written
+    once, three row scales. Fails on a time under the bound (L2 served
+    the inputs)."""
+    from repro_torch.kernels import ref as R
+    S = n * k
+    nbytes = 3 * k * W + 3 * k * 4
+    sets = min(RANK_MAX_SETS, max(8, -(-RANK_COLD_BYTES // nbytes)))
+    rs = torch.ones(S, dtype=torch.bool, device="cuda")
+    div = torch.full((S,), float(n), device="cuda")
+    ins = [(torch.randint(-127, 128, (S, W), generator=gen, device="cuda",
+                          dtype=torch.int8),
+            torch.rand(S, generator=gen, device="cuda") * 0.1,
+            torch.randint(-127, 128, (k, W), generator=gen, device="cuda",
+                          dtype=torch.int8),
+            torch.rand(k, generator=gen, device="cuda") * 0.5)
+           for _ in range(sets)]
+    kw = dict(chunk=1 % n, k=k, levels=127)
+
+    def rotating(fn):
+        it = itertools.cycle(ins)
+
+        def call():
+            q, qs, rq, rqs = next(it)
+            return fn(q, qs, rs, rq, rqs, div, **kw)
+        return call
+
+    ms = device_ms(rotating(RG.ring_rank_hop), calls=sets, reps=5)
+    plain_ms = device_ms(rotating(R.ring_rank_hop_ref), calls=sets, reps=2)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if ms < bound_ms:
+        raise AssertionError(f"ring_rank.cu re-encoding hop at {(k, W)}: "
+                             f"{ms} ms under its {bound_ms} ms bound: the "
+                             "inputs came from L2")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, cols = RG.rank_requant_plan(k, W, sms)
+    return {"shape": [k, W], "ms": ms, "plain_ms": plain_ms,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+            "blocks": blocks, "cols": cols,
+            "launches_per_hop": 1 if blocks == 1 else 2, "sets": sets,
+            "cold_bytes": sets * nbytes}
+
+
+def time_ring_rank(gen: torch.Generator, chunks: dict) -> dict:
     """Phase 40b: one middle hop (f32 received partial, f32 chunk, f32
     out) at the trainer's largest bucket chunk, and a landing, in a CUDA
     graph between CUDA events, beside the plain version, the plain chain
     ``where(rs, x, 0) + acc`` (no single PyTorch call computes a hop) and
-    the bytes bound (the partial and the chunk read once, the new partial
-    written once); then the int8 wire's re-encoding middle hop at the same
-    chunk (int8 partial and chunk with their row scales in, the int8
-    partial and its scale out; one block of 1,024 threads a row, so this
-    one-row chunk runs on one SM) beside its plain version, between CUDA
-    events around eager calls (too long a call for a graph of 100), and
-    its bytes bound (the received partial and the chunk, k W int8 each,
-    read once, the new partial written once, and the three row scales)."""
+    the bytes bounds (the hop: the partial and the chunk read once, the
+    new partial written once; the landing with ag all on: the chunk read
+    once and written once); then the int8 wire's re-encoding hop
+    (time_requant) at every distinct chunk shape of phase 40c's exchange
+    (``chunks``: {(k, W): buckets}), and the sum over one exchange's
+    re-encoding hops (n - 1 a bucket), the kernel's and the plain
+    version's."""
     from repro_torch.kernels import ref as R
-    n, k = COLL_N, 1
+    n = COLL_N
+    k, W = max(chunks, key=lambda kw: kw[0] * kw[1])
     S = n * k
     src = torch.randn((S, W), generator=gen, device="cuda")
     recv = torch.randn((k, W), generator=gen, device="cuda")
@@ -4402,26 +4519,28 @@ def time_ring_rank(gen: torch.Generator, W: int = RANK_SHAPES[-1][1]) -> dict:
     land_ms = device_ms(lambda: RG.ring_rank_land(out, recv, ag, src,
                                                   chunk=1, k=k, renorm=True))
     nbytes = 3 * k * W * 4
-    q = torch.randint(-127, 128, (S, W), generator=gen, device="cuda",
-                      dtype=torch.int8)
-    qs = torch.rand(S, generator=gen, device="cuda") * 0.1
-    rq = torch.randint(-127, 128, (k, W), generator=gen, device="cuda",
-                       dtype=torch.int8)
-    rqs = torch.rand(k, generator=gen, device="cuda") * 0.5
-    qkw = dict(kw, levels=127)
-    requant_ms = event_ms(lambda: RG.ring_rank_hop(q, qs, rs, rq, rqs, div,
-                                                   **qkw), calls=10)
-    requant_plain_ms = event_ms(lambda: R.ring_rank_hop_ref(
-        q, qs, rs, rq, rqs, div, **qkw), calls=10)
-    qbytes = 3 * k * W + 3 * k * 4
+    land_bytes = 2 * k * W * 4
+    del src, recv, out
+    requant = {f"{kk}x{ww}": time_requant(gen, kk, ww)
+               for kk, ww in sorted(chunks)}
+    hops = sum(chunks.values()) * (n - 1)
     return {"shape": [k, W], "ms": hop_ms, "plain_ms": plain_ms,
             "plain_chain_ms": chain_ms, "land_ms": land_ms,
             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None,
-            "requant": {"ms": requant_ms, "plain_ms": requant_plain_ms,
-                        "bytes": qbytes,
-                        "bound_ms": qbytes / HBM_BYTES_PER_S * 1e3,
-                        "bound_by": "bytes", "blocks": k}}
+            "land_bytes": land_bytes,
+            "land_bound_ms": land_bytes / HBM_BYTES_PER_S * 1e3,
+            "requant": requant[f"{k}x{W}"],
+            "requant_shapes": requant,
+            "requant_exchange": {
+                "hops": hops,
+                "buckets": {f"{kk}x{ww}": c
+                            for (kk, ww), c in sorted(chunks.items())},
+                "sum_ms": sum(c * (n - 1) * requant[f"{kk}x{ww}"]["ms"]
+                              for (kk, ww), c in chunks.items()),
+                "plain_sum_ms": sum(
+                    c * (n - 1) * requant[f"{kk}x{ww}"]["plain_ms"]
+                    for (kk, ww), c in chunks.items())}}
 
 
 def _coll_tree(meta: dict, seed: int) -> dict:
@@ -4600,7 +4719,7 @@ def coll_phases(gen: torch.Generator, card: str, lap: Laps,
     load = COLL_LOAD
     n, steps = load["n"], load["steps"]
     rank_err = check_ring_rank(gen)
-    rank_timing = time_ring_rank(gen)
+    rank_timing = time_ring_rank(gen, exchange_chunks(n))
     print(json.dumps({"ring_rank_check": rank_err,
                       "ring_rank_timing": rank_timing, "card": card}),
           flush=True)
@@ -4973,7 +5092,11 @@ def main(argv=None) -> int:
                  coll["rank_err"]["differing_elements"] else None,
                  "ms": rt["ms"], "plain_ms": rt["plain_ms"],
                  "bound_ms": rt["bound_ms"], "bound_by": rt["bound_by"],
-                 "library_ms": None, "ok": True}
+                 "library_ms": None,
+                 "requant_ms": rt["requant"]["ms"],
+                 "requant_plain_ms": rt["requant"]["plain_ms"],
+                 "requant_bound_ms": rt["requant"]["bound_ms"],
+                 "ok": True}
     print(json.dumps({"kernels": [kernel, combine, rwkv, rglru, ring,
                                   ring_enc, ring_rank]}),
           flush=True)

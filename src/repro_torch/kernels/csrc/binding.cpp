@@ -12,7 +12,8 @@
 //                                        levels, cluster, chunk)
 //   torch.ops.repro_torch.ring_rank_hop(src, src_scale, rs, recv,
 //                                       recv_scale, div, out, out_scale,
-//                                       chunk, acc_bf16, levels, last)
+//                                       part_max, chunk, acc_bf16, levels,
+//                                       last, blocks, cols)
 //   torch.ops.repro_torch.ring_rank_land(cur, ag, blocks, out, chunk,
 //                                        renorm)
 // The only file of the build that includes PyTorch's headers; it registers
@@ -434,8 +435,10 @@ void ring_rank_hop(const at::Tensor& src,
                    const at::Tensor& rs, const std::optional<at::Tensor>& recv,
                    const std::optional<at::Tensor>& recv_scale,
                    const at::Tensor& div, at::Tensor& out,
-                   const std::optional<at::Tensor>& out_scale, int64_t chunk,
-                   bool acc_bf16, int64_t levels, bool last) {
+                   const std::optional<at::Tensor>& out_scale,
+                   const std::optional<at::Tensor>& part_max, int64_t chunk,
+                   bool acc_bf16, int64_t levels, bool last, int64_t blocks,
+                   int64_t cols) {
   check_cuda_contig("ring_rank_hop", src, {&src, &rs, &div, &out});
   TORCH_CHECK(src.dim() == 2 && rs.dim() == 1 && div.dim() == 1 &&
                   out.dim() == 2,
@@ -496,6 +499,7 @@ void ring_rank_hop(const at::Tensor& src,
     rv = recv->data_ptr();
   }
   float* osc = nullptr;
+  float* pmax = nullptr;
   if (last) {
     TORCH_CHECK(out.scalar_type() == c10::ScalarType::Float ||
                     out.scalar_type() == c10::ScalarType::BFloat16,
@@ -509,19 +513,33 @@ void ring_rank_hop(const at::Tensor& src,
                     out_scale->dim() == 1 && out_scale->size(0) == k,
                 "ring_rank_hop: out_scale must be float32 (k)");
     osc = static_cast<float*>(out_scale->data_ptr());
+    TORCH_CHECK(blocks >= 1 && blocks <= kMaxGridX && cols >= 16 &&
+                    cols % 16 == 0 && (blocks - 1) * cols < W &&
+                    W <= blocks * cols,
+                "ring_rank_hop: the row split (", blocks, " blocks of ", cols,
+                " columns) must cover W = ", W, " with multiples of 16 and "
+                "no empty block");
+    if (blocks > 1) {
+      TORCH_CHECK(part_max.has_value(),
+                  "ring_rank_hop: a split row needs part_max");
+      check_cuda_contig("ring_rank_hop", src, {&*part_max});
+      TORCH_CHECK(part_max->scalar_type() == c10::ScalarType::Float &&
+                      part_max->numel() == k * blocks,
+                  "ring_rank_hop: part_max must be float32 (k, blocks)");
+      pmax = static_cast<float*>(part_max->data_ptr());
+    }
   } else {
     TORCH_CHECK(out.scalar_type() == acc,
                 "ring_rank_hop: a middle hop writes the accumulation dtype");
   }
   const c10::cuda::CUDAGuard guard(src.device());
-  repro_torch::ring_rank_hop_launch(
+  C10_CUDA_CHECK(repro_torch::ring_rank_hop_launch(
       src.data_ptr(), dtype_code(st), ssc, rs.data_ptr(),
       dtype_code(rs.scalar_type()), rv, rdt, rsc,
       static_cast<const float*>(div.data_ptr()), out.data_ptr(),
-      dtype_code(out.scalar_type()), osc, dtype_code(acc),
-      static_cast<int>(levels), last, chunk, k, W,
-      c10::cuda::getCurrentCUDAStream().stream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+      dtype_code(out.scalar_type()), osc, pmax, dtype_code(acc),
+      static_cast<int>(levels), last, chunk, k, W, blocks, cols,
+      c10::cuda::getCurrentCUDAStream().stream()));
 }
 
 void ring_rank_land(const at::Tensor& cur, const at::Tensor& ag,
@@ -577,8 +595,8 @@ TORCH_LIBRARY(repro_torch, m) {
         &ring_round_enc);
   m.def("ring_rank_hop(Tensor src, Tensor? src_scale, Tensor rs, "
         "Tensor? recv, Tensor? recv_scale, Tensor div, Tensor(a!) out, "
-        "Tensor(b!)? out_scale, int chunk, bool acc_bf16, int levels, "
-        "bool last) -> ()",
+        "Tensor(b!)? out_scale, Tensor(c!)? part_max, int chunk, "
+        "bool acc_bf16, int levels, bool last, int blocks, int cols) -> ()",
         &ring_rank_hop);
   m.def("ring_rank_land(Tensor cur, Tensor ag, Tensor blocks, "
         "Tensor(a!) out, int chunk, bool renorm) -> ()",

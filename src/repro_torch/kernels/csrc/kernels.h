@@ -134,17 +134,24 @@ cudaError_t ring_requant_launch(const void* stack, DType dtype,
 // divides by the (S) f32 divisor `div` and writes the payload type
 // out_dtype (kF32 or kBF16); otherwise `levels` > 0 (int8 table, f32 sums)
 // re-encodes each row onto the int8 grid into `out` and its (k) f32
-// `out_scale`, and levels == 0 writes acc_dtype. One thread block per (row,
-// column tile), one per row when re-encoding; needs k <= 65535. Does not
-// synchronise; the caller checks cudaGetLastError() right after.
-void ring_rank_hop_launch(const void* src, DType src_dtype,
-                          const float* src_scale, const void* rs,
-                          DType rs_dtype, const void* recv, DType recv_dtype,
-                          const float* recv_scale, const float* div,
-                          void* out, DType out_dtype, float* out_scale,
-                          DType acc_dtype, int levels, bool last,
-                          int64_t chunk, int64_t k, int64_t W,
-                          cudaStream_t stream);
+// `out_scale`, and levels == 0 writes acc_dtype. A linear or last hop: one
+// launch, a thread block per (row, column tile). A re-encoding hop: each
+// row split into `blocks` blocks of `cols` columns (a multiple of 16,
+// (blocks - 1) * cols < W <= blocks * cols); one launch when blocks == 1,
+// else two, the first writing each block's max|acc| into the (k, blocks)
+// f32 scratch `part_max` (unused when blocks == 1). Needs k <= 65535.
+// Returns cudaGetLastError() after the last launch (after the first of two
+// when it failed). Does not synchronise.
+cudaError_t ring_rank_hop_launch(const void* src, DType src_dtype,
+                                 const float* src_scale, const void* rs,
+                                 DType rs_dtype, const void* recv,
+                                 DType recv_dtype, const float* recv_scale,
+                                 const float* div, void* out, DType out_dtype,
+                                 float* out_scale, float* part_max,
+                                 DType acc_dtype, int levels, bool last,
+                                 int64_t chunk, int64_t k, int64_t W,
+                                 int64_t blocks, int64_t cols,
+                                 cudaStream_t stream);
 
 // Enqueues one landing of the ring round's all-gather (ring_rank.cu): the
 // averaged (k, W) chunk `cur` (f32 or bf16) written to rows

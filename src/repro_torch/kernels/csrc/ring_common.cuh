@@ -1,6 +1,7 @@
-// Device helpers shared by the ring-round kernels (ring.cu, ring_q.cu):
-// packed loads and stores, the rounding to the accumulation type, the masks
-// of any dtype and the decode of one contribution element.
+// Device helpers shared by the ring-round kernels (ring.cu, ring_q.cu,
+// ring_rank.cu): packed loads and stores, the rounding to the accumulation
+// type, the masks of any dtype, the decode of one contribution element and
+// the int8 wire's row max, step and encode.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -94,6 +95,64 @@ __device__ __forceinline__ float load_mask(const void* m, DType dt,
       return to_float(static_cast<const int64_t*>(m)[i]);
   }
   return 0.0f;
+}
+
+// the larger of two non-negative floats (|acc| values and their maxima),
+// NaN winning as torch.amax lets it: on their bits a sign-cleared NaN lies
+// above +inf, and fmaxf would drop it
+__device__ __forceinline__ float abs_max(float a, float b) {
+  return __uint_as_float(max(__float_as_uint(a), __float_as_uint(b)));
+}
+
+// q clipped to +-levels, a NaN (from a non-finite partial or step) to 0 as
+// the int8 cast of torch.clamp's NaN goes; fminf / fmaxf alone would give
+// -levels
+__device__ __forceinline__ float clip_q(float q, float levels) {
+  return q != q ? 0.0f : fminf(fmaxf(q, -levels), levels);
+}
+
+// the int8 wire's step from a row's max|acc| (a NaN max gives 1 / levels,
+// as torch.where(amax > 0, amax, 1) does)
+__device__ __forceinline__ float delta_of(float amax, float levels) {
+  return __fdiv_rn(amax > 0.0f ? amax : 1.0f, levels);
+}
+
+// rint(a / D) clipped to +-levels, through int as the int8 cast goes (so a
+// negative zero decodes as +0)
+__device__ __forceinline__ int encode(float a, float delta, float levels) {
+  return static_cast<int>(clip_q(rintf(__fdiv_rn(a, delta)), levels));
+}
+
+// The same encode at one row's step D, with its reciprocal inv = rn(1 / D)
+// computed once: q0 = rn(a * inv), r = rn(a - q0 * D) and
+// q1 = rn(q0 + r * inv) (two fused multiply-adds) is the correctly rounded
+// quotient rn(a / D) -- the correction step of an FMA division, checked
+// against exact rational arithmetic near the grid's half-integers
+// (tests/test_torch_ring_int8.py) and by the kernel's bitwise sweeps
+// against the plain version -- for a step D in [2^-100, 2^100], where the
+// residual cannot leave the normal range for any |a / D| >= 1/4 (smaller
+// quotients round to 0 either way), and for a finite row, where every
+// |a| <= max|a| bounds |a / D| by about levels. The caller divides
+// outside that range and in a row whose max is not finite (a NaN there
+// makes D 1 / levels whatever the rest holds, so an inf or a huge a would
+// turn the residual to NaN). The quotient is clipped before it is rounded
+// (the same integer: levels is one) and rounded without a conversion
+// instruction, which issues at a quarter of the rate of an add: for
+// |q| < 2^22, q + 1.5 * 2^23 rounds q half to even and holds rint(q) in
+// its low mantissa bits.
+__device__ __forceinline__ int encode_fma(float a, float delta, float inv,
+                                         float levels) {
+  const float q0 = __fmul_rn(a, inv);
+  const float r = __fmaf_rn(-q0, delta, a);
+  const float q = fminf(fmaxf(__fmaf_rn(r, inv, q0), -levels), levels);
+  return __float_as_int(__fadd_rn(q, 12582912.0f)) - 0x4B400000;
+}
+
+// whether encode_fma gives encode's bits for every element of a row whose
+// max|acc| is amax at the step delta (a finite max, delta in
+// [2^-100, 2^100])
+__device__ __forceinline__ bool fma_encodes(float amax, float delta) {
+  return amax <= 0x1.fffffep127f && delta >= 0x1p-100f && delta <= 0x1p100f;
 }
 
 // one element of a contribution, before the mask: an int8 payload times its

@@ -87,7 +87,12 @@ namespace {
 
 namespace cg = cooperative_groups;
 
+using ring::abs_max;
 using ring::decode;
+using ring::delta_of;
+using ring::encode;
+using ring::encode_fma;
+using ring::fma_encodes;
 using ring::kThreads;
 using ring::load_mask;
 using ring::load_pack;
@@ -100,57 +105,10 @@ constexpr int kClusterThreads = 256;
 template <typename T>
 constexpr int kOutVec = static_cast<int>(sizeof(uint4) / sizeof(T));
 
-// the larger of two non-negative floats (|acc| values and their maxima),
-// NaN winning as torch.amax lets it: on their bits a sign-cleared NaN lies
-// above +inf, and fmaxf would drop it
-__device__ __forceinline__ float abs_max(float a, float b) {
-  return __uint_as_float(max(__float_as_uint(a), __float_as_uint(b)));
-}
-
-// q clipped to +-levels, a NaN (from a non-finite partial or step) to 0 as
-// the int8 cast of torch.clamp's NaN goes; fminf / fmaxf alone would give
-// -levels
-__device__ __forceinline__ float clip_q(float q, float levels) {
-  return q != q ? 0.0f : fminf(fmaxf(q, -levels), levels);
-}
-
-// the int8 wire's step from a row's max|acc| (a NaN max gives 1 / levels,
-// as torch.where(amax > 0, amax, 1) does)
-__device__ __forceinline__ float delta_of(float amax, float levels) {
-  return __fdiv_rn(amax > 0.0f ? amax : 1.0f, levels);
-}
-
 // the int8 wire's step from a row's max|acc| (held as its bits)
 __device__ __forceinline__ float row_delta(unsigned int amax_bits,
                                            float levels) {
   return delta_of(__uint_as_float(amax_bits), levels);
-}
-
-// rint(a / D) clipped to +-levels, through int as the int8 cast goes (so a
-// negative zero decodes as +0)
-__device__ __forceinline__ int encode(float a, float delta, float levels) {
-  return static_cast<int>(clip_q(rintf(__fdiv_rn(a, delta)), levels));
-}
-
-// The same encode at one row's step D, with its reciprocal inv = rn(1 / D)
-// computed once: q0 = rn(a * inv), r = rn(a - q0 * D) and
-// q1 = rn(q0 + r * inv) (two fused multiply-adds) is the correctly rounded
-// quotient rn(a / D) -- the correction step of an FMA division, checked
-// against exact rational arithmetic near the grid's half-integers
-// (tests/test_torch_ring_int8.py) and by the kernel's bitwise sweeps
-// against the plain version -- for a step D in [2^-100, 2^100], where the
-// residual cannot leave the normal range for any |a / D| >= 1/4 (smaller
-// quotients round to 0 either way), and for a finite row, where every
-// |a| <= max|a| bounds |a / D| by about levels. The caller divides
-// outside that range and in a row whose max is not finite (a NaN there
-// makes D 1 / levels whatever the rest holds, so an inf or a huge a would
-// turn the residual to NaN).
-__device__ __forceinline__ int encode_fma(float a, float delta, float inv,
-                                         float levels) {
-  const float q0 = __fmul_rn(a, inv);
-  const float r = __fmaf_rn(-q0, delta, a);
-  const float q = fminf(fmaxf(rintf(__fmaf_rn(r, inv, q0)), -levels), levels);
-  return static_cast<int>(q);
 }
 
 // encode and decode: the value the wire carries between two adds
@@ -223,7 +181,7 @@ __device__ __forceinline__ void hop_encode(const int8_t* __restrict__ src,
       store_pack<int8_t, VEC>(carry + v * VEC, c);
     });
   };
-  if (amax <= 0x1.fffffep127f && next >= 0x1p-100f && next <= 0x1p100f) {
+  if (fma_encodes(amax, next)) {
     const float inv = __frcp_rn(next);
     pass([&](float a) { return encode_fma(a, next, inv, levels); });
   } else {

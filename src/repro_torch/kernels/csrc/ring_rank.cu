@@ -48,25 +48,52 @@
 // an element; a landing reads the chunk and writes it (the fallback read
 // only where ag dropped the block). At rps-100m's largest bucket chunk on
 // four ranks (one row of 7,077,888 f32 columns) a hop moves 84.9 MB, 25 us
-// at an H100 SXM's 3.35 TB/s (data sheet, 700 W).
+// at an H100 SXM's 3.35 TB/s (data sheet, 700 W); on the int8 wire the
+// re-encoding hop moves 21.2 MB there (two int8 rows in, one out), 6.3 us.
 //
-// What the design does about it (the first, simple form):
-//   - the linear hops and the landings: one thread block of 256 threads per
-//     row on grid.y and column tiles on grid.x, each thread walking its
-//     columns with a grid stride, neighbouring threads on neighbouring
-//     columns so a warp's loads coalesce; the row's mask, scale and divisor
-//     are read once per block;
-//   - the re-encoding hops (levels > 0): one block of 1,024 threads per row.
-//     The encode needs max|acc| over the whole row before any column of it
-//     can be encoded, so the block makes two passes over the row: the first
-//     finds the max (a warp shuffle, then one word per warp in shared
-//     memory), the second computes acc again from the same inputs and
-//     encodes it. Nothing but the int8 partial and its scale is written;
-//     a row has one block, so a wide row runs on one SM (a later redesign
-//     would split it across a cluster, as ring_q.cu does).
+// What the design does about it:
+//   - the linear hops and the landings (the first, simple form): one thread
+//     block of 256 threads per row on grid.y and column tiles on grid.x,
+//     each thread walking its columns with a grid stride, neighbouring
+//     threads on neighbouring columns so a warp's loads coalesce; the
+//     row's mask, scale and divisor are read once per block;
+//   - the re-encoding hops (levels > 0; redesigned): the encode needs
+//     max|acc| over the whole row before any column of it can be encoded,
+//     and on the collective path a chunk is one row (k = 1) of up to
+//     7,077,888 columns, so a row is split over the whole card. The wrapper
+//     (kernels/ring.py::rank_requant_plan) gives each row `blocks` blocks
+//     of `cols` columns (a multiple of 16), enough that the grid holds two
+//     blocks per SM; a block keeps at least 4,096 columns. With one block a
+//     row (k alone fills the card, or the row is narrow) the hop is one
+//     launch: the block finds the row's max, then encodes. With more it is
+//     two launches: pass 1 writes each block's max|acc| to the (k, blocks)
+//     scratch `part_max` (no atomics, nothing to zero); pass 2, a
+//     programmatic dependent launch whose blocks are scheduled while pass
+//     1 drains, reduces the row's maxima, forms D, recomputes acc from the
+//     inputs -- at the largest chunk 14.2 MB, which the 50 MB L2 still
+//     holds -- and encodes; block 0 of a row writes its D. A max over the
+//     bits of non-negative floats is exact and independent of order, so
+//     the split changes no bit. One cooperative launch that kept each
+//     block's columns in shared memory across a grid barrier (brought in
+//     by the copy engine) was tried on an H100 and was no faster: the two
+//     launches stay;
+//   - 16 int8 columns (16 bytes) of the chunk and of the received partial
+//     a thread at a time, two such pairs of loads in flight, 16 encoded
+//     bytes stored at once, when W is a multiple of 16 and the three row
+//     bases are 16-byte aligned; other shapes take the same passes a
+//     column a thread;
+//   - no conversion instruction (a quarter of the f32 add's rate) on the
+//     16-column path: an int8 value becomes a float by a byte permute and
+//     an add (an exact bias trick), and the encode takes one reciprocal a
+//     row, then two fused multiply-adds, a clip and a rounding add an
+//     element
+//     (ring_common.cuh::encode_fma, shared with ring_q.cu) where that is
+//     exact (a finite row max, D in [2^-100, 2^100]) and divides
+//     elsewhere, so non-finite rows keep their bits.
 // Overlapping hop t's transfer with hop t - 1's add (the TPU kernel's
 // double buffer) is left to a later redesign. Any W >= 1, any k >= 1; the
-// kernels allocate nothing and run on the caller's stream.
+// kernels allocate nothing (the wrapper passes the scratch) and run on the
+// caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,11 +106,25 @@
 namespace repro_torch {
 namespace {
 
+using ring::abs_max;
+using ring::delta_of;
+using ring::encode;
+using ring::encode_fma;
+using ring::fma_encodes;
 using ring::load_mask;
+using ring::load_pack;
+using ring::Pack;
 using ring::round_acc;
+using ring::store_pack;
 
 constexpr int kHopThreads = 256;
-constexpr int kRowThreads = 1024;
+// the re-encoding hop: threads a block, and vectors a thread keeps in flight
+constexpr int kRowThreads = 256;
+constexpr int kRowUnroll = 2;
+// its passes: one block a row does both; split rows take two launches
+constexpr int kFused = 0;
+constexpr int kMaxPass = 1;
+constexpr int kEncodePass = 2;
 // column tiles of one row on grid.x; a thread walks the rest with a stride
 constexpr int64_t kMaxTiles = 2048;
 
@@ -105,18 +146,6 @@ __device__ __forceinline__ float recv_val(int8_t q, float sc) {
 template <typename T>
 __device__ __forceinline__ float recv_val(T x, float) {
   return to_float(x);
-}
-
-// the larger of two non-negative floats, NaN winning as torch.amax lets it
-// (on their bits a sign-cleared NaN lies above +inf; fmaxf would drop it)
-__device__ __forceinline__ float abs_max(float a, float b) {
-  return __uint_as_float(max(__float_as_uint(a), __float_as_uint(b)));
-}
-
-// rint(a / D) clipped to +-levels, a NaN quotient to 0
-__device__ __forceinline__ int encode(float a, float delta, float levels) {
-  const float q = rintf(__fdiv_rn(a, delta));
-  return q != q ? 0 : static_cast<int>(fminf(fmaxf(q, -levels), levels));
 }
 
 // C: the contribution table's element (float, bf16 or int8_t); A: the
@@ -151,8 +180,169 @@ __global__ void __launch_bounds__(kHopThreads)
   }
 }
 
-// A re-encoding hop on the int8 wire (accumulation in f32): one block per
-// row, two passes over it (the row's max, then the encode).
+// the block's max of the threads' `local` maxima, in every thread
+__device__ __forceinline__ float block_abs_max(float local, float* s_warp) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    local = abs_max(local, __shfl_xor_sync(0xffffffffu, local, off));
+  if (threadIdx.x % 32 == 0) s_warp[threadIdx.x / 32] = local;
+  __syncthreads();
+  float b = s_warp[0];
+#pragma unroll
+  for (int w = 1; w < kRowThreads / 32; ++w) b = abs_max(b, s_warp[w]);
+  return b;
+}
+
+// float(q) of VEC int8 values; four at a time without a conversion
+// instruction: the byte q + 128 placed in the low mantissa bits of 2^23
+// gives 2^23 + q + 128 exactly, less 2^23 + 128 gives q
+template <int VEC>
+__device__ __forceinline__ void int8_floats(const Pack<int8_t, VEC>& q,
+                                            float (&f)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC / 4; ++j) {
+      uint32_t w;
+      memcpy(&w, &q.v[4 * j], 4);
+      w ^= 0x80808080u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        f[4 * j + i] = __fadd_rn(
+            __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | i)),
+            -8388736.0f);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) f[e] = static_cast<float>(q.v[e]);
+  }
+}
+
+// body(acc, v) for each of the block's `nvec` vectors of VEC columns of s
+// and rv: acc = float(q) * sc * m (+ float(q_recv) * rsc), every op
+// rounded to nearest; the loads of kRowUnroll vectors are issued before
+// any is used
+template <int VEC, bool HAS_RECV, typename F>
+__device__ __forceinline__ void for_acc(const int8_t* __restrict__ s,
+                                        const int8_t* __restrict__ rv,
+                                        int64_t nvec, float sc, float m,
+                                        float rsc, F body) {
+  for (int64_t v0 = threadIdx.x; v0 < nvec;
+       v0 += static_cast<int64_t>(kRowUnroll) * kRowThreads) {
+    Pack<int8_t, VEC> q[kRowUnroll], rq[kRowUnroll];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      const int64_t v = v0 + u * kRowThreads;
+      if (v < nvec) {
+        q[u] = load_pack<true, int8_t, VEC>(s + v * VEC);
+        if constexpr (HAS_RECV)
+          rq[u] = load_pack<true, int8_t, VEC>(rv + v * VEC);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      const int64_t v = v0 + u * kRowThreads;
+      if (v < nvec) {
+        float acc[VEC], fr[VEC];
+        int8_floats<VEC>(q[u], acc);
+        if constexpr (HAS_RECV) int8_floats<VEC>(rq[u], fr);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float c = __fmul_rn(__fmul_rn(acc[e], sc), m);
+          acc[e] = HAS_RECV ? __fadd_rn(__fmul_rn(fr[e], rsc), c) : c;
+        }
+        body(acc, v);
+      }
+    }
+  }
+}
+
+// One block's share of a chunk row: row r of the chunk, its mask and
+// scales, and its columns [blockIdx.x * cols, + cols) of the chunk and of
+// the received partial (`nvec` vectors of VEC columns)
+struct Tile {
+  int64_t r, col0, nvec;
+  float m, sc, rsc;
+  const int8_t* s;
+  const int8_t* rv;
+};
+
+template <int VEC, bool HAS_RECV>
+__device__ __forceinline__ Tile tile_of(const int8_t* src,
+                                        const float* src_scale,
+                                        const void* rs, DType rs_dtype,
+                                        const int8_t* recv,
+                                        const float* recv_scale,
+                                        int64_t chunk, int64_t W,
+                                        int64_t cols) {
+  Tile t;
+  t.r = blockIdx.y;
+  const int64_t row = chunk * gridDim.y + t.r;
+  t.col0 = blockIdx.x * cols;
+  t.nvec = (W - t.col0 < cols ? W - t.col0 : cols) / VEC;
+  t.m = load_mask(rs, rs_dtype, row);
+  t.sc = src_scale[row];
+  t.rsc = HAS_RECV ? recv_scale[t.r] : 1.0f;
+  t.s = src + row * W + t.col0;
+  t.rv = HAS_RECV ? recv + t.r * W + t.col0 : nullptr;
+  return t;
+}
+
+// this thread's share of the tile's max|acc|
+template <int VEC, bool HAS_RECV>
+__device__ __forceinline__ float thread_max(const Tile& t) {
+  float local = 0.0f;
+  for_acc<VEC, HAS_RECV>(t.s, t.rv, t.nvec, t.sc, t.m, t.rsc,
+                         [&](const float (&acc)[VEC], int64_t) {
+#pragma unroll
+                           for (int e = 0; e < VEC; ++e)
+                             local = abs_max(local, fabsf(acc[e]));
+                         });
+  return local;
+}
+
+// the row's max|acc| from its blocks' maxima part_max[r, :], written by
+// the grid before, in every thread
+__device__ __forceinline__ float row_max(const float* part_max, int64_t r,
+                                         float* s_warp) {
+  const int64_t parts = gridDim.x;
+  float local = 0.0f;
+  for (int64_t b = threadIdx.x; b < parts; b += kRowThreads)
+    local = abs_max(local, __ldcg(part_max + r * parts + b));
+  return block_abs_max(local, s_warp);
+}
+
+// the tile's columns encoded at the row's step into o; the row's max and
+// the step's range decide the encode once for the block, not per element
+template <int VEC, bool HAS_RECV>
+__device__ __forceinline__ void encode_tile(const Tile& t, float amax,
+                                            float levels, int8_t* o) {
+  const float delta = delta_of(amax, levels);
+  const auto pass = [&](auto enc) {
+    for_acc<VEC, HAS_RECV>(t.s, t.rv, t.nvec, t.sc, t.m, t.rsc,
+                           [&](const float (&acc)[VEC], int64_t v) {
+                             Pack<int8_t, VEC> q;
+#pragma unroll
+                             for (int e = 0; e < VEC; ++e)
+                               q.v[e] = static_cast<int8_t>(enc(acc[e]));
+                             store_pack<int8_t, VEC>(o + v * VEC, q);
+                           });
+  };
+  if (fma_encodes(amax, delta)) {
+    const float inv = __frcp_rn(delta);
+    pass([&](float a) { return encode_fma(a, delta, inv, levels); });
+  } else {
+    pass([&](float a) { return encode(a, delta, levels); });
+  }
+}
+
+// A re-encoding hop on the int8 wire (accumulation in f32). Block
+// (blockIdx.x, r) owns a Tile of the chunk's row r. PASS kFused (one block
+// a row): the row's max, then the encode. kMaxPass: the block's max|acc|
+// into part_max[r, blockIdx.x]. kEncodePass (a programmatic dependent
+// launch after kMaxPass): the row's max from part_max, then the encode of
+// the block's columns, read again (from L2 at the path's chunks). Block 0
+// of a row writes its step.
+template <int VEC, bool HAS_RECV, int PASS>
 __global__ void __launch_bounds__(kRowThreads)
     ring_rank_requant_kernel(const int8_t* __restrict__ src,
                              const float* __restrict__ src_scale,
@@ -160,38 +350,30 @@ __global__ void __launch_bounds__(kRowThreads)
                              const int8_t* __restrict__ recv,
                              const float* __restrict__ recv_scale,
                              int8_t* __restrict__ out,
-                             float* __restrict__ out_scale, int64_t chunk,
-                             int64_t k, int64_t W, float levels) {
-  __shared__ float s_max[kRowThreads / 32];
-  const int64_t r = blockIdx.x;
-  const int64_t row = chunk * k + r;
-  const float m = load_mask(rs, rs_dtype, row);
-  const float sc = src_scale[row];
-  const float rsc = recv != nullptr ? recv_scale[r] : 1.0f;
-  const int8_t* s = src + row * W;
-  const bool has_recv = recv != nullptr;
-  const int8_t* rv = has_recv ? recv + r * W : nullptr;
-  const auto acc_at = [&](int64_t col) {
-    const float c = __fmul_rn(contrib_val(s[col], sc), m);
-    return has_recv ? __fadd_rn(recv_val(rv[col], rsc), c) : c;
-  };
-  float local = 0.0f;
-  for (int64_t col = threadIdx.x; col < W; col += blockDim.x)
-    local = abs_max(local, fabsf(acc_at(col)));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    local = abs_max(local, __shfl_xor_sync(0xffffffffu, local, off));
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x % 32 == 0) s_max[warp] = local;
-  __syncthreads();
-  float amax = 0.0f;
-  for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w)
-    amax = abs_max(amax, s_max[w]);
-  const float delta = __fdiv_rn(amax > 0.0f ? amax : 1.0f, levels);
-  int8_t* o = out + r * W;
-  for (int64_t col = threadIdx.x; col < W; col += blockDim.x)
-    o[col] = static_cast<int8_t>(encode(acc_at(col), delta, levels));
-  if (threadIdx.x == 0) out_scale[r] = delta;
+                             float* __restrict__ out_scale,
+                             float* __restrict__ part_max, int64_t chunk,
+                             int64_t W, int64_t cols, float levels) {
+  __shared__ float s_warp[kRowThreads / 32];
+  const Tile t = tile_of<VEC, HAS_RECV>(src, src_scale, rs, rs_dtype, recv,
+                                        recv_scale, chunk, W, cols);
+  float amax;
+  if constexpr (PASS == kEncodePass) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    amax = row_max(part_max, t.r, s_warp);
+  } else {
+    if constexpr (PASS == kMaxPass) {
+      // pass 2 may be scheduled now; it waits for this grid's maxima
+      asm volatile("griddepcontrol.launch_dependents;");
+    }
+    amax = block_abs_max(thread_max<VEC, HAS_RECV>(t), s_warp);
+    if constexpr (PASS == kMaxPass) {
+      if (threadIdx.x == 0) part_max[t.r * gridDim.x + blockIdx.x] = amax;
+      return;
+    }
+  }
+  encode_tile<VEC, HAS_RECV>(t, amax, levels, out + t.r * W + t.col0);
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    out_scale[t.r] = delta_of(amax, levels);
 }
 
 template <typename T>
@@ -278,40 +460,111 @@ void hop_acc(DType acc_dtype, DType recv_dtype, DType out_dtype,
                        stream);
 }
 
+template <int VEC, bool HAS_RECV>
+cudaError_t requant_passes(const int8_t* src, const float* src_scale,
+                           const void* rs, DType rs_dtype,
+                           const int8_t* recv, const float* recv_scale,
+                           int8_t* out, float* out_scale, float* part_max,
+                           int64_t chunk, int64_t k, int64_t W,
+                           int64_t blocks, int64_t cols, float levels,
+                           cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(k));
+  if (blocks == 1) {
+    ring_rank_requant_kernel<VEC, HAS_RECV, kFused>
+        <<<grid, kRowThreads, 0, stream>>>(src, src_scale, rs, rs_dtype,
+                                           recv, recv_scale, out, out_scale,
+                                           part_max, chunk, W, cols, levels);
+    return cudaGetLastError();
+  }
+  ring_rank_requant_kernel<VEC, HAS_RECV, kMaxPass>
+      <<<grid, kRowThreads, 0, stream>>>(src, src_scale, rs, rs_dtype, recv,
+                                         recv_scale, out, out_scale,
+                                         part_max, chunk, W, cols, levels);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // pass 2 as a programmatic dependent launch: its blocks are scheduled
+  // while pass 1 finishes and wait (griddepcontrol.wait) for its maxima
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kRowThreads);
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &config, &ring_rank_requant_kernel<VEC, HAS_RECV, kEncodePass>, src,
+      src_scale, rs, rs_dtype, recv, recv_scale, out, out_scale, part_max,
+      chunk, W, cols, levels);
+  return launched != cudaSuccess ? launched : cudaGetLastError();
+}
+
+// 16 columns a thread where W is a multiple of 16 and the row bases are
+// 16-byte aligned (blocks start at multiples of 16 columns), else one
+template <bool HAS_RECV>
+cudaError_t requant_hop(const int8_t* src, const float* src_scale,
+                        const void* rs, DType rs_dtype, const int8_t* recv,
+                        const float* recv_scale, int8_t* out,
+                        float* out_scale, float* part_max, int64_t chunk,
+                        int64_t k, int64_t W, int64_t blocks, int64_t cols,
+                        int levels, cudaStream_t stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const float lv = static_cast<float>(levels);
+  if (W % 16 == 0 && aligned(src) && aligned(out) &&
+      (!HAS_RECV || aligned(recv)))
+    return requant_passes<16, HAS_RECV>(src, src_scale, rs, rs_dtype, recv,
+                                        recv_scale, out, out_scale, part_max,
+                                        chunk, k, W, blocks, cols, lv,
+                                        stream);
+  return requant_passes<1, HAS_RECV>(src, src_scale, rs, rs_dtype, recv,
+                                     recv_scale, out, out_scale, part_max,
+                                     chunk, k, W, blocks, cols, lv, stream);
+}
+
 }  // namespace
 
-void ring_rank_hop_launch(const void* src, DType src_dtype,
-                          const float* src_scale, const void* rs,
-                          DType rs_dtype, const void* recv, DType recv_dtype,
-                          const float* recv_scale, const float* div,
-                          void* out, DType out_dtype, float* out_scale,
-                          DType acc_dtype, int levels, bool last,
-                          int64_t chunk, int64_t k, int64_t W,
-                          cudaStream_t stream) {
+cudaError_t ring_rank_hop_launch(const void* src, DType src_dtype,
+                                 const float* src_scale, const void* rs,
+                                 DType rs_dtype, const void* recv,
+                                 DType recv_dtype, const float* recv_scale,
+                                 const float* div, void* out, DType out_dtype,
+                                 float* out_scale, float* part_max,
+                                 DType acc_dtype, int levels, bool last,
+                                 int64_t chunk, int64_t k, int64_t W,
+                                 int64_t blocks, int64_t cols,
+                                 cudaStream_t stream) {
   if (levels > 0 && !last) {  // the binding admits only int8 here
-    ring_rank_requant_kernel<<<static_cast<unsigned>(k), kRowThreads, 0,
-                               stream>>>(
-        static_cast<const int8_t*>(src), src_scale, rs, rs_dtype,
-        static_cast<const int8_t*>(recv), recv_scale,
-        static_cast<int8_t*>(out), out_scale, chunk, k, W,
-        static_cast<float>(levels));
-    return;
+    const int8_t* q = static_cast<const int8_t*>(src);
+    const int8_t* rq = static_cast<const int8_t*>(recv);
+    int8_t* o = static_cast<int8_t*>(out);
+    if (rq != nullptr)
+      return requant_hop<true>(q, src_scale, rs, rs_dtype, rq, recv_scale, o,
+                               out_scale, part_max, chunk, k, W, blocks,
+                               cols, levels, stream);
+    return requant_hop<false>(q, src_scale, rs, rs_dtype, rq, recv_scale, o,
+                              out_scale, part_max, chunk, k, W, blocks, cols,
+                              levels, stream);
   }
   switch (src_dtype) {
     case DType::kI8:  // the binding sums int8 in f32
-      return hop_acc<int8_t>(DType::kF32, recv_dtype, out_dtype, src,
+      hop_acc<int8_t>(DType::kF32, recv_dtype, out_dtype, src, src_scale, rs,
+                      rs_dtype, recv, recv_scale, div, out, chunk, k, W, last,
+                      stream);
+      break;
+    case DType::kBF16:
+      hop_acc<__nv_bfloat16>(acc_dtype, recv_dtype, out_dtype, src,
                              src_scale, rs, rs_dtype, recv, recv_scale, div,
                              out, chunk, k, W, last, stream);
-    case DType::kBF16:
-      return hop_acc<__nv_bfloat16>(acc_dtype, recv_dtype, out_dtype, src,
-                                    src_scale, rs, rs_dtype, recv,
-                                    recv_scale, div, out, chunk, k, W, last,
-                                    stream);
+      break;
     default:  // the binding admits only f32, bf16 and int8
-      return hop_acc<float>(acc_dtype, recv_dtype, out_dtype, src, src_scale,
-                            rs, rs_dtype, recv, recv_scale, div, out, chunk,
-                            k, W, last, stream);
+      hop_acc<float>(acc_dtype, recv_dtype, out_dtype, src, src_scale, rs,
+                     rs_dtype, recv, recv_scale, div, out, chunk, k, W, last,
+                     stream);
   }
+  return cudaGetLastError();
 }
 
 void ring_rank_land_launch(const void* cur, DType dtype, const void* ag,

@@ -34,7 +34,8 @@ wide path.
 The collective path (one process per rank, :mod:`repro_torch.core.comm`)
 runs one rank's share of the round: :func:`ring_exchange_scatter_table`
 walks the ring hop for hop (:func:`ring_schedule`), each hop's add one
-launch of ``csrc/ring_rank.cu`` (:func:`ring_rank_hop`) and each
+call of ``csrc/ring_rank.cu`` (:func:`ring_rank_hop`; a re-encoding hop
+splits its rows over the card, :func:`rank_requant_plan`) and each
 all-gather landing another (:func:`ring_rank_land`), between
 :func:`repro_torch.core.comm.ring_shift` transfers; the ring's order is
 the RPS axes flattened (:func:`logical_ring_ids`).
@@ -62,6 +63,9 @@ MAX_CLUSTER = 16
 MAX_CHUNK = 192 * 1024
 HALF_CHUNK = 112 * 1024
 MIN_SPLIT = 8192               # columns a block keeps when a row is split
+# ring_rank.cu's re-encoding hop: columns a block keeps when a row is split
+# (one 16-byte vector for each of its 256 threads)
+RANK_MIN_COLS = 4096
 # the ops ``torch.ops.repro_torch.ring_round`` and ``ring_round_enc``,
 # loaded at first launch
 _op = None
@@ -183,6 +187,21 @@ def requant_plan(rows: int, d: int, sms: int) -> tuple:
     return c, chunk(c)
 
 
+def rank_requant_plan(k: int, W: int, sms: int) -> tuple:
+    """(blocks, cols) of ``csrc/ring_rank.cu``'s re-encoding hop for a
+    chunk of ``k`` rows of ``W`` columns on a card of ``sms`` SMs: each
+    row split into ``blocks`` blocks of ``cols`` columns (a multiple of
+    16; no block empty), enough that the grid holds two blocks per SM
+    where every block keeps at least RANK_MIN_COLS columns; one block a
+    row when k alone fills the card or the row is narrow. One block a row
+    makes the hop one launch; more make it two (the blocks' maxima, then
+    the encode)."""
+    want = -(-2 * sms // k)
+    blocks = max(1, min(want, W // RANK_MIN_COLS))
+    cols = -(-(-(-W // blocks)) // 16) * 16
+    return -(-W // cols), cols
+
+
 def ring_round_enc(stack, enc, scale, rs, ag, div, *, mode: str,
                    rs_dtype=torch.float32, levels: int = 0):
     """One group's ring round with the contributions from an encoded
@@ -274,10 +293,12 @@ def ring_rank_hop(src, src_scale, rs_row, recv, recv_scale, div, *,
     hop's chunk divided by ``div`` in ``out_dtype``, a middle hop's
     partial, or with ``levels > 0`` its re-encoding ``(q, scale)``.
 
-    On a CUDA tensor it launches ``csrc/ring_rank.cu``'s hop (one launch,
-    counted in ``ring_rank_hop.launches``) or raises; on a CPU tensor it
-    computes the plain version :func:`repro_torch.kernels.ref.
-    ring_rank_hop_ref`."""
+    On a CUDA tensor it launches ``csrc/ring_rank.cu``'s hop (counted
+    once a call in ``ring_rank_hop.launches``) or raises: one CUDA launch,
+    or two for a re-encoding hop whose rows :func:`rank_requant_plan`
+    splits over several blocks (the blocks' maxima, then the encode). On
+    a CPU tensor it computes the plain version :func:`repro_torch.kernels.
+    ref.ring_rank_hop_ref`."""
     if src.device.type == "cpu":
         return ring_rank_hop_ref(src, src_scale, rs_row, recv, recv_scale,
                                  div, chunk=chunk, k=k, acc_dtype=acc_dtype,
@@ -288,17 +309,25 @@ def ring_rank_hop(src, src_scale, rs_row, recv, recv_scale, div, *,
     _check_rank_cuda("ring_rank_hop", src, src, src_scale, rs_row, recv,
                      recv_scale, div)
     W = src.shape[1]
-    out_scale = None
+    out_scale = part_max = None
+    blocks = cols = 0
     if last:
         out = torch.empty((k, W), dtype=out_dtype, device=src.device)
     elif levels:
         out = torch.empty((k, W), dtype=torch.int8, device=src.device)
         out_scale = torch.empty((k,), dtype=torch.float32, device=src.device)
+        sms = torch.cuda.get_device_properties(
+            src.device).multi_processor_count
+        blocks, cols = rank_requant_plan(k, W, sms)
+        if blocks > 1:      # each block's max|acc| between the two launches
+            part_max = torch.empty((k, blocks), dtype=torch.float32,
+                                   device=src.device)
     else:
         out = torch.empty((k, W), dtype=acc_dtype, device=src.device)
     build.load_kernels().ring_rank_hop(
-        src, src_scale, rs_row, recv, recv_scale, div, out, out_scale, chunk,
-        acc_dtype == torch.bfloat16, levels, last)
+        src, src_scale, rs_row, recv, recv_scale, div, out, out_scale,
+        part_max, chunk, acc_dtype == torch.bfloat16, levels, last, blocks,
+        cols)
     ring_rank_hop.launches += 1
     return (out, out_scale) if out_scale is not None else out
 

@@ -627,6 +627,41 @@ def test_requant_plan(rows, d, sms, want):
         assert chunk * (cluster - 1) < d          # no block left empty
 
 
+@pytest.mark.parametrize("k,W,sms,want", [
+    (1, 7077888, 132, (264, 26816)),    # rps-100m's largest chunk at n = 4
+    (1, 3145728, 132, (264, 11920)),    # its embedding and head chunks
+    (1, 589824, 132, (144, 4096)),      # RANK_MIN_COLS caps the split
+    (2, 65536, 132, (16, 4096)),
+    (1, 1000003, 132, (244, 4112)),     # W not a multiple of 16
+    (3, 300001, 132, (73, 4112)),       # k > 1, odd W
+    (100, 1048576, 132, (3, 349536)),
+    (1, 1, 132, (1, 16)),               # narrow rows: one block a row
+    (3, 4097, 132, (1, 4112)),
+    (1, 2304, 132, (1, 2304)),
+    (300, 2304, 132, (1, 2304)),        # k alone fills the card
+    (264, 1048576, 132, (1, 1048576)),
+    (1, 7077888, 114, (228, 31056)),    # fewer SMs, fewer blocks
+])
+def test_rank_requant_plan(k, W, sms, want):
+    """ring_rank.cu's row split: 16-aligned tiles covering every column
+    once with no empty block, two blocks per SM where a block keeps
+    RANK_MIN_COLS columns, one block a row when k fills the card or the
+    row is narrow."""
+    blocks, cols = ring.rank_requant_plan(k, W, sms)
+    assert (blocks, cols) == want
+    assert cols % 16 == 0 and cols >= 16
+    assert (blocks - 1) * cols < W <= blocks * cols
+    tiles = [(b * cols, min(W, (b + 1) * cols)) for b in range(blocks)]
+    assert tiles[0][0] == 0 and tiles[-1][1] == W
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(tiles, tiles[1:]))
+    if blocks > 1:
+        assert k * blocks >= 2 * sms or W // ring.RANK_MIN_COLS < (
+            -(-2 * sms // k))
+        assert cols >= ring.RANK_MIN_COLS
+    if k >= 2 * sms or W < 2 * ring.RANK_MIN_COLS:
+        assert blocks == 1
+
+
 # ---- the wrapper ----------------------------------------------------------
 
 def test_ring_round_enc_routes_and_checks():

@@ -2,7 +2,8 @@
 ring round) against its plain versions (``kernels/ref.py::
 ring_rank_hop_ref``, ``ring_rank_land_ref``), bit for bit (NaN equal to
 NaN), at f32 / bf16 payloads and accumulation and on the int8 wire,
-including rows of non-finite values. The ``cuda``-marked tests need a
+including rows of non-finite values, and the int8 wire's re-encoding hop
+with its rows split over many blocks. The ``cuda``-marked tests need a
 CUDA device and skip without one; two tests run anywhere: the transport
 refuses NCCL, and a world of ranks runs on the card unless asked for the
 CPU. This file imports no JAX.
@@ -78,6 +79,78 @@ def test_cuda_ring_rank_hop_and_land_equal_plain(k, W, payload, acc, levels):
             R.ring_rank_land_ref(want, cur, ag, blocks, chunk=chunk, k=k,
                                  renorm=renorm)
         assert _same(got, want)
+
+
+def _requant_inputs(gen, kind, k, W):
+    """(src, src_scale, rs, recv, recv_scale) of a re-encoding hop at
+    chunk 0 of an (N k, W) int8 table. ``random``: int8 values, a row of
+    inf scales beside normal ones and a NaN received scale; ``tail_inf``
+    / ``tail_nan``: rows scaled so that |q| <= 50 stays finite and 127
+    overflows, one overflowing column -- the row's last, in its last
+    block -- in the chunk (and its opposite in the received partial:
+    inf - inf); ``zero``: all-zero chunk rows and partial."""
+    S = N * k
+    if kind == "random":
+        src = torch.randint(-127, 128, (S, W), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        ssc = torch.rand(S, generator=gen, device="cuda")
+        ssc[S - 1] = float("inf")
+        recv = torch.randint(-127, 128, (k, W), generator=gen,
+                             device="cuda", dtype=torch.int8)
+        rsc = torch.rand(k, generator=gen, device="cuda")
+        if k > 1:
+            rsc[-1] = float("nan")
+        rs = (torch.rand(S, generator=gen, device="cuda") < 0.7).to(
+            torch.uint8)
+        return src, ssc, rs, recv, rsc
+    huge = 3.4e36                      # 100 * huge < FLT_MAX < 127 * huge
+    src = torch.randint(-50, 51, (S, W), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    recv = torch.randint(-50, 51, (k, W), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    if kind == "zero":
+        src[:k] = 0
+        recv.zero_()
+    else:
+        src[:k, -1] = 127
+        if kind == "tail_nan":
+            recv[:, -1] = -127
+    return (src, torch.full((S,), huge, device="cuda"),
+            torch.ones(S, dtype=torch.uint8, device="cuda"), recv,
+            torch.full((k,), huge, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,W", [(2, 65536), (1, 589824), (1, 1000003),
+                                 (3, 300001)])
+@pytest.mark.parametrize("kind", ["random", "tail_inf", "tail_nan", "zero"])
+def test_cuda_ring_rank_requant_split_rows_equal_plain(k, W, kind):
+    """The re-encoding hop with each row split over many blocks (two
+    launches: the blocks' maxima, then the encode) against its plain
+    version, bit for bit, the first hop (no received partial) and a
+    middle one: 16 columns a thread, and one (W not a multiple of 16;
+    k > 1 with odd W, rows off 16-byte alignment); random inputs with
+    non-finite rows, an inf or a NaN only in the row's last block,
+    all-zero rows (D = 1 / levels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert RG.rank_requant_plan(k, W, sms)[0] > 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(k * W)
+    src, ssc, rs, recv, rsc = _requant_inputs(gen, kind, k, W)
+    div = torch.full((N * k,), float(N), device="cuda")
+    for chunk in range(N):
+        if kind != "random" and chunk:
+            break                      # the edge rows are chunk 0's
+        for rv, rc in ((None, None), (recv, rsc)):
+            kw = dict(chunk=chunk, k=k, levels=127)
+            before = RG.ring_rank_hop.launches
+            got = RG.ring_rank_hop(src, ssc, rs, rv, rc, div, **kw)
+            want = R.ring_rank_hop_ref(src, ssc, rs, rv, rc, div, **kw)
+            assert RG.ring_rank_hop.launches == before + 1
+            assert _same(got[0], want[0]), (kind, chunk, rv is None)
+            assert _same(got[1], want[1]), (kind, chunk, rv is None)
 
 
 def test_transport_refuses_nccl():

@@ -317,7 +317,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
               ROOT / "tools" / "profile_torch_serve.py",
-              ROOT / "tools" / "rglru_variants.py"]
+              ROOT / "tools" / "rglru_variants.py",
+              ROOT / "tools" / "ring_rank_variants.py"]
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
