@@ -316,7 +316,30 @@ raises on failure; nothing is caught):
    COLL_TRAIN_TOL on the xla engine (bit equality counted),
    ring_rank_hop and ring_rank_land launches = 4 per bucket and step on
    every rank on the ring engine and none on the xla engine; step ms, the
-   bytes staged a step and each rank's peak memory.
+   bytes staged a step and each rank's peak memory;
+42. the dry-run (launch/dryrun.py, meta tensors) and the roofline on the
+   card's own constants (roofline/analysis.py::HW, the H100 SXM data
+   sheet): 42a every architecture x shape on the production meshes
+   (layout rows: the exchange plan and state bytes; the counted terms not
+   run, the port running neither TP inside a replica nor FSDP) and on one
+   H100 (sim1, counted rows), each ok, layout only or skipped with the
+   reference's reason, its table printed (t_compute, t_memory,
+   t_collective, bottleneck, HBM a device, fits), and on this machine's
+   torch the prefill and decode rows' count from two and three periods
+   of the layer kinds (dryrun.by_periods) equal to the count of every
+   layer on seven reduced configs, a train step's count with ops made
+   again from their signatures equal to one running every op; 42b
+   predictions against the card for one rps-100m worker's train step
+   (32 x 128, f32), gemma3-1b's prefill of phase 4's prompts and its
+   decode step at phase 4's 8 lanes: median of 5 steps after 1, the
+   roofline share and the model FLOPs over (time x peak), each at most
+   105 %, the peak of allocated bytes within 25 % of the prediction; 42c
+   phase 41's collectives, record for record, equal to the dry-run's
+   count of one rank's step x 8 (so are the link bytes), and the counted
+   ring_rank.cu calls x 8 equal to the launches; 42d torch.profiler's
+   launches of the hand-written kernels over one step of phase 17's ring
+   run (taken right after phase 17) and one of phase 4's decode steps
+   equal to their wrappers' counters (launch/launches.py).
 
 The phases' wall seconds are printed on one line before the kernels'
 line.
@@ -369,6 +392,7 @@ from repro_torch.netsim import request_trace  # noqa: E402
 from repro_torch.netsim import sim as netsim  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim import statepack  # noqa: E402
+from repro_torch.roofline import HW, kernel_bound, kernel_cost  # noqa: E402
 from repro_torch.serve import (ContinuousEngine, PagedCache,  # noqa: E402
                                ServeEngine, TPDecodeConfig, make_requests,
                                make_tp_context)
@@ -382,10 +406,10 @@ from repro_torch.train import (SimulatorConfig,  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# NVIDIA H100 SXM data-sheet peaks at its 700 W limit (dense rates)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
-TF32_FLOPS_PER_S = 495e12      # TF32 on the tensor cores
+# NVIDIA H100 SXM data-sheet peaks at its 700 W limit (dense rates):
+# roofline/analysis.py::HW; every kernel's bound from its cost function
+# there (kernel_cost, kernel_bound)
+H100 = HW()
 
 SITES_PER_STEP = 52            # 2 collective sites × 26 layers
 # the TP-combine kernel's sweep (phase 3c): (d, B); (24, 3), (1000, 7) and
@@ -603,15 +627,12 @@ def time_kernel(gen: torch.Generator, shape: tuple) -> dict:
 
     if not torch.allclose(library(), kernel(), atol=1e-6, rtol=1e-6):
         raise AssertionError("the bmm yardstick computes another function")
-    nbytes = (x.numel() * x.element_size() + m.numel() * m.element_size()
-              + B * d * x.element_size())
-    flops = 2 * B * n * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    flops, nbytes = kernel_cost("masked_avg_grid", x, m)
+    bound_s, bound_by = kernel_bound("masked_avg_grid", flops, nbytes)
     return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
             "library_ms": device_ms(library),
             "eager_ms": eager_ms(kernel), "eager_plain_ms": eager_ms(plain),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "bytes": nbytes, "shape": list(shape)}
 
 
@@ -755,15 +776,13 @@ def time_tp_combine(gen: torch.Generator) -> dict:
 
     # each input byte read once: the partials, the site's rs rows and the
     # receiver's ag row; the (B, 1, d) f32 output written once
-    nbytes = (x.numel() * x.element_size()
-              + (n + 1) * g.s * masks[0].element_size() + B * d * 4)
-    flops = 3 * n * B * d           # n * p, the mask product and the add
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    flops, nbytes = kernel_cost("tp_combine", x, masks[0], masks[1], site,
+                                n=n, receiver=tp.receiver, plan_geometry=g)
+    bound_s, bound_by = kernel_bound("tp_combine", flops, nbytes)
     return {"ms": device_ms(kernel), "unfused_ms": device_ms(unfused),
             "plain_ms": device_ms(plain),
             "eager_ms": eager_ms(kernel), "eager_unfused_ms": eager_ms(unfused),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "bytes": nbytes}
 
 
@@ -976,20 +995,14 @@ def time_rwkv6(gen: torch.Generator) -> dict:
     def plain():
         return ops.rwkv6(*args, backend="ref")
 
-    el = args[0].element_size()
-    nbytes = (3 * B * S * h * dk * el          # r, k, w
-              + B * S * h * dv * el            # v
-              + h * dk * 4                     # u
-              + B * S * h * dv * el            # out
-              + B * h * dk * dv * 4)           # final state
-    flops = 6 * B * S * h * dk * dv
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S
+    # r, k, w, v, u read; the output and the final state written
+    flops, nbytes = kernel_cost("rwkv6", *args)
+    bound_s, bound_by = kernel_bound("rwkv6", flops, nbytes)
     ms = device_ms(kernel, calls=20, reps=10)
     out = {"ms": ms, "plain_ms": device_ms(plain, calls=2, reps=3),
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bound_f32_simt_ms": max(t_bytes,
-                                    flops / F32_FLOPS_PER_S) * 1e3,
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "bound_f32_simt_ms": max(nbytes / H100.hbm_bw,
+                                    flops / H100.peak_f32) * 1e3,
            "cuda_launches_per_call": 1, "memsets_per_call": 1,
            "bytes": nbytes, "flops": flops}
     print(f"rwkv6 {RWKV_SHAPE} bf16: {ms:.4f} ms, bound "
@@ -1167,16 +1180,12 @@ def time_rglru(gen: torch.Generator) -> dict:
     def plain():
         return ops.rglru(x, a, backend="ref")
 
-    n = B * S * d
-    nbytes = (n * x.element_size() + n * a.element_size()   # x, a
-              + n * x.element_size()                        # h
-              + B * d * 4)                                  # h_last
-    flops = 5 * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    # x, a read; h and h_last written
+    flops, nbytes = kernel_cost("rglru", x, a)
+    bound_s, bound_by = kernel_bound("rglru", flops, nbytes)
     return {"ms": device_ms(kernel, calls=20, reps=10),
             "plain_ms": device_ms(plain, calls=2, reps=3),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "bytes": nbytes, "flops": flops}
 
 
@@ -1312,11 +1321,9 @@ def time_ring(gen: torch.Generator, shape: tuple) -> dict:
     del got
     torch.cuda.empty_cache()
     el = x.element_size()
-    nbytes = (2 * x.numel() * el                      # stack in, out
-              + rs.numel() * rs.element_size()
-              + ag.numel() * ag.element_size() + div.numel() * 4)
-    flops = 2 * x.numel()                             # gate, add
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    # the stack in and out, the masks and the divisor; a gate and an add
+    flops, nbytes = kernel_cost("ring_round", x, rs, ag, div)
+    bound_s, bound_by = kernel_bound("ring_round", flops, nbytes)
     big = x.numel() * el > 2 ** 30
     return {"shape": list(shape),
             "ms": device_ms(kernel, calls=5 if big else 20, reps=5),
@@ -1324,8 +1331,7 @@ def time_ring(gen: torch.Generator, shape: tuple) -> dict:
             "xla_route_ms": device_ms(xla_route, calls=2 if big else 5,
                                       reps=3),
             "xla_route_max_abs_diff": err_xla,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "bytes": nbytes}
 
 
@@ -1726,22 +1732,17 @@ def time_ring_enc(gen: torch.Generator, shape: tuple,
     err_xla = (xla_route() - got).abs().max().item() if full else None
     del got
     torch.cuda.empty_cache()
-    dropped = int((ag == 0).sum())
-    nbytes = (q.numel() + sc.numel() * 4             # the int8 table
-              + x.numel() * x.element_size()          # out
-              + dropped * d * x.element_size()        # the fallback
-              + rs.numel() * rs.element_size()
-              + ag.numel() * ag.element_size() + div.numel() * 4)
-    # per element: decode, gate, add; per partial element and hop after
-    # the first: divide, round, multiply
-    flops = 3 * x.numel() + 3 * (n - 1) * G * s * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    # the int8 table, the output, the fallback where ag dropped a block,
+    # the masks, the divisor; per element a decode, a gate and an add, per
+    # partial element and hop after the first a divide, a round, a multiply
+    flops, nbytes = kernel_cost("ring_round_enc", x, q, sc, rs, ag, div,
+                                levels=INT8.levels)
+    bound_s, bound_by = kernel_bound("ring_round_enc", flops, nbytes)
     big = x.numel() * x.element_size() > 2 ** 30
     calls = 20 if big else 100
     out = {"shape": list(shape), "cluster": cluster, "chunk": chunk,
            "ms": event_ms(kernel, calls),
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
            "bytes": nbytes,
            # what the first design moves besides: the partial's f32 round
            # trip per hop through its scratch row
@@ -3770,10 +3771,10 @@ def tp_widths(gen: torch.Generator) -> dict:
         if err > TP_TOL[torch.float32]:
             raise AssertionError(f"tp_combine d {d}: {err} from the plain "
                                  f"version")
-        nbytes = (x.numel() * 4 + (n + 1) * g.s * masks[0].element_size()
-                  + B * d * 4)
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = 3 * n * B * d / F32_FLOPS_PER_S
+        flops, nbytes = kernel_cost("tp_combine", x, masks[0], masks[1],
+                                    site, n=n, receiver=tp.receiver,
+                                    plan_geometry=g)
+        bound_s, bound_by = kernel_bound("tp_combine", flops, nbytes)
         out[str(d)] = {
             "arch": arch, "ms": device_ms(lambda: tp._exchange(x, masks,
                                                                site)),
@@ -3781,8 +3782,7 @@ def tp_widths(gen: torch.Generator) -> dict:
             "unfused_ms": device_ms(lambda: tp._exchange_global(x, masks,
                                                                 site)),
             "max_abs_err_vs_plain": err,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "bytes": nbytes}
     return out
 
@@ -4449,7 +4449,17 @@ def time_requant(gen: torch.Generator, k: int, W: int,
     the inputs)."""
     from repro_torch.kernels import ref as R
     S = n * k
-    nbytes = 3 * k * W + 3 * k * 4
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    # the int8 partial and chunk with their scales in, the new partial and
+    # its scale out
+    flops, nbytes = kernel_cost(
+        "ring_rank_hop", meta((S, W), torch.int8), meta((S,), torch.float32),
+        meta((S,), torch.bool), meta((k, W), torch.int8),
+        meta((k,), torch.float32), meta((S,), torch.float32), chunk=1 % n,
+        k=k, levels=127)
     sets = min(RANK_MAX_SETS, max(8, -(-RANK_COLD_BYTES // nbytes)))
     rs = torch.ones(S, dtype=torch.bool, device="cuda")
     div = torch.full((S,), float(n), device="cuda")
@@ -4472,7 +4482,8 @@ def time_requant(gen: torch.Generator, k: int, W: int,
 
     ms = device_ms(rotating(RG.ring_rank_hop), calls=sets, reps=5)
     plain_ms = device_ms(rotating(R.ring_rank_hop_ref), calls=sets, reps=2)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_s, bound_by = kernel_bound("ring_rank_hop", flops, nbytes)
+    bound_ms = bound_s * 1e3
     if ms < bound_ms:
         raise AssertionError(f"ring_rank.cu re-encoding hop at {(k, W)}: "
                              f"{ms} ms under its {bound_ms} ms bound: the "
@@ -4480,7 +4491,7 @@ def time_requant(gen: torch.Generator, k: int, W: int,
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks, cols = RG.rank_requant_plan(k, W, sms)
     return {"shape": [k, W], "ms": ms, "plain_ms": plain_ms,
-            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
             "blocks": blocks, "cols": cols,
             "launches_per_hop": 1 if blocks == 1 else 2, "sets": sets,
             "cold_bytes": sets * nbytes}
@@ -4518,18 +4529,23 @@ def time_ring_rank(gen: torch.Generator, chunks: dict) -> dict:
     ag = torch.ones(S, dtype=torch.bool, device="cuda")
     land_ms = device_ms(lambda: RG.ring_rank_land(out, recv, ag, src,
                                                   chunk=1, k=k, renorm=True))
-    nbytes = 3 * k * W * 4
-    land_bytes = 2 * k * W * 4
+    # the hop: the partial and the chunk read, the new partial written;
+    # the landing with ag all on: the chunk read and written
+    flops, nbytes = kernel_cost("ring_rank_hop", src, None, rs, recv, None,
+                                div, **kw)
+    bound_s, bound_by = kernel_bound("ring_rank_hop", flops, nbytes)
+    land_flops, land_bytes = kernel_cost("ring_rank_land", out, recv, ag,
+                                         src, chunk=1, k=k, renorm=True)
+    land_s, _ = kernel_bound("ring_rank_land", land_flops, land_bytes)
     del src, recv, out
     requant = {f"{kk}x{ww}": time_requant(gen, kk, ww)
                for kk, ww in sorted(chunks)}
     hops = sum(chunks.values()) * (n - 1)
     return {"shape": [k, W], "ms": hop_ms, "plain_ms": plain_ms,
             "plain_chain_ms": chain_ms, "land_ms": land_ms,
-            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None,
-            "land_bytes": land_bytes,
-            "land_bound_ms": land_bytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": nbytes, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "library_ms": None,
+            "land_bytes": land_bytes, "land_bound_ms": land_s * 1e3,
             "requant": requant[f"{k}x{W}"],
             "requant_shapes": requant,
             "requant_exchange": {
@@ -4638,13 +4654,14 @@ def _coll_train(mesh, rank: int, engine: str, masks: list, sim_params,
     reset_counts()
     comm.reset_stats()
     losses, step_ms = [], []
-    for t in range(load["steps"]):
-        t0 = time.perf_counter()
-        params, opt_state, met = step(params, opt_state, batches[t], t,
-                                      None, masks=masks[t])
-        losses.append(float(met["loss"]))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    with comm.recording() as records:
+        for t in range(load["steps"]):
+            t0 = time.perf_counter()
+            params, opt_state, met = step(params, opt_state, batches[t], t,
+                                          None, masks=masks[t])
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
     err, diff = 0.0, 0
     for a, b in zip(tree_lib.leaves(params), tree_lib.leaves(sim_params)):
         b = b[rank].cuda()
@@ -4661,7 +4678,9 @@ def _coll_train(mesh, rank: int, engine: str, masks: list, sim_params,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "params_max_abs_err": err, "params_differing": diff,
             "device": str(tree_lib.leaves(params)[0].device),
-            "n_buckets": step.plan.n_buckets}
+            "n_buckets": step.plan.n_buckets,
+            # every collective of the 8 steps, for phase 42c
+            "records": records}
 
 
 def _coll_rank(rank: int, world: int, masks40, masks41: list,
@@ -4828,8 +4847,456 @@ def coll_phases(gen: torch.Generator, card: str, lap: Laps,
     return {"rank_err": rank_err, "rank_timing": rank_timing,
             "launches": sum(got["train"]["ring"]["hop_launches"]
                             + got["train"]["ring"]["land_launches"]
-                            for got in ranks)}
+                            for got in ranks),
+            "records": {eng: [got["train"][eng]["records"] for got in ranks]
+                        for eng in ("ring", "xla")},
+            "hop_launches": {eng: [got["train"][eng]["hop_launches"]
+                                   for got in ranks]
+                             for eng in ("ring", "xla")}}
 
+
+
+# ---- phase 42: the dry-run and the roofline on the card's own constants ----
+
+DRYRUN_MESHES = ("16x16", "2x16x16", "sim1")
+# the dry-run's rows and 42c's counts run on meta tensors in this many
+# spawned processes from the build on, beside phases 3-41 (~8 min of CPU
+# time in all, most of it the train rows, which count every layer): three
+# cores of the host's eight
+DRYRUN_WORKERS = 3
+SHARE_MAX = 1.05               # a share over it: the count is wrong
+# the predicted peak (the count's resident bytes plus its peak of live
+# ones) against torch.cuda.max_memory_allocated, relative
+PEAK_BAND = 0.25
+DRYRUN_STEPS = 5               # timed steps after DRYRUN_WARM, median
+DRYRUN_WARM = 1
+
+
+def _dryrun_row(row) -> dict:
+    """One (arch, shape, mesh) row of the dry-run (a worker process)."""
+    from repro_torch.launch import dryrun as D
+    arch, shape, mesh = row
+    return D.run_one(arch, shape, mesh=mesh, verbose=False)
+
+
+def _dryrun_coll(args) -> dict:
+    """Phase 42c's count of one rank's phase-41 step on the (4,) data
+    mesh, meta tensors (a worker process)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.train.trainer import TrainConfig
+    engine, rank = args
+    load = COLL_LOAD
+    tcfg = TrainConfig(lr=load["lr"], drop_rate=load["p"],
+                       aggregator="rps_model", engine=engine)
+    batch = {k: torch.empty((load["batch"], load["seq"]), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    tot = D.count_train_step(RPS_100M, tcfg, make_sim_mesh(load["n"]), batch,
+                             rps_axes=("data",), rank=rank)
+    return {"records": tot["records"], "kernels": tot["kernels"],
+            "coll_by_op": tot["coll_by_op"]}
+
+
+# 42a on this machine's torch: the dry-run's count of a deep stack from two
+# and three periods of its layer kinds equals the count of every layer
+# (reduced configs at six periods: kind, arch, B, S, decoder layers a
+# period, encoder layers a period), and a train step counted with the
+# ops made again from their signatures equals one that runs every op
+DRYRUN_EXACT_CASES = (("prefill", "gemma3-1b-reduced", 2, 128, 6, 0),
+                      ("decode", "gemma3-1b-reduced", 2, 128, 6, 0),
+                      ("prefill", "deepseek-7b-reduced", 1, 4096, 1, 0),
+                      ("prefill", "mixtral-8x22b-reduced", 2, 64, 1, 0),
+                      ("prefill", "rwkv6-1.6b-reduced", 2, 384, 1, 0),
+                      ("prefill", "recurrentgemma-9b-reduced", 2, 128, 3,
+                       0),
+                      ("prefill", "whisper-large-v3-reduced", 2, 64, 1, 1),
+                      ("train", "mixtral-8x22b-reduced", 2, 64, 1, 0))
+
+
+def _dryrun_exact(case) -> bool:
+    """One of DRYRUN_EXACT_CASES (a worker process)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import count as count_lib
+    kind, arch, B, S, layers, enc = case
+    cfg = get_config(arch)
+    if kind == "train":
+        shape = ShapeConfig("t", S, B, kind)
+        got = D.build_train_counted(cfg, shape, D.make_mesh("sim1"))[0]
+        signature = count_lib._signature
+        count_lib._signature = lambda *a: None
+        try:
+            return got == D.build_train_counted(cfg, shape,
+                                                D.make_mesh("sim1"))[0]
+        finally:
+            count_lib._signature = signature
+    cfg = dataclasses.replace(cfg, n_layers=6 * layers, enc_layers=6 * enc)
+    whole = D._prefill_whole if kind == "prefill" else D._decode_whole
+    return D.by_periods(cfg, lambda c: whole(c, B, S)) == whole(cfg, B, S)
+
+
+def _dryrun_line(r: dict) -> str:
+    head = f"dryrun {r['arch']:22s} {r['shape']:11s} {r['mesh']:8s}"
+    if r["status"] == "ok":
+        rl = r["roofline"]
+        return (f"{head} t_comp {rl['t_compute'] * 1e3:12.3f} ms  t_mem "
+                f"{rl['t_memory'] * 1e3:12.3f} ms  t_coll "
+                f"{rl['t_collective'] * 1e3:9.3f} ms  {rl['bottleneck']:10s}"
+                f" hbm/dev {rl['hbm_per_device'] / 1e9:10.2f} GB  fits "
+                f"{'yes' if rl['fits'] else 'NO'}")
+    info = r.get("info") or {}
+    if "state_bytes" in info:
+        ep = info["exchange_plan"] or {}
+        state = info["state_bytes"]["total"] / 1e9
+        return (f"{head} layout: state {state:.2f} GB over n_rps "
+                f"{info['n_rps']}, microbatch "
+                f"{info['microbatch']}, plan {ep.get('n_buckets')} buckets "
+                f"x s {ep.get('s')}")
+    return f"{head} {r['status'][:60]}"
+
+
+def dryrun_sweep_check(rows: list) -> dict:
+    """42a: every (arch x shape) on the production meshes (layout rows: the
+    port's trainer runs neither TP inside a replica nor FSDP) and on one
+    H100 (sim1, counted rows), each ok, layout only, or skipped with the
+    reference's reason; the table printed."""
+    bad = []
+    for r in rows:
+        st = str(r["status"])
+        if st.startswith("skipped (full attention"):
+            continue
+        if r["mesh"] == "sim1" and st == "ok":
+            continue
+        if r["mesh"] != "sim1" and st.startswith("layout only"):
+            continue
+        bad.append((r["arch"], r["shape"], r["mesh"], st))
+    for r in rows:
+        print(_dryrun_line(r), flush=True)
+    if bad:
+        raise AssertionError(f"phase 42a: rows neither ok, layout nor "
+                             f"skipped: {bad}")
+    counted = [r for r in rows if r["status"] == "ok"]
+    return {"rows": len(rows), "counted": len(counted),
+            "layout": sum(str(r["status"]).startswith("layout only")
+                          for r in rows),
+            "skipped": sum(str(r["status"]).startswith("skipped")
+                           for r in rows),
+            "fits": sorted(f"{r['arch']}/{r['shape']}" for r in counted
+                           if r["roofline"]["fits"]),
+            "count_s": sum(r.get("compile_s", 0.0) for r in rows)}
+
+
+def _time_steps(fn, base: int) -> tuple:
+    """(median ms of DRYRUN_STEPS synchronised calls after DRYRUN_WARM,
+    the peak of allocated bytes over them less ``base``, what earlier
+    phases left allocated before the configuration was built)."""
+    for _ in range(DRYRUN_WARM):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(DRYRUN_STEPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), torch.cuda.max_memory_allocated() - base
+
+
+def _vs_card(name: str, totals: dict, ms: float, peak: int, model_flops:
+             float, kind: str) -> dict:
+    """The dry-run's prediction beside the card's measurement: the
+    roofline share (the largest term over the measured time) and the
+    model FLOPs over (time x the peak of the model's kind); either over
+    SHARE_MAX, or the peak of allocated bytes off the predicted one by
+    more than PEAK_BAND, fails."""
+    from repro_torch.roofline import analyze
+    rep = analyze(name, "", "sim1", 1, totals, model_flops)
+    bound_ms = max(rep.t_compute, rep.t_memory, rep.t_collective) * 1e3
+    out = {"ms": ms, "t_compute_ms": rep.t_compute * 1e3,
+           "t_memory_ms": rep.t_memory * 1e3,
+           "t_collective_ms": rep.t_collective * 1e3,
+           "bottleneck": rep.bottleneck, "bound_ms": bound_ms,
+           "roofline_share": bound_ms / ms,
+           "model_flops": model_flops, "model_flops_kind": kind,
+           "model_flops_share": model_flops / (ms / 1e3 * H100.peak(kind)),
+           "counted_flops": totals["flops"], "counted_bytes": totals["bytes"],
+           "peak_predicted_gb": totals["hbm"] / 1e9,
+           "peak_measured_gb": peak / 1e9,
+           "peak_ratio": peak / totals["hbm"]}
+    print(f"42b {name}: {ms:.3f} ms on the card; predicted t_comp "
+          f"{out['t_compute_ms']:.3f} ms, t_mem {out['t_memory_ms']:.3f} ms "
+          f"({rep.bottleneck}); roofline share "
+          f"{out['roofline_share'] * 100:.1f} %, model FLOPs share "
+          f"{out['model_flops_share'] * 100:.1f} % of {kind}; peak "
+          f"{out['peak_measured_gb']:.3f} GB against "
+          f"{out['peak_predicted_gb']:.3f} GB predicted", flush=True)
+    if out["roofline_share"] > SHARE_MAX \
+            or out["model_flops_share"] > SHARE_MAX:
+        raise AssertionError(f"phase 42b {name}: a share over "
+                             f"{SHARE_MAX}: {out}")
+    if abs(out["peak_ratio"] - 1) > PEAK_BAND:
+        raise AssertionError(f"phase 42b {name}: peak {peak / 1e9} GB, "
+                             f"predicted {totals['hbm'] / 1e9} GB")
+    return out
+
+
+def _merge_totals(parts: list) -> dict:
+    """Totals of calls run one after another: FLOPs and bytes summed, the
+    peak the largest."""
+    by: dict = {}
+    for t in parts:
+        for k, v in t["flops_by_kind"].items():
+            by[k] = by.get(k, 0.0) + v
+    return {"flops": sum(t["flops"] for t in parts),
+            "flops_by_kind": by, "bytes": sum(t["bytes"] for t in parts),
+            "coll": 0.0, "hbm": max(t["hbm"] for t in parts)}
+
+
+def dryrun_vs_card(gen: torch.Generator) -> tuple:
+    """42b: the dry-run's predictions
+    against the card for three configurations it holds whole — one
+    rps-100m worker's train step at its paper-scale load (32 x 128, f32,
+    SGD, the mesh trainer on one rank), gemma3-1b's prefill of phase 4's
+    8 prompts (each alone, bf16), its decode step at phase 4's batch (8
+    lanes, a contiguous cache of the longest request's rows). Returns
+    the results and the gemma3-1b model and weights (for 42d)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.train.trainer import make_train_setup
+    out = {}
+    load = RPS_100M_LOAD
+    B, S = load["batch"], load["seq"]
+    tcfg = D.train_config(RPS_100M, "rps_model", 1, lr=load["lr"],
+                          drop_rate=load["p"], engine="ring")
+    mesh = make_sim_mesh(1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(RPS_100M, device="cuda")
+    init_state, step, _ = make_train_setup(model, RPS_100M, tcfg,
+                                           mesh.as_rank(0),
+                                           rps_axes=("data",))
+    params, opt_state = init_state(gen)
+    batch = {k: torch.randint(0, RPS_100M.vocab_size, (B, S), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    ms, peak = _time_steps(lambda: step(params, opt_state, batch, 0, gen),
+                           base)
+    del params, opt_state, batch, model
+    meta = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+            for k in ("tokens", "labels")}
+    totals = D.count_train_step(RPS_100M, tcfg, mesh, meta,
+                                rps_axes=("data",))
+    n_active = RPS_100M.param_count(active_only=True)
+    out["rps_100m_train"] = _vs_card("rps-100m train 32x128", totals, ms,
+                                     peak, 6.0 * n_active * B * S, "f32")
+    torch.cuda.empty_cache()
+
+    cfg = get_config("gemma3-1b")
+    base = torch.cuda.memory_allocated()
+    model, params = init_model("gemma3-1b", gen)
+    reqs = smoke_requests(cfg)
+    prompts = [torch.as_tensor(r.prompt, dtype=torch.int32,
+                               device="cuda")[None] for r in reqs]
+    lens = [p.shape[1] for p in prompts]
+
+    def prefill_all():
+        with torch.no_grad():
+            for p in prompts:
+                model.prefill(params, {"tokens": p})
+
+    ms, peak = _time_steps(prefill_all, base)
+    totals = _merge_totals([D.count_prefill(cfg, 1, n)
+                            for n in lens])
+    n_active = cfg.param_count(active_only=True)
+    out["gemma3_1b_prefill"] = _vs_card(
+        "gemma3-1b prefill of phase 4's prompts", totals, ms, peak,
+        2.0 * n_active * sum(lens), "bf16")
+    out["gemma3_1b_prefill"]["prompt_lens"] = lens
+    lanes = 8
+    max_len = max(len(r.prompt) + r.max_new for r in reqs)
+    cache = model.init_cache(lanes, max_len)
+    tok = {"token": torch.randint(0, cfg.vocab_size, (lanes, 1),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32)}
+
+    def decode():
+        with torch.no_grad():
+            model.decode_step(params, cache, tok, max_len - 1)
+
+    ms, peak = _time_steps(decode, base)
+    del cache
+    out["gemma3_1b_decode"] = _vs_card(
+        "gemma3-1b decode step, 8 lanes", D.count_decode(
+            cfg, lanes, max_len), ms, peak,
+        2.0 * n_active * lanes, "bf16")
+    out["gemma3_1b_decode"]["cache_rows"] = max_len
+    return out, model, params
+
+
+def dryrun_collectives(coll: dict, dry: dict) -> dict:
+    """42c: phase 41's collectives (every rank, both engines, 8 steps)
+    against the dry-run's count of one rank's step on the (4,) data mesh
+    (``dry``: (engine, rank) -> its records): the same records step after
+    step, so the same link bytes, exactly; and on the ring engine the
+    counted ring_rank.cu calls x steps = the launches phase 41 counted."""
+    from repro_torch.roofline import collective_bytes
+    steps = COLL_LOAD["steps"]
+    out = {}
+    for eng in ("ring", "xla"):
+        per_rank = []
+        for r, run in enumerate(coll["records"][eng]):
+            d = dry[(eng, r)]
+            want = [tuple(x) for x in d["records"]] * steps
+            got = [tuple(x) for x in run]
+            if got != want:
+                raise AssertionError(
+                    f"phase 42c {eng} rank {r}: {len(got)} records, the "
+                    f"dry-run's {len(d['records'])} x {steps} differ")
+            run_bytes = collective_bytes(got)
+            if run_bytes != collective_bytes(want):
+                raise AssertionError(f"phase 42c {eng} rank {r}: bytes")
+            hops = d["kernels"].get("ring_rank_hop", {}).get("calls", 0)
+            if hops * steps != coll["hop_launches"][eng][r]:
+                raise AssertionError(
+                    f"phase 42c {eng} rank {r}: {hops} x {steps} counted "
+                    f"hops, {coll['hop_launches'][eng][r]} launched")
+            per_rank.append({"records_per_step": len(d["records"]),
+                             "bytes_per_step": d["coll_by_op"],
+                             "run_bytes": run_bytes})
+        out[eng] = per_rank
+        print(f"42c {eng}: {len(per_rank)} ranks x {steps} steps, the "
+              f"dry-run's {per_rank[0]['records_per_step']} records a step "
+              f"equal the run's; link bytes a step "
+              f"{per_rank[0]['bytes_per_step']['total']:.0f}", flush=True)
+    return out
+
+
+def _profiled(fn, wrappers: dict) -> dict:
+    """``launch_counts(fn)``: each hand-written kernel's profiler launches
+    against its wrapper's counter over the same call (``wrappers``: name ->
+    the wrapper whose ``.launches`` counts). A machine whose profiler
+    traces no device event is reported, not failed."""
+    from repro_torch.launch import launches as launches_lib
+    before = {k: w.launches for k, w in wrappers.items()}
+    try:
+        counts = launches_lib.launch_counts(fn)
+    except RuntimeError as e:
+        if "no device event" not in str(e):
+            raise
+        return {"profiler": "no device events"}
+    got = launches_lib.kernel_launches(counts)
+    want = {k: w.launches - before[k] for k, w in wrappers.items()}
+    for k in wrappers:
+        if got[k] != want[k]:
+            raise AssertionError(f"phase 42d: the profiler saw {got[k]} "
+                                 f"{k} launches, its wrapper counted "
+                                 f"{want[k]}")
+    return {"profiler": "device events", "launches": want,
+            "kernels": sum(counts.values()),
+            "hand_written": {k: v for k, v in got.items() if v}}
+
+
+def profile_ring_step(setup, load=RPS_100M_LOAD) -> dict:
+    """42d, run after phase 17 while its setup lives: one step of phase
+    17's ring run (n 16, past no warm-up: the same step) under the
+    profiler; ring.cu's launches there against ring_round's counter, and
+    no masked average."""
+    scfg = rps100m_config(load, steps=1)
+    p1, batches = setup.p1, setup.batches
+    torch.cuda.synchronize()
+    return _profiled(lambda: run_simulation(setup.loss_fn, None,
+                                            lambda t: batches[t], scfg,
+                                            init_params=p1),
+                     {"ring_round": RG.ring_round,
+                      "masked_avg_grid": K.masked_avg_grid})
+
+
+def profile_decode_step(model, params) -> dict:
+    """42d: phase 4's serving run again (8 requests, 4-shard lossy TP),
+    its third decode step under the profiler: the TP combine's launches
+    there (52) against its counter."""
+    cfg = model.cfg
+    reqs = smoke_requests(cfg)
+    eng = smoke_engine(model, params, reqs)
+    decode = model.decode_paged
+    seen = {"calls": 0, "profile": None}
+
+    def decode_profiled(*args, **kwargs):
+        seen["calls"] += 1
+        if seen["calls"] != 3:
+            return decode(*args, **kwargs)
+        res = {}
+
+        def one():
+            res["out"] = decode(*args, **kwargs)
+        seen["profile"] = _profiled(one, {"tp_combine": K.tp_combine})
+        return res["out"] if "out" in res else decode(*args, **kwargs)
+
+    model.decode_paged = decode_profiled
+    try:
+        eng.run(reqs, drain=True)
+    finally:
+        model.decode_paged = decode
+    prof = seen["profile"]
+    if prof is None:
+        raise AssertionError("phase 42d: fewer than 3 decode steps")
+    if "launches" in prof and prof["launches"]["tp_combine"] \
+            != SITES_PER_STEP:
+        raise AssertionError(f"phase 42d: {prof['launches']} TP combines "
+                             f"in a decode step, want {SITES_PER_STEP}")
+    return prof
+
+
+def start_dryrun() -> tuple:
+    """Phase 42a's rows and 42c's counts, submitted to DRYRUN_WORKERS
+    spawned processes (meta tensors, no card) right after the build,
+    and 42a's exactness checks: ``(pool, rows, counts, exact)``, futures
+    that phase 42 collects and the pool that it shuts down."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    pool = ProcessPoolExecutor(DRYRUN_WORKERS,
+                               mp_context=mp.get_context("spawn"))
+    rows = [pool.submit(_dryrun_row, (a, s, m)) for a in ARCH_IDS
+            for s in SHAPES for m in DRYRUN_MESHES]
+    counts = {(eng, r): pool.submit(_dryrun_coll, (eng, r))
+              for eng in ("ring", "xla") for r in range(COLL_LOAD["n"])}
+    exact = {c: pool.submit(_dryrun_exact, c) for c in DRYRUN_EXACT_CASES}
+    return pool, rows, counts, exact
+
+
+def dryrun_phases(gen: torch.Generator, card: str, lap: "Laps", coll: dict,
+                  ring_profile: dict, dry_run: tuple) -> dict:
+    """Phase 42: the dry-run (launch/dryrun.py) and the roofline
+    (roofline/) on the card's own constants. ``dry_run``: the rows and
+    counts :func:`start_dryrun` computed beside the earlier phases."""
+    pool, rows_f, coll_f, exact_f = dry_run
+    card_out, model, params = dryrun_vs_card(gen)
+    lap("42b")
+    decode_profile = profile_decode_step(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    lap("42d")
+    with pool:
+        rows = [f.result() for f in rows_f]
+        dry = {a: f.result() for a, f in coll_f.items()}
+        exact = {c: f.result() for c, f in exact_f.items()}
+    sweep = dryrun_sweep_check(rows)
+    wrong = [c for c, ok in exact.items() if not ok]
+    if wrong:
+        raise AssertionError(f"phase 42a: counts unequal to the count of "
+                             f"every layer and op: {wrong}")
+    print(f"42a: the counts by periods and by signatures equal the counts "
+          f"of every layer and op on {len(exact)} reduced configs",
+          flush=True)
+    colls = dryrun_collectives(coll, dry)
+    lap("42a,42c")
+    out = {"sweep": sweep, "vs_card": card_out, "collectives": colls,
+           "launches": {"ring_step": ring_profile,
+                        "decode_step": decode_profile}}
+    print(json.dumps({"dryrun": out, "card": card}), flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -4847,6 +5314,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.load_kernels()
     print(f"build_s {time.perf_counter() - t0:.3f}", flush=True)
+    dry_run = start_dryrun()       # phase 42a's rows, beside phases 3-41
     lap = Laps()
 
     gen = torch.Generator(device="cuda")
@@ -4935,6 +5403,9 @@ def main(argv=None) -> int:
     print(json.dumps({"rps_100m": big, "card": card}), flush=True)
     torch.cuda.empty_cache()
     lap("17")
+    ring_profile = profile_ring_step(setup)       # phase 42d's first part
+    print(json.dumps({"ring_step_launches": ring_profile}), flush=True)
+    lap("42d-17")
 
     enc_cases, enc_err = check_ring_enc(gen, plans)
     enc_group = time_ring_enc(gen, group)
@@ -5012,6 +5483,7 @@ def main(argv=None) -> int:
     new = new_phases(gen, card, lap)
     mm = mm_phases(gen, card, lap)
     coll = coll_phases(gen, card, lap, coll_batches)
+    dryrun_phases(gen, card, lap, coll, ring_profile, dry_run)
     lap.report()
     robust_launches = sum(v["masked_avg_launches"]
                           for v in rb["sweep"].values())

@@ -17,14 +17,21 @@ over some of a mesh's axes (:meth:`repro_torch.launch.mesh.Mesh.group`):
 Transport: gloo. It carries CPU tensors, and a CUDA tensor through
 pinned host buffers of this module's own, reused from call to call (one
 per role, grown to the largest payload); :data:`STATS` counts the bytes
-staged and the transfers made. NCCL is refused (:func:`check_backend`):
-it takes no two ranks on one card, and the route of a host with a card a
-rank is not written.
+staged and the transfers made. Inside a :func:`recording` scope every
+collective is also listed under the op its counterpart in the JAX
+package's program would be (the dry-run prices them,
+``roofline/analysis.py::collective_bytes``); outside one nothing is
+kept. A meta
+tensor (the dry-run's count of one rank's step) is recorded and answered
+with an empty result of the right shape; nothing is sent. NCCL is
+refused (:func:`check_backend`): it takes no two ranks on one card, and
+the route of a host with a card a rank is not written.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -33,6 +40,9 @@ import torch.distributed as dist
 #: copied between the card and the host buffers (both ways), and the
 #: collective and point-to-point calls made
 STATS: Dict[str, int] = {"staged_bytes": 0, "transfers": 0}
+
+# the lists of the open recording() scopes, innermost last
+_SCOPES: List[List[Tuple[str, int, int]]] = []
 
 # the tiled collectives under their current names (older torch has only
 # the *_tensor spellings)
@@ -47,6 +57,34 @@ _BUFFERS: Dict[str, torch.Tensor] = {}
 def reset_stats() -> None:
     for key in STATS:
         STATS[key] = 0
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[Tuple[str, int, int]]]:
+    """Yields a list that gets the collectives made inside, one
+    ``(op, payload bytes, group size)`` a call (a tensor, for
+    :func:`ring_shift`): ``op`` the HLO collective the JAX package's
+    program runs there (``tools/check_hlo.py``'s ``COLLECTIVE_OPS``), the
+    bytes those of its result: the reduce-scatter's shard, the
+    all-gather's gathered tensor, the all-reduce's tensor, the permuted
+    tensor. Scopes nest; each gets every call made inside it."""
+    records: List[Tuple[str, int, int]] = []
+    _SCOPES.append(records)
+    try:
+        yield records
+    finally:
+        _SCOPES.pop()
+
+
+def _record(op: str, shape: Sequence[int], dtype: torch.dtype,
+            n: int) -> None:
+    if not _SCOPES:
+        return
+    nbytes = dtype.itemsize
+    for d in shape:
+        nbytes *= int(d)
+    for records in _SCOPES:
+        records.append((op, nbytes, n))
 
 
 def check_backend(backend: str) -> None:
@@ -120,6 +158,9 @@ def reduce_scatter(x: torch.Tensor, group: Group) -> torch.Tensor:
         return x.clone()
     x = x.contiguous()
     shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    _record("reduce_scatter", shape, x.dtype, n)
+    if x.device.type == "meta":
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
     STATS["transfers"] += 1
     if x.device.type == "cuda":
         src = _to_host(x, "rs_in")
@@ -139,6 +180,9 @@ def all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
         return x.clone()
     x = x.contiguous()
     shape = (x.shape[0] * n,) + tuple(x.shape[1:])
+    _record("all_gather", shape, x.dtype, n)
+    if x.device.type == "meta":
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
     STATS["transfers"] += 1
     if x.device.type == "cuda":
         src = _to_host(x, "ag_in")
@@ -162,6 +206,11 @@ def ring_shift(xs: Sequence[torch.Tensor], group: Group,
     if n == 1:
         return [x.clone() for x in xs]
     right, left = order[(pos + 1) % n], order[(pos - 1) % n]
+    for x in xs:
+        _record("collective_permute", x.shape, x.dtype, n)
+    if any(x.device.type == "meta" for x in xs):
+        return [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                for x in xs]
     sends, recvs, staged = [], [], []
     for j, x in enumerate(xs):
         x = x.contiguous()
@@ -186,6 +235,9 @@ def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
     if group.size == 1:
         return x.clone()
     x = x.contiguous()
+    _record("all_reduce", x.shape, x.dtype, group.size)
+    if x.device.type == "meta":
+        return torch.empty_like(x)
     STATS["transfers"] += 1
     if x.device.type == "cuda":
         host = _to_host(x, "ar")

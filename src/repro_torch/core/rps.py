@@ -509,7 +509,11 @@ def resolve_engine(engine: Optional[str]) -> str:
 def fold_in(gen: torch.Generator, *data: int) -> torch.Generator:
     """A generator of the same device seeded from one draw of ``gen`` and
     ``data`` (the reference's ``fold_in``): every rank advances ``gen``
-    alike, and the rank folded into ``data`` makes the streams differ."""
+    alike, and the rank folded into ``data`` makes the streams differ.
+    A generator of the meta device (the dry-run's) draws nothing: it is
+    its own fold."""
+    if gen.device.type == "meta":
+        return gen
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
                              device=gen.device))
     for d in data:

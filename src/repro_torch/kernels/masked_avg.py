@@ -6,7 +6,10 @@ The owner's step of the RPS reduce-scatter (Algorithm 1, line 6):
 server blocks of an exchange round. On a CUDA tensor
 :func:`masked_avg_grid` launches the hand-written Hopper kernel in
 ``csrc/masked_avg.cu`` (or raises); on a CPU tensor it computes the plain
-version :func:`repro_torch.kernels.ref.masked_avg_ref`.
+version :func:`repro_torch.kernels.ref.masked_avg_ref`; on a meta tensor
+under the dry-run's counter (``roofline/count.py``) it records the
+kernel's cost (``roofline/analysis.py::kernel_cost``) and returns an
+empty result, as :func:`tp_combine` does.
 
 :func:`tp_combine` is the same average redesigned for the serving path:
 one drop-masked tensor-parallel site (``serve/tp.py``) in one launch,
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import masked_avg_ref, tp_combine_ref
+from repro_torch.roofline.count import counting, record_kernel
 
 DEFAULT_TILE_D = 512
 BLOCK_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -74,11 +78,16 @@ def masked_avg_grid(blocks: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     blocks: (B, n, d) in f32 / bf16 / f16; mask: (B, n) raw, any dtype
     (cast inside the kernel). Returns (B, d) in ``blocks.dtype``,
     accumulated in f32. ``masked_avg_grid.launches`` counts kernel
-    launches (CPU calls run the plain version and do not count).
+    launches (CPU calls run the plain version and do not count; a meta
+    call under the dry-run's counter records the kernel's cost and
+    returns an empty result).
     """
     _check_shapes(blocks, mask)
     if blocks.device.type == "cpu":
         return masked_avg_ref(blocks, mask)
+    if counting(blocks):
+        record_kernel("masked_avg_grid", blocks, mask)
+        return blocks.new_empty((blocks.shape[0], blocks.shape[2]))
     if blocks.device.type != "cuda":
         raise ValueError(f"masked_avg_grid: no kernel for {blocks.device}")
     _check_cuda(blocks, mask)
@@ -166,6 +175,12 @@ def tp_combine(partials: torch.Tensor, rs: torch.Tensor, ag: torch.Tensor,
         return tp_combine_ref(partials, rs, ag, site, n=n,
                               receiver=receiver, s=geom.s, blk=geom.blk,
                               pad=geom.pad, wire_dtype=wire_dtype)
+    if counting(partials):
+        record_kernel("tp_combine", partials, rs, ag, site, n=n,
+                      receiver=receiver, plan_geometry=geom,
+                      wire_dtype=wire_dtype)
+        return partials.new_empty((partials.shape[1], 1, partials.shape[3]),
+                                  dtype=torch.float32)
     if partials.device.type != "cuda":
         raise ValueError(f"tp_combine: no kernel for {partials.device}")
     global _tp_op

@@ -5,7 +5,9 @@ From ``h_0 = 0``, ``h_t = a_t ⊙ h_{t−1} + sqrt(max(1 − a_t², 0)) ⊙ x_t`
 for every (batch, channel), with the carry in f32. On a CUDA tensor
 :func:`rglru` launches the hand-written Hopper kernel in
 ``csrc/rglru.cu`` (or raises); on a CPU tensor it computes the plain
-version :func:`repro_torch.kernels.ref.rglru_ref`. Both write h in
+version :func:`repro_torch.kernels.ref.rglru_ref`; on a meta tensor under
+the dry-run's counter it records the kernel's cost and returns empty
+results. Both write h in
 ``x.dtype`` (as the TPU kernel does) and return the final f32 carry
 beside it: the prefill keeps it as the decode state.
 """
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import rglru_ref
+from repro_torch.roofline.count import counting, record_kernel
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # the op ``torch.ops.repro_torch.rglru_fwd``, loaded at first launch
@@ -58,6 +61,10 @@ def rglru(x, a):
     check_shapes(x, a)
     if x.device.type == "cpu":
         return rglru_ref(x, a)
+    if counting(x):         # the dry-run's count: its cost only
+        record_kernel("rglru", x, a)
+        return (torch.empty_like(x),
+                x.new_empty((x.shape[0], x.shape[2]), dtype=torch.float32))
     if x.device.type != "cuda":
         raise ValueError(f"rglru: no kernel for {x.device}")
     _check_cuda(x, a)

@@ -18,7 +18,10 @@ On a CUDA tensor :func:`ring_round` launches the hand-written Hopper
 kernel in ``csrc/ring.cu`` (or raises); on a CPU tensor it computes the
 plain version :func:`repro_torch.kernels.ref.ring_round_ref`, which runs
 the ring hop for hop. The two agree bit for bit: the same adds in the
-same order and dtype, one IEEE division.
+same order and dtype, one IEEE division. On a meta tensor under the
+dry-run's counter (``roofline/count.py``) each wrapper of this module
+records its kernel's cost (``roofline/analysis.py::kernel_cost``) and
+returns an empty result.
 
 :func:`ring_round_enc` is the round's encoded variant (``ring_bucket_fused``
 with ``has_enc``, and ``levels > 0``): the contributions come from a
@@ -48,6 +51,7 @@ from repro_torch.core import comm
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (ring_rank_hop_ref, ring_rank_land_ref,
                                      ring_round_ref)
+from repro_torch.roofline.count import counting, record_kernel
 
 PAYLOAD_DTYPES = (torch.float32, torch.bfloat16)
 ACC_DTYPES = (torch.float32, torch.bfloat16)
@@ -126,6 +130,9 @@ def ring_round(stack, rs, ag, div, *, mode: str, rs_dtype=torch.float32):
     if stack.device.type == "cpu":
         return ring_round_ref(stack, rs, ag, div, mode=mode,
                               rs_dtype=rs_dtype)
+    if counting(stack):
+        record_kernel("ring_round", stack, rs, ag, div, mode=mode)
+        return torch.empty_like(stack)
     if stack.device.type != "cuda":
         raise ValueError(f"ring_round: no kernel for {stack.device}")
     _check_cuda(stack, rs, ag, div, rs_dtype)
@@ -225,6 +232,10 @@ def ring_round_enc(stack, enc, scale, rs, ag, div, *, mode: str,
         return ring_round_ref(stack, rs, ag, div, mode=mode,
                               rs_dtype=rs_dtype, enc=enc, scale=scale,
                               levels=levels)
+    if counting(stack):
+        record_kernel("ring_round_enc", stack, enc, scale, rs, ag, div,
+                      mode=mode, levels=levels)
+        return torch.empty_like(stack)
     if stack.device.type != "cuda":
         raise ValueError(f"ring_round_enc: no kernel for {stack.device}")
     _check_cuda(stack, rs, ag, div, rs_dtype)
@@ -304,6 +315,17 @@ def ring_rank_hop(src, src_scale, rs_row, recv, recv_scale, div, *,
                                  div, chunk=chunk, k=k, acc_dtype=acc_dtype,
                                  out_dtype=out_dtype, levels=levels,
                                  last=last)
+    if counting(src):
+        record_kernel("ring_rank_hop", src, src_scale, rs_row, recv,
+                      recv_scale, div, chunk=chunk, k=k, acc_dtype=acc_dtype,
+                      out_dtype=out_dtype, levels=levels, last=last)
+        W = src.shape[1]
+        if last:
+            return src.new_empty((k, W), dtype=out_dtype)
+        if levels:
+            return (src.new_empty((k, W), dtype=torch.int8),
+                    src.new_empty((k,), dtype=torch.float32))
+        return src.new_empty((k, W), dtype=acc_dtype)
     if src.device.type != "cuda":
         raise ValueError(f"ring_rank_hop: no kernel for {src.device}")
     _check_rank_cuda("ring_rank_hop", src, src, src_scale, rs_row, recv,
@@ -346,6 +368,10 @@ def ring_rank_land(out, cur, ag_row, blocks, *, chunk: int, k: int,
     if out.device.type == "cpu":
         ring_rank_land_ref(out, cur, ag_row, blocks, chunk=chunk, k=k,
                            renorm=renorm)
+        return
+    if counting(out):
+        record_kernel("ring_rank_land", out, cur, ag_row, blocks,
+                      chunk=chunk, k=k, renorm=renorm)
         return
     if out.device.type != "cuda":
         raise ValueError(f"ring_rank_land: no kernel for {out.device}")

@@ -7,7 +7,9 @@ From a zero state, ``o_t = r_t·(S_{t−1} + diag(u)·k_t⊗v_t)`` and
 hand-written Hopper kernel in ``csrc/rwkv6.cu`` — the chunked form on
 tensor cores, one CUDA launch per call — (or raises); on a CPU
 tensor it computes the plain version
-:func:`repro_torch.kernels.ref.rwkv6_ref`. Both return the final state
+:func:`repro_torch.kernels.ref.rwkv6_ref`; on a meta tensor under the
+dry-run's counter it records the kernel's cost and returns empty results. Both
+return the final state
 beside the output: the prefill keeps it as the decode cache.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import rwkv6_ref
+from repro_torch.roofline.count import counting, record_kernel
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 MAX_DIM = 64          # kRwkv6MaxDim in csrc/kernels.h
@@ -76,6 +79,11 @@ def rwkv6(r, k, v, w, u):
     check_shapes(r, k, v, w, u)
     if r.device.type == "cpu":
         return rwkv6_ref(r, k, v, w, u)
+    if counting(r):         # the dry-run's count: its cost only
+        record_kernel("rwkv6", r, k, v, w, u)
+        B, S, h, dk = r.shape
+        return (r.new_empty((B, S, h, v.shape[-1])),
+                r.new_empty((B, h, dk, v.shape[-1]), dtype=torch.float32))
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6: no kernel for {r.device}")
     _check_cuda(r, k, v, w, u)

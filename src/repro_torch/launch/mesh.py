@@ -53,7 +53,10 @@ class Mesh:
 
     Built before ``torch.distributed`` is started, or in a world of
     another size, it is a shape only (``rank`` None): it answers sizes
-    and coordinates but hands out no groups."""
+    and coordinates but hands out no groups. :meth:`as_rank` makes such
+    a mesh answer as one of its ranks with groups that carry no process
+    group: the dry-run's count of one rank's step on meta tensors, which
+    ``core/comm.py`` records and never sends."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
         if len(shape) != len(axis_names):
@@ -74,6 +77,15 @@ class Mesh:
         if self.backend is not None:
             comm.check_backend(self.backend)
         self._groups: Dict[Tuple[str, ...], comm.Group] = {}
+        self.virtual = False
+
+    def as_rank(self, rank: int = 0) -> "Mesh":
+        """This mesh's shape, answering as ``rank`` without a world: its
+        groups have ``pg`` None, so only meta tensors may go through
+        them."""
+        out = Mesh(tuple(self.shape.values()), self.axis_names)
+        out.rank, out.backend, out.virtual = int(rank), None, True
+        return out
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, "
@@ -146,7 +158,7 @@ class Mesh:
         if mine != sorted(mine):
             raise ValueError(f"axes {names} must follow the mesh's order "
                              f"{self.axis_names}")
-        if len(mine) == 1:
+        if len(mine) == 1 or self.virtual:
             pg = None
         elif len(mine) == self.size:
             pg = dist.group.WORLD

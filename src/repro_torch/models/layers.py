@@ -53,8 +53,12 @@ def _init_stacked(gen: torch.Generator, shape, scale: float,
                   dtype: torch.dtype) -> torch.Tensor:
     """:func:`_init` drawn slice by slice along the leading axis into the
     ``dtype`` tensor: an expert stack holds one f32 slice at a time (a
-    (384, 7168, 2048) stack is 22.5 GB in f32, 11.3 GB in bf16)."""
+    (384, 7168, 2048) stack is 22.5 GB in f32, 11.3 GB in bf16). On the
+    meta device (the dry-run's count) there is nothing to draw: the
+    stack's shape and dtype at once."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.device.type == "meta":
+        return out
     for i in range(shape[0]):
         out[i] = _init(gen, shape[1:], scale, dtype)
     return out

@@ -57,6 +57,7 @@ from repro_torch.launch import sharding as shlib
 from repro_torch.models.registry import Model
 from repro_torch.optim import make_optimizer
 from repro_torch.optim import statepack as statepack_lib
+from repro_torch.roofline import count as count_lib
 from repro_torch.telemetry import counters as counters_lib
 
 #: the reference's key-domain tag of the packed state's rounding noise
@@ -96,6 +97,67 @@ def _is_model_mode(agg: str) -> bool:
 def _meta(tree):
     return tree_lib.map(lambda x: torch.empty(x.shape, dtype=x.dtype,
                                               device="meta"), tree)
+
+
+def local_shapes(tree: Any, specs: Any, mesh) -> Any:
+    """One rank's shapes of a spec'd tree, on the meta device: each
+    spec'd dim divided by its mesh axes' extent (the reference's
+    ``_local_struct``; an axis the mesh lacks has extent 1)."""
+    def loc(x, spec):
+        dims = []
+        for d, ent in zip(x.shape, tuple(spec) + (None,) * x.dim()):
+            if ent is None:
+                dims.append(int(d))
+                continue
+            axes = ent if isinstance(ent, tuple) else (ent,)
+            # an axis the mesh lacks (a sim mesh's "model") has extent 1
+            div = 1
+            for a in axes:
+                div *= mesh.shape.get(a, 1)
+            dims.append(int(d) // div)
+        return torch.empty(dims, dtype=x.dtype, device="meta")
+
+    def walk(x, spec):            # the tree's nodes decide; specs are tuples
+        if isinstance(x, dict):
+            return {k: walk(v, spec[k]) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v, sp) for v, sp in zip(x, spec))
+        return loc(x, spec)
+
+    return walk(tree, specs)
+
+
+def train_plan(cfg: ArchConfig, tcfg: TrainConfig, mesh, replica, *,
+               rps_axes: Tuple[str, ...], fsdp_axis: Optional[str] = None,
+               channel=None) -> Optional[plan_lib.ExchangePlan]:
+    """The exchange plan of ``replica`` (one replica's tree at its global
+    shapes, any device) on ``mesh``, as the reference's
+    ``make_train_setup`` derives it: over one rank's shapes (the specs'
+    axes divided out, :func:`local_shapes`), its TP buckets from the
+    global shapes' model dims; None for the allreduce and none
+    aggregators. Any mesh, the production ones included: the static part
+    of a setup, which the trainer and the dry-run share (the trainer runs
+    steps only where the "model" axis is 1 and FSDP is off)."""
+    if not tcfg.aggregator.startswith("rps"):
+        return None
+    rps_axes = tuple(rps_axes)
+    n_rps = mesh.axis_size(rps_axes) if rps_axes else 1
+    n_servers = n_rps if tcfg.n_servers is None else int(tcfg.n_servers)
+    meta = _meta(replica)
+    local = local_shapes(meta, shlib.param_specs(
+        meta, cfg, fsdp_axis=fsdp_axis, stacked=False), mesh)
+    if channel is None:
+        channel = make_channel(tcfg.channel, n_rps, tcfg.drop_rate,
+                               s=tcfg.n_servers)
+    bucketing = tcfg.bucket_mb is not None or tcfg.n_buckets is not None
+    mdims = shlib.model_dims(meta, cfg) if bucketing else None
+    from repro_torch.train.simulator import resolve_compute_ms
+    return plan_lib.plan_from_config(
+        local, n_rps, n_servers, bucket_mb=tcfg.bucket_mb,
+        n_buckets=tcfg.n_buckets, model_dims=mdims, engine=tcfg.engine,
+        wire=wire_lib.config_wire(tcfg.wire, tcfg.exchange_dtype),
+        recovery=tcfg.recovery, schedule=tcfg.schedule,
+        compute_ms=resolve_compute_ms(tcfg, channel))
 
 
 def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
@@ -174,16 +236,8 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
         async schedule's per-bucket slack."""
         if not rps_agg or state["plan"] is not None:
             return
-        meta = _meta(params)
-        bucketing = tcfg.bucket_mb is not None or tcfg.n_buckets is not None
-        mdims = shlib.model_dims(meta, cfg) if bucketing else None
-        from repro_torch.train.simulator import resolve_compute_ms
-        plan = plan_lib.plan_from_config(
-            meta, n_rps, n_servers, bucket_mb=tcfg.bucket_mb,
-            n_buckets=tcfg.n_buckets, model_dims=mdims, engine=tcfg.engine,
-            wire=wire_lib.config_wire(tcfg.wire, tcfg.exchange_dtype),
-            recovery=tcfg.recovery, schedule=tcfg.schedule,
-            compute_ms=resolve_compute_ms(tcfg, channel))
+        plan = train_plan(cfg, tcfg, mesh, params, rps_axes=rps_axes,
+                          fsdp_axis=fsdp_axis, channel=channel)
         state["plan"] = plan
         train_step.plan = plan
         if async_mode:
@@ -216,7 +270,9 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
         mb = tcfg.microbatch
         grads = [torch.zeros_like(p) for p in leaves] if mb > 1 else None
         losses, metrics = [], {}
-        for j in range(mb):
+        # on the meta device (the dry-run's count) the identical
+        # microbatches run once, counted mb times
+        for j in count_lib.iterations(mb, leaves[0].device):
             part = b_leaves if mb == 1 else [
                 b.reshape((mb, b.shape[0] // mb) + tuple(b.shape[1:]))[j]
                 for b in b_leaves]

@@ -204,3 +204,28 @@ def trainer_case(rank: int, mesh, spec: dict) -> dict:
         losses.append(float(met["loss"]))
     return {"loss": np.array(losses), "params": np_(params), "tel": tel,
             "n_buckets": 0 if step.plan is None else step.plan.n_buckets}
+
+
+def count_case(rank: int, mesh, spec: dict) -> dict:
+    """One ``rps_exchange_plan`` over ``spec["n_buckets"]`` buckets on
+    ``spec["engine"]``, its collectives recorded (``core/comm.py``):
+    returns the records, their counts under ``check_hlo``'s keys, and
+    this rank's output."""
+    from repro_torch.core import comm
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core import rps
+    from repro_torch.launch import launches
+    x = t_(_pick(spec["x"], rank))
+    meta = tree_lib.map(lambda v: torch.empty(v.shape, dtype=v.dtype,
+                                              device="meta"), x)
+    plan = plan_lib.make_plan(meta, mesh.axis_size("data"),
+                              n_buckets=spec["n_buckets"])
+    comm.reset_stats()
+    with comm.recording() as records:
+        y = rps.rps_exchange_plan(x, None, spec["p"], "data", plan=plan,
+                                  mesh=mesh, masks=(t_(spec["rs"]),
+                                                    t_(spec["ag"])),
+                                  engine=spec["engine"])
+    return {"records": records,
+            "counts": launches.collective_counts(records),
+            "transfers": comm.STATS["transfers"], "out": np_(y)}
