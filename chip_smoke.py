@@ -112,7 +112,7 @@ raises on failure; nothing is caught):
 20. benchmarks/wire_bench.py section 2 on the port: replicated data,
    n = 8, rps_model, engine "auto", p in {0.2, 0.3}, 3 seeds, 200 steps;
    ef closes at least half of the bf16 and int8 wires' loss gap;
-21. rps-100m cut to its first 4 of 12 layers (CUT_LAYERS: phase 17's
+21. rps-100m cut to its first 2 of 12 layers (CUT_LAYERS: phase 17's
    embedding, first layers and batches; width, n, batch, seq, lr and p
    as phase 17's), as phases 24 and 27-29 are: first the cut's own f32
    run, 8 steps (ring launches = groups x steps, finite losses); then
@@ -257,7 +257,8 @@ raises on failure; nothing is caught):
    bound;
 36. training through launch/train.py's main (the char-LM task at a
    256-token vocabulary, ring engine, p = 0.1, seq 512, batch 2, 4
-   steps) at full width: rwkv6-1.6b whole at n = 4, recurrentgemma-9b
+   steps) at full width: rwkv6-1.6b cut to 12 of its 24 layers at n =
+   4, recurrentgemma-9b
    cut to one repeat of its block pattern (3 layers) at n = 2,
    mixtral-8x22b cut to 1 layer at n = 2: finite losses and consensus,
    ring launches = groups x steps, no RWKV-6, RG-LRU, TP-combine or
@@ -320,9 +321,11 @@ raises on failure; nothing is caught):
 42. the dry-run (launch/dryrun.py, meta tensors) and the roofline on the
    card's own constants (roofline/analysis.py::HW, the H100 SXM data
    sheet): 42a every architecture x shape on the production meshes
-   (layout rows: the exchange plan and state bytes; the counted terms not
-   run, the port running neither TP inside a replica nor FSDP) and on one
-   H100 (sim1, counted rows), each ok, layout only or skipped with the
+   (the train rows of the dense architectures without experts or FSDP
+   counted, one rank's step with TP inside a replica; the others layout
+   rows: the exchange plan and state bytes, the counted terms not run,
+   the port running neither TP for the other families, FSDP, nor serving
+   on a mesh) and on one H100 (sim1, counted rows), each ok, layout only or skipped with the
    reference's reason, its table printed (t_compute, t_memory,
    t_collective, bottleneck, HBM a device, fits), and on this machine's
    torch the prefill and decode rows' count from two and three periods
@@ -339,7 +342,21 @@ raises on failure; nothing is caught):
    ring_rank.cu calls x 8 equal to the launches; 42d torch.profiler's
    launches of the hand-written kernels over one step of phase 17's ring
    run (taken right after phase 17) and one of phase 4's decode steps
-   equal to their wrappers' counters (launch/launches.py).
+   equal to their wrappers' counters (launch/launches.py);
+43. (run between 41 and 42) tensor parallelism inside a replica on the
+   mesh trainer: 4 ranks on the card over gloo on a (2, 2) ("data",
+   "model") mesh; rps-100m whole (d_ff and vocab split, its 12 heads
+   whole), batch 32 x seq 128 a data rank: step 0's gradient on the
+   shards, gathered, within COLL_TRAIN_TOL of the unsharded replica's;
+   every model shard's exchange bit for bit against ring.cu on the data
+   ranks' stacked shards; 4 steps of rps_model on the ring engine, the
+   losses finite, the whole leaves the same bits on both model ranks,
+   ring_rank.cu's launches and every collective (the model group's
+   all-reduces among them) equal to the dry-run's count of that rank's
+   step x 4; deepseek-7b at full width cut to 2 layers (bf16, every rule
+   shards), one forward and backward of 2 x 128 rows on the shards
+   against the unsharded replica's within BF16_TOL; step ms, bytes
+   staged and peak memory printed (tp_phases).
 
 The phases' wall seconds are printed on one line before the kernels'
 line.
@@ -1504,12 +1521,12 @@ def rps100m(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
             "largest_group": list(largest_group(plan)), **load}
 
 
-# phases 21, 24 and 27-29 run rps-100m cut to its first 4 of 12 layers
+# phases 21, 24 and 27-29 run rps-100m cut to its first 2 of 12 layers
 # (phase 17's embedding, first layers and batches; width, n, batch, seq,
 # lr, p, engine and step counts as phase 17's): at 12 layers they took
-# 241 s of the smoke's 1,200 s limit, and the products and launches a
-# step scale with depth
-CUT_LAYERS = 4
+# 241 s of the smoke's 1,200 s limit, at 4 about 130 s, and the products
+# and launches a step scale with depth
+CUT_LAYERS = 2
 CUT_BASE_STEPS = 8             # the longest run the cut's baseline stands for
 
 
@@ -3541,7 +3558,9 @@ TP_WIDTHS = (("deepseek-7b", 4096), ("starcoder2-15b", 6144),
 TRAIN_ARGS = ["--batch-size", "2", "--seq-len", "512", "--steps", "4",
               "--engine", "ring", "--drop-rate", "0.1", "--task-vocab",
               "256"]
-TRAIN_RUNS = (("rwkv6-1.6b", None, 4), ("recurrentgemma-9b", 3, 2),
+# rwkv6-1.6b cut to 12 of its 24 layers (its 4 steps at n = 4 took 35 s
+# whole)
+TRAIN_RUNS = (("rwkv6-1.6b", 12, 4), ("recurrentgemma-9b", 3, 2),
               ("mixtral-8x22b", 1, 2))
 
 
@@ -3831,7 +3850,8 @@ def _ring_plain_exchange(stacks_meta: dict, scfg) -> int:
 def train_families() -> dict:
     """Phase 36: ``launch/train.py``'s path (``train_launcher.main``) at
     full width on the char-LM task (its vocabulary 256), ring engine,
-    p = 0.1, seq 512, batch 2, 4 steps: rwkv6-1.6b whole at n = 4,
+    p = 0.1, seq 512, batch 2, 4 steps: rwkv6-1.6b cut to 12 layers at
+    n = 4,
     recurrentgemma-9b cut to one repeat of its block pattern at n = 2,
     mixtral-8x22b cut to one layer at n = 2. Checks finite losses and
     consensus, ring launches = groups x steps, no RWKV-6 or RG-LRU kernel launch (the train kinds
@@ -4856,6 +4876,319 @@ def coll_phases(gen: torch.Generator, card: str, lap: Laps,
 
 
 
+# ---- phase 43: tensor parallelism inside a replica, 4 ranks on the card ----
+
+TP_MESH = (2, 2)               # ("data", "model"): 2 replicas of 2 shards
+# rps-100m whole on the (2, 2) mesh: batch 32 x seq 128 a data rank, the
+# ring engine; its d_ff and vocab are split over "model", its 12 heads
+# stay whole
+TP_LOAD = dict(batch=32, seq=128, lr=0.3, p=0.1, steps=4)
+TP_SEED = 4300
+# deepseek-7b at full width (32 query and 32 KV heads, d_ff 11,008,
+# vocab 102,400: every rule shards), cut to 2 layers, bf16
+TP_DEEPSEEK = dict(layers=2, batch=2, seq=128)
+BF16_TOL = 2e-2                # tests/test_kernels.py's bf16 tolerance
+
+
+def _tp_grads(model, params, batch, tp=None) -> tuple:
+    """The loss and the gradient of ``params`` on ``batch`` (this rank's
+    shards under ``tp``), as the mesh trainer's step takes them."""
+    leaves, treedef = tree_lib.flatten(params)
+    mine = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss, _ = model.loss(tree_lib.unflatten(treedef, mine), batch, tp)
+        got = torch.autograd.grad(loss, mine, allow_unused=True)
+    return loss.detach().float(), tree_lib.unflatten(
+        treedef, [torch.zeros_like(p) if g is None else g
+                  for p, g in zip(leaves, got)])
+
+
+def _tp_against_whole(model, full, shards, batch, tp, dims, mesh,
+                      tol: float) -> dict:
+    """43a / 43d on one rank: the loss and the gradient of this rank's
+    shards (TP, gathered over the model group) against the unsharded
+    replica's on the same rows (the (n, 1) mesh's rank): the largest
+    differences and the worst over ``tol`` · (1 + |want|)."""
+    from repro_torch.launch import sharding
+    loss0, g0 = _tp_grads(model, full, batch)
+    loss1, g1 = _tp_grads(model, shards, batch, tp)
+    g1 = sharding.gather_replica(g1, dims, mesh)
+    err, worst, norm = 0.0, 0.0, 0.0
+    for a, b in zip(tree_lib.leaves(g1), tree_lib.leaves(g0)):
+        sq_diff = sq_want = 0.0
+        # in chunks: a bf16 vocab leaf's f32 copies would take GBs a rank
+        for a_c, b_c in zip(a.reshape(-1).split(1 << 24),
+                            b.reshape(-1).split(1 << 24)):
+            a_c, b_c = a_c.float(), b_c.float()
+            diff = (a_c - b_c).abs_()
+            err = max(err, float(diff.max()))
+            worst = max(worst, float(
+                (diff / b_c.abs().mul_(tol).add_(tol)).max()))
+            sq_diff += float(diff.square_().sum())
+            sq_want += float(b_c.square_().sum())
+        norm = max(norm, (sq_diff / max(sq_want, 1e-60)) ** 0.5)
+    return {"loss": float(loss1), "loss_whole": float(loss0),
+            "loss_err": abs(float(loss1) - float(loss0)),
+            "grad_max_abs_err": err, "grad_worst_over_tol": worst,
+            "grad_max_rel_norm_err": norm}
+
+
+def _tp_exchange(mesh, rank: int, plan, local_meta, masks) -> dict:
+    """43b on one rank: the collective exchange of this rank's model
+    shard (a tree of normal values of the shard's shapes, each data
+    rank's drawn from a seed of its own) against ring.cu's global route
+    on the two data ranks' stacked shards (every rank rebuilds its
+    shard's stack), bit for bit."""
+    n = mesh.shape["data"]
+    d, m = mesh.axis_index("data"), mesh.axis_index("model")
+    stacked = tree_lib.map(lambda *xs: torch.stack(xs),
+                           *[_coll_tree(local_meta, TP_SEED + 10 * m + j)
+                             for j in range(n)])
+    mine = tree_lib.map(lambda x: x[d].clone(), stacked)
+    reset_counts()
+    got = rps_lib.rps_exchange_plan(mine, None, TP_LOAD["p"], "data",
+                                    plan=plan, mesh=mesh, masks=masks,
+                                    engine="ring")
+    hops = RG.ring_rank_hop.launches
+    want = rps_lib.rps_exchange_global(stacked, None, TP_LOAD["p"], n,
+                                       plan=plan, masks=masks, engine="ring")
+    diff = sum(_nan_eq(a, b[d]) for a, b in
+               zip(tree_lib.leaves(got), tree_lib.leaves(want)))
+    return {"differing_elements": diff, "hop_launches": hops,
+            "ring_round_launches": RG.ring_round.launches}
+
+
+def _tp_rps100m(mesh, rank: int, masks: list, batches: list) -> dict:
+    """43a-c on one rank: rps-100m on the (2, 2) mesh (the mesh trainer,
+    rps_model on the ring engine)."""
+    from repro_torch.core import comm
+    from repro_torch.train.trainer import TrainConfig, make_train_setup
+    load = TP_LOAD
+    model = build_model(RPS_100M, device="cuda")
+    tcfg = TrainConfig(lr=load["lr"], drop_rate=load["p"],
+                       aggregator="rps_model", engine="ring")
+    init_state, step, _ = make_train_setup(model, RPS_100M, tcfg, mesh,
+                                           rps_axes=("data",))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(TP_SEED)
+    full = model.init_stacked(g)              # alike on every rank
+    params, opt_state = init_state(init_params=full)
+    d = mesh.axis_index("data")
+    batches = [{k: v[d].cuda() for k, v in b.items()} for b in batches]
+    masks = [tuple(x.cuda() for x in pair) for pair in masks]
+    # 43a: step 0's gradient, before any exchange
+    grads = _tp_against_whole(model, full, params, batches[0], step.tp,
+                              step.model_dims, mesh, COLL_TRAIN_TOL)
+    del full
+    torch.cuda.empty_cache()
+    # 43b: each model shard's exchange against ring.cu
+    local = tree_lib.map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                               device="meta"), params)
+    ex = _tp_exchange(mesh, rank, step.plan, local, masks[0])
+    torch.cuda.empty_cache()
+    # 43c: the main path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    comm.reset_stats()
+    losses, step_ms = [], []
+    with comm.recording() as records:
+        for t in range(load["steps"]):
+            t0 = time.perf_counter()
+            params, opt_state, met = step(params, opt_state, batches[t], t,
+                                          None, masks=masks[t])
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    run = {"loss": losses, "step_ms": step_ms,
+           "hop_launches": RG.ring_rank_hop.launches,
+           "land_launches": RG.ring_rank_land.launches,
+           "other_launches": RG.ring_round.launches
+           + RG.ring_round_enc.launches + K.masked_avg_grid.launches,
+           "staged_bytes_per_step": comm.STATS["staged_bytes"]
+           / load["steps"],
+           "transfers_per_step": comm.STATS["transfers"] / load["steps"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "n_buckets": step.plan.n_buckets, "records": records,
+           "sharded": sorted(step.tp.dims),
+           "params_gb": _gb(params)}
+    # the leaves the rules keep whole: the same bits on both model ranks
+    whole = [x.reshape(-1) for x, dm in zip(tree_lib.leaves(params),
+                                            tree_lib.leaves(step.model_dims))
+             if dm is None]
+    both = comm.all_gather(torch.cat(whole)[None], step.tp.group)
+    run["whole_differing"] = int((both[0].view(torch.int32)
+                                  != both[1].view(torch.int32)).sum())
+    run["whole_elements"] = int(both.shape[1])
+    return {"grads": grads, "exchange": ex, "run": run}
+
+
+def _tp_deepseek(mesh, rank: int, batches: dict) -> dict:
+    """43d on one rank: deepseek-7b at full width cut to TP_DEEPSEEK's
+    layers, bf16, one forward and backward of this data rank's rows on
+    its shards against the unsharded replica's."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import parallel
+    cfg = _full_config("deepseek-7b", TP_DEEPSEEK["layers"])
+    model = build_model(cfg, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(TP_SEED + 1)
+    full = model.init_stacked(g)
+    dims = sharding.local_model_dims(full, cfg, mesh)
+    tp = parallel.TP.from_dims(mesh.group(("model",)), dims)
+    shards = sharding.shard_replica(full, cfg, mesh)
+    d = mesh.axis_index("data")
+    batch = {k: v[d].cuda() for k, v in batches.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = _tp_against_whole(model, full, shards, batch, tp, dims, mesh,
+                            BF16_TOL)
+    out.update(wall_s=time.perf_counter() - t0, sharded=sorted(tp.dims),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               shards_gb=_gb(shards), replica_gb=_gb(full))
+    return out
+
+
+def _tp_rank(rank: int, world: int, masks: list, batches: list,
+             ds_batches: dict) -> dict:
+    """One rank of phase 43 (cuda:0, gloo)."""
+    from repro_torch.launch.mesh import Mesh
+    build.load_kernels()
+    mesh = Mesh(TP_MESH, ("data", "model"))
+    t0 = time.perf_counter()
+    rps = _tp_rps100m(mesh, rank, masks, batches)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ds = _tp_deepseek(mesh, rank, ds_batches)
+    return {"rps_100m": rps, "deepseek": ds, "backend": mesh.backend,
+            "rps_100m_s": t1 - t0, "deepseek_s": time.perf_counter() - t1}
+
+
+def _dryrun_tp(rank: int) -> dict:
+    """Phase 43's count of one rank's rps-100m step on the (2, 2) mesh,
+    meta tensors (a worker process)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.trainer import TrainConfig
+    load = TP_LOAD
+    tcfg = TrainConfig(lr=load["lr"], drop_rate=load["p"],
+                       aggregator="rps_model", engine="ring")
+    batch = {k: torch.empty((load["batch"], load["seq"]), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    tot = D.count_train_step(RPS_100M, tcfg, Mesh(TP_MESH, ("data", "model")),
+                             batch, rps_axes=("data",), rank=rank)
+    return {"records": tot["records"], "kernels": tot["kernels"],
+            "coll_by_op": tot["coll_by_op"]}
+
+
+def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
+              batches: list, dry: dict) -> dict:
+    """Phase 43: tensor parallelism inside a replica on the mesh trainer,
+    four ranks on the one card over gloo (host-staged, as phases 40-41),
+    a (2, 2) ("data", "model") mesh, one world of spawned processes.
+
+    43a. rps-100m whole (12 layers, d 768, d_ff 3,072 and vocab 16,384
+         split over "model", its 12 heads whole; f32), batch 32 x seq 128
+         a data rank: step 0's gradient on each rank's shards, gathered
+         over the model group, within COLL_TRAIN_TOL of the unsharded
+         replica's on the same rows (the (2, 1) mesh's), before any
+         exchange;
+    43b. on every rank its model shard's collective exchange (the
+         trainer's plan over one rank's shapes) bit for bit against
+         ring.cu's global route on the two data ranks' stacked shards;
+    43c. the mesh trainer, rps_model on the ring engine, lr 0.3, p 0.1,
+         TP_LOAD's steps on ``batches`` (phase 17's first two workers'
+         rows) and the same masks on every rank: every loss finite, the
+         leaves the rules keep whole the same bits on both ranks of each
+         model group after the last step, ring_rank_hop and
+         ring_rank_land launches and every collective (the model group's
+         all-reduces among them), record for record, equal to the
+         dry-run's count of that rank's step x steps (``dry``: rank ->
+         its count); step ms, the bytes staged a step and each rank's
+         peak memory printed;
+    43d. deepseek-7b at full width cut to 2 layers, bf16 (32 query and 32
+         KV heads, d_ff 11,008 and vocab 102,400 all split), batch 2 x
+         seq 128 a data rank: one forward and backward on each rank's
+         shards against the unsharded replica's (the (1, 1) run) on the
+         same rows, the loss and every gradient within BF16_TOL
+         (absolute and relative)."""
+    from repro_torch.launch.mesh import run_world
+    load = TP_LOAD
+    steps = load["steps"]
+    mg = torch.Generator(device="cuda")
+    mg.manual_seed(TP_SEED + 7)
+    masks = [tuple(m.cpu() for m in rps_lib.sample_masks(mg, 2, load["p"]))
+             for _ in range(steps)]
+    cfg = _full_config("deepseek-7b", TP_DEEPSEEK["layers"])
+    dg = torch.Generator()
+    dg.manual_seed(TP_SEED + 2)
+    shape = (2, TP_DEEPSEEK["batch"], TP_DEEPSEEK["seq"])
+    ds_batches = {k: torch.randint(0, cfg.vocab_size, shape, generator=dg,
+                                   dtype=torch.int32)
+                  for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    ranks = run_world(_tp_rank, 4, masks, batches, ds_batches,
+                      backend="gloo", device="cuda:0",
+                      threads=COLL_THREADS, timeout_s=600)
+    world_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for r, got in enumerate(ranks):
+        if got["backend"] != "gloo":
+            raise AssertionError(f"phase 43 rank {r}: {got['backend']}")
+        rps, ds = got["rps_100m"], got["deepseek"]
+        gr = rps["grads"]
+        if not (gr["grad_max_abs_err"] <= COLL_TRAIN_TOL
+                and gr["loss_err"] <= COLL_TRAIN_TOL):
+            raise AssertionError(f"phase 43a rank {r}: {gr}")
+        if rps["exchange"]["differing_elements"]:
+            raise AssertionError(f"phase 43b rank {r}: {rps['exchange']}")
+        run = rps["run"]
+        d = dry[r]
+        want_rec = [tuple(x) for x in d["records"]] * steps
+        if [tuple(x) for x in run["records"]] != want_rec:
+            raise AssertionError(
+                f"phase 43c rank {r}: {len(run['records'])} records, the "
+                f"dry-run's {len(d['records'])} x {steps} differ")
+        hops = d["kernels"].get("ring_rank_hop", {}).get("calls", 0)
+        lands = d["kernels"].get("ring_rank_land", {}).get("calls", 0)
+        if (run["hop_launches"], run["land_launches"]) != \
+                (hops * steps, lands * steps) or not hops \
+                or run["other_launches"]:
+            raise AssertionError(
+                f"phase 43c rank {r}: launches {run['hop_launches']} / "
+                f"{run['land_launches']} / {run['other_launches']}, the "
+                f"dry-run's {hops} / {lands} x {steps}")
+        if not np.all(np.isfinite(run["loss"])) or run["whole_differing"]:
+            raise AssertionError(f"phase 43c rank {r}: loss {run['loss']}, "
+                                 f"{run['whole_differing']} whole-leaf "
+                                 "elements differ across the model group")
+        if not (ds["grad_worst_over_tol"] <= 1.0
+                and ds["loss_err"] <= BF16_TOL * (1 + abs(ds["loss_whole"]))):
+            raise AssertionError(f"phase 43d rank {r}: {ds}")
+    for got in ranks:
+        run = got["rps_100m"]["run"]
+        run["all_reduces_per_step"] = sum(
+            1 for op, _, _ in run.pop("records") if op == "all_reduce") \
+            / steps
+    summary = {
+        "mesh": "(2, 2) data x model, 4 ranks on cuda:0, gloo, CUDA "
+                "payloads staged through pinned host buffers",
+        "world_s": world_s, **load,
+        "rps_100m": {k: [got["rps_100m"][k] for got in ranks]
+                     for k in ("grads", "exchange", "run")},
+        "rps_100m_s": [got["rps_100m_s"] for got in ranks],
+        "deepseek": [got["deepseek"] for got in ranks],
+        "deepseek_s": [got["deepseek_s"] for got in ranks],
+        "dry_run": {"records_per_step": len(dry[0]["records"]),
+                    "bytes_per_step": dry[0]["coll_by_op"]}}
+    print(json.dumps({"tensor_parallel": summary, "card": card}), flush=True)
+    lap("43")
+    return {"launches": sum(got["rps_100m"]["run"]["hop_launches"]
+                            + got["rps_100m"]["run"]["land_launches"]
+                            for got in ranks)}
+
+
 # ---- phase 42: the dry-run and the roofline on the card's own constants ----
 
 DRYRUN_MESHES = ("16x16", "2x16x16", "sim1")
@@ -4955,19 +5288,32 @@ def _dryrun_line(r: dict) -> str:
     return f"{head} {r['status'][:60]}"
 
 
+def _counted_on_mesh(arch: str, shape: str) -> bool:
+    """Whether the dry-run counts a production-mesh row: a train row of a
+    dense architecture without experts or FSDP (TP inside a replica)."""
+    from repro_torch.configs import SHAPES
+    cfg = get_config(arch)
+    return SHAPES[shape].kind == "train" and cfg.family == "dense" \
+        and not cfg.is_moe and cfg.shard_strategy != "fsdp"
+
+
 def dryrun_sweep_check(rows: list) -> dict:
-    """42a: every (arch x shape) on the production meshes (layout rows: the
-    port's trainer runs neither TP inside a replica nor FSDP) and on one
-    H100 (sim1, counted rows), each ok, layout only, or skipped with the
-    reference's reason; the table printed."""
+    """42a: every (arch x shape) on the production meshes (the train rows
+    of the dense architectures without experts or FSDP counted, one rank
+    with TP inside a replica; the others layout rows: the port runs
+    neither TP for the other families, FSDP, nor serving on a mesh) and
+    on one H100 (sim1, counted rows), each ok, layout only, or skipped
+    with the reference's reason; the table printed."""
     bad = []
     for r in rows:
         st = str(r["status"])
         if st.startswith("skipped (full attention"):
             continue
-        if r["mesh"] == "sim1" and st == "ok":
+        if st == "ok" and (r["mesh"] == "sim1"
+                           or _counted_on_mesh(r["arch"], r["shape"])):
             continue
-        if r["mesh"] != "sim1" and st.startswith("layout only"):
+        if r["mesh"] != "sim1" and st.startswith("layout only") \
+                and not _counted_on_mesh(r["arch"], r["shape"]):
             continue
         bad.append((r["arch"], r["shape"], r["mesh"], st))
     for r in rows:
@@ -4981,8 +5327,9 @@ def dryrun_sweep_check(rows: list) -> dict:
                           for r in rows),
             "skipped": sum(str(r["status"]).startswith("skipped")
                            for r in rows),
-            "fits": sorted(f"{r['arch']}/{r['shape']}" for r in counted
-                           if r["roofline"]["fits"]),
+            "fits": sorted(f"{r['arch']}/{r['shape']}"
+                           + ("" if r["mesh"] == "sim1" else f"/{r['mesh']}")
+                           for r in counted if r["roofline"]["fits"]),
             "count_s": sum(r.get("compile_s", 0.0) for r in rows)}
 
 
@@ -5251,8 +5598,9 @@ def profile_decode_step(model, params) -> dict:
 def start_dryrun() -> tuple:
     """Phase 42a's rows and 42c's counts, submitted to DRYRUN_WORKERS
     spawned processes (meta tensors, no card) right after the build,
-    and 42a's exactness checks: ``(pool, rows, counts, exact)``, futures
-    that phase 42 collects and the pool that it shuts down."""
+    42a's exactness checks and phase 43's counts: ``(pool, rows, counts,
+    exact, tp)``, futures that phases 42-43 collect and the pool that
+    phase 42 shuts down."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.configs import ARCH_IDS, SHAPES
@@ -5262,8 +5610,9 @@ def start_dryrun() -> tuple:
             for s in SHAPES for m in DRYRUN_MESHES]
     counts = {(eng, r): pool.submit(_dryrun_coll, (eng, r))
               for eng in ("ring", "xla") for r in range(COLL_LOAD["n"])}
+    tp = {r: pool.submit(_dryrun_tp, r) for r in range(4)}
     exact = {c: pool.submit(_dryrun_exact, c) for c in DRYRUN_EXACT_CASES}
-    return pool, rows, counts, exact
+    return pool, rows, counts, exact, tp
 
 
 def dryrun_phases(gen: torch.Generator, card: str, lap: "Laps", coll: dict,
@@ -5271,7 +5620,7 @@ def dryrun_phases(gen: torch.Generator, card: str, lap: "Laps", coll: dict,
     """Phase 42: the dry-run (launch/dryrun.py) and the roofline
     (roofline/) on the card's own constants. ``dry_run``: the rows and
     counts :func:`start_dryrun` computed beside the earlier phases."""
-    pool, rows_f, coll_f, exact_f = dry_run
+    pool, rows_f, coll_f, exact_f, _ = dry_run
     card_out, model, params = dryrun_vs_card(gen)
     lap("42b")
     decode_profile = profile_decode_step(model, params)
@@ -5469,6 +5818,8 @@ def main(argv=None) -> int:
     print(json.dumps({"rps_100m_telemetry": tel, "card": card}), flush=True)
     coll_batches = [{k: v[:COLL_N].cpu() for k, v in b.items()}
                     for b in setup.batches[:COLL_LOAD["steps"]]]
+    tp_batches = [{k: v[:TP_MESH[0]].cpu() for k, v in b.items()}
+                  for b in setup.batches[:TP_LOAD["steps"]]]
     del setup, cut
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5483,6 +5834,8 @@ def main(argv=None) -> int:
     new = new_phases(gen, card, lap)
     mm = mm_phases(gen, card, lap)
     coll = coll_phases(gen, card, lap, coll_batches)
+    tp = tp_phases(gen, card, lap, tp_batches,
+                   {r: f.result() for r, f in dry_run[4].items()})
     dryrun_phases(gen, card, lap, coll, ring_profile, dry_run)
     lap.report()
     robust_launches = sum(v["masked_avg_launches"]
@@ -5559,7 +5912,7 @@ def main(argv=None) -> int:
     ring_rank = {"name": "ring_rank", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/ring_rank.cu",
                  "replaces": "src/repro/kernels/rps_ring.py:331",
-                 "launches": coll["launches"],
+                 "launches": coll["launches"] + tp["launches"],
                  "max_abs_err": 0.0 if not
                  coll["rank_err"]["differing_elements"] else None,
                  "ms": rt["ms"], "plain_ms": rt["plain_ms"],

@@ -15,7 +15,11 @@ carry across as they are).
 
 The train path keeps the JAX package's stacked layout, and
 :func:`stacked_params_from_jax` carries any tree across in it, leaf for
-leaf (one worker's parameters or an n-worker stack alike).
+leaf (one worker's parameters or an n-worker stack alike). On a mesh
+with a "model" axis > 1, :func:`shards_from_jax` carries one replica
+into one rank's shards and :func:`replica_to_numpy` gathers a world's
+shards back into the replica, to be held against the reference's global
+arrays.
 """
 from __future__ import annotations
 
@@ -23,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import sharding
 from repro_torch.models.registry import enc_kind_sequence, kind_sequence
 from repro_torch.models.stack import group_layout
 
@@ -71,3 +77,27 @@ def stacked_params_from_jax(np_params, device="cuda"):
     stacked train-layout parameters) as tensors in the same layout."""
     device = resolve_device(device)
     return _map(lambda a: _tensor(a, device), np_params)
+
+
+def shards_from_jax(np_params, cfg: ArchConfig, mesh, device="cuda"):
+    """One replica of the JAX package's stacked train-layout parameters
+    (global arrays) as this rank's shards on ``mesh``
+    (``sharding.shard_replica``)."""
+    full = stacked_params_from_jax(np_params, "cpu")
+    device = resolve_device(device)
+    return tree_lib.map(lambda x: x.to(device),
+                        sharding.shard_replica(full, cfg, mesh))
+
+
+def replica_to_numpy(params, dims, mesh):
+    """This rank's shards gathered over its model group into the whole
+    replica (``sharding.gather_replica``; ``dims`` the trainer's
+    ``train_step.model_dims``), as numpy arrays (bf16 as f32).
+    Collective: every rank of the world calls it."""
+    def arr(x):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.to(torch.float32)
+        return x.cpu().numpy()
+
+    return tree_lib.map(arr, sharding.gather_replica(params, dims, mesh))

@@ -12,7 +12,11 @@ over some of a mesh's axes (:meth:`repro_torch.launch.mesh.Mesh.group`):
   explicit ring order and receives from its left (``lax.ppermute`` with
   ``perm = [(j, j + 1 mod n)]``);
 - :func:`all_reduce_mean` (``psum / n``, the reliable average and the
-  allreduce baselines) and :func:`all_reduce_sum`.
+  allreduce baselines), :func:`all_reduce_sum` and :func:`all_reduce_max`;
+- :func:`copy_to` / :func:`reduce_from`: the tensor-parallel region's
+  two boundaries as autograd functions (identity forward and a sum
+  backward; a sum forward and identity backward), the model group's
+  all-reduces inside a replica (``models/parallel.py``).
 
 Transport: gloo. It carries CPU tensors, and a CUDA tensor through
 pinned host buffers of this module's own, reused from call to call (one
@@ -230,8 +234,7 @@ def ring_shift(xs: Sequence[torch.Tensor], group: Group,
             for r, x, st in zip(recvs, xs, staged)]
 
 
-def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """Σ over the group's ranks of ``x``, on ``x``'s device."""
+def _all_reduce(x: torch.Tensor, group: Group, op) -> torch.Tensor:
     if group.size == 1:
         return x.clone()
     x = x.contiguous()
@@ -241,11 +244,66 @@ def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
     STATS["transfers"] += 1
     if x.device.type == "cuda":
         host = _to_host(x, "ar")
-        dist.all_reduce(host, group=group.pg)
+        dist.all_reduce(host, op=op, group=group.pg)
         return _to_device(host, x.device)
     out = x.clone()
-    dist.all_reduce(out, group=group.pg)
+    dist.all_reduce(out, op=op, group=group.pg)
     return out
+
+
+def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """Σ over the group's ranks of ``x``, on ``x``'s device."""
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise max over the group's ranks of ``x``, on ``x``'s
+    device (no gradient: the vocab-parallel softmax's shift)."""
+    return _all_reduce(x.detach(), group, dist.ReduceOp.MAX)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x`` entering a tensor-parallel region: the same tensor forward;
+    backward, the sum over the group's ranks of the gradient each rank's
+    part of the region gives it (the region's input is replicated, its
+    gradient partial)."""
+    if group.size == 1:
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """A tensor-parallel region's partial output leaving it: the sum over
+    the group's ranks forward; backward, the gradient as it is (it is
+    replicated on every rank)."""
+    if group.size == 1:
+        return x
+    return _ReduceFrom.apply(x, group)
 
 
 def all_reduce_mean(x: torch.Tensor, group: Group) -> torch.Tensor:

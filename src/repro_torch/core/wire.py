@@ -4,7 +4,11 @@ Codecs — how a contribution is represented on the reduce-scatter leg:
 
   ``f32``   passthrough, the paper's wire;
   ``bf16``  a linear downcast; a linear codec's sums accumulate in its
-            wire dtype (:attr:`WireCodec.accum_dtype`);
+            wire dtype (:attr:`WireCodec.accum_dtype`); any other float
+            dtype is a linear codec too, as in the reference
+            (``"float16"`` / ``"f16"``: the masked-average kernel takes
+            it; the ring kernels refuse it, ``kernels/ring.py::
+            check_wire``);
   ``int8``  the quantised codec: each block row onto the grid
             {−127, …, 127} with one f32 scale (:mod:`repro_torch.core.quant`),
             stochastic rounding when noise is given, round-to-nearest-even
@@ -37,7 +41,9 @@ ROBUST_RECOVERIES = ("median", "trimmed", "clip")
 
 _ALIASES = {"f32": torch.float32, "fp32": torch.float32,
             "float32": torch.float32, "bf16": torch.bfloat16,
-            "bfloat16": torch.bfloat16, "int8": torch.int8}
+            "bfloat16": torch.bfloat16, "int8": torch.int8,
+            "f16": torch.float16, "fp16": torch.float16,
+            "float16": torch.float16}
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
 
@@ -123,20 +129,27 @@ def canon_wire_dtype(wire: Any) -> torch.dtype:
 
 
 def canon_wire_name(wire: Any) -> str:
-    """Canonical short name ("f32" | "bf16" | "int8") of any wire
-    spelling."""
+    """Canonical short name ("f32" | "bf16" | "int8", else the dtype's
+    name: "float16") of any wire spelling."""
     if isinstance(wire, WireCodec):
         return wire.name
     dt = canon_wire_dtype(wire)
-    if dt not in _NAMES:
-        raise NotImplementedError(f"wire dtype {dt} is not ported yet")
-    return _NAMES[dt]
+    return _NAMES.get(dt, dtype_name(dt))
 
 
 def make_codec(wire: Any) -> WireCodec:
+    """The codec of any wire spelling; a float dtype without a codec of
+    its own is a linear one (a cast), as in the reference."""
     if isinstance(wire, WireCodec):
         return wire
-    return _CODECS[canon_wire_name(wire)]
+    name = canon_wire_name(wire)
+    if name in _CODECS:
+        return _CODECS[name]
+    dt = canon_wire_dtype(wire)
+    if not dt.is_floating_point:
+        raise ValueError(f"wire={wire!r}: no codec for dtype {dt} "
+                         f"(known: {WIRES})")
+    return WireCodec(name, dt)
 
 
 def resolve_codec(wire: Any, rs_dtype: Any = torch.float32) -> WireCodec:

@@ -116,6 +116,19 @@ def _check_cuda(stack, rs, ag, div, rs_dtype) -> None:
         raise TypeError(f"div must be float32, got {div.dtype}")
 
 
+def check_wire(rs_dtype) -> None:
+    """Raise for a wire whose sums the ring kernels do not take: they
+    instantiate f32 and bf16 accumulations (and the int8 wire's f32), so
+    the float16 linear wire is refused here by name, on every device —
+    the plain versions could sum it, the card could not. The masked
+    average (the xla engine) takes float16."""
+    if rs_dtype not in ACC_DTYPES:
+        name = str(rs_dtype).removeprefix("torch.")
+        raise ValueError(
+            f"the {name} wire on the ring engine: ring.cu, ring_q.cu and "
+            "ring_rank.cu sum in f32 or bf16 only; use engine='xla'")
+
+
 def ring_round(stack, rs, ag, div, *, mode: str, rs_dtype=torch.float32):
     """One group's ring round, one launch for every bucket, block and
     rank.
@@ -126,6 +139,7 @@ def ring_round(stack, rs, ag, div, *, mode: str, rs_dtype=torch.float32):
     (G, n, s, d) in ``stack.dtype``. ``ring_round.launches`` counts
     kernel launches (CPU calls run the plain version and do not count).
     """
+    check_wire(rs_dtype)
     check_shapes(stack, rs, ag, div, mode)
     if stack.device.type == "cpu":
         return ring_round_ref(stack, rs, ag, div, mode=mode,
@@ -226,6 +240,7 @@ def ring_round_enc(stack, enc, scale, rs, ag, div, *, mode: str,
     ``ring_round_enc.requant_launches`` those with ``levels > 0`` (the
     re-encoding kernel of ring_q.cu; the others run ring.cu's encoded
     variant)."""
+    check_wire(rs_dtype)
     check_shapes(stack, rs, ag, div, mode)
     check_enc(stack, enc, scale, rs_dtype, levels)
     if stack.device.type == "cpu":
@@ -461,6 +476,7 @@ def ring_exchange_scatter_table(blocks, rs_sc, ag_sc, *, group, order,
     the all-gather fallback. Returns the table's shape and dtype."""
     if mode not in MODES:
         raise ValueError(f"mode={mode!r}, want one of {MODES}")
+    check_wire(rs_dtype)
     shape = tuple(blocks.shape)
     S = shape[0]
     tbl = blocks.reshape(S, -1).contiguous()

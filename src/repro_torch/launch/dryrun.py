@@ -23,10 +23,13 @@ Meshes:
 
 - the production meshes (16x16, 2x16x16; ``launch/mesh.py``) give the
   static layout — specs, one rank's shapes, the exchange plan, the state
-  bytes — and report the counted terms as not run: their "model" axis
-  of 16 is tensor parallelism inside a replica, and the largest
-  architectures shard their parameters over "data" (FSDP), neither of
-  which the port's trainer runs (ROADMAP queue A);
+  bytes — on every row; their train rows of the dense architectures
+  without experts are counted too (one rank's step on its shards, its
+  "model" axis of 16 tensor parallelism inside a replica, the model
+  group's all-reduces recorded), and the others report the counted terms
+  as not run: TP for the other families, FSDP for the largest
+  architectures (their parameters over "data"), and serving on a mesh,
+  none of which the port runs (ROADMAP queue A);
 - ``sim1`` / ``sim4`` (``make_sim_mesh(1)`` / ``(4)``: one H100 a
   replica, the collective path's data mesh) count every term: the rows a
   benchmark's cells are sized from.
@@ -145,11 +148,18 @@ def _tree_bytes(*trees) -> int:
                for x in tree_lib.leaves(t) if isinstance(x, torch.Tensor))
 
 
-def _not_run(mesh: Mesh, fsdp_axis: Optional[str]) -> Optional[str]:
-    """Why the port cannot run a step on ``mesh`` (None: it can)."""
+def _not_run(mesh: Mesh, fsdp_axis: Optional[str],
+             cfg: Optional[ArchConfig] = None) -> Optional[str]:
+    """Why the port cannot run a step on ``mesh`` (None: it can): a train
+    step of ``cfg``, or with ``cfg`` None a serving step (the port serves
+    on no mesh)."""
     why = []
     if mesh.shape.get("model", 1) > 1:
-        why.append("TP inside a replica")
+        if cfg is None:
+            why.append("TP inside a replica")
+        elif cfg.is_moe or cfg.family != "dense":
+            fam = "MoE" if cfg.is_moe else cfg.family
+            why.append(f"TP inside a replica for the {fam} family")
     if fsdp_axis is not None and mesh.shape.get(fsdp_axis, 1) > 1:
         why.append("FSDP")
     if not why:
@@ -246,7 +256,7 @@ def build_train_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh,
                 params=stacked, opt_state=opt_shape, ef_state=ef_shape),
             "exchange_plan": plan.describe() if plan is not None else None}
     del stacked, opt_shape, ef_shape
-    why = _not_run(mesh, fsdp_axis)
+    why = _not_run(mesh, fsdp_axis, cfg)
     if why is not None:
         return None, dict(info, not_run=why)
     batch = tree_lib.map(lambda s: s[0], _stack_specs(

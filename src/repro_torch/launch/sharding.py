@@ -6,9 +6,13 @@ replica, so here they are layout functions: a spec is a tuple with one
 entry per dim (None, an axis name, or a tuple of names), and
 :func:`model_dims` says which dim of a leaf is tensor-parallel — the dim
 the exchange plan keeps intact (``plan.make_plan(model_dims=)``).
-Tensor parallelism inside a replica ("model" > 1) and FSDP are not run by
-the port's trainer; their rules are kept so that the plan and the specs
-match the reference's.
+Tensor parallelism inside a replica ("model" > 1) runs on the port's
+trainer for the dense family without experts: :func:`shard_replica`
+cuts one rank's slice of every leaf along its model dim,
+:func:`gather_replica` joins the slices back, and
+:func:`local_model_dims` tells the model which leaves arrive sharded.
+FSDP is not run; its rules are kept so that the plan and the specs match
+the reference's.
 
 Rules are name-based over the parameter tree's paths ("embed/tok",
 "layers/attn/wq", …). Two strategies (``ArchConfig.shard_strategy``):
@@ -22,6 +26,8 @@ it.
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 
@@ -186,3 +192,72 @@ def local_batch(batch: Any, mesh, worker_axes: Tuple[str, ...],
         return rows[d * per:(d + 1) * per]
 
     return _map_with_path(lambda path, leaf: pick(leaf), batch)
+
+
+def local_model_dims(params_shape: Any, cfg: ArchConfig, mesh) -> Any:
+    """The dim of every leaf (a tree at its global, unstacked shapes) that
+    is split over ``mesh``'s "model" axis, None where the leaf stays
+    whole: :func:`model_dims`, all None when the axis is 1 or absent. A
+    dim the rule shards must divide by the axis."""
+    m = mesh.shape.get(MODEL, 1)
+
+    def dim(path, leaf):
+        d = _rule(_path_str(path), tuple(leaf.shape), cfg)[0]
+        if d is None or m == 1:
+            return None
+        if leaf.shape[d] % m:
+            raise ValueError(f"{_path_str(path)}: dim {d} of "
+                             f"{tuple(leaf.shape)} over a model axis of {m}")
+        return d
+
+    return _map_with_path(dim, params_shape)
+
+
+def _zip_dims(fn, tree, dims):
+    if isinstance(tree, dict):
+        return {k: _zip_dims(fn, v, dims[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_dims(fn, v, d) for v, d in zip(tree, dims))
+    return fn(tree, dims)
+
+
+def shard_replica(tree: Any, cfg: ArchConfig, mesh) -> Any:
+    """This rank's slice of every leaf of one replica (global, unstacked
+    shapes) along the model dim :func:`local_model_dims` gives it: the
+    rank's contiguous part of that dim, by its index over "model" (as
+    GSPMD lays a dim over an axis), copied; a leaf that stays whole is
+    the leaf itself."""
+    m = mesh.shape.get(MODEL, 1)
+    if m == 1:
+        return tree
+    j = mesh.axis_index(MODEL)
+
+    def cut(x, d):
+        if d is None:
+            return x
+        size = x.shape[d] // m
+        return x.narrow(d, j * size, size).clone(
+            memory_format=torch.contiguous_format)
+
+    return _zip_dims(cut, tree, local_model_dims(tree, cfg, mesh))
+
+
+def gather_replica(tree: Any, dims: Any, mesh) -> Any:
+    """The inverse of :func:`shard_replica`: every sharded leaf of this
+    rank's ``tree`` gathered over the model group along its dim in
+    ``dims`` (:func:`local_model_dims` of the replica), in the ranks'
+    order; a whole leaf is the leaf itself. Collective: every rank of the
+    world calls it."""
+    from repro_torch.core import comm
+    if mesh.shape.get(MODEL, 1) == 1:
+        return tree
+    group = mesh.group((MODEL,))
+
+    def join(x, d):
+        if d is None:
+            return x
+        moved = x.movedim(d, 0)
+        full = comm.all_gather(moved, group)
+        return full.movedim(0, d).contiguous()
+
+    return _zip_dims(join, tree, dims)

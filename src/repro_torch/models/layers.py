@@ -15,6 +15,12 @@ attention above 2·window (with ``blocked``), chunked online-softmax
 attention above 2048 tokens, the quadratic form otherwise. They are plain
 torch products, as the reference's are plain XLA; no kernel replaces
 them.
+
+The train path's functions take ``tp`` (a :class:`repro_torch.models.
+parallel.TP`) on a "model" axis > 1: column-parallel products for the
+sharded ``wq`` / ``wk`` / ``wv`` and ``wi`` / ``wg``, row-parallel ones
+for a sharded ``wo``, the vocab-parallel embedding, head and
+cross-entropy. With ``tp=None`` each is the unsharded function.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import parallel as P
 
 NEG_INF = -1e30
 
@@ -282,25 +289,47 @@ def decode_attention(q, k_cache, v_cache, pos, *,
     return out.reshape(B, 1, q.shape[2], hd)
 
 
-def attention_qkv(p, x, *, cfg: ArchConfig):
+def _tp_attn(tp) -> bool:
+    """Whether ``tp`` splits the attention's heads (``wq`` and ``wo``
+    together: the rule shards both by the head count)."""
+    return tp is not None and tp.sharded("attn/wq")
+
+
+def attention_qkv(p, x, *, cfg: ArchConfig, tp=None):
     """The full-sequence projections with RoPE at positions 0..S-1:
-    q (B, S, h, hd), k and v (B, S, kvh, hd)."""
-    q = einsum("bsd,dhe->bshe", x, p["wq"])
-    k = einsum("bsd,dhe->bshe", x, p["wk"])
-    v = einsum("bsd,dhe->bshe", x, p["wv"])
+    q (B, S, h, hd), k and v (B, S, kvh, hd). Under ``tp`` with the heads
+    sharded: this rank's query heads and the KV heads they read (its own
+    slice of a sharded ``wk`` / ``wv``, else the whole projection's
+    heads, :func:`repro_torch.models.parallel.local_kv`)."""
+    if _tp_attn(tp):
+        xt = tp.copy_to(x)
+        q = einsum("bsd,dhe->bshe", xt, p["wq"])
+        kv = []
+        for name in ("wk", "wv"):
+            if tp.sharded("attn/" + name):
+                kv.append(einsum("bsd,dhe->bshe", xt, p[name]))
+            else:
+                kv.append(P.local_kv(tp, einsum("bsd,dhe->bshe", x, p[name]),
+                                     cfg.n_heads))
+        k, v = kv
+    else:
+        q = einsum("bsd,dhe->bshe", x, p["wq"])
+        k = einsum("bsd,dhe->bshe", x, p["wk"])
+        v = einsum("bsd,dhe->bshe", x, p["wv"])
     positions = torch.arange(q.shape[1], device=x.device)
     return (rope(q, positions, cfg.rope_theta), rope(k, positions,
                                                      cfg.rope_theta), v)
 
 
 def attention_fwd(p, x, *, cfg: ArchConfig, window: Optional[int],
-                  blocked: bool = False, causal: bool = True):
+                  blocked: bool = False, causal: bool = True, tp=None):
     """Full-sequence self-attention (train, prefill; causal unless
     ``causal=False``, the encoder's) on the route the reference takes
     (:func:`attention_route`): blocked local above 2·window when
     ``blocked``, chunked above 2048 tokens, else full. Returns
-    (out, (k, v))."""
-    q, k, v = attention_qkv(p, x, cfg=cfg)
+    (out, (k, v)); under ``tp`` with the heads sharded, this rank's heads
+    and the output projection's partial sums reduced over the group."""
+    q, k, v = attention_qkv(p, x, cfg=cfg, tp=tp)
     route = attention_route(q.shape[1], window, blocked)
     if route == "blocked":
         out = blocked_local_attention(q, k, v, window=int(window))
@@ -309,6 +338,8 @@ def attention_fwd(p, x, *, cfg: ArchConfig, window: Optional[int],
     else:
         out = full_attention(q, k, v, causal=causal, window=window)
     out = einsum("bshe,hed->bsd", out, p["wo"])
+    if _tp_attn(tp):
+        out = tp.reduce_from(out)
     return out, (k, v)
 
 
@@ -407,15 +438,27 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> dict:
             "wo": _init(gen, (ff, d), ff ** -0.5, dt)}
 
 
-def mlp_hidden(p, x):
-    """The gated hidden activation silu(x·wg) ⊙ (x·wi)."""
+def _tp_mlp(tp) -> bool:
+    """Whether ``tp`` splits the MLP's hidden dim (``wi``, ``wg`` and
+    ``wo`` together: the rule shards all three by d_ff)."""
+    return tp is not None and tp.sharded("mlp/wi")
+
+
+def mlp_hidden(p, x, tp=None):
+    """The gated hidden activation silu(x·wg) ⊙ (x·wi); under ``tp`` with
+    the hidden dim sharded, this rank's columns of it."""
+    if _tp_mlp(tp):
+        x = tp.copy_to(x)
     h = einsum("bsd,df->bsf", x, p["wi"])
     g = einsum("bsd,df->bsf", x, p["wg"])
     return F.silu(g) * h
 
 
-def mlp(p, x):
-    return einsum("bsf,fd->bsd", mlp_hidden(p, x), p["wo"])
+def mlp(p, x, tp=None):
+    out = einsum("bsf,fd->bsd", mlp_hidden(p, x, tp), p["wo"])
+    if _tp_mlp(tp):
+        out = tp.reduce_from(out)
+    return out
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -505,13 +548,22 @@ def init_embed(gen: torch.Generator, cfg: ArchConfig) -> dict:
                                       device=gen.device)}
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+def embed(p, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The token embeddings; under ``tp`` with the table sharded, the
+    vocab-parallel lookup (:func:`repro_torch.models.parallel.embed`)."""
+    if tp is not None and tp.sharded("embed/tok"):
+        return P.embed(tp, p["tok"], tokens)
     return p["tok"][tokens]
 
 
-def lm_head(p, x, vocab_size: Optional[int] = None) -> torch.Tensor:
-    """Logits over the padded vocab with the padding masked to -1e30."""
+def lm_head(p, x, vocab_size: Optional[int] = None,
+            tp=None) -> torch.Tensor:
+    """Logits over the padded vocab with the padding masked to -1e30;
+    under ``tp`` with the head sharded, this rank's columns of them."""
     x = rms_norm(x, p["final_norm"])
+    if tp is not None and tp.sharded("embed/head"):
+        logits = einsum("bsd,dv->bsv", tp.copy_to(x), p["head"])
+        return P.mask_vocab(tp, logits, vocab_size)
     logits = einsum("bsd,dv->bsv", x, p["head"])
     V = logits.shape[-1]
     if vocab_size is not None and vocab_size < V:
@@ -521,9 +573,14 @@ def lm_head(p, x, vocab_size: Optional[int] = None) -> torch.Tensor:
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 mask: Optional[torch.Tensor] = None,
+                 tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy in f32; logits (B, S, V), labels
-    (B, S) of any integer dtype."""
+    (B, S) of any integer dtype; under ``tp`` with the head sharded,
+    over vocab-parallel logits
+    (:func:`repro_torch.models.parallel.softmax_xent`)."""
+    if tp is not None and tp.sharded("embed/head"):
+        return P.softmax_xent(tp, logits, labels, mask)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

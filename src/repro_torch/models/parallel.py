@@ -1,0 +1,156 @@
+"""Tensor parallelism inside a replica: the dense train path's sharded
+products (the mesh trainer on a "model" axis > 1).
+
+The JAX package has no counterpart to this module: it lays each leaf
+over the "model" mesh axis (``launch/sharding.py``'s rules) and GSPMD
+derives the partitioned forward and backward. Here each rank of the
+model group holds its slice of every sharded leaf
+(``launch/sharding.py::shard_replica``) and the layers
+(``models/layers.py``, ``tp=``) compute their part, Megatron-style: a
+column-parallel product takes its replicated input through
+:func:`repro_torch.core.comm.copy_to` (its gradient summed over the
+group backward), a row-parallel product sends its partial output through
+:func:`repro_torch.core.comm.reduce_from` (summed forward). Everything
+outside those regions is computed alike on every rank of the group, so
+a replicated leaf's gradient, and so its value, is the same on every
+rank bit for bit (every all-reduce hands each rank the same sum).
+
+:class:`TP` carries the group and which leaves arrive sharded; the
+vocab-parallel embedding (:func:`embed`), head's padding
+(:func:`mask_vocab`) and
+cross-entropy (:func:`softmax_xent`), and the local heads of a sharded
+attention (:func:`local_kv`) live here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core import comm
+
+NEG_INF = -1e30
+
+
+def check_family(cfg) -> None:
+    """Raise unless ``cfg`` runs with tensor parallelism inside a
+    replica: the dense family without experts. The error names the
+    family and its ROADMAP item."""
+    if cfg.is_moe:
+        raise ValueError(
+            f"{cfg.name}: the MoE family on a 'model' axis > 1 is not run "
+            "(ROADMAP queue A, 'TP inside a replica': the expert dim over "
+            "'model')")
+    if cfg.family != "dense":
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family on a 'model' axis > 1 is "
+            "not run (ROADMAP queue A, 'TP inside a replica': the "
+            f"{cfg.family} family's TP)")
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """One rank's tensor-parallel context: ``group`` the model group (the
+    ranks that share every other coordinate), ``dims`` the model dim of
+    each sharded leaf by the last two names of its path ("embed/tok",
+    "attn/wq", "mlp/wi", …; a whole leaf is absent)."""
+    group: comm.Group
+    dims: Dict[str, int]
+
+    @property
+    def size(self) -> int:
+        return self.group.size
+
+    @property
+    def index(self) -> int:
+        return self.group.index
+
+    def sharded(self, name: str) -> bool:
+        return name in self.dims
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        return comm.copy_to(x, self.group)
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        return comm.reduce_from(x, self.group)
+
+    @classmethod
+    def from_dims(cls, group: comm.Group, dims) -> "TP":
+        """The context of a replica whose leaves' model dims are ``dims``
+        (``sharding.local_model_dims``: a tree, None for a whole leaf).
+        Every layer kind must shard a name alike."""
+        flat: Dict[str, Optional[int]] = {}
+
+        def walk(t, path):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, path + (str(k),))
+                return
+            name = "/".join(path[-2:])
+            if name in flat and flat[name] != t:
+                raise ValueError(f"{name}: sharded on dims {flat[name]} and "
+                                 f"{t} in different layers")
+            flat[name] = t
+
+        walk(dims, ())
+        return cls(group, {k: d for k, d in flat.items() if d is not None})
+
+
+def embed(tp: TP, tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The vocab-parallel lookup: ``tok`` this rank's rows [lo, lo + V/n)
+    of the table; an id outside them reads a zero row, and the group's
+    sum gives every rank the whole embedding."""
+    Vl = tok.shape[0]
+    local = tokens.long() - tp.index * Vl
+    inside = (local >= 0) & (local < Vl)
+    rows = tok[torch.where(inside, local, 0)]
+    return tp.reduce_from(rows.masked_fill(~inside[..., None], 0))
+
+
+def mask_vocab(tp: TP, logits_local: torch.Tensor,
+               vocab_size: Optional[int]) -> torch.Tensor:
+    """This rank's columns [lo, lo + V/n) of the logits with the padding
+    past ``vocab_size`` masked to -1e30 by its global index."""
+    Vl = logits_local.shape[-1]
+    if vocab_size is None or vocab_size >= tp.size * Vl:
+        return logits_local
+    gidx = tp.index * Vl + torch.arange(Vl, device=logits_local.device)
+    return logits_local.masked_fill(gidx >= vocab_size, NEG_INF)
+
+
+def softmax_xent(tp: TP, logits_local: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean next-token cross-entropy in f32 over vocab-parallel
+    logits (B, S, V/n): the shift is the group's max (no gradient), the
+    normaliser the group's sum of exponentials, the gold logit the one
+    rank's that holds the label; the same scalar on every rank."""
+    lg = logits_local.to(torch.float32)
+    Vl = lg.shape[-1]
+    shift = comm.all_reduce_max(lg.amax(-1), tp.group)
+    sumexp = tp.reduce_from(torch.exp(lg - shift[..., None]).sum(-1))
+    local = labels.long() - tp.index * Vl
+    inside = (local >= 0) & (local < Vl)
+    gold = torch.gather(lg, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = tp.reduce_from(gold.masked_fill(~inside, 0.0))
+    nll = torch.log(sumexp) + shift - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
+
+
+def local_kv(tp: TP, kv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The KV heads this rank's query heads read, of a whole (B, S, kvh,
+    hd) projection (GQA whose KV heads the rule keeps whole): query head
+    i reads KV head i // (h / kvh), and the rank holds query heads [j·h/n,
+    (j+1)·h/n). The projection enters the region here, so the heads'
+    gradients from every rank are summed into it."""
+    kvh = kv.shape[2]
+    g = n_heads // kvh
+    h_loc = n_heads // tp.size
+    if h_loc % g and g % h_loc:
+        raise ValueError(f"{n_heads} query heads over {kvh} KV heads: "
+                         f"{h_loc} a rank straddle a KV head's group of {g}")
+    first = tp.index * h_loc
+    lo, hi = first // g, (first + h_loc - 1) // g + 1
+    return tp.copy_to(kv)[:, :, lo:hi]

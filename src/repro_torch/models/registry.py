@@ -55,6 +55,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as P
 from repro_torch.models import stack as S
 from repro_torch.models.hybrid import hybrid_kind_sequence
 from repro_torch.models.transformer import dense_kind_sequence
@@ -133,26 +134,32 @@ class Model:
             return {}
         return {"enc_out": self.encode(params, inputs["frames"])}
 
-    def embed_inputs(self, params, inputs) -> torch.Tensor:
+    def embed_inputs(self, params, inputs, tp=None) -> torch.Tensor:
         """The token embeddings, after the vlm's patch embeddings (cast to
-        the embedding's dtype)."""
-        tok = L.embed(params["embed"], inputs["tokens"])
+        the embedding's dtype); ``tp`` the vocab-parallel lookup."""
+        tok = L.embed(params["embed"], inputs["tokens"], tp)
         if self.cfg.family == "vlm":
             return torch.cat([inputs["patches"].to(tok.dtype), tok], dim=1)
         return tok
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, tp=None):
         """Mean next-token cross-entropy of ``batch`` under train-layout
         ``params`` (the vlm's patch rows dropped before the head). Returns
         (nll + aux_loss, {"nll", "aux_loss"}); the aux loss is the MoE
-        layers' load-balance term (0 without experts)."""
-        x = self.embed_inputs(params, batch)
+        layers' load-balance term (0 without experts). ``tp``
+        (:class:`repro_torch.models.parallel.TP`, the dense family
+        without experts) takes this rank's shards of a replica split over
+        a "model" axis: the loss is the same scalar on every rank of the
+        model group."""
+        if tp is not None:
+            P.check_family(self.cfg)
+        x = self.embed_inputs(params, batch, tp)
         x, aux = S.apply_stack_train(params["layers"], x, self.cfg,
                                      self.kinds,
-                                     aux=self._aux(params, batch))
+                                     aux=self._aux(params, batch), tp=tp)
         x = x[:, self.prefix_len:]
-        logits = L.lm_head(params["embed"], x, self.cfg.vocab_size)
-        nll = L.softmax_xent(logits, batch["labels"])
+        logits = L.lm_head(params["embed"], x, self.cfg.vocab_size, tp)
+        nll = L.softmax_xent(logits, batch["labels"], tp=tp)
         return nll + aux, {"nll": nll, "aux_loss": aux}
 
     def prefill(self, params, inputs, max_len=None, paged: bool = False):

@@ -83,11 +83,22 @@ def stack_layers(layers: Sequence[dict], kinds: Sequence[str]) -> dict:
 
 
 def apply_stack_train(params: dict, x, cfg: ArchConfig,
-                      kinds: Sequence[str], aux: Optional[dict] = None):
+                      kinds: Sequence[str], aux: Optional[dict] = None,
+                      tp=None):
     """The train-mode pass over the stacked layout, in faithful order
     (the JAX package's ``apply_stack(mode="train", grouped=False)``);
     ``aux["enc_out"]`` is the encoder output the ``xattn`` layers attend
-    to. Returns (x, the summed per-layer aux loss, f32)."""
+    to; ``tp`` runs this rank's share of the dense kinds' sharded layers
+    (the recurrent and Whisper kinds refuse it here, an MoE FFN in
+    :func:`repro_torch.models.transformer.train`). Returns (x, the summed
+    per-layer aux loss, f32)."""
+    if tp is not None:
+        for kind in kinds:
+            if kind in RECURRENT or kind in W.KINDS:
+                raise ValueError(
+                    f"{cfg.name}: kind {kind!r} under tensor parallelism "
+                    "inside a replica is not run (ROADMAP queue A, 'TP "
+                    "inside a replica')")
     pos = {kind: 0 for kind in params}
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind in kinds:
@@ -103,7 +114,7 @@ def apply_stack_train(params: dict, x, cfg: ArchConfig,
         if kind == "xattn":
             x = W.xattn_train(p, x, aux["enc_out"], cfg)
             continue
-        x, al = T.train(p, x, cfg, T.window_of(kind))
+        x, al = T.train(p, x, cfg, T.window_of(kind), tp)
         if al is not None:
             aux_loss = aux_loss + al
     return x, aux_loss

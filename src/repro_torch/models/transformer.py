@@ -70,21 +70,28 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig,
     return p
 
 
-def _ffn(p, x, cfg: ArchConfig):
+def _ffn(p, x, cfg: ArchConfig, tp=None):
     """The FFN residual: (x + ffn(norm(x)), its aux loss — 0.01 · the
-    MoE's load-balance loss, None for a dense MLP)."""
+    MoE's load-balance loss, None for a dense MLP). ``tp`` shards a
+    dense MLP; an MoE FFN refuses it."""
     if "moe" in p:
+        if tp is not None:
+            raise ValueError(
+                f"{cfg.name}: tensor parallelism inside a replica is not "
+                "run for an MoE FFN (ROADMAP queue A, 'TP inside a "
+                "replica': the expert dim over 'model')")
         out, aux = L.moe(p["moe"], L.rms_norm(x, p["ln2"]), cfg)
         return x + out, 0.01 * aux
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"])), None
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), tp), None
 
 
-def train(p, x, cfg: ArchConfig, window: Optional[int]):
-    """The train-mode layer pass (autograd gives its backward). Returns
-    (x, aux loss or None)."""
+def train(p, x, cfg: ArchConfig, window: Optional[int], tp=None):
+    """The train-mode layer pass (autograd gives its backward); ``tp``
+    (:class:`repro_torch.models.parallel.TP`) runs this rank's share of
+    a sharded layer. Returns (x, aux loss or None)."""
     h, _ = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg,
-                           window=window, blocked=True)
-    return _ffn(p, x + h, cfg)
+                           window=window, blocked=True, tp=tp)
+    return _ffn(p, x + h, cfg, tp)
 
 
 def prefill(p, x, cfg: ArchConfig, window: Optional[int], *,

@@ -34,9 +34,20 @@ from generators with the rank folded in. The parity tests inject the
 reference's draws (``masks=``, ``corrupt_masks=``, ``wire_noise=``,
 ``corrupt_bits=``, ``pack_noise=``, ``late=``).
 
-Not run here, each refused with a ValueError: tensor parallelism inside
-a replica (a "model" axis > 1) and FSDP (``fsdp_axis``); ROADMAP queue A
-lists both.
+Tensor parallelism inside a replica (a "model" axis > 1), for the dense
+family without experts: each rank holds its slice of every sharded leaf
+(``launch/sharding.py::shard_replica``; the leaves ``_rule`` keeps whole
+are whole on every rank of the model group) and runs its share of the
+forward and backward (``models/parallel.py``, the model group's
+all-reduces through ``core/comm.py``). The exchange runs over the RPS
+axes' group, the ranks that share this rank's model coordinate, on this
+rank's shards: the plan is built over one rank's shapes, as the
+reference's over one device's, and every model shard consumes the same
+masks. The optimizer state and the EF residual are per shard.
+
+Not run here, each refused with a ValueError that names its ROADMAP
+queue A item: tensor parallelism for the MoE, ssm, hybrid, audio and vlm
+families, and FSDP (``fsdp_axis``).
 """
 from __future__ import annotations
 
@@ -53,7 +64,9 @@ from repro_torch.core import comm
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import rps as rps_lib
 from repro_torch.core import wire as wire_lib
+from repro_torch.kernels import ring as ring_lib
 from repro_torch.launch import sharding as shlib
+from repro_torch.models import parallel as parallel_lib
 from repro_torch.models.registry import Model
 from repro_torch.optim import make_optimizer
 from repro_torch.optim import statepack as statepack_lib
@@ -137,7 +150,8 @@ def train_plan(cfg: ArchConfig, tcfg: TrainConfig, mesh, replica, *,
     global shapes' model dims; None for the allreduce and none
     aggregators. Any mesh, the production ones included: the static part
     of a setup, which the trainer and the dry-run share (the trainer runs
-    steps only where the "model" axis is 1 and FSDP is off)."""
+    no step with FSDP on, nor on a "model" axis > 1 outside the dense
+    family without experts)."""
     if not tcfg.aggregator.startswith("rps"):
         return None
     rps_axes = tuple(rps_axes)
@@ -169,7 +183,7 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
     ``init_state(gen=None, *, init_params=None) -> (params, opt_state)``:
     this rank's replica (``model.init_stacked(gen)``, or ``init_params``
     — one replica's tree, copied to the model's device), the same on every
-    rank.
+    rank; on a "model" axis > 1 its shards (``sharding.shard_replica``).
 
     ``train_step(params, opt_state, batch, step, gen, ch_state=None,
     ef_state=None, *, masks=None, late=None, corrupt_masks=None,
@@ -179,27 +193,34 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
     (and returned) with a channel spec and an rps aggregator, ``ef_state``
     (this rank's residual, in the state pack's EF format) under
     ``recovery="ef"``. Params and the optimizer state are updated in
-    place. ``metrics``: the mean over ranks of the loss (and the model's
-    ``nll`` / ``aux_loss``), ``lr``, and under ``telemetry`` the step's
-    counters (the mask bundle, ``grad_norm`` over the RPS workers, the
-    lateness and corruption bundles), zero on a round that does not
-    exchange.
+    place. ``metrics``: the mean over the data-parallel ranks (every axis
+    but "model") of the loss (and the model's ``nll`` / ``aux_loss``),
+    ``lr``, and under ``telemetry`` the step's counters (the mask bundle,
+    ``grad_norm`` over the RPS workers — a sharded leaf's squares summed
+    over the model group, a whole leaf's counted once —, the lateness
+    and corruption bundles), zero on a round that does not exchange.
 
     ``state_shardings(params_shape) -> (specs, specs)``: the layout of
     the worker-stacked tree (``sharding.param_specs``; the port has no
     sharding objects, so both are the spec tree).
 
-    ``train_step.plan`` (built by the first :func:`init_state`),
-    ``.channel``, ``.init_channel_state(gen)``, ``.init_ef_state(params)``,
-    ``.state_pack`` and ``.recovery`` as the reference's."""
+    ``train_step.plan`` (built by the first :func:`init_state`; at setup
+    on a "model" axis > 1), ``.channel``, ``.init_channel_state(gen)``,
+    ``.init_ef_state(params)``, ``.state_pack`` and ``.recovery`` as the
+    reference's; ``.tp`` the tensor-parallel context and ``.model_dims``
+    the sharded dim of every leaf (``sharding.local_model_dims``; None
+    without a "model" axis > 1), which ``sharding.gather_replica`` takes.
+    """
     if fsdp_axis is not None:
         raise ValueError("fsdp_axis: FSDP is not run by the port's trainer "
                          "(ROADMAP queue A, 'FSDP on the collective path')")
-    if mesh.shape.get("model", 1) > 1:
-        raise ValueError(
-            "a 'model' axis > 1: tensor parallelism inside a replica is not "
-            "run by the port's trainer (ROADMAP queue A, 'TP inside a "
-            "replica')")
+    tp_size = mesh.shape.get("model", 1)
+    if tp_size > 1:
+        parallel_lib.check_family(cfg)
+    codec = wire_lib.make_codec(wire_lib.config_wire(tcfg.wire,
+                                                     tcfg.exchange_dtype))
+    if tcfg.engine == "ring" and not codec.quantized:
+        ring_lib.check_wire(codec.accum_dtype)   # at setup, not mid-step
     rps_axes = tuple(rps_axes)
     n_rps = mesh.axis_size(rps_axes) if rps_axes else 1
     n_servers = n_rps if tcfg.n_servers is None else int(tcfg.n_servers)
@@ -230,6 +251,18 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
     rps_group = mesh.group(rps_axes) if rps_axes else None
     rep_group = mesh.group(rep_axes) if rep_axes else None
     state = {"plan": None, "slack": None}
+    tp = dims = None
+    loss_group = world
+    if tp_size > 1:
+        # the loss is the same on every rank of a model group: its mean
+        # is over the data-parallel ranks
+        loss_group = mesh.group(tuple(a for a in mesh.axis_names
+                                      if a != "model"))
+        replica = _meta(dataclasses.replace(
+            model, device=torch.device("meta")).init_stacked(
+                count_lib.MetaGenerator()))
+        dims = shlib.local_model_dims(replica, cfg, mesh)
+        tp = parallel_lib.TP.from_dims(mesh.group(("model",)), dims)
 
     def build_plan(params):
         """The exchange plan over this rank's tree (shapes only), with the
@@ -250,10 +283,13 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
                    init_params=None):
         if init_params is None:
             params = model.init_stacked(gen)
+            build_plan(params)
+            params = shlib.shard_replica(params, cfg, mesh)
         else:
-            params = tree_lib.map(lambda x: x.to(model.device).clone(),
-                                  init_params)
-        build_plan(params)
+            build_plan(init_params)
+            params = tree_lib.map(
+                lambda x: x.to(model.device).clone(),
+                shlib.shard_replica(init_params, cfg, mesh))
         return params, opt.init(params)
 
     def state_shardings(params_shape):
@@ -279,7 +315,7 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
             mine = [p.detach().requires_grad_(True) for p in leaves]
             with torch.enable_grad():
                 loss, met = model.loss(tree_lib.unflatten(treedef, mine),
-                                       tree_lib.unflatten(b_def, part))
+                                       tree_lib.unflatten(b_def, part), tp)
                 got = torch.autograd.grad(loss, mine, allow_unused=True)
             got = [torch.zeros_like(p) if g is None else g
                    for p, g in zip(leaves, got)]
@@ -319,8 +355,18 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
     def telemetry_stats(grads, masks, late, cmask, step):
         rs_t, ag_t = masks
         stats = counters_lib.mask_step_stats(rs_t, ag_t)
-        sq = sum(torch.sum(torch.square(g.to(torch.float32)))
-                 for g in tree_lib.leaves(grads))
+
+        def sq_of(gs):
+            return sum(torch.sum(torch.square(g.to(torch.float32)))
+                       for g in gs)
+
+        if tp is None:
+            sq = sq_of(tree_lib.leaves(grads))
+        else:       # a sharded leaf's squares over the group, a whole one's
+            pairs = list(zip(tree_lib.leaves(grads), tree_lib.leaves(dims)))
+            sq = comm.all_reduce_sum(
+                sq_of([g for g, d in pairs if d is not None]), tp.group) \
+                + sq_of([g for g, d in pairs if d is None])
         stats["grad_norm"] = torch.sqrt(comm.all_reduce_sum(sq, rps_group))
         if late is not None:
             stats.update(counters_lib.staleness_stats(late["rs"],
@@ -412,7 +458,7 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
             params, opt_state = opt.update(grads, opt_state, params, lr,
                                            noise=noise)
         vals = torch.stack([loss] + [metrics[k] for k in sorted(metrics)])
-        vals = comm.all_reduce_mean(vals, world)
+        vals = comm.all_reduce_mean(vals, loss_group)
         out_metrics = {"loss": vals[0], "lr": lr,
                        **{k: vals[1 + j] for j, k in
                           enumerate(sorted(metrics))}}
@@ -426,6 +472,10 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
         return out
 
     train_step.plan = None
+    train_step.tp = tp
+    train_step.model_dims = dims
+    if tp is not None:      # the global shapes: this rank's are cut
+        build_plan(replica)
     train_step.channel = channel
     train_step.init_channel_state = channel.init_state
     train_step.recovery = recovery

@@ -229,3 +229,167 @@ def count_case(rank: int, mesh, spec: dict) -> dict:
     return {"records": records,
             "counts": launches.collective_counts(records),
             "transfers": comm.STATS["transfers"], "out": np_(y)}
+
+
+# ---- tensor parallelism inside a replica -----------------------------------
+
+def _tp_config(fields: dict):
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**fields)
+
+
+def trainer_tp_case(rank: int, mesh, spec: dict) -> dict:
+    """The port's mesh trainer on a (data, model) or (pod, data, model)
+    mesh with a "model" axis > 1: the config ``spec["cfg"]`` (fields of an
+    ``ArchConfig``) from the reference's initial replica ``spec["p1"]``,
+    ``spec["steps"]`` steps on this rank's rows with the masks
+    ``spec["masks"][t]``. Returns the losses, the replica gathered over
+    the model group (numpy), this rank's whole leaves, the sharded dims
+    and the collectives of the first step."""
+    from repro_torch.convert import (replica_to_numpy, shards_from_jax,
+                                     stacked_params_from_jax)
+    from repro_torch.core import comm
+    from repro_torch.launch import sharding
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import TrainConfig, make_train_setup
+    cfg = _tp_config(spec["cfg"])
+    model = build_model(cfg, device="cpu")
+    tcfg = TrainConfig(**spec["tcfg"])
+    rps_axes = tuple(spec["rps_axes"])
+    init_state, step, _ = make_train_setup(model, cfg, tcfg, mesh,
+                                           rps_axes=rps_axes)
+    params, opt_state = init_state(
+        init_params=stacked_params_from_jax(spec["p1"], "cpu"))
+    init_equal = all(torch.equal(a, b) for a, b in zip(
+        tree_lib.leaves(params),
+        tree_lib.leaves(shards_from_jax(spec["p1"], cfg, mesh, "cpu"))))
+    data_axes = tuple(a for a in mesh.axis_names
+                      if a not in rps_axes and a != "model")
+    batch = sharding.local_batch(t_(spec["batch"]), mesh, rps_axes,
+                                 data_axes)
+    ef = step.init_ef_state(params) if tcfg.recovery == "ef" else None
+    losses, records, norms = [], None, []
+    for t in range(spec["steps"]):
+        masks = spec["masks"][t]
+        with comm.recording() as rec:
+            out = step(params, opt_state, batch, t, None, None, ef,
+                       masks=(t_(masks[0]), t_(masks[1])))
+        if records is None:
+            records = list(rec)
+        params, opt_state, met = out[:3]
+        if "telemetry" in met:
+            norms.append(float(met["telemetry"]["grad_norm"]))
+        if ef is not None:
+            ef = out[-1]
+        losses.append(float(met["loss"]))
+    whole = [np_(x) for x, d in zip(tree_lib.leaves(params),
+                                    tree_lib.leaves(step.model_dims))
+             if d is None]
+    return {"loss": np.array(losses),
+            "params": replica_to_numpy(params, step.model_dims, mesh),
+            "whole": whole, "dims": tree_lib.leaves(step.model_dims),
+            "records": records, "n_buckets": step.plan.n_buckets,
+            "grad_norm": np.array(norms), "init_equal": init_equal}
+
+
+def tp_layers_case(rank: int, mesh, spec: dict) -> dict:
+    """The sharded layers against ``tp=None`` on the full weights, on
+    every rank of a (data, model) mesh: the vocab-parallel embedding, the
+    head and cross-entropy (``spec["vocab"]`` below the padded vocab,
+    labels on every shard), the attention (``spec["attn"]``: configs of
+    ``ArchConfig`` fields, GQA with whole KV heads and MHA with sharded
+    ones) and the MLP. Returns each one's largest forward and gradient
+    differences (the sharded leaves' gradients gathered)."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import layers as L
+    from repro_torch.models import parallel as P
+    group = mesh.group(("model",))
+    out = {}
+
+    def run(cfg, full, fn):
+        """``fn(params, tp)`` -> (output, inputs to differentiate) on the
+        full weights and on this rank's shards; the gradients of the
+        shards gathered back."""
+        dims = sharding.local_model_dims(full, cfg, mesh)
+        tp = P.TP.from_dims(group, dims)
+        res = []
+        for params, ctx in ((full, None), (sharding.shard_replica(
+                full, cfg, mesh), tp)):
+            leaves = [p.detach().requires_grad_(True)
+                      for p in tree_lib.leaves(params)]
+            p = tree_lib.unflatten(tree_lib.flatten(params)[1], leaves)
+            y, xs = fn(p, ctx)
+            gy = torch.ones_like(y) if y.dim() == 0 else torch.cos(y)
+            grads = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves + xs, torch.autograd.grad(
+                         y, leaves + xs, gy, allow_unused=True))]
+            res.append((y, grads[:len(leaves)], grads[len(leaves):]))
+        (y0, g0, gx0), (y1, g1, gx1) = res
+        g1 = tree_lib.leaves(sharding.gather_replica(
+            tree_lib.unflatten(tree_lib.flatten(full)[1], list(g1)),
+            dims, mesh))
+        fwd = float((y0 - y1).detach().abs().max())
+        grad = max(float((a - b).abs().max())
+                   for a, b in zip(list(g0) + list(gx0), list(g1) + list(gx1)))
+        return {"fwd": fwd, "grad": grad,
+                "scale": float(y0.detach().abs().max()),
+                "sharded": sorted(tp.dims)}
+
+    gen = torch.Generator()
+    gen.manual_seed(spec["seed"])
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    B, S = spec["B"], spec["S"]
+    base = _tp_config(spec["cfg"])
+    cfg = base
+    V = cfg.padded_vocab
+    x = randn(B, S, cfg.d_model)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    embed = {"embed": {"tok": randn(V, cfg.d_model),
+                       "head": randn(cfg.d_model, V, scale=0.2),
+                       "final_norm": randn(cfg.d_model, scale=0.1)}}
+
+    def emb(p, tp):
+        return L.embed(p["embed"], tokens, tp), []
+
+    def head(p, tp):
+        xx = x.clone().requires_grad_(True)
+        lg = L.lm_head(p["embed"], xx, cfg.vocab_size, tp)
+        return L.softmax_xent(lg, tokens, tp=tp), [xx]
+
+    out["embed"] = run(cfg, embed, emb)
+    out["xent"] = run(cfg, embed, head)
+    for name, fields in spec["attn"].items():
+        acfg = _tp_config(fields)
+        h, kv, hd, d = acfg.n_heads, acfg.n_kv_heads, acfg.hd, acfg.d_model
+        # one layer of the stacked layout (the rules read a leading
+        # layer dim)
+        attn = {"layers": {"attn": {"attn": {
+            "wq": randn(1, d, h, hd, scale=d ** -0.5),
+            "wk": randn(1, d, kv, hd, scale=d ** -0.5),
+            "wv": randn(1, d, kv, hd, scale=d ** -0.5),
+            "wo": randn(1, h, hd, d, scale=(h * hd) ** -0.5)}}}}
+
+        def att(p, tp, acfg=acfg):
+            xx = x.clone().requires_grad_(True)
+            w = {k: v[0] for k, v in p["layers"]["attn"]["attn"].items()}
+            y, _ = L.attention_fwd(w, xx, cfg=acfg, window=None,
+                                   blocked=True, tp=tp)
+            return y, [xx]
+
+        out["attn-" + name] = run(acfg, attn, att)
+    d, ff = cfg.d_model, cfg.d_ff
+    mlp = {"layers": {"attn": {"mlp": {
+        "wi": randn(1, d, ff, scale=d ** -0.5),
+        "wg": randn(1, d, ff, scale=d ** -0.5),
+        "wo": randn(1, ff, d, scale=ff ** -0.5)}}}}
+
+    def ffn(p, tp):
+        xx = x.clone().requires_grad_(True)
+        w = {k: v[0] for k, v in p["layers"]["attn"]["mlp"].items()}
+        return L.mlp(w, xx, tp), [xx]
+
+    out["mlp"] = run(cfg, mlp, ffn)
+    return out

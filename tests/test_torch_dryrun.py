@@ -208,11 +208,26 @@ def caches(runs):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_train_layout_equals_reference(ref, layouts, arch, mesh):
     """n_rps, microbatch, aggregator, state pack, state bytes and the
-    exchange plan's describe(); the counted terms not run (TP inside a
-    replica on a "model" axis of 16)."""
+    exchange plan's describe(); the counted terms of the dense
+    architectures without experts counted (one rank's step with TP inside
+    a replica on a "model" axis of 16), the others' not run (TP for their
+    family, FSDP)."""
     totals, info = layouts[(arch, mesh)]
     want = ref["layout"][(arch, mesh)]
-    assert totals is None and "TP inside a replica" in info["not_run"]
+    cfg = get_config(arch)
+    if cfg.family == "dense" and not cfg.is_moe \
+            and cfg.shard_strategy != "fsdp":
+        assert totals is not None and "not_run" not in info
+        assert totals["flops"] > 0 and any(
+            op == "all_reduce" and n == 16 for op, _, n in totals["records"])
+    else:
+        assert totals is None
+        if cfg.is_moe or cfg.family != "dense":
+            fam = "MoE" if cfg.is_moe else cfg.family
+            assert f"TP inside a replica for the {fam} family" \
+                in info["not_run"]
+        if cfg.shard_strategy == "fsdp":
+            assert "FSDP" in info["not_run"]
     for key in ("n_rps", "microbatch", "aggregator", "state_pack",
                 "state_bytes", "exchange_plan"):
         assert info[key] == want[key], key
@@ -295,13 +310,25 @@ def test_cli_rows(tmp_path):
     assert rl["chips"] == 1 and rl["bottleneck"] == "memory"
     assert rl["t_memory"] == rl["bytes_hbm"] / 3.35e12
     assert rl["fits"] == (rl["hbm_per_device"] <= 80e9)
-    layout = D.run_one("gemma3-1b", "train_4k", verbose=False)
+    layout = D.run_one("rwkv6-1.6b", "train_4k", verbose=False)
     assert layout["status"].startswith("layout only")
     assert layout["info"]["exchange_plan"]["n"] == 16
     assert not get_config("deepseek-7b").runs_shape(SHAPES["long_500k"])
     skipped = D.run_one("deepseek-7b", "long_500k", verbose=False,
                         mesh="sim1")
     assert skipped["status"] == "skipped (full attention, see DESIGN.md §5)"
+
+
+def test_gemma3_train_row_on_16x16_is_counted():
+    """gemma3-1b's train_4k row on the production 16x16 mesh: counted (not
+    "layout only") as one rank's step with TP inside a replica: its d_ff
+    and vocab over the 16 model ranks, its 4 heads whole; the model
+    group's all-reduces and the data ranks' exchange priced."""
+    row = D.run_one("gemma3-1b", "train_4k", verbose=False)
+    assert row["status"] == "ok" and row["mesh"] == "16x16"
+    rl = row["roofline"]
+    assert rl["chips"] == 256 and rl["t_collective"] > 0
+    assert row["info"]["exchange_plan"]["n"] == 16
 
 
 def test_sim4_row_prices_the_exchange():

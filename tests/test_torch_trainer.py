@@ -287,19 +287,36 @@ def test_trainer_options_run(runs, name):
                     "link_offered"} <= set(got["tel"][0])
 
 
-def test_trainer_refuses_tp_and_fsdp():
-    """A "model" axis > 1 and FSDP are refused with a ValueError that
-    names their ROADMAP items."""
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "rwkv6-1.6b",
+                                  "recurrentgemma-9b", "whisper-large-v3",
+                                  "llava-next-mistral-7b", "fsdp"])
+def test_trainer_refuses_tp_and_fsdp(arch):
+    """A "model" axis > 1 outside the dense family without experts (the
+    MoE, ssm, hybrid, audio and vlm families), and FSDP, are refused with
+    a ValueError that names the family and its ROADMAP item; the model's
+    loss refuses such a family's TP context too."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
+    from repro_torch.models import parallel as P
     from repro_torch.train.trainer import TrainConfig, make_train_setup
-    cfg = get_config("rps-paper-mlp").reduced()
+    if arch == "fsdp":
+        cfg = get_config("rps-paper-mlp").reduced()
+        model = build_model(cfg, device="cpu")
+        with pytest.raises(ValueError, match="FSDP"):
+            make_train_setup(model, cfg, TrainConfig(), Mesh((4,),
+                                                             ("data",)),
+                             rps_axes=("data",), fsdp_axis="data")
+        return
+    cfg = get_config(arch).reduced()
     model = build_model(cfg, device="cpu")
-    with pytest.raises(ValueError, match="TP inside a replica"):
-        make_train_setup(model, cfg, TrainConfig(), Mesh((2, 2),
-                                                         ("data", "model")),
-                         rps_axes=("data",))
-    with pytest.raises(ValueError, match="FSDP"):
-        make_train_setup(model, cfg, TrainConfig(), Mesh((4,), ("data",)),
-                         rps_axes=("data",), fsdp_axis="data")
+    mesh = Mesh((2, 2), ("data", "model"))
+    want = (r"the MoE family.*ROADMAP queue A, 'TP inside a replica': the "
+            r"expert dim" if cfg.is_moe else
+            rf"the {cfg.family} family.*ROADMAP queue A, 'TP inside a "
+            rf"replica': the {cfg.family} family's TP")
+    with pytest.raises(ValueError, match=want):
+        make_train_setup(model, cfg, TrainConfig(), mesh, rps_axes=("data",))
+    tp = P.TP(mesh.as_rank(0).group(("model",)), {})
+    with pytest.raises(ValueError, match=want):
+        model.loss({}, {}, tp=tp)
