@@ -112,7 +112,7 @@ raises on failure; nothing is caught):
 20. benchmarks/wire_bench.py section 2 on the port: replicated data,
    n = 8, rps_model, engine "auto", p in {0.2, 0.3}, 3 seeds, 200 steps;
    ef closes at least half of the bf16 and int8 wires' loss gap;
-21. rps-100m cut to its first 2 of 12 layers (CUT_LAYERS: phase 17's
+21. rps-100m cut to its first layer of 12 (CUT_LAYERS: phase 17's
    embedding, first layers and batches; width, n, batch, seq, lr and p
    as phase 17's), as phases 24 and 27-29 are: first the cut's own f32
    run, 8 steps (ring launches = groups x steps, finite losses); then
@@ -155,8 +155,9 @@ raises on failure; nothing is caught):
    scale, signflip, collude; a fifth of the links and the lowest quarter
    of the workers corrupt) x wire (f32, bf16, int8) x engine (xla, ring),
    renorm, then median, trimmed and clip on the xla engine under the
-   colluding attack, at the rps-paper-mlp plan (n = 16) and rps-100m's
-   (its first layer), on integer-valued replicas: on the card through the
+   colluding attack, at the rps-paper-mlp plan (n = 16) and, on the ring
+   engine alone (BYZ_CPU_RING_ONLY), rps-100m's (its first layer), on
+   integer-valued replicas: on the card through the
    kernels (the ring engine's corrupted offer on the encoded variant)
    against the plain versions on the CPU with the same masks, corrupt
    masks, uniforms and bits (drawn on the card), the same values (NaN equal to NaN; the
@@ -165,8 +166,9 @@ raises on failure; nothing is caught):
    output's rounding; the xla engine under bitflip and on the int8
    wire, whose sends are not integers: the sends alike group by group,
    the exchange's output inside the bound of two summation orders of the
-   masked average); then at rps-100m's whole plan (groups up to (3, 16,
-   16, 1,769,472)) every kind x wire x engine through the kernels
+   masked average); then at rps-100m's plan cut as phase 21's (its
+   embedding and first layer) every kind x wire x engine through the
+   kernels
    against the same exchange with their plain versions on the card, the
    same values (the xla engine under bitflip and on the int8 wire inside
    the summation bound); (b) benchmarks/robust_bench.py sections
@@ -257,7 +259,7 @@ raises on failure; nothing is caught):
    bound;
 36. training through launch/train.py's main (the char-LM task at a
    256-token vocabulary, ring engine, p = 0.1, seq 512, batch 2, 4
-   steps) at full width: rwkv6-1.6b cut to 12 of its 24 layers at n =
+   steps) at full width: rwkv6-1.6b cut to 6 of its 24 layers at n =
    4, recurrentgemma-9b
    cut to one repeat of its block pattern (3 layers) at n = 2,
    mixtral-8x22b cut to 1 layer at n = 2: finite losses and consensus,
@@ -310,7 +312,7 @@ raises on failure; nothing is caught):
    against ring.cu (f32, bf16 wires) and ring_q.cu (int8, the same
    uniforms), the xla engine within COLL_TRAIN_TOL;
 41. the mesh trainer (train/trainer.py) at rps-100m whole on the (4,)
-   data mesh, batch 32 x seq 128 a rank, lr 0.3, p 0.1, 8 steps, on the
+   data mesh, batch 32 x seq 128 a rank, lr 0.3, p 0.1, 4 steps, on the
    ring and the xla engines, each against run_simulation (n 4) on the
    same init, batches and masks: every loss within COLL_TRAIN_TOL, every
    final parameter bit for bit on the ring engine and within
@@ -321,11 +323,13 @@ raises on failure; nothing is caught):
 42. the dry-run (launch/dryrun.py, meta tensors) and the roofline on the
    card's own constants (roofline/analysis.py::HW, the H100 SXM data
    sheet): 42a every architecture x shape on the production meshes
-   (the train rows of the dense architectures without experts or FSDP
-   counted, one rank's step with TP inside a replica; the others layout
-   rows: the exchange plan and state bytes, the counted terms not run,
-   the port running neither TP for the other families, FSDP, nor serving
-   on a mesh) and on one H100 (sim1, counted rows), each ok, layout only or skipped with the
+   (the train rows of the dense architectures without experts counted,
+   one rank's step with TP inside a replica; llama3-405b's, FSDP over the
+   16 data ranks too, left to tests/test_torch_dryrun.py (DRYRUN_LEFT_OUT);
+   the others layout rows: the exchange plan and state bytes, the counted
+   terms not run, the port running neither TP for the other families nor
+   serving on a mesh) and on one H100 (sim1, counted rows), each ok,
+   layout only or skipped with the
    reference's reason, its table printed (t_compute, t_memory,
    t_collective, bottleneck, HBM a device, fits), and on this machine's
    torch the prefill and decode rows' count from two and three periods
@@ -338,8 +342,8 @@ raises on failure; nothing is caught):
    roofline share and the model FLOPs over (time x peak), each at most
    105 %, the peak of allocated bytes within 25 % of the prediction; 42c
    phase 41's collectives, record for record, equal to the dry-run's
-   count of one rank's step x 8 (so are the link bytes), and the counted
-   ring_rank.cu calls x 8 equal to the launches; 42d torch.profiler's
+   count of one rank's step x 4 (so are the link bytes), and the counted
+   ring_rank.cu calls x 4 equal to the launches; 42d torch.profiler's
    launches of the hand-written kernels over one step of phase 17's ring
    run (taken right after phase 17) and one of phase 4's decode steps
    equal to their wrappers' counters (launch/launches.py);
@@ -356,7 +360,19 @@ raises on failure; nothing is caught):
    step x 4; deepseek-7b at full width cut to 2 layers (bf16, every rule
    shards), one forward and backward of 2 x 128 rows on the shards
    against the unsharded replica's within BF16_TOL; step ms, bytes
-   staged and peak memory printed (tp_phases).
+   staged and peak memory printed (tp_phases);
+44. (in phase 43's world) FSDP on the mesh trainer: a (2, 2) ("pod",
+   "data") mesh, rps_grad over the pods on the ring engine, FSDP over
+   "data"; rps-100m whole, batch 32 x seq 128 a data rank: step 0's
+   gradient (reduce-scattered, gathered back) within COLL_TRAIN_TOL of
+   the FSDP-free trainer's; 4 steps, the losses finite, the whole leaves
+   the same bits on both data ranks of each pod, ring_rank.cu's launches
+   and every collective (FSDP's all-gathers and reduce-scatters among
+   them) equal to the dry-run's count of that rank's step x 4, step ms,
+   bytes staged and peak memory beside the FSDP-free trainer's;
+   deepseek-7b at full width cut to 2 layers (bf16), one forward and
+   backward of 2 x 128 rows on the FSDP shards against the unsharded
+   replica's within BF16_TOL (tp_phases, fsdp_gates).
 
 The phases' wall seconds are printed on one line before the kernels'
 line.
@@ -1521,12 +1537,12 @@ def rps100m(setup: Rps100mSetup, load=RPS_100M_LOAD) -> dict:
             "largest_group": list(largest_group(plan)), **load}
 
 
-# phases 21, 24 and 27-29 run rps-100m cut to its first 2 of 12 layers
+# phases 21, 24 and 27-29 run rps-100m cut to its first layer of 12
 # (phase 17's embedding, first layers and batches; width, n, batch, seq,
 # lr, p, engine and step counts as phase 17's): at 12 layers they took
-# 241 s of the smoke's 1,200 s limit, at 4 about 130 s, and the products
-# and launches a step scale with depth
-CUT_LAYERS = 2
+# 241 s of the smoke's 1,200 s limit, at 4 about 130 s, at 2 96 s, and
+# the products and launches a step scale with depth
+CUT_LAYERS = 1
 CUT_BASE_STEPS = 8             # the longest run the cut's baseline stands for
 
 
@@ -2324,6 +2340,12 @@ BYZ_ATTACK = "frac=0.2,byzantine_frac=0.25"
 BYZ_WIRES = ("f32", "bf16", "int8")
 BYZ_P = 0.1
 ROBUST_RECOVERIES = ("median", "trimmed:beta=0.4", "clip")
+# 25a's plans held card against CPU on the ring engine's renorm alone
+# (its kernels' route): at rps-100m's first layer the xla engine and the
+# robust recoveries took ~75 of the phase's ~115 s of host time there,
+# and are held against the CPU at rps-paper-mlp's plan and against their
+# plain versions on the card at the cut's plan (byzantine_full)
+BYZ_CPU_RING_ONLY = ("rps-100m-layer0",)
 # phase 25b: benchmarks/robust_bench.py sections 1-4, uncut
 ROBUST_STUDY = dict(n=8, steps=200, lr=0.2, warmup=5, n_buckets=2, seed=0,
                     attack="collude:gamma=10", byzs=(0.0, 0.25),
@@ -2523,8 +2545,8 @@ def _xla_sends(x, masks, cm, plan, corruption, seed) -> int:
 def byzantine_exchanges(trees: dict) -> dict:
     """Phase 25a: every corruption kind x wire x engine, renorm, and the
     robust recoveries on the xla engine, at the rps-paper-mlp plan (n =
-    16, whole) and rps-100m's (its first layer), on integer-valued
-    replicas: the exchange on the card through the kernels (the ring
+    16, whole), and every kind x wire on the ring engine at rps-100m's
+    (its first layer; BYZ_CPU_RING_ONLY), on integer-valued replicas: the exchange on the card through the kernels (the ring
     engine's corrupted offer on the encoded variant) against the plain
     versions on the CPU, with the same masks, corrupt masks, int8
     uniforms and bitflip bits. The same values (:func:`_same_values`:
@@ -2535,7 +2557,7 @@ def byzantine_exchanges(trees: dict) -> dict:
     average, from a bound run on the CPU with :func:`_avg_bound` in the
     average's place), and clip (within 1e-6 of the largest contribution
     and an ulp of the output's rounding; its clip factors are not
-    integers). Then every kind x wire x engine at rps-100m's whole plan
+    integers). Then every kind x wire x engine at rps-100m's cut plan
     on the card (:func:`byzantine_full`)."""
     n = 16
     out = {"cases": 0, "equal_elems": 0, "bits_differ": 0,
@@ -2548,8 +2570,12 @@ def byzantine_exchanges(trees: dict) -> dict:
         combos = [(k, w, e, "renorm") for k in BYZ_KINDS for w in BYZ_WIRES
                   for e in ("xla", "ring")]
         combos += [("collude", "f32", "xla", r) for r in ROBUST_RECOVERIES]
+        ran = 0
         for i, (kind, wire, engine, recovery) in enumerate(combos):
             seed = 1000 * c_idx + i
+            if name in BYZ_CPU_RING_ONLY and engine != "ring":
+                continue
+            ran += 1
             plan = make_exchange_plan(meta, SimulatorConfig(
                 n_workers=n, wire=wire, engine=engine, recovery=recovery))
             cpu = torch.Generator().manual_seed(seed)
@@ -2617,13 +2643,16 @@ def byzantine_exchanges(trees: dict) -> dict:
             out["cases"] += 1
             del card, host
         out[f"{name}_s"] = time.perf_counter() - t0
-        print(f"byzantine exchanges at {name}: {len(combos)} cases agree "
+        print(f"byzantine exchanges at {name}: {ran} cases agree "
               f"({out[f'{name}_s']:.1f} s)", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out["rps-100m"] = byzantine_full(trees["rps-100m"])
+    meta = trees["rps-100m"]
+    out["rps-100m"] = byzantine_full(
+        {"embed": meta["embed"],
+         "layers": tree_lib.map(lambda x: x[:CUT_LAYERS], meta["layers"])})
     out["rps-100m_s"] = time.perf_counter() - t0
-    print(f"byzantine exchanges at rps-100m (whole plan): "
+    print(f"byzantine exchanges at rps-100m (the cut's plan): "
           f"{out['rps-100m']['cases']} cases agree with the plain versions "
           f"({out['rps-100m_s']:.1f} s)", flush=True)
     torch.cuda.empty_cache()
@@ -2631,8 +2660,10 @@ def byzantine_exchanges(trees: dict) -> dict:
 
 
 def byzantine_full(meta: dict, seed: int = 2500) -> dict:
-    """Phase 25a at rps-100m's whole plan (n = 16, exchange groups up to
-    (3, 16, 16, 1,769,472)): every corruption kind x wire x engine,
+    """Phase 25a at rps-100m's plan, cut as phases 21, 24 and 27-29 are
+    (its embedding and first CUT_LAYERS layers; n = 16; the whole plan,
+    groups up to (3, 16, 16, 1,769,472), took the smoke ~25 s more):
+    every corruption kind x wire x engine,
     renorm, on integer-valued replicas made on the card, through the
     kernels — on the ring engine ring.cu's encoded variant takes the f32
     and bf16 wires' corrupted offers and ring_q.cu's re-encode the int8
@@ -3501,8 +3532,9 @@ def launchers() -> dict:
 
 
 class Laps:
-    """Wall seconds of the phases, lap by lap since the build; printed on
-    one line before the kernels' line."""
+    """Wall seconds of the phases, lap by lap since the build: each lap
+    printed as it ends, and all of them on one line before the kernels'
+    line."""
 
     def __init__(self):
         self.t = time.perf_counter()
@@ -3512,6 +3544,7 @@ class Laps:
         now = time.perf_counter()
         self.laps[name] = now - self.t
         self.t = now
+        print(f"lap {name} {self.laps[name]:.2f} s", flush=True)
 
     def report(self) -> None:
         print(json.dumps({"phase_s": self.laps,
@@ -3558,9 +3591,9 @@ TP_WIDTHS = (("deepseek-7b", 4096), ("starcoder2-15b", 6144),
 TRAIN_ARGS = ["--batch-size", "2", "--seq-len", "512", "--steps", "4",
               "--engine", "ring", "--drop-rate", "0.1", "--task-vocab",
               "256"]
-# rwkv6-1.6b cut to 12 of its 24 layers (its 4 steps at n = 4 took 35 s
-# whole)
-TRAIN_RUNS = (("rwkv6-1.6b", 12, 4), ("recurrentgemma-9b", 3, 2),
+# rwkv6-1.6b cut to 6 of its 24 layers (its 4 steps at n = 4 took 35 s
+# whole, 20.5 s with the phase at 12)
+TRAIN_RUNS = (("rwkv6-1.6b", 6, 4), ("recurrentgemma-9b", 3, 2),
               ("mixtral-8x22b", 1, 2))
 
 
@@ -3589,8 +3622,8 @@ class MoeStats:
         self._orig = LM.moe_route
 
     def __enter__(self):
-        def route(p, x, cfg):
-            rt = self._orig(p, x, cfg)
+        def route(p, x, cfg, rows=None):
+            rt = self._orig(p, x, cfg, rows)
             if x.shape[1] > 1:
                 self.hist += torch.bincount(rt["gate_idx"].reshape(-1),
                                             minlength=self.hist.numel())
@@ -4294,7 +4327,7 @@ def mm_phases(gen: torch.Generator, card: str, lap: Laps) -> dict:
 COLL_N = 4                     # ranks, all on cuda:0 (gloo, host-staged)
 COLL_THREADS = 2               # torch threads a rank (8 cores / 4 ranks)
 # the trainer's load: rps-100m whole on a (4,) data mesh
-COLL_LOAD = dict(n=COLL_N, batch=32, seq=128, lr=0.3, p=0.1, steps=8)
+COLL_LOAD = dict(n=COLL_N, batch=32, seq=128, lr=0.3, p=0.1, steps=4)
 COLL_SEED = 4000
 # the trainer against run_simulation on the same init, batches and masks:
 # the losses within COLL_TRAIN_TOL; the final parameters bit for bit on
@@ -4699,7 +4732,7 @@ def _coll_train(mesh, rank: int, engine: str, masks: list, sim_params,
             "params_max_abs_err": err, "params_differing": diff,
             "device": str(tree_lib.leaves(params)[0].device),
             "n_buckets": step.plan.n_buckets,
-            # every collective of the 8 steps, for phase 42c
+            # every collective of the steps, for phase 42c
             "records": records}
 
 
@@ -4742,16 +4775,16 @@ def coll_phases(gen: torch.Generator, card: str, lap: Laps,
         the xla engine within COLL_TRAIN_TOL);
     41. the mesh trainer (train/trainer.py) at rps-100m whole (12 layers,
         d 768, f32, 129.0 M parameters a rank) on a (4,) data mesh, batch
-        32 x seq 128 a rank, lr 0.3, p 0.1, 8 steps, on the ring and the
+        32 x seq 128 a rank, lr 0.3, p 0.1, 4 steps, on the ring and the
         xla engines, each against run_simulation (n 4) on the same init,
         batches and masks: every step's loss within COLL_TRAIN_TOL, every
         final parameter bit for bit on the ring engine and within
         COLL_TRAIN_TOL on the xla engine (bit equality counted); the
         batches are ``batches`` (worker-stacked, on the CPU: phase 17's
-        first four workers' first 8 steps), else drawn from phase 17's
+        first four workers' first 4 steps), else drawn from phase 17's
         char-LM task. Kernel launches: on the ring engine n = 4
         ring_rank_hop and 4 ring_rank_land launches per bucket and step
-        on every rank (the plan's buckets x 8 steps x 4 each), on the xla
+        on every rank (the plan's buckets x 4 steps x 4 each), on the xla
         engine none; the step ms, the bytes staged a step and the peak
         memory of each rank printed."""
     from repro_torch.launch.mesh import run_world
@@ -4890,13 +4923,15 @@ TP_DEEPSEEK = dict(layers=2, batch=2, seq=128)
 BF16_TOL = 2e-2                # tests/test_kernels.py's bf16 tolerance
 
 
-def _tp_grads(model, params, batch, tp=None) -> tuple:
+def _tp_grads(model, params, batch, tp=None, fsdp=None, rows=None) -> tuple:
     """The loss and the gradient of ``params`` on ``batch`` (this rank's
-    shards under ``tp``), as the mesh trainer's step takes them."""
+    shards under ``tp`` / ``fsdp``, its share of rows split over
+    ``rows``), as the mesh trainer's step takes them."""
     leaves, treedef = tree_lib.flatten(params)
     mine = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss, _ = model.loss(tree_lib.unflatten(treedef, mine), batch, tp)
+        loss, _ = model.loss(tree_lib.unflatten(treedef, mine), batch, tp,
+                             fsdp, rows)
         got = torch.autograd.grad(loss, mine, allow_unused=True)
     return loss.detach().float(), tree_lib.unflatten(
         treedef, [torch.zeros_like(p) if g is None else g
@@ -5051,8 +5086,8 @@ def _tp_deepseek(mesh, rank: int, batches: dict) -> dict:
 
 
 def _tp_rank(rank: int, world: int, masks: list, batches: list,
-             ds_batches: dict) -> dict:
-    """One rank of phase 43 (cuda:0, gloo)."""
+             ds_batches: dict, fsdp_in: dict) -> dict:
+    """One rank of phases 43 and 44 (cuda:0, gloo)."""
     from repro_torch.launch.mesh import Mesh
     build.load_kernels()
     mesh = Mesh(TP_MESH, ("data", "model"))
@@ -5061,8 +5096,292 @@ def _tp_rank(rank: int, world: int, masks: list, batches: list,
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     ds = _tp_deepseek(mesh, rank, ds_batches)
+    del ds_batches
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    fsdp = _fsdp_rank(rank, **fsdp_in)
     return {"rps_100m": rps, "deepseek": ds, "backend": mesh.backend,
-            "rps_100m_s": t1 - t0, "deepseek_s": time.perf_counter() - t1}
+            "rps_100m_s": t1 - t0, "deepseek_s": t2 - t1, "fsdp": fsdp,
+            "fsdp_s": time.perf_counter() - t2}
+
+
+# ---- phase 44: FSDP on the mesh trainer ------------------------------------
+
+FSDP_MESH = (2, 2)             # ("pod", "data"): 2 pods of 2 data ranks
+# rps-100m whole, rps_grad over the pods on the ring engine, FSDP over
+# "data": batch 32 x seq 128 a data rank
+FSDP_LOAD = dict(batch=32, seq=128, lr=0.3, p=0.1, steps=4, plain_steps=2)
+FSDP_SEED = 4400
+# deepseek-7b at full width cut to 2 layers, bf16, both data ranks of a
+# pod on the same 2 x 128 rows
+FSDP_DEEPSEEK = dict(layers=2, batch=2, seq=128)
+
+
+def _fsdp_mesh():
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(FSDP_MESH, ("pod", "data"))
+
+
+def _fsdp_setup(model, mesh, fsdp_axis):
+    """The mesh trainer's setup for phase 44: rps_grad over the pods on
+    the ring engine, with FSDP over ``fsdp_axis`` or without."""
+    from repro_torch.train.trainer import TrainConfig, make_train_setup
+    load = FSDP_LOAD
+    tcfg = TrainConfig(lr=load["lr"], drop_rate=load["p"],
+                       aggregator="rps_grad", engine="ring")
+    return make_train_setup(model, RPS_100M, tcfg, mesh, rps_axes=("pod",),
+                            fsdp_axis=fsdp_axis)
+
+
+def _fsdp_trainer(mesh, full, batches, masks, fsdp_axis, steps) -> dict:
+    """``steps`` steps of the mesh trainer (rps_grad over the pods, the
+    ring engine) from ``full`` on this rank's rows, with FSDP over
+    ``fsdp_axis`` or without: losses, step ms, staged bytes, launches,
+    peak memory, records and the final shards."""
+    from repro_torch.core import comm
+    model = build_model(RPS_100M, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, step, _ = _fsdp_setup(model, mesh, fsdp_axis)
+    params, opt_state = init_state(init_params=full)
+    reset_counts()
+    comm.reset_stats()
+    losses, step_ms = [], []
+    with comm.recording() as records:
+        for t in range(steps):
+            t0 = time.perf_counter()
+            params, opt_state, met = step(params, opt_state, batches[t], t,
+                                          None, masks=masks[t])
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"loss": losses, "step_ms": step_ms,
+            "hop_launches": RG.ring_rank_hop.launches,
+            "land_launches": RG.ring_rank_land.launches,
+            "other_launches": RG.ring_round.launches
+            + RG.ring_round_enc.launches + K.masked_avg_grid.launches,
+            "staged_bytes_per_step": comm.STATS["staged_bytes"] / steps,
+            "transfers_per_step": comm.STATS["transfers"] / steps,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_gb": _gb(params), "records": list(records),
+            "n_buckets": step.plan.n_buckets, "step": step,
+            "params": params}
+
+
+def _fsdp_rps100m(mesh, masks: list, batches: list) -> dict:
+    """44a-b on one rank: rps-100m on the (2, 2) ("pod", "data") mesh."""
+    from repro_torch.core import comm
+    from repro_torch.launch import sharding
+    load = FSDP_LOAD
+    model = build_model(RPS_100M, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(FSDP_SEED)
+    full = model.init_stacked(g)              # alike on every rank
+    rows = sharding.local_batch
+    mine = [{k: v.cuda() for k, v in rows(b, mesh, ("pod",),
+                                          ("data",)).items()}
+            for b in batches]
+    masks = [tuple(x.cuda() for x in pair) for pair in masks]
+    group = mesh.group(("data",))
+    # 44a: step 0's gradient, FSDP's (reduce-scattered, the trainer's
+    # reliable mean, gathered back) against the FSDP-free trainer's (its
+    # reliable mean: the all-reduce mean)
+    with_fsdp = _fsdp_setup(model, mesh, "data")[1]
+    without = _fsdp_setup(model, mesh, None)[1]
+    shards = sharding.shard_replica(full, RPS_100M, mesh, "data")
+    loss1, g1 = _tp_grads(model, shards, mine[0], fsdp=with_fsdp.fsdp,
+                          rows=with_fsdp.rows)
+    g1 = sharding.gather_replica(with_fsdp.reliable_mean(g1), None, mesh,
+                                 with_fsdp.fsdp)
+    loss0, g0 = _tp_grads(model, full, mine[0], rows=without.rows)
+    g0 = without.reliable_mean(g0)
+    err, differ, n = 0.0, 0, 0
+    for a, b in zip(tree_lib.leaves(g1), tree_lib.leaves(g0)):
+        err = max(err, float((a - b).abs().max()))
+        differ += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        n += a.numel()
+    grads = {"loss": float(loss1), "loss_whole": float(loss0),
+             "loss_err": abs(float(loss1) - float(loss0)),
+             "grad_max_abs_err": err, "grad_differing_bits": differ,
+             "grad_elements": n}
+    del shards, g1, g0, with_fsdp, without
+    # 44b: the trainer with FSDP, then without (its peak and step ms)
+    run = _fsdp_trainer(mesh, full, mine, masks, "data", load["steps"])
+    step, params = run.pop("step"), run.pop("params")
+    sharded = [x for x, f in zip(tree_lib.leaves(params),
+                                 tree_lib.leaves(step.fsdp_dims))
+               if f is not None]
+    whole = torch.cat([x.reshape(-1) for x, f in zip(
+        tree_lib.leaves(params), tree_lib.leaves(step.fsdp_dims))
+        if f is None])
+    both = comm.all_gather(whole[None], group)
+    run["whole_differing"] = int((both[0].view(torch.int32)
+                                  != both[1].view(torch.int32)).sum())
+    run["whole_elements"] = int(both.shape[1])
+    run["fsdp_params_gb"] = _gb(sharded)
+    del step, params, sharded, whole, both
+    plain = _fsdp_trainer(mesh, full, mine, masks, None, load["plain_steps"])
+    for k in ("step", "params", "records"):
+        plain.pop(k)
+    return {"grads": grads, "run": run, "plain": plain}
+
+
+def _fsdp_deepseek(mesh, batches: dict) -> dict:
+    """44c on one rank: deepseek-7b at full width cut to FSDP_DEEPSEEK's
+    layers, bf16: one forward and backward of this pod's rows (the same
+    on both its data ranks) on this rank's FSDP shards against the
+    unsharded replica's."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import parallel
+    cfg = _full_config("deepseek-7b", FSDP_DEEPSEEK["layers"])
+    model = build_model(cfg, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(FSDP_SEED + 1)
+    full = model.init_stacked(g)
+    group = mesh.group(("data",))
+    fdims = sharding.local_fsdp_dims(full, cfg, mesh, "data")
+    ctx = parallel.FSDP(group, fdims)
+    shards = sharding.shard_replica(full, cfg, mesh, "data")
+    batch = {k: v[mesh.axis_index("pod")].cuda() for k, v in batches.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss0, g0 = _tp_grads(model, full, batch)
+    loss1, g1 = _tp_grads(model, shards, batch, fsdp=ctx)
+    # the rows are alike on the data ranks: the sum over them is twice
+    # each rank's gradient
+    g1 = sharding.gather_replica(
+        tree_lib.map(lambda x, f: x if f is None else x / group.size, g1,
+                     fdims), None, mesh, ctx)
+    err, worst, norm = 0.0, 0.0, 0.0
+    for a, b in zip(tree_lib.leaves(g1), tree_lib.leaves(g0)):
+        sq_diff = sq_want = 0.0
+        for a_c, b_c in zip(a.reshape(-1).split(1 << 24),
+                            b.reshape(-1).split(1 << 24)):
+            a_c, b_c = a_c.float(), b_c.float()
+            diff = (a_c - b_c).abs_()
+            err = max(err, float(diff.max()))
+            worst = max(worst, float(
+                (diff / b_c.abs().mul_(BF16_TOL).add_(BF16_TOL)).max()))
+            sq_diff += float(diff.square_().sum())
+            sq_want += float(b_c.square_().sum())
+        norm = max(norm, (sq_diff / max(sq_want, 1e-60)) ** 0.5)
+    return {"loss": float(loss1), "loss_whole": float(loss0),
+            "loss_err": abs(float(loss1) - float(loss0)),
+            "grad_max_abs_err": err, "grad_worst_over_tol": worst,
+            "grad_max_rel_norm_err": norm,
+            "wall_s": time.perf_counter() - t0,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "shards_gb": _gb(shards), "replica_gb": _gb(full)}
+
+
+def _fsdp_rank(rank: int, masks: list, batches: list,
+               ds_batches: dict) -> dict:
+    """Phase 44 on one rank of phase 43's world."""
+    mesh = _fsdp_mesh()
+    t0 = time.perf_counter()
+    rps = _fsdp_rps100m(mesh, masks, batches)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ds = _fsdp_deepseek(mesh, ds_batches)
+    torch.cuda.empty_cache()
+    return {"rps_100m": rps, "deepseek": ds, "rps_100m_s": t1 - t0,
+            "deepseek_s": time.perf_counter() - t1}
+
+
+def _dryrun_fsdp(rank: int) -> dict:
+    """Phase 44's count of one rank's rps-100m step on the (2, 2) ("pod",
+    "data") mesh with FSDP over "data", meta tensors (a worker
+    process)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train.trainer import TrainConfig
+    load = FSDP_LOAD
+    tcfg = TrainConfig(lr=load["lr"], drop_rate=load["p"],
+                       aggregator="rps_grad", engine="ring")
+    batch = {k: torch.empty((load["batch"], load["seq"]), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    tot = D.count_train_step(RPS_100M, tcfg, _fsdp_mesh(), batch,
+                             rps_axes=("pod",), rank=rank, fsdp_axis="data")
+    return {"records": tot["records"], "kernels": tot["kernels"],
+            "coll_by_op": tot["coll_by_op"], "hbm": tot["hbm"]}
+
+
+def fsdp_inputs(batches: list) -> dict:
+    """Phase 44's masks (2 pods) and rows: ``batches`` (phase 17's first
+    four workers' rows, worker 2·pod + data a rank's) and deepseek-7b's
+    2 x 128 rows a pod."""
+    load = FSDP_LOAD
+    mg = torch.Generator(device="cuda")
+    mg.manual_seed(FSDP_SEED + 7)
+    masks = [tuple(m.cpu() for m in rps_lib.sample_masks(mg, 2, load["p"]))
+             for _ in range(load["steps"])]
+    pods = [{k: v.reshape((FSDP_MESH[0], -1) + tuple(v.shape[2:]))
+             for k, v in b.items()} for b in batches]
+    cfg = _full_config("deepseek-7b", FSDP_DEEPSEEK["layers"])
+    dg = torch.Generator()
+    dg.manual_seed(FSDP_SEED + 2)
+    shape = (FSDP_MESH[0], FSDP_DEEPSEEK["batch"], FSDP_DEEPSEEK["seq"])
+    ds = {k: torch.randint(0, cfg.vocab_size, shape, generator=dg,
+                           dtype=torch.int32) for k in ("tokens", "labels")}
+    return {"masks": masks, "batches": pods, "ds_batches": ds}
+
+
+def fsdp_gates(ranks: list, dry: dict, card: str) -> dict:
+    """Phase 44's gates over the ranks' results and its summary line
+    (``dry``: rank -> the dry-run's count of its step)."""
+    steps = FSDP_LOAD["steps"]
+    for r, got in enumerate(ranks):
+        rps, ds = got["fsdp"]["rps_100m"], got["fsdp"]["deepseek"]
+        gr = rps["grads"]
+        if not (gr["grad_max_abs_err"] <= COLL_TRAIN_TOL
+                and gr["loss_err"] <= COLL_TRAIN_TOL):
+            raise AssertionError(f"phase 44a rank {r}: {gr}")
+        run = rps["run"]
+        d = dry[r]
+        want_rec = [tuple(x) for x in d["records"]] * steps
+        if [tuple(x) for x in run["records"]] != want_rec:
+            raise AssertionError(
+                f"phase 44b rank {r}: {len(run['records'])} records, the "
+                f"dry-run's {len(d['records'])} x {steps} differ")
+        hops = d["kernels"].get("ring_rank_hop", {}).get("calls", 0)
+        lands = d["kernels"].get("ring_rank_land", {}).get("calls", 0)
+        if (run["hop_launches"], run["land_launches"]) != \
+                (hops * steps, lands * steps) or not hops \
+                or run["other_launches"]:
+            raise AssertionError(
+                f"phase 44b rank {r}: launches {run['hop_launches']} / "
+                f"{run['land_launches']} / {run['other_launches']}, the "
+                f"dry-run's {hops} / {lands} x {steps}")
+        if not np.all(np.isfinite(run["loss"])) or run["whole_differing"]:
+            raise AssertionError(f"phase 44b rank {r}: loss {run['loss']}, "
+                                 f"{run['whole_differing']} whole-leaf "
+                                 "elements differ across the data group")
+        if not (ds["grad_worst_over_tol"] <= 1.0
+                and ds["loss_err"] <= BF16_TOL * (1 + abs(ds["loss_whole"]))):
+            raise AssertionError(f"phase 44c rank {r}: {ds}")
+    for got in ranks:
+        run = got["fsdp"]["rps_100m"]["run"]
+        recs = run.pop("records")
+        run["collectives_per_step"] = {
+            op: sum(1 for o, _, _ in recs if o == op) / steps
+            for op in sorted({o for o, _, _ in recs})}
+    summary = {
+        "mesh": "(2, 2) pod x data, 4 ranks on cuda:0, gloo, CUDA payloads "
+                "staged through pinned host buffers",
+        **FSDP_LOAD,
+        "rps_100m": {k: [got["fsdp"]["rps_100m"][k] for got in ranks]
+                     for k in ("grads", "run", "plain")},
+        "rps_100m_s": [got["fsdp"]["rps_100m_s"] for got in ranks],
+        "deepseek": [got["fsdp"]["deepseek"] for got in ranks],
+        "deepseek_s": [got["fsdp"]["deepseek_s"] for got in ranks],
+        "dry_run": {"records_per_step": len(dry[0]["records"]),
+                    "bytes_per_step": dry[0]["coll_by_op"],
+                    "hbm_gb": dry[0]["hbm"] / 1e9}}
+    print(json.dumps({"fsdp": summary, "card": card}), flush=True)
+    return {"launches": sum(got["fsdp"]["rps_100m"]["run"]["hop_launches"]
+                            + got["fsdp"]["rps_100m"]["run"]["land_launches"]
+                            for got in ranks)}
 
 
 def _dryrun_tp(rank: int) -> dict:
@@ -5083,7 +5402,8 @@ def _dryrun_tp(rank: int) -> dict:
 
 
 def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
-              batches: list, dry: dict) -> dict:
+              batches: list, dry: dict, fsdp_batches: list,
+              fsdp_dry: dict) -> dict:
     """Phase 43: tensor parallelism inside a replica on the mesh trainer,
     four ranks on the one card over gloo (host-staged, as phases 40-41),
     a (2, 2) ("data", "model") mesh, one world of spawned processes.
@@ -5112,7 +5432,31 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
          seq 128 a data rank: one forward and backward on each rank's
          shards against the unsharded replica's (the (1, 1) run) on the
          same rows, the loss and every gradient within BF16_TOL
-         (absolute and relative)."""
+         (absolute and relative).
+
+    Phase 44 (:func:`fsdp_gates`) runs in the same world after 43d, on a
+    (2, 2) ("pod", "data") mesh: FSDP over "data", rps_grad over the
+    pods on the ring engine.
+
+    44a. rps-100m whole (f32, 129.0 M parameters, 103.8 M of them in
+         FSDP leaves), batch 32 x seq 128 a data rank (``fsdp_batches``:
+         phase 17's first four workers' rows): step 0's gradient,
+         reduce-scattered over the data group, divided by its size and
+         gathered back, within COLL_TRAIN_TOL of the FSDP-free rps_grad
+         trainer's (the data group's all-reduce mean) on the same rows;
+         the bits that differ counted;
+    44b. the trainer, lr 0.3, p 0.1, FSDP_LOAD's steps with the same
+         masks on every rank: every loss finite, the whole leaves the
+         same bits on both data ranks of each pod, ring_rank_hop and
+         ring_rank_land launches and every collective record (FSDP's
+         all-gathers and reduce-scatters among them) equal to the
+         dry-run's count of that rank's step x steps (``fsdp_dry``);
+         step ms, the bytes staged a step and rank and each rank's peak
+         printed beside the FSDP-free trainer's (its first two steps);
+    44c. deepseek-7b at full width cut to 2 layers, bf16, 2 x 128 rows a
+         pod (alike on its data ranks): one forward and backward on each
+         rank's FSDP shards against the unsharded replica's, the loss and
+         every gradient within BF16_TOL."""
     from repro_torch.launch.mesh import run_world
     load = TP_LOAD
     steps = load["steps"]
@@ -5129,8 +5473,9 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
                   for k in ("tokens", "labels")}
     t0 = time.perf_counter()
     ranks = run_world(_tp_rank, 4, masks, batches, ds_batches,
+                      fsdp_inputs(fsdp_batches),
                       backend="gloo", device="cuda:0",
-                      threads=COLL_THREADS, timeout_s=600)
+                      threads=COLL_THREADS, timeout_s=900)
     world_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     for r, got in enumerate(ranks):
@@ -5183,10 +5528,11 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
         "dry_run": {"records_per_step": len(dry[0]["records"]),
                     "bytes_per_step": dry[0]["coll_by_op"]}}
     print(json.dumps({"tensor_parallel": summary, "card": card}), flush=True)
-    lap("43")
+    fsdp = fsdp_gates(ranks, fsdp_dry, card)
+    lap("43-44")
     return {"launches": sum(got["rps_100m"]["run"]["hop_launches"]
                             + got["rps_100m"]["run"]["land_launches"]
-                            for got in ranks)}
+                            for got in ranks) + fsdp["launches"]}
 
 
 # ---- phase 42: the dry-run and the roofline on the card's own constants ----
@@ -5197,6 +5543,11 @@ DRYRUN_MESHES = ("16x16", "2x16x16", "sim1")
 # time in all, most of it the train rows, which count every layer): three
 # cores of the host's eight
 DRYRUN_WORKERS = 3
+# production-mesh train rows the smoke does not count: llama3-405b's
+# (FSDP x TP, every one of 126 layers at d 16,384: ~35-50 s of CPU each,
+# beside the host-bound phases 16, 17 and 25-31);
+# tests/test_torch_dryrun.py counts them
+DRYRUN_LEFT_OUT = (("llama3-405b", "16x16"), ("llama3-405b", "2x16x16"))
 SHARE_MAX = 1.05               # a share over it: the count is wrong
 # the predicted peak (the count's resident bytes plus its peak of live
 # ones) against torch.cuda.max_memory_allocated, relative
@@ -5290,20 +5641,22 @@ def _dryrun_line(r: dict) -> str:
 
 def _counted_on_mesh(arch: str, shape: str) -> bool:
     """Whether the dry-run counts a production-mesh row: a train row of a
-    dense architecture without experts or FSDP (TP inside a replica)."""
+    dense architecture without experts (TP inside a replica, llama3-405b
+    with FSDP too)."""
     from repro_torch.configs import SHAPES
     cfg = get_config(arch)
     return SHAPES[shape].kind == "train" and cfg.family == "dense" \
-        and not cfg.is_moe and cfg.shard_strategy != "fsdp"
+        and not cfg.is_moe
 
 
 def dryrun_sweep_check(rows: list) -> dict:
-    """42a: every (arch x shape) on the production meshes (the train rows
-    of the dense architectures without experts or FSDP counted, one rank
-    with TP inside a replica; the others layout rows: the port runs
-    neither TP for the other families, FSDP, nor serving on a mesh) and
-    on one H100 (sim1, counted rows), each ok, layout only, or skipped
-    with the reference's reason; the table printed."""
+    """42a: every (arch x shape) on the production meshes but
+    DRYRUN_LEFT_OUT's train rows (the train rows of the dense
+    architectures without experts counted, one rank with TP inside a
+    replica; the others layout rows: the port runs neither TP for the
+    other families nor serving on a mesh) and on one H100 (sim1, counted
+    rows), each ok, layout only, or skipped with the reference's reason;
+    the table printed."""
     bad = []
     for r in rows:
         st = str(r["status"])
@@ -5318,6 +5671,8 @@ def dryrun_sweep_check(rows: list) -> dict:
         bad.append((r["arch"], r["shape"], r["mesh"], st))
     for r in rows:
         print(_dryrun_line(r), flush=True)
+    print(f"42a: the train rows of {DRYRUN_LEFT_OUT} are counted by "
+          "tests/test_torch_dryrun.py, not here", flush=True)
     if bad:
         raise AssertionError(f"phase 42a: rows neither ok, layout nor "
                              f"skipped: {bad}")
@@ -5482,7 +5837,7 @@ def dryrun_vs_card(gen: torch.Generator) -> tuple:
 
 
 def dryrun_collectives(coll: dict, dry: dict) -> dict:
-    """42c: phase 41's collectives (every rank, both engines, 8 steps)
+    """42c: phase 41's collectives (every rank, both engines, 4 steps)
     against the dry-run's count of one rank's step on the (4,) data mesh
     (``dry``: (engine, rank) -> its records): the same records step after
     step, so the same link bytes, exactly; and on the ring engine the
@@ -5598,21 +5953,23 @@ def profile_decode_step(model, params) -> dict:
 def start_dryrun() -> tuple:
     """Phase 42a's rows and 42c's counts, submitted to DRYRUN_WORKERS
     spawned processes (meta tensors, no card) right after the build,
-    42a's exactness checks and phase 43's counts: ``(pool, rows, counts,
-    exact, tp)``, futures that phases 42-43 collect and the pool that
-    phase 42 shuts down."""
+    42a's exactness checks and phases 43's and 44's counts: ``(pool,
+    rows, counts, exact, tp, fsdp)``, futures that phases 42-44 collect
+    and the pool that phase 42 shuts down."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.configs import ARCH_IDS, SHAPES
     pool = ProcessPoolExecutor(DRYRUN_WORKERS,
                                mp_context=mp.get_context("spawn"))
     rows = [pool.submit(_dryrun_row, (a, s, m)) for a in ARCH_IDS
-            for s in SHAPES for m in DRYRUN_MESHES]
+            for s in SHAPES for m in DRYRUN_MESHES
+            if (a, m) not in DRYRUN_LEFT_OUT or SHAPES[s].kind != "train"]
     counts = {(eng, r): pool.submit(_dryrun_coll, (eng, r))
               for eng in ("ring", "xla") for r in range(COLL_LOAD["n"])}
     tp = {r: pool.submit(_dryrun_tp, r) for r in range(4)}
+    fsdp = {r: pool.submit(_dryrun_fsdp, r) for r in range(4)}
     exact = {c: pool.submit(_dryrun_exact, c) for c in DRYRUN_EXACT_CASES}
-    return pool, rows, counts, exact, tp
+    return pool, rows, counts, exact, tp, fsdp
 
 
 def dryrun_phases(gen: torch.Generator, card: str, lap: "Laps", coll: dict,
@@ -5620,7 +5977,7 @@ def dryrun_phases(gen: torch.Generator, card: str, lap: "Laps", coll: dict,
     """Phase 42: the dry-run (launch/dryrun.py) and the roofline
     (roofline/) on the card's own constants. ``dry_run``: the rows and
     counts :func:`start_dryrun` computed beside the earlier phases."""
-    pool, rows_f, coll_f, exact_f, _ = dry_run
+    pool, rows_f, coll_f, exact_f = dry_run[:4]
     card_out, model, params = dryrun_vs_card(gen)
     lap("42b")
     decode_profile = profile_decode_step(model, params)
@@ -5820,6 +6177,9 @@ def main(argv=None) -> int:
                     for b in setup.batches[:COLL_LOAD["steps"]]]
     tp_batches = [{k: v[:TP_MESH[0]].cpu() for k, v in b.items()}
                   for b in setup.batches[:TP_LOAD["steps"]]]
+    fsdp_batches = [{k: v[:FSDP_MESH[0] * FSDP_MESH[1]].cpu()
+                     for k, v in b.items()}
+                    for b in setup.batches[:FSDP_LOAD["steps"]]]
     del setup, cut
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5835,7 +6195,9 @@ def main(argv=None) -> int:
     mm = mm_phases(gen, card, lap)
     coll = coll_phases(gen, card, lap, coll_batches)
     tp = tp_phases(gen, card, lap, tp_batches,
-                   {r: f.result() for r, f in dry_run[4].items()})
+                   {r: f.result() for r, f in dry_run[4].items()},
+                   fsdp_batches,
+                   {r: f.result() for r, f in dry_run[5].items()})
     dryrun_phases(gen, card, lap, coll, ring_profile, dry_run)
     lap.report()
     robust_launches = sum(v["masked_avg_launches"]

@@ -16,10 +16,10 @@ carry across as they are).
 The train path keeps the JAX package's stacked layout, and
 :func:`stacked_params_from_jax` carries any tree across in it, leaf for
 leaf (one worker's parameters or an n-worker stack alike). On a mesh
-with a "model" axis > 1, :func:`shards_from_jax` carries one replica
-into one rank's shards and :func:`replica_to_numpy` gathers a world's
-shards back into the replica, to be held against the reference's global
-arrays.
+with a "model" axis > 1 or with FSDP, :func:`shards_from_jax` carries
+one replica into one rank's shards and :func:`replica_to_numpy` gathers
+a world's shards back into the replica, to be held against the
+reference's global arrays.
 """
 from __future__ import annotations
 
@@ -79,20 +79,22 @@ def stacked_params_from_jax(np_params, device="cuda"):
     return _map(lambda a: _tensor(a, device), np_params)
 
 
-def shards_from_jax(np_params, cfg: ArchConfig, mesh, device="cuda"):
+def shards_from_jax(np_params, cfg: ArchConfig, mesh, device="cuda",
+                    fsdp_axis=None):
     """One replica of the JAX package's stacked train-layout parameters
-    (global arrays) as this rank's shards on ``mesh``
-    (``sharding.shard_replica``)."""
+    (global arrays) as this rank's shards on ``mesh``, over "model" and
+    over ``fsdp_axis`` (``sharding.shard_replica``)."""
     full = stacked_params_from_jax(np_params, "cpu")
     device = resolve_device(device)
     return tree_lib.map(lambda x: x.to(device),
-                        sharding.shard_replica(full, cfg, mesh))
+                        sharding.shard_replica(full, cfg, mesh, fsdp_axis))
 
 
-def replica_to_numpy(params, dims, mesh):
-    """This rank's shards gathered over its model group into the whole
-    replica (``sharding.gather_replica``; ``dims`` the trainer's
-    ``train_step.model_dims``), as numpy arrays (bf16 as f32).
+def replica_to_numpy(params, dims, mesh, fsdp=None):
+    """This rank's shards gathered over its data group (``fsdp``: the
+    trainer's ``train_step.fsdp``) and its model group (``dims``:
+    ``train_step.model_dims``) into the whole replica
+    (``sharding.gather_replica``), as numpy arrays (bf16 as f32).
     Collective: every rank of the world calls it."""
     def arr(x):
         x = x.detach()
@@ -100,4 +102,5 @@ def replica_to_numpy(params, dims, mesh):
             x = x.to(torch.float32)
         return x.cpu().numpy()
 
-    return tree_lib.map(arr, sharding.gather_replica(params, dims, mesh))
+    return tree_lib.map(arr, sharding.gather_replica(params, dims, mesh,
+                                                     fsdp))

@@ -16,7 +16,12 @@ over some of a mesh's axes (:meth:`repro_torch.launch.mesh.Mesh.group`):
 - :func:`copy_to` / :func:`reduce_from`: the tensor-parallel region's
   two boundaries as autograd functions (identity forward and a sum
   backward; a sum forward and identity backward), the model group's
-  all-reduces inside a replica (``models/parallel.py``).
+  all-reduces inside a replica (``models/parallel.py``);
+- :func:`gather_shard`: FSDP's boundary, an autograd function (the
+  shards all-gathered along a dim forward, the gradient reduce-scattered
+  along it backward), the data group's collectives around each layer
+  (``models/stack.py``); :func:`all_gather_dim` / :func:`reduce_scatter_dim`
+  tile any dim as :func:`all_gather` / :func:`reduce_scatter` tile dim 0.
 
 Transport: gloo. It carries CPU tensors, and a CUDA tensor through
 pinned host buffers of this module's own, reused from call to call (one
@@ -304,6 +309,54 @@ def reduce_from(x: torch.Tensor, group: Group) -> torch.Tensor:
     if group.size == 1:
         return x
     return _ReduceFrom.apply(x, group)
+
+
+def all_gather_dim(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in the group's order (the
+    JAX package's ``lax.all_gather(..., axis=dim, tiled=True)``: GSPMD
+    lays a dim over an axis in its ranks' order)."""
+    if group.size == 1:
+        return x
+    full = all_gather(x.movedim(dim, 0), group)
+    return full.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, group: Group, dim: int
+                       ) -> torch.Tensor:
+    """Σ over the group's ranks of ``x``, rank j keeping its j-th part of
+    ``dim`` (``lax.psum_scatter(..., scatter_dimension=dim,
+    tiled=True)``)."""
+    if group.size == 1:
+        return x
+    part = reduce_scatter(x.movedim(dim, 0), group)
+    return part.movedim(0, dim)
+
+
+class _GatherShard(torch.autograd.Function):
+    """All-gather along a dim forward; reduce-scatter (the sum) along it
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_dim(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim(grad, ctx.group, ctx.dim), None, None
+
+
+def gather_shard(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """An FSDP leaf's shard entering the layer that reads it whole: the
+    group's shards joined along ``dim`` forward; backward, the gradient of
+    the whole leaf summed over the group's ranks, each keeping its own
+    part (each rank's rows give it a partial gradient of the whole leaf).
+    Recorded as an ``all_gather`` forward and a ``reduce_scatter``
+    backward over the group, the collectives GSPMD puts around an FSDP
+    leaf; answered on meta tensors."""
+    if group.size == 1:
+        return x
+    return _GatherShard.apply(x, group, dim)
 
 
 def all_reduce_mean(x: torch.Tensor, group: Group) -> torch.Tensor:

@@ -26,10 +26,13 @@ Meshes:
   bytes — on every row; their train rows of the dense architectures
   without experts are counted too (one rank's step on its shards, its
   "model" axis of 16 tensor parallelism inside a replica, the model
-  group's all-reduces recorded), and the others report the counted terms
-  as not run: TP for the other families, FSDP for the largest
-  architectures (their parameters over "data"), and serving on a mesh,
-  none of which the port runs (ROADMAP queue A);
+  group's all-reduces recorded), llama3-405b's with FSDP over "data"
+  too (its rows over "data", each layer's shards gathered and its
+  gradient reduce-scattered over the 16 data ranks; every layer counted:
+  a train step's peak of live bytes does not grow alike with each layer,
+  so two and three layers do not extend to the whole), and the others
+  report the counted terms as not run: TP for the other families and
+  serving on a mesh, which the port does not run (ROADMAP queue A);
 - ``sim1`` / ``sim4`` (``make_sim_mesh(1)`` / ``(4)``: one H100 a
   replica, the collective path's data mesh) count every term: the rows a
   benchmark's cells are sized from.
@@ -160,8 +163,9 @@ def _not_run(mesh: Mesh, fsdp_axis: Optional[str],
         elif cfg.is_moe or cfg.family != "dense":
             fam = "MoE" if cfg.is_moe else cfg.family
             why.append(f"TP inside a replica for the {fam} family")
-    if fsdp_axis is not None and mesh.shape.get(fsdp_axis, 1) > 1:
-        why.append("FSDP")
+    if cfg is None and fsdp_axis is not None \
+            and mesh.shape.get(fsdp_axis, 1) > 1:
+        why.append("serving with FSDP")
     if not why:
         return None
     return ("layout only: the counted terms are not run (ROADMAP A: "
@@ -190,7 +194,8 @@ def train_config(cfg: ArchConfig, agg: str, mb: int, **kw):
 
 
 def count_train_step(cfg: ArchConfig, tcfg, mesh: Mesh, batch: Dict, *,
-                     rps_axes: Tuple[str, ...], rank: int = 0) -> dict:
+                     rps_axes: Tuple[str, ...], rank: int = 0,
+                     fsdp_axis: Optional[str] = None) -> dict:
     """One rank's training step of ``make_train_setup`` on meta tensors
     (``batch``: the rank's rows, meta), counted: the totals of
     :meth:`Counter.totals`, with the step's collective ``records``.
@@ -201,7 +206,8 @@ def count_train_step(cfg: ArchConfig, tcfg, mesh: Mesh, batch: Dict, *,
     model = _meta_model(cfg)
     init_state, step, _ = make_train_setup(model, cfg, tcfg,
                                            mesh.as_rank(rank),
-                                           rps_axes=rps_axes)
+                                           rps_axes=rps_axes,
+                                           fsdp_axis=fsdp_axis)
     params, opt_state = init_state(MetaGenerator())
     extra = ()
     if step.init_ef_state is not None:
@@ -259,10 +265,14 @@ def build_train_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh,
     why = _not_run(mesh, fsdp_axis, cfg)
     if why is not None:
         return None, dict(info, not_run=why)
-    batch = tree_lib.map(lambda s: s[0], _stack_specs(
-        train_specs(cfg, shape.global_batch, shape.seq_len), max(n_rps, 1)))
-    return count_train_step(cfg, tcfg, mesh, batch,
-                            rps_axes=rps_axes), info
+    # the rank's rows: its worker's, split over "data" under FSDP (the
+    # reference's batch_spec)
+    batch = shlib.local_batch(
+        _stack_specs(train_specs(cfg, shape.global_batch, shape.seq_len),
+                     max(n_rps, 1)), mesh.as_rank(0), rps_axes,
+        ("data",) if fsdp_axis else (), mb)
+    return count_train_step(cfg, tcfg, mesh, batch, rps_axes=rps_axes,
+                            fsdp_axis=fsdp_axis), info
 
 
 def build_decode_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh):

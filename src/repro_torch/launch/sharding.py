@@ -1,18 +1,17 @@
 """Layout rules per parameter leaf (port of :mod:`repro.launch.sharding`).
 
 The JAX package turns these rules into ``PartitionSpec``s for its
-compiler. The port runs one process per RPS worker, each holding its whole
-replica, so here they are layout functions: a spec is a tuple with one
-entry per dim (None, an axis name, or a tuple of names), and
-:func:`model_dims` says which dim of a leaf is tensor-parallel — the dim
-the exchange plan keeps intact (``plan.make_plan(model_dims=)``).
-Tensor parallelism inside a replica ("model" > 1) runs on the port's
-trainer for the dense family without experts: :func:`shard_replica`
-cuts one rank's slice of every leaf along its model dim,
-:func:`gather_replica` joins the slices back, and
-:func:`local_model_dims` tells the model which leaves arrive sharded.
-FSDP is not run; its rules are kept so that the plan and the specs match
-the reference's.
+compiler. The port runs one process per rank, so here they are layout
+functions: a spec is a tuple with one entry per dim (None, an axis name,
+or a tuple of names), and :func:`model_dims` says which dim of a leaf is
+tensor-parallel — the dim the exchange plan keeps intact
+(``plan.make_plan(model_dims=)``). On the port's trainer, tensor
+parallelism inside a replica ("model" > 1) runs for the dense family
+without experts, and FSDP (``fsdp_axis``) for every family:
+:func:`shard_replica` cuts one rank's slice of every leaf along its
+model dim and its FSDP dim, :func:`gather_replica` joins the slices
+back, and :func:`local_model_dims` / :func:`local_fsdp_dims` tell the
+model which leaves arrive sharded, along which dim.
 
 Rules are name-based over the parameter tree's paths ("embed/tok",
 "layers/attn/wq", …). Two strategies (``ArchConfig.shard_strategy``):
@@ -113,6 +112,16 @@ def leaf_pin_spec(pstr: str, shape: Tuple[int, ...], cfg: ArchConfig
     return tuple(entries)
 
 
+def _fsdp_dim(path: str, shape: Tuple[int, ...], cfg: ArchConfig
+              ) -> Optional[int]:
+    """The dim of a leaf that FSDP lays over the data axis: the rule's
+    second large dim, where it is not the model dim and divides by 16."""
+    mdim, fdim = _rule(path, shape, cfg)
+    if fdim is not None and fdim != mdim and shape[fdim] % 16 == 0:
+        return fdim
+    return None
+
+
 def _lead(axes: Tuple[str, ...]):
     if not axes:
         return None
@@ -133,12 +142,12 @@ def param_specs(params_shape: Any, cfg: ArchConfig, *,
 
     def spec(path, leaf):
         shape = tuple(leaf.shape[offset:])
-        mdim, fdim = _rule(_path_str(path), shape, cfg)
+        mdim = _rule(_path_str(path), shape, cfg)[0]
+        fdim = _fsdp_dim(_path_str(path), shape, cfg) if fsdp_axis else None
         entries: list = [None] * len(shape)
         if mdim is not None:
             entries[mdim] = MODEL
-        if fsdp_axis and fdim is not None and fdim != mdim \
-                and shape[fdim] % 16 == 0:
+        if fdim is not None:
             entries[fdim] = fsdp_axis
         if stacked:
             entries = [_lead(tuple(worker_axes))] + entries
@@ -173,11 +182,15 @@ def batch_spec(batch_shape: Any, worker_axes: Tuple[str, ...],
 
 
 def local_batch(batch: Any, mesh, worker_axes: Tuple[str, ...],
-                data_axes: Tuple[str, ...] = ()) -> Any:
+                data_axes: Tuple[str, ...] = (), microbatch: int = 1) -> Any:
     """This rank's rows of a worker-stacked batch (n_rps, B_local, …) by
     :func:`batch_spec`: its worker's row of dim 0 (its index over
     ``worker_axes``), then its share of the B_local rows (its index over
-    ``data_axes``, B_local split evenly)."""
+    ``data_axes``, B_local split evenly). With ``microbatch`` > 1 (the
+    trainer's) the share is taken microbatch by microbatch: the j-th
+    ``microbatch`` part of the rank's rows is its share of the j-th
+    contiguous part of B_local, the reference's microbatch j (whose rows
+    the MoE's batch statistics span)."""
     w = mesh.axis_index(worker_axes) if worker_axes else 0
     parts = mesh.axis_size(data_axes) if data_axes else 1
     d = mesh.axis_index(data_axes) if data_axes else 0
@@ -186,10 +199,13 @@ def local_batch(batch: Any, mesh, worker_axes: Tuple[str, ...],
         rows = leaf[w]
         if parts == 1:
             return rows
-        if rows.shape[0] % parts:
-            raise ValueError(f"{rows.shape[0]} rows over {parts} ranks")
-        per = rows.shape[0] // parts
-        return rows[d * per:(d + 1) * per]
+        if rows.shape[0] % (parts * microbatch):
+            raise ValueError(f"{rows.shape[0]} rows over {parts} ranks "
+                             f"and {microbatch} microbatches")
+        per = rows.shape[0] // (parts * microbatch)
+        rest = tuple(rows.shape[1:])
+        return rows.reshape((microbatch, parts, per) + rest)[:, d] \
+            .reshape((microbatch * per,) + rest)
 
     return _map_with_path(lambda path, leaf: pick(leaf), batch)
 
@@ -213,51 +229,81 @@ def local_model_dims(params_shape: Any, cfg: ArchConfig, mesh) -> Any:
     return _map_with_path(dim, params_shape)
 
 
-def _zip_dims(fn, tree, dims):
+def local_fsdp_dims(params_shape: Any, cfg: ArchConfig, mesh,
+                    fsdp_axis: Optional[str] = "data") -> Any:
+    """The dim of every leaf (a tree at its global, unstacked shapes) that
+    :func:`param_specs` lays over ``fsdp_axis``, None where the leaf stays
+    whole on every rank of the data group: all None without an
+    ``fsdp_axis`` or when its extent is 1. A dim FSDP shards must divide
+    by the axis (a ValueError naming the leaf)."""
+    f = mesh.shape.get(fsdp_axis, 1) if fsdp_axis else 1
+
+    def dim(path, leaf):
+        if f == 1:
+            return None
+        d = _fsdp_dim(_path_str(path), tuple(leaf.shape), cfg)
+        if d is not None and leaf.shape[d] % f:
+            raise ValueError(f"{_path_str(path)}: FSDP dim {d} of "
+                             f"{tuple(leaf.shape)} does not divide over "
+                             f"the {fsdp_axis!r} axis of {f}")
+        return d
+
+    return _map_with_path(dim, params_shape)
+
+
+def _zip_trees(fn, tree, *others):
+    """``fn(leaf, *others' entries)`` over ``tree``'s leaves; the others
+    are trees of its structure whose leaves may be None."""
     if isinstance(tree, dict):
-        return {k: _zip_dims(fn, v, dims[k]) for k, v in tree.items()}
+        return {k: _zip_trees(fn, v, *[o[k] for o in others])
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_zip_dims(fn, v, d) for v, d in zip(tree, dims))
-    return fn(tree, dims)
+        return type(tree)(_zip_trees(fn, v, *os)
+                          for v, *os in zip(tree, *others))
+    return fn(tree, *others)
 
 
-def shard_replica(tree: Any, cfg: ArchConfig, mesh) -> Any:
+def shard_replica(tree: Any, cfg: ArchConfig, mesh,
+                  fsdp_axis: Optional[str] = None) -> Any:
     """This rank's slice of every leaf of one replica (global, unstacked
-    shapes) along the model dim :func:`local_model_dims` gives it: the
-    rank's contiguous part of that dim, by its index over "model" (as
-    GSPMD lays a dim over an axis), copied; a leaf that stays whole is
-    the leaf itself."""
-    m = mesh.shape.get(MODEL, 1)
-    if m == 1:
+    shapes) along the model dim :func:`local_model_dims` gives it and the
+    FSDP dim :func:`local_fsdp_dims` gives it: along each, the rank's
+    contiguous part by its index over that axis (as GSPMD lays a dim over
+    an axis), copied; a leaf that stays whole is the leaf itself."""
+    cuts = [(mesh.shape[axis], mesh.axis_index(axis), dims)
+            for axis, dims in ((MODEL, local_model_dims(tree, cfg, mesh)),
+                               (fsdp_axis, local_fsdp_dims(tree, cfg, mesh,
+                                                           fsdp_axis)))
+            if axis is not None and mesh.shape.get(axis, 1) > 1]
+    if not cuts:
         return tree
-    j = mesh.axis_index(MODEL)
 
-    def cut(x, d):
-        if d is None:
-            return x
-        size = x.shape[d] // m
-        return x.narrow(d, j * size, size).clone(
-            memory_format=torch.contiguous_format)
+    def cut(x, *ds):
+        y = x
+        for (n, j, _), d in zip(cuts, ds):
+            if d is not None:
+                size = y.shape[d] // n
+                y = y.narrow(d, j * size, size)
+        return x if y is x else y.clone(memory_format=torch.contiguous_format)
 
-    return _zip_dims(cut, tree, local_model_dims(tree, cfg, mesh))
+    return _zip_trees(cut, tree, *[dims for _, _, dims in cuts])
 
 
-def gather_replica(tree: Any, dims: Any, mesh) -> Any:
+def gather_replica(tree: Any, dims: Any, mesh, fsdp: Any = None) -> Any:
     """The inverse of :func:`shard_replica`: every sharded leaf of this
-    rank's ``tree`` gathered over the model group along its dim in
-    ``dims`` (:func:`local_model_dims` of the replica), in the ranks'
+    rank's ``tree`` gathered over the data group along its FSDP dim
+    (``fsdp``: the trainer's :class:`repro_torch.models.parallel.FSDP`,
+    its group and its dims; None: no FSDP) and over the model group
+    along its dim in ``dims`` (:func:`local_model_dims`), in the ranks'
     order; a whole leaf is the leaf itself. Collective: every rank of the
     world calls it."""
     from repro_torch.core import comm
-    if mesh.shape.get(MODEL, 1) == 1:
-        return tree
-    group = mesh.group((MODEL,))
-
-    def join(x, d):
-        if d is None:
-            return x
-        moved = x.movedim(d, 0)
-        full = comm.all_gather(moved, group)
-        return full.movedim(0, d).contiguous()
-
-    return _zip_dims(join, tree, dims)
+    joins = []
+    if fsdp is not None:
+        joins.append((fsdp.group, fsdp.dims))
+    if mesh.shape.get(MODEL, 1) > 1:
+        joins.append((mesh.group((MODEL,)), dims))
+    for group, ds in joins:
+        tree = _zip_trees(lambda x, d, g=group: x if d is None else
+                         comm.all_gather_dim(x, g, d).contiguous(), tree, ds)
+    return tree

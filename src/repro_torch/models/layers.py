@@ -473,46 +473,73 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig) -> dict:
             "wo": _init_stacked(gen, (E, ff, d), ff ** -0.5, dt)}
 
 
-def moe_route(p, x: torch.Tensor, cfg: ArchConfig) -> dict:
+def moe_route(p, x: torch.Tensor, cfg: ArchConfig, rows=None) -> dict:
     """The sort-based top-k dispatch of :func:`moe` without the experts:
     the router's f32 probabilities, the normalised gates and their
     experts (T, K), the Switch-style aux loss, the capacity, and per
     assignment (token-major, (T·K,)) its rank within its expert, whether
-    the capacity kept it and its buffer slot."""
+    the capacity kept it and its buffer slot.
+
+    ``rows`` (a :class:`repro_torch.core.comm.Group`): ``x`` is this
+    rank's share of a batch whose rows are split over the group in its
+    ranks' order, equally. The batch statistics are the whole batch's,
+    as the reference computes them on its rows: the capacity from the
+    whole batch's tokens; each assignment's rank within its expert after
+    the lower ranks' assignments to it (``rank`` and ``keep`` whole-batch;
+    ``slot`` in this rank's buffer, by its rank among its own); the aux
+    loss from the whole batch's mean probabilities and counts, its
+    gradient through this rank's mean probabilities (the trainer averages
+    the group's gradients: each rank carries its rows' share n times)."""
+    from repro_torch.core import comm
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
+    n = 1 if rows is None else rows.size
     logits = x.reshape(T, d).to(torch.float32) @ p["router"]
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, K, dim=-1)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
     # load-balance auxiliary loss (Switch-style)
     me = probs.mean(0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
-    ce = ce.index_add(0, gate_idx.reshape(-1),
-                      torch.ones((T * K,), dtype=torch.float32,
-                                 device=x.device)) / (T * K)
+    counts = torch.zeros((E,), dtype=torch.float32, device=x.device)
+    counts = counts.index_add(0, gate_idx.reshape(-1),
+                              torch.ones((T * K,), dtype=torch.float32,
+                                         device=x.device))
+    offset = None
+    if n > 1:
+        # every rank's counts (exact integers in f32), in the rows' order
+        every = comm.all_gather(counts[None], rows)
+        offset = every[:rows.index].sum(0)
+        counts = every.sum(0)
+        me_all = comm.all_reduce_mean(me.detach(), rows)
+        me = me + (me_all - me).detach()
+    ce = counts / (n * T * K)
     aux = E * torch.sum(me * ce)
-    cap = max(int(math.ceil(T * K / E * cfg.capacity_factor)), 4)
+    cap = max(int(math.ceil(n * T * K / E * cfg.capacity_factor)), 4)
     flat_e = gate_idx.reshape(-1)
     # rank of each assignment within its expert, via a stable sort
     sorted_e, order = torch.sort(flat_e, stable=True)
     starts = torch.searchsorted(sorted_e, torch.arange(E, device=x.device))
     rank = torch.empty_like(flat_e)
     rank[order] = torch.arange(T * K, device=x.device) - starts[sorted_e]
+    local = rank
+    if offset is not None:
+        rank = rank + offset.to(rank.dtype)[flat_e]
     keep = rank < cap
-    slot = flat_e * cap + torch.where(keep, rank, 0)
+    slot = flat_e * cap + torch.where(keep, local, 0)
     return {"probs": probs, "gate_vals": gate_vals, "gate_idx": gate_idx,
             "aux": aux, "cap": cap, "rank": rank, "keep": keep,
             "slot": slot}
 
 
-def moe(p, x: torch.Tensor, cfg: ArchConfig):
+def moe(p, x: torch.Tensor, cfg: ArchConfig, rows=None):
     """Sort-based top-k MoE with per-expert capacity (the reference's
     Megablocks-style permutation dispatch, not a (T, E, C) one-hot): the
     kept assignments scattered into an (E·cap, d) buffer, the experts'
     gated MLPs as batched products over the expert axis, the outputs
     gathered back weighted by their gates. Returns (out, aux_loss).
+    ``rows``: ``x`` is this rank's share of a batch split over the
+    group (:func:`moe_route`); a token's output is its own.
 
     The reference's sharding constraints on the expert buffer
     (``expert_sharding``, ``shard_acts``) have no counterpart on one
@@ -520,7 +547,7 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig):
     B, S, d = x.shape
     K = cfg.top_k
     T = B * S
-    rt = moe_route(p, x, cfg)
+    rt = moe_route(p, x, cfg, rows)
     xt = x.reshape(T, d)
     keep, slot = rt["keep"], rt["slot"]
     tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)

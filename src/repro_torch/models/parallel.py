@@ -1,5 +1,6 @@
 """Tensor parallelism inside a replica: the dense train path's sharded
-products (the mesh trainer on a "model" axis > 1).
+products (the mesh trainer on a "model" axis > 1); and FSDP's context
+(:class:`FSDP`, the mesh trainer with ``fsdp_axis``).
 
 The JAX package has no counterpart to this module: it lays each leaf
 over the "model" mesh axis (``launch/sharding.py``'s rules) and GSPMD
@@ -24,7 +25,7 @@ attention (:func:`local_kv`) live here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -95,6 +96,53 @@ class TP:
 
         walk(dims, ())
         return cls(group, {k: d for k, d in flat.items() if d is not None})
+
+
+def _any_leaf(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_any_leaf(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_any_leaf(v) for v in tree)
+    return tree is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class FSDP:
+    """One rank's data-group context (the JAX package lays these leaves
+    and the batch's rows over "data"; GSPMD gathers and reduce-scatters
+    around each use). ``group``: the FSDP group (the ranks that share
+    every coordinate but ``fsdp_axis``); ``dims``: the FSDP dim of every
+    leaf of the parameter tree in the train layout
+    (``sharding.local_fsdp_dims``; None where a leaf stays whole, or None
+    for no sharded leaf)."""
+    group: comm.Group
+    dims: Any
+
+    def at(self, key) -> "FSDP":
+        """The context of the subtree under ``key`` (a stack)."""
+        return dataclasses.replace(
+            self, dims=None if self.dims is None else self.dims[key])
+
+    def sub(self, key) -> Any:
+        """The dims under ``key``, None where none of them is sharded."""
+        if self.dims is None:
+            return None
+        dims = self.dims[key]
+        return dims if _any_leaf(dims) else None
+
+    def gather(self, tree, dims, lead: int = 0):
+        """``tree`` with each sharded leaf's shards joined over the group
+        (:func:`repro_torch.core.comm.gather_shard`, its gradient
+        reduce-scattered back) along its dim in ``dims`` less ``lead``
+        (the dims of a stacked tree, for one layer's slice of it)."""
+        if isinstance(tree, dict):
+            return {k: self.gather(v, dims[k], lead) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.gather(v, d, lead)
+                              for v, d in zip(tree, dims))
+        if dims is None:
+            return tree
+        return comm.gather_shard(tree, self.group, dims - lead)
 
 
 def embed(tp: TP, tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -118,21 +118,24 @@ class Model:
                                                self.enc_kinds)
         return out
 
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, frames: torch.Tensor,
+               fsdp=None) -> torch.Tensor:
         """The audio encoder over ``frames`` (B, S_src, d), cast to the
         config's dtype, in train mode (both layouts): its output
-        (B, S_src, d)."""
+        (B, S_src, d). ``fsdp`` as in :meth:`loss`."""
         x = frames.to(self.cfg.torch_dtype)
         enc = params["enc_layers"]
         if isinstance(enc, dict):
-            return S.apply_stack_train(enc, x, self.cfg, self.enc_kinds)[0]
+            return S.apply_stack_train(
+                enc, x, self.cfg, self.enc_kinds,
+                fsdp=None if fsdp is None else fsdp.at("enc_layers"))[0]
         return S.apply_stack(enc, x, self.cfg, self.enc_kinds,
                              mode="prefill")[0]
 
-    def _aux(self, params, inputs) -> dict:
+    def _aux(self, params, inputs, fsdp=None) -> dict:
         if self.cfg.family != "audio":
             return {}
-        return {"enc_out": self.encode(params, inputs["frames"])}
+        return {"enc_out": self.encode(params, inputs["frames"], fsdp)}
 
     def embed_inputs(self, params, inputs, tp=None) -> torch.Tensor:
         """The token embeddings, after the vlm's patch embeddings (cast to
@@ -142,7 +145,7 @@ class Model:
             return torch.cat([inputs["patches"].to(tok.dtype), tok], dim=1)
         return tok
 
-    def loss(self, params, batch, tp=None):
+    def loss(self, params, batch, tp=None, fsdp=None, rows=None):
         """Mean next-token cross-entropy of ``batch`` under train-layout
         ``params`` (the vlm's patch rows dropped before the head). Returns
         (nll + aux_loss, {"nll", "aux_loss"}); the aux loss is the MoE
@@ -150,13 +153,23 @@ class Model:
         (:class:`repro_torch.models.parallel.TP`, the dense family
         without experts) takes this rank's shards of a replica split over
         a "model" axis: the loss is the same scalar on every rank of the
-        model group."""
+        model group. ``fsdp`` (:class:`repro_torch.models.parallel.FSDP`,
+        every family) takes this rank's FSDP shards, gathered layer by
+        layer (``models/stack.py``). ``rows`` (a
+        :class:`repro_torch.core.comm.Group`): ``batch`` is this rank's
+        share of a batch whose rows are split over the group (the MoE's
+        batch statistics span it)."""
         if tp is not None:
             P.check_family(self.cfg)
+        if fsdp is not None and fsdp.sub("embed") is not None:
+            # a leaf outside the stacks is gathered for the whole step
+            params = dict(params, embed=fsdp.gather(params["embed"],
+                                                    fsdp.dims["embed"]))
         x = self.embed_inputs(params, batch, tp)
-        x, aux = S.apply_stack_train(params["layers"], x, self.cfg,
-                                     self.kinds,
-                                     aux=self._aux(params, batch), tp=tp)
+        x, aux = S.apply_stack_train(
+            params["layers"], x, self.cfg, self.kinds,
+            aux=self._aux(params, batch, fsdp), tp=tp,
+            fsdp=None if fsdp is None else fsdp.at("layers"), rows=rows)
         x = x[:, self.prefix_len:]
         logits = L.lm_head(params["embed"], x, self.cfg.vocab_size, tp)
         nll = L.softmax_xent(logits, batch["labels"], tp=tp)

@@ -18,11 +18,20 @@ The train path keeps the JAX package's stacked layout instead
 :func:`stack_layers`): the exchange partitions each leaf into server
 blocks, so only that layout puts the blocks, the buckets and the drop
 masks on the same elements as the reference. :func:`apply_stack_train`
-reads layer l's weights as views into the stacked leaves; it runs every
+reads layer l's weights as views into the stacked leaves (each leaf
+unbound once, so that its backward stacks the layers' gradients in one
+op); it runs every
 kind (rwkv and rec on the reference's XLA-route recurrences,
 :mod:`repro_torch.kernels.ops`) and sums the MoE layers' aux losses.
 ``aux`` carries the side inputs of the kinds that read them: the
-encoder output ``enc_out`` for ``xattn``.
+encoder output ``enc_out`` for ``xattn``. Under FSDP
+(:class:`repro_torch.models.parallel.FSDP`) each layer whose leaves
+arrive as shards runs checkpointed: its shards are all-gathered over the
+data group as the loop takes it, the gathered weights and the layer's
+activations are freed after its forward, and its backward gathers them
+again and reduce-scatters the whole weights' gradient to the shards (the
+reference's per-layer ``jax.checkpoint`` recomputes the layer's forward
+in its backward too).
 
 Which kinds serve on which cache:
 
@@ -39,6 +48,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
@@ -82,16 +92,30 @@ def stack_layers(layers: Sequence[dict], kinds: Sequence[str]) -> dict:
             for kind, idxs in group_layout(kinds).items()}
 
 
+def _train_layer(kind: str, p, x, cfg: ArchConfig, aux, tp, rows):
+    """One layer of the train pass: (x, its aux loss or None)."""
+    if kind in RECURRENT:
+        return RECURRENT[kind].train(p, x, cfg), None
+    if kind == "enc":
+        return W.enc_train(p, x, cfg), None
+    if kind == "xattn":
+        return W.xattn_train(p, x, aux["enc_out"], cfg), None
+    return T.train(p, x, cfg, T.window_of(kind), tp, rows)
+
+
 def apply_stack_train(params: dict, x, cfg: ArchConfig,
                       kinds: Sequence[str], aux: Optional[dict] = None,
-                      tp=None):
+                      tp=None, fsdp=None, rows=None):
     """The train-mode pass over the stacked layout, in faithful order
     (the JAX package's ``apply_stack(mode="train", grouped=False)``);
     ``aux["enc_out"]`` is the encoder output the ``xattn`` layers attend
     to; ``tp`` runs this rank's share of the dense kinds' sharded layers
     (the recurrent and Whisper kinds refuse it here, an MoE FFN in
-    :func:`repro_torch.models.transformer.train`). Returns (x, the summed
-    per-layer aux loss, f32)."""
+    :func:`repro_torch.models.transformer.train`); ``fsdp`` (its ``dims``
+    those of ``params``) gathers each layer's FSDP shards and checkpoints
+    the layer (see the module's docstring); ``rows`` spans the MoE's
+    batch statistics over a group (``models/layers.py::moe_route``).
+    Returns (x, the summed per-layer aux loss, f32)."""
     if tp is not None:
         for kind in kinds:
             if kind in RECURRENT or kind in W.KINDS:
@@ -100,21 +124,29 @@ def apply_stack_train(params: dict, x, cfg: ArchConfig,
                     "inside a replica is not run (ROADMAP queue A, 'TP "
                     "inside a replica')")
     pos = {kind: 0 for kind in params}
+    # each stacked leaf split into its layers once: the backward stacks
+    # the layers' gradients in one op (a slice a layer would write a
+    # zero-filled stack per layer)
+    split = {}
+    for kind, tree in params.items():
+        leaves, treedef = tree_lib.flatten(tree)
+        split[kind] = (treedef, [torch.unbind(a) for a in leaves])
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind in kinds:
         i = pos[kind]
         pos[kind] += 1
-        p = tree_lib.map(lambda a, i=i: a[i], params[kind])
-        if kind in RECURRENT:
-            x = RECURRENT[kind].train(p, x, cfg)
-            continue
-        if kind == "enc":
-            x = W.enc_train(p, x, cfg)
-            continue
-        if kind == "xattn":
-            x = W.xattn_train(p, x, aux["enc_out"], cfg)
-            continue
-        x, al = T.train(p, x, cfg, T.window_of(kind), tp)
+        treedef, layers = split[kind]
+        p = tree_lib.unflatten(treedef, [ls[i] for ls in layers])
+        dims = None if fsdp is None else fsdp.sub(kind)
+        if dims is not None:
+            # after the slice, a stacked leaf's FSDP dim d is d - 1
+            def run(x, p=p, kind=kind, dims=dims):
+                full = fsdp.gather(p, dims, lead=1)
+                return _train_layer(kind, full, x, cfg, aux, tp, rows)
+            x, al = checkpoint(run, x, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            x, al = _train_layer(kind, p, x, cfg, aux, tp, rows)
         if al is not None:
             aux_loss = aux_loss + al
     return x, aux_loss

@@ -70,28 +70,31 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig,
     return p
 
 
-def _ffn(p, x, cfg: ArchConfig, tp=None):
+def _ffn(p, x, cfg: ArchConfig, tp=None, rows=None):
     """The FFN residual: (x + ffn(norm(x)), its aux loss — 0.01 · the
     MoE's load-balance loss, None for a dense MLP). ``tp`` shards a
-    dense MLP; an MoE FFN refuses it."""
+    dense MLP; an MoE FFN refuses it. ``rows``: the group the batch's
+    rows are split over (the MoE's batch statistics span it)."""
     if "moe" in p:
         if tp is not None:
             raise ValueError(
                 f"{cfg.name}: tensor parallelism inside a replica is not "
                 "run for an MoE FFN (ROADMAP queue A, 'TP inside a "
                 "replica': the expert dim over 'model')")
-        out, aux = L.moe(p["moe"], L.rms_norm(x, p["ln2"]), cfg)
+        out, aux = L.moe(p["moe"], L.rms_norm(x, p["ln2"]), cfg, rows)
         return x + out, 0.01 * aux
     return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), tp), None
 
 
-def train(p, x, cfg: ArchConfig, window: Optional[int], tp=None):
+def train(p, x, cfg: ArchConfig, window: Optional[int], tp=None,
+          rows=None):
     """The train-mode layer pass (autograd gives its backward); ``tp``
     (:class:`repro_torch.models.parallel.TP`) runs this rank's share of
-    a sharded layer. Returns (x, aux loss or None)."""
+    a sharded layer; ``rows`` as in :func:`_ffn`. Returns (x, aux loss
+    or None)."""
     h, _ = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg,
                            window=window, blocked=True, tp=tp)
-    return _ffn(p, x + h, cfg, tp)
+    return _ffn(p, x + h, cfg, tp, rows)
 
 
 def prefill(p, x, cfg: ArchConfig, window: Optional[int], *,

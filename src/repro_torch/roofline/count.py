@@ -29,7 +29,7 @@ would give (``tests/test_torch_roofline.py`` holds the two equal); the
 model's Python still runs every layer. :func:`iterations` lets a loop
 over identical parts whose backward runs inside the loop (the trainer's
 microbatches) run its first part once with every count scaled by their
-number.
+number and its collectives recorded once for each.
 :class:`MetaGenerator` is a generator that reports the meta device, so
 that the models' init draws and the samplers' masks run there (a CPU
 generator, which meta draws ignore).
@@ -320,11 +320,15 @@ def iterations(n: int, device: torch.device) -> Iterator[int]:
     """``range(n)`` — except on the meta device under a counter, where
     the parts are identical and each runs whole, its backward included,
     inside the loop's body (the trainer's microbatches): part 0 alone,
-    counted ``n`` times (nothing of a part runs after the loop)."""
+    counted ``n`` times, its collectives recorded ``n`` times in a row
+    (nothing of a part runs after the loop)."""
     c = active()
     if c is None or torch.device(device).type != "meta" or n <= 1:
         yield from range(n)
         return
     with c.scaled(n):
+        first = len(c.records)
         yield 0
+    # each part makes the same collectives, in the same order
+    c.records.extend(c.records[first:] * (n - 1))
 

@@ -15,7 +15,12 @@ from the same replica (the paper sets every x_1^(i) equal).
     reliable mean of their gradients (the pod's gradient over its whole
     batch, the reference's ICI direction), the pods exchange them
     drop-tolerantly (grad_renorm over ("pod",)), then every rank updates.
-    On a single pod n_rps = 1 and the exchange is local.
+    On a single pod n_rps = 1 and the exchange is local. The pod's batch
+    rows are split over its ranks microbatch by microbatch
+    (``sharding.local_batch`` with the config's ``microbatch``); the
+    MoE's batch statistics span each microbatch's rows over the ranks
+    (``models/layers.py::moe_route``), as the reference's loss spans the
+    pod's microbatch.
   allreduce_model / allreduce_grad — the exact mean over the RPS axes;
   none — no communication.
 
@@ -45,9 +50,26 @@ rank's shards: the plan is built over one rank's shapes, as the
 reference's over one device's, and every model shard consumes the same
 masks. The optimizer state and the EF residual are per shard.
 
+FSDP (``fsdp_axis``, the reference's rps_grad layout of llama3-405b and
+kimi-k2), for every family (with a "model" axis > 1, for those that run
+TP): each rank holds its contiguous part, by its index over the FSDP
+axis, of every leaf's FSDP dim (``sharding.local_fsdp_dims``; the leaves
+without one stay whole on every rank of the data group). Each layer's
+shards are all-gathered as the layer loop takes it, in a checkpointed
+layer whose backward gathers them again and reduce-scatters the whole
+weights' gradient to the shards (``models/stack.py``); the sum is then
+divided by the data group's size (the pod's mean, as
+``comm.all_reduce_mean`` sums then divides), while a whole leaf's
+gradient takes the all-reduce mean. The pods then exchange each rank's
+shards over the RPS axes with the same masks on every data and model
+coordinate (the plan over one rank's shapes), and the update runs on the
+shards; the optimizer state and the EF residual are per shard.
+
 Not run here, each refused with a ValueError that names its ROADMAP
 queue A item: tensor parallelism for the MoE, ssm, hybrid, audio and vlm
-families, and FSDP (``fsdp_axis``).
+families. Refused by name too: an FSDP axis among the RPS axes (the
+replicas' axis) or absent from the mesh, and an FSDP dim that does not
+divide by its axis.
 """
 from __future__ import annotations
 
@@ -127,6 +149,9 @@ def local_shapes(tree: Any, specs: Any, mesh) -> Any:
             div = 1
             for a in axes:
                 div *= mesh.shape.get(a, 1)
+            if int(d) % div:
+                raise ValueError(f"dim of {int(d)} over {axes} of {div}: "
+                                 "it does not divide")
             dims.append(int(d) // div)
         return torch.empty(dims, dtype=x.dtype, device="meta")
 
@@ -150,8 +175,8 @@ def train_plan(cfg: ArchConfig, tcfg: TrainConfig, mesh, replica, *,
     global shapes' model dims; None for the allreduce and none
     aggregators. Any mesh, the production ones included: the static part
     of a setup, which the trainer and the dry-run share (the trainer runs
-    no step with FSDP on, nor on a "model" axis > 1 outside the dense
-    family without experts)."""
+    no step on a "model" axis > 1 outside the dense family without
+    experts)."""
     if not tcfg.aggregator.startswith("rps"):
         return None
     rps_axes = tuple(rps_axes)
@@ -189,8 +214,9 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
     ef_state=None, *, masks=None, late=None, corrupt_masks=None,
     wire_noise=None, corrupt_bits=None, pack_noise=None) ->
     (params, opt_state, metrics[, ch_state][, ef_state])``: ``batch`` is
-    this rank's rows (``sharding.local_batch``); ``ch_state`` is carried
-    (and returned) with a channel spec and an rps aggregator, ``ef_state``
+    this rank's rows (``sharding.local_batch`` with ``tcfg.microbatch``);
+    ``ch_state`` is carried (and returned) with a channel spec and an
+    rps aggregator, ``ef_state``
     (this rank's residual, in the state pack's EF format) under
     ``recovery="ef"``. Params and the optimizer state are updated in
     place. ``metrics``: the mean over the data-parallel ranks (every axis
@@ -205,15 +231,29 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
     sharding objects, so both are the spec tree).
 
     ``train_step.plan`` (built by the first :func:`init_state`; at setup
-    on a "model" axis > 1), ``.channel``, ``.init_channel_state(gen)``,
-    ``.init_ef_state(params)``, ``.state_pack`` and ``.recovery`` as the
-    reference's; ``.tp`` the tensor-parallel context and ``.model_dims``
-    the sharded dim of every leaf (``sharding.local_model_dims``; None
-    without a "model" axis > 1), which ``sharding.gather_replica`` takes.
+    on a "model" axis > 1 or with FSDP), ``.channel``,
+    ``.init_channel_state(gen)``, ``.init_ef_state(params)``,
+    ``.state_pack`` and ``.recovery`` as the reference's; ``.tp`` the
+    tensor-parallel context and ``.model_dims`` the sharded dim of every
+    leaf (``sharding.local_model_dims``; None without a "model" axis >
+    1); ``.fsdp`` the data-group context and ``.fsdp_dims`` every leaf's
+    FSDP dim (``sharding.local_fsdp_dims``; None without FSDP);
+    ``sharding.gather_replica`` takes ``.fsdp``. ``.rows`` the group a
+    replica's batch rows are split over (None when a rank has them all)
+    and ``.reliable_mean(grads)`` the step's mean of a gradient tree over
+    it.
     """
     if fsdp_axis is not None:
-        raise ValueError("fsdp_axis: FSDP is not run by the port's trainer "
-                         "(ROADMAP queue A, 'FSDP on the collective path')")
+        if fsdp_axis not in mesh.axis_names or fsdp_axis == "model":
+            raise ValueError(f"fsdp_axis={fsdp_axis!r}: FSDP needs a data "
+                             f"axis of the mesh {mesh.axis_names} other "
+                             "than 'model'")
+        if fsdp_axis in tuple(rps_axes):
+            raise ValueError(
+                f"fsdp_axis={fsdp_axis!r} is among rps_axes="
+                f"{tuple(rps_axes)}: FSDP over the axis that holds the "
+                "replicas (the reference's PartitionSpec would name the "
+                "axis twice)")
     tp_size = mesh.shape.get("model", 1)
     if tp_size > 1:
         parallel_lib.check_family(cfg)
@@ -243,26 +283,53 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
     recovery = wire_lib.make_recovery(tcfg.recovery,
                                       p=channel.effective_p()) \
         if rps_agg else None
-    # the axes a replica spans (rps_grad's pod members): their gradients
-    # are averaged reliably before the exchange
+    # the axes a replica spans (rps_grad's pod members): they split its
+    # batch's rows, and their gradients are averaged reliably before the
+    # exchange
     rep_axes = tuple(a for a in mesh.axis_names
                      if a not in rps_axes and a != "model")
     world = mesh.group(mesh.axis_names)
     rps_group = mesh.group(rps_axes) if rps_axes else None
     rep_group = mesh.group(rep_axes) if rep_axes else None
     state = {"plan": None, "slack": None}
-    tp = dims = None
+    tp = dims = fdims = fsdp = replica = None
     loss_group = world
+    if tp_size > 1 or fsdp_axis is not None:
+        replica = _meta(dataclasses.replace(
+            model, device=torch.device("meta")).init_stacked(
+                count_lib.MetaGenerator()))
     if tp_size > 1:
         # the loss is the same on every rank of a model group: its mean
         # is over the data-parallel ranks
         loss_group = mesh.group(tuple(a for a in mesh.axis_names
                                       if a != "model"))
-        replica = _meta(dataclasses.replace(
-            model, device=torch.device("meta")).init_stacked(
-                count_lib.MetaGenerator()))
         dims = shlib.local_model_dims(replica, cfg, mesh)
         tp = parallel_lib.TP.from_dims(mesh.group(("model",)), dims)
+    fsdp_group = rest_group = None
+    if fsdp_axis is not None:
+        fdims = shlib.local_fsdp_dims(replica, cfg, mesh, fsdp_axis)
+        fsdp_group = mesh.group((fsdp_axis,))
+        # the rest of a replica's axes, over which an FSDP leaf's
+        # gradient is averaged whole after its reduce-scatter
+        rest = tuple(a for a in rep_axes if a != fsdp_axis)
+        rest_group = mesh.group(rest) if rest else None
+        fsdp = parallel_lib.FSDP(fsdp_group, fdims)
+    # the group a replica's batch rows are split over (the MoE's batch
+    # statistics span it)
+    rows = rep_group if rep_group is not None and rep_group.size > 1 \
+        else None
+    # telemetry: each gradient leaf's squares are summed over the axes
+    # it is sharded over
+    leaf_axes = []
+    if replica is not None:
+        nones = [None] * len(tree_lib.leaves(replica))
+        for f, m in zip(nones if fdims is None else tree_lib.leaves(fdims),
+                        nones if dims is None else tree_lib.leaves(dims)):
+            leaf_axes.append(tuple(a for a, d in ((fsdp_axis, f),
+                                                  ("model", m))
+                                   if d is not None))
+    sq_groups = {axes: mesh.group(axes) for axes in sorted(set(leaf_axes))
+                 if axes and tcfg.telemetry}
 
     def build_plan(params):
         """The exchange plan over this rank's tree (shapes only), with the
@@ -284,12 +351,12 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
         if init_params is None:
             params = model.init_stacked(gen)
             build_plan(params)
-            params = shlib.shard_replica(params, cfg, mesh)
+            params = shlib.shard_replica(params, cfg, mesh, fsdp_axis)
         else:
             build_plan(init_params)
             params = tree_lib.map(
                 lambda x: x.to(model.device).clone(),
-                shlib.shard_replica(init_params, cfg, mesh))
+                shlib.shard_replica(init_params, cfg, mesh, fsdp_axis))
         return params, opt.init(params)
 
     def state_shardings(params_shape):
@@ -315,7 +382,8 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
             mine = [p.detach().requires_grad_(True) for p in leaves]
             with torch.enable_grad():
                 loss, met = model.loss(tree_lib.unflatten(treedef, mine),
-                                       tree_lib.unflatten(b_def, part), tp)
+                                       tree_lib.unflatten(b_def, part), tp,
+                                       fsdp, rows)
                 got = torch.autograd.grad(loss, mine, allow_unused=True)
             got = [torch.zeros_like(p) if g is None else g
                    for p, g in zip(leaves, got)]
@@ -331,6 +399,23 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
             grads = [g / mb for g in grads]
         loss = losses[0] if mb == 1 else torch.stack(losses).mean()
         return loss, metrics, tree_lib.unflatten(treedef, grads)
+
+    def leaf_mean(g, fdim=None):
+        if fdim is None:
+            return comm.all_reduce_mean(g, rep_group)
+        g = g / fsdp_group.size
+        return g if rest_group is None else comm.all_reduce_mean(g,
+                                                                 rest_group)
+
+    def reliable_mean(grads):
+        """The mean over a replica's ranks of this rank's gradient tree:
+        an FSDP leaf's shard, already the data group's sum by its
+        reduce-scatter, divided by its size (then averaged over any other
+        axis of the replica); a whole leaf's all-reduce mean."""
+        if rows is None:
+            return grads
+        return tree_lib.map(leaf_mean, grads,
+                            *(() if fdims is None else (fdims,)))
 
     def exchange(tree, mode, *, masks, late, cmask, ef, wire_noise,
                  corrupt_bits, gen):
@@ -360,13 +445,17 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
             return sum(torch.sum(torch.square(g.to(torch.float32)))
                        for g in gs)
 
-        if tp is None:
-            sq = sq_of(tree_lib.leaves(grads))
-        else:       # a sharded leaf's squares over the group, a whole one's
-            pairs = list(zip(tree_lib.leaves(grads), tree_lib.leaves(dims)))
-            sq = comm.all_reduce_sum(
-                sq_of([g for g, d in pairs if d is not None]), tp.group) \
-                + sq_of([g for g, d in pairs if d is None])
+        # a sharded leaf's squares over the axes it is sharded over, a
+        # whole one's counted once
+        by_axes = {}
+        for g, axes in zip(tree_lib.leaves(grads),
+                           leaf_axes or [()] * len(tree_lib.leaves(grads))):
+            by_axes.setdefault(axes, []).append(g)
+        sq = 0
+        for axes in sorted(by_axes, key=lambda a: (not a, a)):
+            part = sq_of(by_axes[axes])
+            sq = sq + (comm.all_reduce_sum(part, sq_groups[axes])
+                       if axes else part)
         stats["grad_norm"] = torch.sqrt(comm.all_reduce_sum(sq, rps_group))
         if late is not None:
             stats.update(counters_lib.staleness_stats(late["rs"],
@@ -393,9 +482,7 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
         build_plan(params)
         plan = state["plan"]
         loss, metrics, grads = loss_and_grads(params, batch)
-        if rep_group is not None and rep_group.size > 1:
-            grads = tree_lib.map(
-                lambda g: comm.all_reduce_mean(g, rep_group), grads)
+        grads = reliable_mean(grads)
         if masks is None and rps_agg and (stateful or async_mode):
             # channel time advances every step, exchanged or not
             if async_mode:
@@ -474,7 +561,11 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
     train_step.plan = None
     train_step.tp = tp
     train_step.model_dims = dims
-    if tp is not None:      # the global shapes: this rank's are cut
+    train_step.fsdp = fsdp
+    train_step.fsdp_dims = fdims
+    train_step.rows = rows
+    train_step.reliable_mean = reliable_mean
+    if replica is not None:     # the global shapes: this rank's are cut
         build_plan(replica)
     train_step.channel = channel
     train_step.init_channel_state = channel.init_state

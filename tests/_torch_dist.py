@@ -240,40 +240,48 @@ def _tp_config(fields: dict):
 
 def trainer_tp_case(rank: int, mesh, spec: dict) -> dict:
     """The port's mesh trainer on a (data, model) or (pod, data, model)
-    mesh with a "model" axis > 1: the config ``spec["cfg"]`` (fields of an
-    ``ArchConfig``) from the reference's initial replica ``spec["p1"]``,
-    ``spec["steps"]`` steps on this rank's rows with the masks
-    ``spec["masks"][t]``. Returns the losses, the replica gathered over
-    the model group (numpy), this rank's whole leaves, the sharded dims
-    and the collectives of the first step."""
+    mesh with a "model" axis > 1, or with FSDP (``spec["fsdp_axis"]``):
+    the config ``spec["cfg"]`` (fields of an ``ArchConfig``; or
+    ``spec["arch"]``, a registry name, reduced) from the reference's
+    initial replica ``spec["p1"]``, ``spec["steps"]`` steps on this rank's
+    rows with the masks ``spec["masks"][t]``. Returns the losses, the
+    replica gathered over the data and model groups (numpy), this rank's
+    whole leaves, the sharded dims and the collectives of the first
+    step."""
+    from repro_torch.configs import get_config
     from repro_torch.convert import (replica_to_numpy, shards_from_jax,
                                      stacked_params_from_jax)
     from repro_torch.core import comm
     from repro_torch.launch import sharding
     from repro_torch.models import build_model
     from repro_torch.train.trainer import TrainConfig, make_train_setup
-    cfg = _tp_config(spec["cfg"])
+    cfg = _tp_config(spec["cfg"]) if "cfg" in spec \
+        else get_config(spec["arch"]).reduced()
     model = build_model(cfg, device="cpu")
     tcfg = TrainConfig(**spec["tcfg"])
     rps_axes = tuple(spec["rps_axes"])
+    fsdp_axis = spec.get("fsdp_axis")
     init_state, step, _ = make_train_setup(model, cfg, tcfg, mesh,
-                                           rps_axes=rps_axes)
+                                           rps_axes=rps_axes,
+                                           fsdp_axis=fsdp_axis)
     params, opt_state = init_state(
         init_params=stacked_params_from_jax(spec["p1"], "cpu"))
     init_equal = all(torch.equal(a, b) for a, b in zip(
         tree_lib.leaves(params),
-        tree_lib.leaves(shards_from_jax(spec["p1"], cfg, mesh, "cpu"))))
+        tree_lib.leaves(shards_from_jax(spec["p1"], cfg, mesh, "cpu",
+                                        fsdp_axis))))
     data_axes = tuple(a for a in mesh.axis_names
                       if a not in rps_axes and a != "model")
     batch = sharding.local_batch(t_(spec["batch"]), mesh, rps_axes,
-                                 data_axes)
+                                 data_axes, tcfg.microbatch)
     ef = step.init_ef_state(params) if tcfg.recovery == "ef" else None
     losses, records, norms = [], None, []
     for t in range(spec["steps"]):
         masks = spec["masks"][t]
         with comm.recording() as rec:
             out = step(params, opt_state, batch, t, None, None, ef,
-                       masks=(t_(masks[0]), t_(masks[1])))
+                       masks=None if masks is None else
+                       (t_(masks[0]), t_(masks[1])))
         if records is None:
             records = list(rec)
         params, opt_state, met = out[:3]
@@ -282,14 +290,55 @@ def trainer_tp_case(rank: int, mesh, spec: dict) -> dict:
         if ef is not None:
             ef = out[-1]
         losses.append(float(met["loss"]))
-    whole = [np_(x) for x, d in zip(tree_lib.leaves(params),
-                                    tree_lib.leaves(step.model_dims))
-             if d is None]
+    n = len(tree_lib.leaves(params))
+    mdims = [None] * n if step.model_dims is None \
+        else tree_lib.leaves(step.model_dims)
+    fdims = [None] * n if step.fsdp_dims is None \
+        else tree_lib.leaves(step.fsdp_dims)
+    whole = [np_(x) for x, d, f in zip(tree_lib.leaves(params), mdims,
+                                       fdims) if d is None and f is None]
     return {"loss": np.array(losses),
-            "params": replica_to_numpy(params, step.model_dims, mesh),
-            "whole": whole, "dims": tree_lib.leaves(step.model_dims),
-            "records": records, "n_buckets": step.plan.n_buckets,
+            "params": replica_to_numpy(params, step.model_dims, mesh,
+                                       step.fsdp),
+            "whole": whole, "dims": mdims, "fsdp_dims": fdims,
+            "shapes": [tuple(x.shape) for x in tree_lib.leaves(params)],
+            "records": records,
+            "n_buckets": 0 if step.plan is None else step.plan.n_buckets,
             "grad_norm": np.array(norms), "init_equal": init_equal}
+
+
+def fsdp_roundtrip_case(rank: int, mesh, spec: dict) -> dict:
+    """``sharding.shard_replica`` over "model" and "data" of a random
+    replica of ``spec["arch"]`` (reduced), each shard against its
+    contiguous part of the replica, and ``gather_replica`` of the shards
+    against the replica, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding
+    from repro_torch.models import build_model, parallel
+    cfg = get_config(spec["arch"]).reduced()
+    gen = torch.Generator()
+    gen.manual_seed(spec["seed"])
+    full = build_model(cfg, device="cpu").init_stacked(gen)
+    mdims = sharding.local_model_dims(full, cfg, mesh)
+    fdims = sharding.local_fsdp_dims(full, cfg, mesh, "data")
+    shards = sharding.shard_replica(full, cfg, mesh, "data")
+    equal, both, fsdp_only = True, 0, 0
+    for x, y, m, f in zip(*(tree_lib.leaves(t)
+                            for t in (full, shards, mdims, fdims))):
+        want = x
+        for d, axis in ((m, "model"), (f, "data")):
+            if d is not None:
+                n = mesh.shape[axis]
+                size = x.shape[d] // n
+                want = want.narrow(d, mesh.axis_index(axis) * size, size)
+        equal &= torch.equal(want, y)
+        both += m is not None and f is not None
+        fsdp_only += m is None and f is not None
+    back = sharding.gather_replica(
+        shards, mdims, mesh, parallel.FSDP(mesh.group(("data",)), fdims))
+    equal &= all(torch.equal(a, b) for a, b in zip(tree_lib.leaves(full),
+                                                   tree_lib.leaves(back)))
+    return {"equal": bool(equal), "both": both, "fsdp_only": fsdp_only}
 
 
 def tp_layers_case(rank: int, mesh, spec: dict) -> dict:

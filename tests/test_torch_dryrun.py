@@ -41,6 +41,11 @@ DECODE = ("decode_32k", "long_500k")
 
 CACHE_CASES = [(a, sh, m) for a in ARCH_IDS for sh in DECODE for m in MESHES
                if get_config(a).runs_shape(SHAPES[sh])]
+# the counted FSDP train rows (llama3-405b's 126 layers, ~36 s each): each
+# in a process of its own, beside the reference's
+FSDP_ROWS = [(a, m) for a in ARCH_IDS for m in MESHES
+             if get_config(a).shard_strategy == "fsdp"
+             and not get_config(a).is_moe]
 
 
 def _spec_items(tree, path=()):
@@ -161,30 +166,55 @@ pickle.dump(out, open(sys.argv[1], "wb"))
 '''
 
 
+_PORT_ROW = r'''
+import pickle, sys
+sys.path.insert(0, sys.argv[2])
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun as D
+row = D.build_train_counted(get_config(sys.argv[3]), SHAPES["train_4k"],
+                            D.make_mesh(sys.argv[4]))
+pickle.dump(row, open(sys.argv[1], "wb"))
+'''
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The reference's subprocess, and meanwhile the port's train_4k rows
-    on both production meshes."""
-    path = tmp_path_factory.mktemp("dryrun") / "ref.pkl"
+    """The reference's subprocess and the port's FSDP train rows' (one
+    each), and meanwhile the port's other train_4k rows on both
+    production meshes."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    path = tmp / "ref.pkl"
     env = dict(os.environ)
     env.update({"JAX_PLATFORMS": "cpu", "XLA_FLAGS": XLA_QUICK,
                 "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"})
-    proc = subprocess.Popen([sys.executable, "-c", _REF, str(path), SRC,
-                             ",".join(FLOP_ARCHS)], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    procs = [subprocess.Popen([sys.executable, "-c", _REF, str(path), SRC,
+                               ",".join(FLOP_ARCHS)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)]
+    rows = {}
+    for arch, name in FSDP_ROWS:
+        rows[(arch, name)] = tmp / f"{arch}-{name}.pkl"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _PORT_ROW, str(rows[(arch, name)]), SRC,
+             arch, name], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
     try:
         layouts, caches = {}, {}
         for name in MESHES:
             mesh = D.make_mesh(name)
             for arch in ARCH_IDS:
-                layouts[(arch, name)] = D.build_train_counted(
-                    get_config(arch), SHAPES["train_4k"], mesh)
+                if (arch, name) not in rows:
+                    layouts[(arch, name)] = D.build_train_counted(
+                        get_config(arch), SHAPES["train_4k"], mesh)
         for arch, shape, name in CACHE_CASES:
             caches[(arch, shape, name)] = _cache_rows(arch, shape, name)
     finally:
-        out, err = proc.communicate(timeout=900)
-    assert proc.returncode == 0, out + err
+        logs = [p.communicate(timeout=900) for p in procs]
+    for p, (out, err) in zip(procs, logs):
+        assert p.returncode == 0, out + err
+    for key, row in rows.items():
+        with open(row, "rb") as f:
+            layouts[key] = pickle.load(f)
     with open(path, "rb") as f:
         return pickle.load(f), layouts, caches
 
@@ -210,24 +240,22 @@ def test_train_layout_equals_reference(ref, layouts, arch, mesh):
     """n_rps, microbatch, aggregator, state pack, state bytes and the
     exchange plan's describe(); the counted terms of the dense
     architectures without experts counted (one rank's step with TP inside
-    a replica on a "model" axis of 16), the others' not run (TP for their
-    family, FSDP)."""
+    a replica on a "model" axis of 16, llama3-405b's with FSDP over the 16
+    data ranks too), the others' not run, their family's TP the only
+    reason (kimi-k2: the MoE's, FSDP runs)."""
     totals, info = layouts[(arch, mesh)]
     want = ref["layout"][(arch, mesh)]
     cfg = get_config(arch)
-    if cfg.family == "dense" and not cfg.is_moe \
-            and cfg.shard_strategy != "fsdp":
+    if cfg.family == "dense" and not cfg.is_moe:
         assert totals is not None and "not_run" not in info
         assert totals["flops"] > 0 and any(
             op == "all_reduce" and n == 16 for op, _, n in totals["records"])
     else:
         assert totals is None
-        if cfg.is_moe or cfg.family != "dense":
-            fam = "MoE" if cfg.is_moe else cfg.family
-            assert f"TP inside a replica for the {fam} family" \
-                in info["not_run"]
-        if cfg.shard_strategy == "fsdp":
-            assert "FSDP" in info["not_run"]
+        fam = "MoE" if cfg.is_moe else cfg.family
+        assert info["not_run"] == (
+            "layout only: the counted terms are not run (ROADMAP A: TP "
+            f"inside a replica for the {fam} family)")
     for key in ("n_rps", "microbatch", "aggregator", "state_pack",
                 "state_bytes", "exchange_plan"):
         assert info[key] == want[key], key
@@ -331,6 +359,31 @@ def test_gemma3_train_row_on_16x16_is_counted():
     assert row["info"]["exchange_plan"]["n"] == 16
 
 
+@pytest.mark.parametrize("mesh", MESHES)
+def test_llama3_405b_train_row_counts_fsdp(layouts, mesh):
+    """llama3-405b's train_4k rows: one rank's step with TP 16 × FSDP 16
+    (and on 2x16x16 the pods' gradient exchange), counted: every FSDP
+    leaf all-gathered twice (the forward and the checkpointed layer's
+    backward) and reduce-scattered once over the 16 data ranks, a layer
+    and a microbatch; the model group's all-reduces over 16; the device's
+    peak (the resident shards and state plus the peak of live bytes)
+    within one H100's 80 GB."""
+    totals, info = layouts[("llama3-405b", mesh)]
+    cfg = get_config("llama3-405b")
+    per = 7 * cfg.n_layers * info["microbatch"]   # wq wk wv wo wi wg wo
+    ops = {}
+    for op, _, n in totals["records"]:
+        ops[(op, n)] = ops.get((op, n), 0) + 1
+    assert ops[("all_gather", 16)] == 2 * per
+    assert ops[("reduce_scatter", 16)] == per
+    assert ops[("all_reduce", 16)] > 0
+    assert info["n_rps"] == (2 if mesh == "2x16x16" else 1)
+    if mesh == "2x16x16":
+        nb = info["exchange_plan"]["n_buckets"]
+        assert ops[("reduce_scatter", 2)] == ops[("all_gather", 2)] == nb
+    assert 0 < totals["hbm"] <= 80e9
+
+
 def test_sim4_row_prices_the_exchange():
     """On the (4,) data mesh one rank's train step holds its exchange: a
     reduce-scatter and an all-gather a bucket (the xla engine) and the
@@ -345,3 +398,38 @@ def test_sim4_row_prices_the_exchange():
                                            "all_reduce": 1}
     assert totals["coll"] > 0 and totals["coll_by_op"]["total"] == \
         totals["coll"]
+
+
+def test_train_peak_does_not_extend_from_two_layers():
+    """Why a train row counts every layer where ``by_periods`` extends a
+    prefill or a decode step: llama3-405b reduced, with FSDP and TP on a
+    (2, 4, 2) ("pod", "data", "model") mesh, counted at 2, 3, 4 and 6
+    layers. Its FLOPs, bytes, collectives and resident bytes grow by the
+    same amount with each layer; its peak of live bytes does not: another
+    moment of the step overtakes the peak between 4 and 6 layers
+    (1,382,400 bytes a layer, then 1,763,294 on torch 2.13), so two and
+    three layers do not give the whole."""
+    import dataclasses
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.inputs import train_specs
+    base = get_config("llama3-405b").reduced()
+    mesh = Mesh((2, 4, 2), ("pod", "data", "model"))
+    got = {}
+    for n in (2, 3, 4, 6):
+        cfg = dataclasses.replace(base, n_layers=n)
+        batch = sharding.local_batch(
+            D._stack_specs(train_specs(cfg, 16, 64), 2), mesh.as_rank(0),
+            ("pod",), ("data",))
+        tot = D.count_train_step(cfg, D.train_config(cfg, "rps_grad", 2),
+                                 mesh, batch, rps_axes=("pod",),
+                                 fsdp_axis="data")
+        got[n] = (tot["flops"], tot["bytes"], len(tot["records"]),
+                  tot["coll"], tot["resident"], tot["peak_live"])
+    for k in range(5):
+        step = got[3][k] - got[2][k]
+        assert got[4][k] - got[3][k] == step
+        assert got[6][k] - got[4][k] == 2 * step, k
+    peak = [got[n][5] for n in (2, 3, 4, 6)]
+    assert peak[2] - peak[1] == peak[1] - peak[0]
+    assert peak[3] - peak[2] > 2 * (peak[1] - peak[0])

@@ -292,9 +292,12 @@ def test_trainer_options_run(runs, name):
                                   "llava-next-mistral-7b", "fsdp"])
 def test_trainer_refuses_tp_and_fsdp(arch):
     """A "model" axis > 1 outside the dense family without experts (the
-    MoE, ssm, hybrid, audio and vlm families), and FSDP, are refused with
-    a ValueError that names the family and its ROADMAP item; the model's
-    loss refuses such a family's TP context too."""
+    MoE, ssm, hybrid, audio and vlm families) is refused with a
+    ValueError that names the family and its ROADMAP item; the model's
+    loss refuses such a family's TP context too. FSDP runs
+    (``tests/test_torch_trainer_fsdp.py``), but not over the axis that
+    holds the replicas: FSDP over "data" with ``rps_axes=("data",)`` is
+    refused with a ValueError that names FSDP."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
