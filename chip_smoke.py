@@ -110,7 +110,8 @@ raises on failure; nothing is caught):
    card's bound (phase 14 times the linear kernel at the same shapes);
    and the wide path's time at a row wider than a cluster holds;
 20. benchmarks/wire_bench.py section 2 on the port: replicated data,
-   n = 8, rps_model, engine "auto", p in {0.2, 0.3}, 3 seeds, 200 steps;
+   n = 8, rps_model, engine "auto", p in {0.2, 0.3}, 2 of the bench's 3
+   seeds (the smoke's time limit), 200 steps;
    ef closes at least half of the bf16 and int8 wires' loss gap;
 21. rps-100m cut to its first layer of 12 (CUT_LAYERS: phase 17's
    embedding, first layers and batches; width, n, batch, seq, lr and p
@@ -323,12 +324,14 @@ raises on failure; nothing is caught):
 42. the dry-run (launch/dryrun.py, meta tensors) and the roofline on the
    card's own constants (roofline/analysis.py::HW, the H100 SXM data
    sheet): 42a every architecture x shape on the production meshes
-   (the train rows of the dense architectures without experts counted,
-   one rank's step with TP inside a replica; llama3-405b's, FSDP over the
-   16 data ranks too, left to tests/test_torch_dryrun.py (DRYRUN_LEFT_OUT);
-   the others layout rows: the exchange plan and state bytes, the counted
-   terms not run, the port running neither TP for the other families nor
-   serving on a mesh) and on one H100 (sim1, counted rows), each ok,
+   (the train rows of the dense architectures counted, one rank's step
+   with TP inside a replica; llama3-405b's and kimi-k2's, FSDP over the
+   16 data ranks too, and mixtral-8x22b's left to
+   tests/test_torch_dryrun.py and tests/test_torch_dryrun_moe.py
+   (DRYRUN_LEFT_OUT); the others layout rows: the exchange plan and
+   state bytes, the counted terms not run, the port running neither TP
+   for the other families nor serving on a mesh) and on one H100 (sim1,
+   counted rows), each ok,
    layout only or skipped with the
    reference's reason, its table printed (t_compute, t_memory,
    t_collective, bottleneck, HBM a device, fits), and on this machine's
@@ -372,7 +375,23 @@ raises on failure; nothing is caught):
    bytes staged and peak memory beside the FSDP-free trainer's;
    deepseek-7b at full width cut to 2 layers (bf16), one forward and
    backward of 2 x 128 rows on the FSDP shards against the unsharded
-   replica's within BF16_TOL (tp_phases, fsdp_gates).
+   replica's within BF16_TOL (tp_phases, fsdp_gates);
+45. (in phase 43's world, its (2, 2) data x model mesh) the MoE's tensor
+   parallelism: 45a mixtral-8x22b at full width cut to 1 of its 56
+   layers, bf16 (E 8, the rule's width branch: wi / wg split over d_ff,
+   wo over d; 48 query heads split, the 8 KV heads whole), 2 x 128 rows a
+   data rank: one forward and backward on the shards against the
+   unsharded replica's within BF16_TOL (the unsharded pass one rank at a
+   time), then 2 steps of rps_model on the ring engine, the losses
+   finite, the whole leaves (the router among them) the same bits on
+   both model ranks, ring_rank.cu's launches and every collective equal
+   to the dry-run's count of that rank's step x 2; 45b the expert branch
+   at kimi-k2's widths (d 7,168, d_ff 2,048, 64 heads, top 8, vocab
+   163,840) at 1 layer, its 384 experts cut to 16 (the fewest the rule
+   lays over "model"; one layer's 384 hold 33.8 GB, more than four ranks
+   on one card hold with their gradients), one forward and backward on
+   the shards against the unsharded replica's within BF16_TOL; step ms,
+   bytes staged and peak memory a rank printed (moe_gates).
 
 The phases' wall seconds are printed on one line before the kernels'
 line.
@@ -1613,8 +1632,9 @@ RING_Q_WIDTHS = ((2, 4, 1, 4096), (2, 4, 1, 16384), (2, 4, 1, 32768),
                  (1, 3, 2, 3_145_729))
 # phase 19's wide-path timing shape: rows past the widest cluster
 RING_Q_WIDE = (1, 4, 4, 3_200_000)
-# phase 20: wire_bench.py section 2 (replicated data, n = 8)
-GAP_STUDY = dict(n=8, steps=200, seeds=(0, 1, 2), ps=(0.2, 0.3))
+# phase 20: wire_bench.py section 2 (replicated data, n = 8), at 2 of the
+# bench's 3 seeds
+GAP_STUDY = dict(n=8, steps=200, seeds=(0, 1), ps=(0.2, 0.3))
 GAP_STUDY_SHAPES = {"w": (6, 4)}        # the 6 -> 4 least-squares model
 
 
@@ -1800,7 +1820,7 @@ def ef_gap_closure(study=GAP_STUDY) -> dict:
     nothing and the gap to the reliable f32 run is the codec's), n = 8, a
     6 -> 4 least-squares model, rps_model, engine "auto" (the xla engine,
     the masked-average kernel), 2 buckets, lr 0.2, warm-up 5, 200 steps,
-    3 seeds; at p in {0.2, 0.3} the ef recovery must close at least half
+    GAP_STUDY's seeds; at p in {0.2, 0.3} the ef recovery must close at least half
     of the bf16 and int8 wires' gap: closed = (loss(renorm) - loss(ef)) /
     (loss(renorm) - loss(reliable f32))."""
     n, steps, seeds = study["n"], study["steps"], study["seeds"]
@@ -4938,18 +4958,13 @@ def _tp_grads(model, params, batch, tp=None, fsdp=None, rows=None) -> tuple:
                   for p, g in zip(leaves, got)])
 
 
-def _tp_against_whole(model, full, shards, batch, tp, dims, mesh,
-                      tol: float) -> dict:
-    """43a / 43d on one rank: the loss and the gradient of this rank's
-    shards (TP, gathered over the model group) against the unsharded
-    replica's on the same rows (the (n, 1) mesh's rank): the largest
-    differences and the worst over ``tol`` · (1 + |want|)."""
-    from repro_torch.launch import sharding
-    loss0, g0 = _tp_grads(model, full, batch)
-    loss1, g1 = _tp_grads(model, shards, batch, tp)
-    g1 = sharding.gather_replica(g1, dims, mesh)
-    err, worst, norm = 0.0, 0.0, 0.0
-    for a, b in zip(tree_lib.leaves(g1), tree_lib.leaves(g0)):
+def _grad_errors(got, want, loss1, loss0, tol: float) -> dict:
+    """Two gradient trees and losses compared: the largest difference,
+    the worst over ``tol`` · (1 + |want|) and the largest relative norm
+    of a leaf's difference, with that leaf's path."""
+    err, worst, norm, at = 0.0, 0.0, 0.0, None
+    for name, a, b in zip(_leaf_names(want), tree_lib.leaves(got),
+                          tree_lib.leaves(want)):
         sq_diff = sq_want = 0.0
         # in chunks: a bf16 vocab leaf's f32 copies would take GBs a rank
         for a_c, b_c in zip(a.reshape(-1).split(1 << 24),
@@ -4961,11 +4976,26 @@ def _tp_against_whole(model, full, shards, batch, tp, dims, mesh,
                 (diff / b_c.abs().mul_(tol).add_(tol)).max()))
             sq_diff += float(diff.square_().sum())
             sq_want += float(b_c.square_().sum())
-        norm = max(norm, (sq_diff / max(sq_want, 1e-60)) ** 0.5)
+        rel = (sq_diff / max(sq_want, 1e-60)) ** 0.5
+        if rel >= norm:
+            norm, at = rel, name
     return {"loss": float(loss1), "loss_whole": float(loss0),
             "loss_err": abs(float(loss1) - float(loss0)),
             "grad_max_abs_err": err, "grad_worst_over_tol": worst,
-            "grad_max_rel_norm_err": norm}
+            "grad_max_rel_norm_err": norm, "grad_max_rel_norm_leaf": at}
+
+
+def _tp_against_whole(model, full, shards, batch, tp, dims, mesh,
+                      tol: float) -> dict:
+    """43a / 43d on one rank: the loss and the gradient of this rank's
+    shards (TP, gathered over the model group) against the unsharded
+    replica's on the same rows (the (n, 1) mesh's rank): the largest
+    differences and the worst over ``tol`` · (1 + |want|)."""
+    from repro_torch.launch import sharding
+    loss0, g0 = _tp_grads(model, full, batch)
+    loss1, g1 = _tp_grads(model, shards, batch, tp)
+    g1 = sharding.gather_replica(g1, dims, mesh)
+    return _grad_errors(g1, g0, loss1, loss0, tol)
 
 
 def _tp_exchange(mesh, rank: int, plan, local_meta, masks) -> dict:
@@ -5086,8 +5116,8 @@ def _tp_deepseek(mesh, rank: int, batches: dict) -> dict:
 
 
 def _tp_rank(rank: int, world: int, masks: list, batches: list,
-             ds_batches: dict, fsdp_in: dict) -> dict:
-    """One rank of phases 43 and 44 (cuda:0, gloo)."""
+             ds_batches: dict, fsdp_in: dict, moe_in: dict) -> dict:
+    """One rank of phases 43, 44 and 45 (cuda:0, gloo)."""
     from repro_torch.launch.mesh import Mesh
     build.load_kernels()
     mesh = Mesh(TP_MESH, ("data", "model"))
@@ -5100,9 +5130,13 @@ def _tp_rank(rank: int, world: int, masks: list, batches: list,
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     fsdp = _fsdp_rank(rank, **fsdp_in)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    moe = _moe_rank(mesh, **moe_in)
     return {"rps_100m": rps, "deepseek": ds, "backend": mesh.backend,
             "rps_100m_s": t1 - t0, "deepseek_s": t2 - t1, "fsdp": fsdp,
-            "fsdp_s": time.perf_counter() - t2}
+            "fsdp_s": t3 - t2, "moe": moe,
+            "moe_s": time.perf_counter() - t3}
 
 
 # ---- phase 44: FSDP on the mesh trainer ------------------------------------
@@ -5254,26 +5288,10 @@ def _fsdp_deepseek(mesh, batches: dict) -> dict:
     g1 = sharding.gather_replica(
         tree_lib.map(lambda x, f: x if f is None else x / group.size, g1,
                      fdims), None, mesh, ctx)
-    err, worst, norm = 0.0, 0.0, 0.0
-    for a, b in zip(tree_lib.leaves(g1), tree_lib.leaves(g0)):
-        sq_diff = sq_want = 0.0
-        for a_c, b_c in zip(a.reshape(-1).split(1 << 24),
-                            b.reshape(-1).split(1 << 24)):
-            a_c, b_c = a_c.float(), b_c.float()
-            diff = (a_c - b_c).abs_()
-            err = max(err, float(diff.max()))
-            worst = max(worst, float(
-                (diff / b_c.abs().mul_(BF16_TOL).add_(BF16_TOL)).max()))
-            sq_diff += float(diff.square_().sum())
-            sq_want += float(b_c.square_().sum())
-        norm = max(norm, (sq_diff / max(sq_want, 1e-60)) ** 0.5)
-    return {"loss": float(loss1), "loss_whole": float(loss0),
-            "loss_err": abs(float(loss1) - float(loss0)),
-            "grad_max_abs_err": err, "grad_worst_over_tol": worst,
-            "grad_max_rel_norm_err": norm,
-            "wall_s": time.perf_counter() - t0,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "shards_gb": _gb(shards), "replica_gb": _gb(full)}
+    return dict(_grad_errors(g1, g0, loss1, loss0, BF16_TOL),
+                wall_s=time.perf_counter() - t0,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                shards_gb=_gb(shards), replica_gb=_gb(full))
 
 
 def _fsdp_rank(rank: int, masks: list, batches: list,
@@ -5384,6 +5402,237 @@ def fsdp_gates(ranks: list, dry: dict, card: str) -> dict:
                             for got in ranks)}
 
 
+# ---- phase 45: the MoE's tensor parallelism on the mesh trainer -------------
+
+# mixtral-8x22b at full width cut to 1 of its 56 layers, bf16 (E 8: the
+# rule's width branch, wi / wg split over d_ff and wo over d; its 48 query
+# heads split, its 8 KV heads whole): 2 x 128 rows a data rank, rps_model
+# on the ring engine on the (2, 2) data x model mesh
+MOE_TP_LOAD = dict(layers=1, batch=2, seq=128, lr=0.3, p=0.1, steps=2)
+MOE_TP_SEED = 4500
+# kimi-k2's widths (d 7,168, d_ff 2,048, 64 heads, top 8, vocab 163,840) at
+# 1 layer, its 384 experts cut to 16, the fewest the rule lays over "model"
+# (its expert branch): one layer's 384 experts hold 33.8 GB, which four
+# ranks on one card cannot hold with their gradients
+KIMI_TP_EXPERTS = 16
+
+
+def _moe_tp_config(arch: str) -> ArchConfig:
+    cfg = _full_config(arch, MOE_TP_LOAD["layers"])
+    if arch.startswith("kimi"):
+        cfg = dataclasses.replace(cfg, n_experts=KIMI_TP_EXPERTS)
+    return cfg
+
+
+def _moe_against_whole(mesh, cfg: ArchConfig, batch: dict,
+                       seed: int) -> dict:
+    """45a / 45b on one rank: one forward and backward of this data rank's
+    rows on its shards (TP over "model") against the unsharded replica's,
+    compared on this rank's part of every leaf. The unsharded pass runs on
+    one rank at a time: a replica and its gradient at mixtral-8x22b's
+    width take ~11.6 GB."""
+    import torch.distributed as dist
+    from repro_torch.launch import sharding
+    from repro_torch.models import parallel
+    model = build_model(cfg, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    full = model.init_stacked(g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            loss0, g0 = _tp_grads(model, full, batch)
+            g0 = sharding.shard_replica(g0, cfg, mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    dims = sharding.local_model_dims(full, cfg, mesh)
+    shards = sharding.shard_replica(full, cfg, mesh)
+    replica_gb = _gb(full)
+    del full
+    tp = parallel.TP.from_dims(mesh.group(("model",)), dims)
+    loss1, g1 = _tp_grads(model, shards, batch, tp)
+    return dict(_grad_errors(g1, g0, loss1, loss0, BF16_TOL),
+                wall_s=time.perf_counter() - t0,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                sharded=sorted(tp.dims), shards_gb=_gb(shards),
+                replica_gb=replica_gb)
+
+
+def _moe_tp_tcfg():
+    """Phase 45a's train config: rps_model over "data" on the ring
+    engine."""
+    from repro_torch.train.trainer import TrainConfig
+    load = MOE_TP_LOAD
+    return TrainConfig(lr=load["lr"], drop_rate=load["p"],
+                       aggregator="rps_model", engine="ring")
+
+
+def _moe_trainer(mesh, cfg: ArchConfig, batches: list, masks: list) -> dict:
+    """45a's run on one rank: MOE_TP_LOAD's steps of the mesh trainer from
+    MOE_TP_SEED's replica: losses, step ms, staged bytes, launches, peak
+    memory, records, and the whole leaves compared across the model
+    group."""
+    from repro_torch.core import comm
+    from repro_torch.train.trainer import make_train_setup
+    model = build_model(cfg, device="cuda")
+    init_state, step, _ = make_train_setup(model, cfg, _moe_tp_tcfg(), mesh,
+                                           rps_axes=("data",))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(MOE_TP_SEED)
+    params, opt_state = init_state(g)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    comm.reset_stats()
+    steps = len(batches)
+    losses, step_ms = [], []
+    with comm.recording() as records:
+        for t in range(steps):
+            t0 = time.perf_counter()
+            params, opt_state, met = step(params, opt_state, batches[t], t,
+                                          None, masks=masks[t])
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    run = {"loss": losses, "step_ms": step_ms,
+           "hop_launches": RG.ring_rank_hop.launches,
+           "land_launches": RG.ring_rank_land.launches,
+           "other_launches": RG.ring_round.launches
+           + RG.ring_round_enc.launches + K.masked_avg_grid.launches,
+           "staged_bytes_per_step": comm.STATS["staged_bytes"] / steps,
+           "transfers_per_step": comm.STATS["transfers"] / steps,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "n_buckets": step.plan.n_buckets, "records": list(records),
+           "sharded": sorted(step.tp.dims), "params_gb": _gb(params)}
+    # the leaves the rule keeps whole (the router among them), in f32
+    whole = torch.cat([x.reshape(-1).float() for x, dm in zip(
+        tree_lib.leaves(params), tree_lib.leaves(step.model_dims))
+        if dm is None])
+    both = comm.all_gather(whole[None], step.tp.group)
+    run["whole_differing"] = int((both[0].view(torch.int32)
+                                  != both[1].view(torch.int32)).sum())
+    run["whole_elements"] = int(both.shape[1])
+    return run
+
+
+def _moe_rank(mesh, masks: list, mixtral: list, kimi: dict) -> dict:
+    """Phase 45 on one rank of phase 43's world (its (2, 2) data x model
+    mesh)."""
+    d = mesh.axis_index("data")
+    rows = [{k: v[d].cuda() for k, v in b.items()} for b in mixtral]
+    masks = [tuple(x.cuda() for x in pair) for pair in masks]
+    cfg = _moe_tp_config("mixtral-8x22b")
+    t0 = time.perf_counter()
+    grads = _moe_against_whole(mesh, cfg, rows[0], MOE_TP_SEED)
+    torch.cuda.empty_cache()
+    run = _moe_trainer(mesh, cfg, rows, masks)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    expert = _moe_against_whole(mesh, _moe_tp_config("kimi-k2-1t-a32b"),
+                                {k: v[d].cuda() for k, v in kimi.items()},
+                                MOE_TP_SEED + 1)
+    torch.cuda.empty_cache()
+    return {"mixtral": {"grads": grads, "run": run}, "kimi": expert,
+            "mixtral_s": t1 - t0, "kimi_s": time.perf_counter() - t1}
+
+
+def _dryrun_moe_tp(rank: int) -> dict:
+    """Phase 45a's count of one rank's step of mixtral-8x22b (1 layer) on
+    the (2, 2) data x model mesh, meta tensors (a worker process)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import Mesh
+    load = MOE_TP_LOAD
+    batch = {k: torch.empty((load["batch"], load["seq"]), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    tot = D.count_train_step(_moe_tp_config("mixtral-8x22b"), _moe_tp_tcfg(),
+                             Mesh(TP_MESH, ("data", "model")), batch,
+                             rps_axes=("data",), rank=rank)
+    return {"records": tot["records"], "kernels": tot["kernels"],
+            "coll_by_op": tot["coll_by_op"], "hbm": tot["hbm"]}
+
+
+def moe_inputs() -> dict:
+    """Phase 45's masks (2 data ranks) and rows: MOE_TP_LOAD's 2 x 128
+    tokens a data rank and step for mixtral-8x22b, one such batch for
+    kimi-k2's widths."""
+    load = MOE_TP_LOAD
+    mg = torch.Generator(device="cuda")
+    mg.manual_seed(MOE_TP_SEED + 7)
+    masks = [tuple(m.cpu() for m in rps_lib.sample_masks(mg, 2, load["p"]))
+             for _ in range(load["steps"])]
+    dg = torch.Generator()
+    dg.manual_seed(MOE_TP_SEED + 2)
+    shape = (TP_MESH[0], load["batch"], load["seq"])
+
+    def batch(arch):
+        vocab = _moe_tp_config(arch).vocab_size
+        return {k: torch.randint(0, vocab, shape, generator=dg,
+                                 dtype=torch.int32)
+                for k in ("tokens", "labels")}
+
+    return {"masks": masks,
+            "mixtral": [batch("mixtral-8x22b") for _ in range(load["steps"])],
+            "kimi": batch("kimi-k2-1t-a32b")}
+
+
+def moe_gates(ranks: list, dry: dict, card: str) -> dict:
+    """Phase 45's gates over the ranks' results and its summary line
+    (``dry``: rank -> the dry-run's count of its 45a step)."""
+    steps = MOE_TP_LOAD["steps"]
+    for r, got in enumerate(ranks):
+        moe = got["moe"]
+        for name, gr in (("45a", moe["mixtral"]["grads"]),
+                         ("45b", moe["kimi"])):
+            if not (gr["grad_worst_over_tol"] <= 1.0
+                    and gr["loss_err"] <= BF16_TOL
+                    * (1 + abs(gr["loss_whole"]))):
+                raise AssertionError(f"phase {name} rank {r}: {gr}")
+        run = moe["mixtral"]["run"]
+        d = dry[r]
+        want_rec = [tuple(x) for x in d["records"]] * steps
+        if [tuple(x) for x in run["records"]] != want_rec:
+            raise AssertionError(
+                f"phase 45a rank {r}: {len(run['records'])} records, the "
+                f"dry-run's {len(d['records'])} x {steps} differ")
+        hops = d["kernels"].get("ring_rank_hop", {}).get("calls", 0)
+        lands = d["kernels"].get("ring_rank_land", {}).get("calls", 0)
+        if (run["hop_launches"], run["land_launches"]) != \
+                (hops * steps, lands * steps) or not hops \
+                or run["other_launches"]:
+            raise AssertionError(
+                f"phase 45a rank {r}: launches {run['hop_launches']} / "
+                f"{run['land_launches']} / {run['other_launches']}, the "
+                f"dry-run's {hops} / {lands} x {steps}")
+        if not np.all(np.isfinite(run["loss"])) or run["whole_differing"]:
+            raise AssertionError(f"phase 45a rank {r}: loss {run['loss']}, "
+                                 f"{run['whole_differing']} whole-leaf "
+                                 "elements differ across the model group")
+    for got in ranks:
+        run = got["moe"]["mixtral"]["run"]
+        recs = run.pop("records")
+        run["collectives_per_step"] = {
+            op: sum(1 for o, _, _ in recs if o == op) / steps
+            for op in sorted({o for o, _, _ in recs})}
+    summary = {
+        "mesh": "(2, 2) data x model, 4 ranks on cuda:0, gloo, CUDA "
+                "payloads staged through pinned host buffers",
+        **MOE_TP_LOAD, "kimi_experts": KIMI_TP_EXPERTS,
+        "mixtral": [got["moe"]["mixtral"] for got in ranks],
+        "mixtral_s": [got["moe"]["mixtral_s"] for got in ranks],
+        "kimi": [got["moe"]["kimi"] for got in ranks],
+        "kimi_s": [got["moe"]["kimi_s"] for got in ranks],
+        "dry_run": {"records_per_step": len(dry[0]["records"]),
+                    "bytes_per_step": dry[0]["coll_by_op"],
+                    "hbm_gb": dry[0]["hbm"] / 1e9}}
+    print(json.dumps({"moe_tp": summary, "card": card}), flush=True)
+    return {"launches": sum(got["moe"]["mixtral"]["run"]["hop_launches"]
+                            + got["moe"]["mixtral"]["run"]["land_launches"]
+                            for got in ranks)}
+
+
 def _dryrun_tp(rank: int) -> dict:
     """Phase 43's count of one rank's rps-100m step on the (2, 2) mesh,
     meta tensors (a worker process)."""
@@ -5403,7 +5652,7 @@ def _dryrun_tp(rank: int) -> dict:
 
 def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
               batches: list, dry: dict, fsdp_batches: list,
-              fsdp_dry: dict) -> dict:
+              fsdp_dry: dict, moe_dry: dict) -> dict:
     """Phase 43: tensor parallelism inside a replica on the mesh trainer,
     four ranks on the one card over gloo (host-staged, as phases 40-41),
     a (2, 2) ("data", "model") mesh, one world of spawned processes.
@@ -5436,7 +5685,8 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
 
     Phase 44 (:func:`fsdp_gates`) runs in the same world after 43d, on a
     (2, 2) ("pod", "data") mesh: FSDP over "data", rps_grad over the
-    pods on the ring engine.
+    pods on the ring engine; phase 45 (:func:`moe_gates`, the MoE's TP)
+    after it on phase 43's mesh (the module's docstring).
 
     44a. rps-100m whole (f32, 129.0 M parameters, 103.8 M of them in
          FSDP leaves), batch 32 x seq 128 a data rank (``fsdp_batches``:
@@ -5473,7 +5723,7 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
                   for k in ("tokens", "labels")}
     t0 = time.perf_counter()
     ranks = run_world(_tp_rank, 4, masks, batches, ds_batches,
-                      fsdp_inputs(fsdp_batches),
+                      fsdp_inputs(fsdp_batches), moe_inputs(),
                       backend="gloo", device="cuda:0",
                       threads=COLL_THREADS, timeout_s=900)
     world_s = time.perf_counter() - t0
@@ -5529,10 +5779,16 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
                     "bytes_per_step": dry[0]["coll_by_op"]}}
     print(json.dumps({"tensor_parallel": summary, "card": card}), flush=True)
     fsdp = fsdp_gates(ranks, fsdp_dry, card)
-    lap("43-44")
+    moe = moe_gates(ranks, moe_dry, card)
+    print(json.dumps({"world_phase_s": {
+        k: [got[k] for got in ranks] for k in ("rps_100m_s", "deepseek_s",
+                                               "fsdp_s", "moe_s")}}),
+          flush=True)
+    lap("43-45")
     return {"launches": sum(got["rps_100m"]["run"]["hop_launches"]
                             + got["rps_100m"]["run"]["land_launches"]
-                            for got in ranks) + fsdp["launches"]}
+                            for got in ranks) + fsdp["launches"]
+            + moe["launches"]}
 
 
 # ---- phase 42: the dry-run and the roofline on the card's own constants ----
@@ -5543,11 +5799,15 @@ DRYRUN_MESHES = ("16x16", "2x16x16", "sim1")
 # time in all, most of it the train rows, which count every layer): three
 # cores of the host's eight
 DRYRUN_WORKERS = 3
-# production-mesh train rows the smoke does not count: llama3-405b's
-# (FSDP x TP, every one of 126 layers at d 16,384: ~35-50 s of CPU each,
-# beside the host-bound phases 16, 17 and 25-31);
-# tests/test_torch_dryrun.py counts them
-DRYRUN_LEFT_OUT = (("llama3-405b", "16x16"), ("llama3-405b", "2x16x16"))
+# production-mesh train rows the smoke does not count, each every layer
+# deep: llama3-405b's (FSDP x TP, 126 layers at d 16,384: ~35-50 s of CPU
+# each, beside the host-bound phases 16, 17 and 25-31),
+# tests/test_torch_dryrun.py counts them; mixtral-8x22b's (56 layers) and
+# kimi-k2's (61, FSDP x TP), ~15-30 s each, tests/test_torch_dryrun_moe.py
+# counts them
+DRYRUN_LEFT_OUT = tuple((a, m) for a in ("llama3-405b", "mixtral-8x22b",
+                                         "kimi-k2-1t-a32b")
+                        for m in ("16x16", "2x16x16"))
 SHARE_MAX = 1.05               # a share over it: the count is wrong
 # the predicted peak (the count's resident bytes plus its peak of live
 # ones) against torch.cuda.max_memory_allocated, relative
@@ -5641,22 +5901,21 @@ def _dryrun_line(r: dict) -> str:
 
 def _counted_on_mesh(arch: str, shape: str) -> bool:
     """Whether the dry-run counts a production-mesh row: a train row of a
-    dense architecture without experts (TP inside a replica, llama3-405b
-    with FSDP too)."""
+    dense architecture, with experts or without (TP inside a replica,
+    llama3-405b and kimi-k2 with FSDP too)."""
     from repro_torch.configs import SHAPES
-    cfg = get_config(arch)
-    return SHAPES[shape].kind == "train" and cfg.family == "dense" \
-        and not cfg.is_moe
+    return SHAPES[shape].kind == "train" \
+        and get_config(arch).family == "dense"
 
 
 def dryrun_sweep_check(rows: list) -> dict:
     """42a: every (arch x shape) on the production meshes but
     DRYRUN_LEFT_OUT's train rows (the train rows of the dense
-    architectures without experts counted, one rank with TP inside a
-    replica; the others layout rows: the port runs neither TP for the
-    other families nor serving on a mesh) and on one H100 (sim1, counted
-    rows), each ok, layout only, or skipped with the reference's reason;
-    the table printed."""
+    architectures counted, one rank with TP inside a replica; the others
+    layout rows: the port runs neither TP for the other families nor
+    serving on a mesh) and on one H100 (sim1, counted rows), each ok,
+    layout only, or skipped with the reference's reason; the table
+    printed."""
     bad = []
     for r in rows:
         st = str(r["status"])
@@ -5672,7 +5931,8 @@ def dryrun_sweep_check(rows: list) -> dict:
     for r in rows:
         print(_dryrun_line(r), flush=True)
     print(f"42a: the train rows of {DRYRUN_LEFT_OUT} are counted by "
-          "tests/test_torch_dryrun.py, not here", flush=True)
+          "tests/test_torch_dryrun.py and tests/test_torch_dryrun_moe.py, "
+          "not here", flush=True)
     if bad:
         raise AssertionError(f"phase 42a: rows neither ok, layout nor "
                              f"skipped: {bad}")
@@ -5953,9 +6213,9 @@ def profile_decode_step(model, params) -> dict:
 def start_dryrun() -> tuple:
     """Phase 42a's rows and 42c's counts, submitted to DRYRUN_WORKERS
     spawned processes (meta tensors, no card) right after the build,
-    42a's exactness checks and phases 43's and 44's counts: ``(pool,
-    rows, counts, exact, tp, fsdp)``, futures that phases 42-44 collect
-    and the pool that phase 42 shuts down."""
+    42a's exactness checks and phases 43's, 44's and 45's counts:
+    ``(pool, rows, counts, exact, tp, fsdp, moe)``, futures that phases
+    42-45 collect and the pool that phase 42 shuts down."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.configs import ARCH_IDS, SHAPES
@@ -5968,8 +6228,9 @@ def start_dryrun() -> tuple:
               for eng in ("ring", "xla") for r in range(COLL_LOAD["n"])}
     tp = {r: pool.submit(_dryrun_tp, r) for r in range(4)}
     fsdp = {r: pool.submit(_dryrun_fsdp, r) for r in range(4)}
+    moe = {r: pool.submit(_dryrun_moe_tp, r) for r in range(4)}
     exact = {c: pool.submit(_dryrun_exact, c) for c in DRYRUN_EXACT_CASES}
-    return pool, rows, counts, exact, tp, fsdp
+    return pool, rows, counts, exact, tp, fsdp, moe
 
 
 def dryrun_phases(gen: torch.Generator, card: str, lap: "Laps", coll: dict,
@@ -6197,7 +6458,8 @@ def main(argv=None) -> int:
     tp = tp_phases(gen, card, lap, tp_batches,
                    {r: f.result() for r, f in dry_run[4].items()},
                    fsdp_batches,
-                   {r: f.result() for r, f in dry_run[5].items()})
+                   {r: f.result() for r, f in dry_run[5].items()},
+                   {r: f.result() for r, f in dry_run[6].items()})
     dryrun_phases(gen, card, lap, coll, ring_profile, dry_run)
     lap.report()
     robust_launches = sum(v["masked_avg_launches"]

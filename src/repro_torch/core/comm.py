@@ -21,7 +21,11 @@ over some of a mesh's axes (:meth:`repro_torch.launch.mesh.Mesh.group`):
   shards all-gathered along a dim forward, the gradient reduce-scattered
   along it backward), the data group's collectives around each layer
   (``models/stack.py``); :func:`all_gather_dim` / :func:`reduce_scatter_dim`
-  tile any dim as :func:`all_gather` / :func:`reduce_scatter` tile dim 0.
+  tile any dim as :func:`all_gather` / :func:`reduce_scatter` tile dim 0;
+- :func:`gather_from`: a tensor-parallel region's output split along a
+  dim leaving it (all-gathered forward; backward, this rank's part of the
+  gradient, nothing sent): the MoE's width-split experts
+  (``models/layers.py::moe``).
 
 Transport: gloo. It carries CPU tensors, and a CUDA tensor through
 pinned host buffers of this module's own, reused from call to call (one
@@ -357,6 +361,33 @@ def gather_shard(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     if group.size == 1:
         return x
     return _GatherShard.apply(x, group, dim)
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather along a dim forward; this rank's part of the gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return all_gather_dim(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        part = grad.narrow(ctx.dim, ctx.group.index * ctx.size, ctx.size)
+        return part.contiguous(), None, None
+
+
+def gather_from(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """A tensor-parallel region's output, split along ``dim`` over the
+    group, leaving it for a part computed alike on every rank: the
+    group's parts joined along ``dim`` forward; backward, this rank's
+    part of the gradient (the gradient is the same on every rank), with
+    no communication. Recorded as an ``all_gather`` over the group;
+    answered on meta tensors."""
+    if group.size == 1:
+        return x
+    return _GatherFrom.apply(x, group, dim)
 
 
 def all_reduce_mean(x: torch.Tensor, group: Group) -> torch.Tensor:

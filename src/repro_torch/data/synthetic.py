@@ -27,6 +27,11 @@ import torch
 from repro_torch import resolve_device
 
 
+# the most (batch × vocab) comparisons a position of the char-LM draw
+# makes at once; above it, a bisection a row
+_COUNT_MAX = 1 << 16
+
+
 @functools.lru_cache(maxsize=16)
 def _markov_cdf(vocab: int, temp: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
@@ -87,14 +92,20 @@ class CharLMTask:
         # inverse-CDF Markov sampling (cached tables): the first token whose
         # cumulative probability exceeds u, 0 when none does (u at or above
         # a row's rounded total) -- the reference's argmax of
-        # ``u < cdf[row]``, found by bisection instead of a (batch, vocab)
-        # comparison per position
+        # ``u < cdf[row]``. A row is nondecreasing, so that token is the
+        # count of its entries at or below u: for a small table counted
+        # for the whole batch at once, for a large one found by bisection
+        # row by row (a (batch, vocab) comparison a position would cost
+        # more than the bisections)
         cdf = _markov_cdf(self.vocab, self.order_temp, self.seed)
         u = rng.random((self.seq_len, batch_size))
         for t in range(self.seq_len):
-            for b in range(batch_size):
-                k = np.searchsorted(cdf[toks[b, t]], u[t, b], side="right")
-                toks[b, t + 1] = k if k < self.vocab else 0
+            if batch_size * self.vocab <= _COUNT_MAX:
+                k = np.count_nonzero(cdf[toks[:, t]] <= u[t][:, None], -1)
+            else:
+                k = np.array([np.searchsorted(cdf[r], v, side="right")
+                              for r, v in zip(toks[:, t], u[t])])
+            toks[:, t + 1] = np.where(k < self.vocab, k, 0)
         dev = resolve_device(self.device)
         return {"tokens": torch.as_tensor(toks[:, :-1].astype(np.int32),
                                           device=dev),

@@ -23,14 +23,15 @@ Meshes:
 
 - the production meshes (16x16, 2x16x16; ``launch/mesh.py``) give the
   static layout — specs, one rank's shapes, the exchange plan, the state
-  bytes — on every row; their train rows of the dense architectures
-  without experts are counted too (one rank's step on its shards, its
-  "model" axis of 16 tensor parallelism inside a replica, the model
-  group's all-reduces recorded), llama3-405b's with FSDP over "data"
-  too (its rows over "data", each layer's shards gathered and its
-  gradient reduce-scattered over the 16 data ranks; every layer counted:
-  a train step's peak of live bytes does not grow alike with each layer,
-  so two and three layers do not extend to the whole), and the others
+  bytes — on every row; their train rows of the dense architectures,
+  with experts or without, are counted too (one rank's step on its
+  shards, its "model" axis of 16 tensor parallelism inside a replica,
+  the model group's collectives recorded), llama3-405b's and kimi-k2's
+  with FSDP over "data" too (its rows over "data", each layer's shards
+  gathered and its gradient reduce-scattered over the 16 data ranks;
+  every layer counted: a train step's peak of live bytes does not grow
+  alike with each layer, so two and three layers do not extend to the
+  whole), and the others
   report the counted terms as not run: TP for the other families and
   serving on a mesh, which the port does not run (ROADMAP queue A);
 - ``sim1`` / ``sim4`` (``make_sim_mesh(1)`` / ``(4)``: one H100 a
@@ -160,9 +161,8 @@ def _not_run(mesh: Mesh, fsdp_axis: Optional[str],
     if mesh.shape.get("model", 1) > 1:
         if cfg is None:
             why.append("TP inside a replica")
-        elif cfg.is_moe or cfg.family != "dense":
-            fam = "MoE" if cfg.is_moe else cfg.family
-            why.append(f"TP inside a replica for the {fam} family")
+        elif cfg.family != "dense":
+            why.append(f"TP inside a replica for the {cfg.family} family")
     if cfg is None and fsdp_axis is not None \
             and mesh.shape.get(fsdp_axis, 1) > 1:
         why.append("serving with FSDP")

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import comm
 from repro_torch.models import parallel as P
 
 NEG_INF = -1e30
@@ -490,7 +491,6 @@ def moe_route(p, x: torch.Tensor, cfg: ArchConfig, rows=None) -> dict:
     loss from the whole batch's mean probabilities and counts, its
     gradient through this rank's mean probabilities (the trainer averages
     the group's gradients: each rank carries its rows' share n times)."""
-    from repro_torch.core import comm
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
@@ -532,7 +532,33 @@ def moe_route(p, x: torch.Tensor, cfg: ArchConfig, rows=None) -> dict:
             "slot": slot}
 
 
-def moe(p, x: torch.Tensor, cfg: ArchConfig, rows=None):
+def _experts(p, ebuf: torch.Tensor, tp=None) -> torch.Tensor:
+    """The experts' gated MLPs over an (E, cap, d) buffer as batched
+    products over the expert axis. Under ``tp`` (the rule's width branch)
+    ``wi`` / ``wg`` hold this rank's d_ff columns and ``wo`` its d
+    columns, where the rule splits them: the hidden activation is joined
+    over d_ff and the output over d, so that the result is whole and the
+    same on every rank of the group."""
+    wide_in = tp is not None and tp.sharded("moe/wi")
+    wide_out = tp is not None and tp.sharded("moe/wo")
+    h = einsum("ecd,edf->ecf", ebuf, p["wi"])
+    g = einsum("ecd,edf->ecf", ebuf, p["wg"])
+    h = F.silu(g) * h
+    if wide_in:
+        # a d-split wo gives each rank a partial gradient of the whole
+        # hidden: the gather's backward sums them (the reduce-scatter);
+        # a whole wo gives every rank the whole gradient
+        join = comm.gather_shard if wide_out else comm.gather_from
+        h = join(h, tp.group, 2)
+    elif wide_out:
+        h = tp.copy_to(h)
+    out = einsum("ecf,efd->ecd", h, p["wo"])
+    if wide_out:
+        out = comm.gather_from(out, tp.group, 2)
+    return out
+
+
+def moe(p, x: torch.Tensor, cfg: ArchConfig, rows=None, tp=None):
     """Sort-based top-k MoE with per-expert capacity (the reference's
     Megablocks-style permutation dispatch, not a (T, E, C) one-hot): the
     kept assignments scattered into an (E·cap, d) buffer, the experts'
@@ -540,6 +566,18 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig, rows=None):
     gathered back weighted by their gates. Returns (out, aux_loss).
     ``rows``: ``x`` is this rank's share of a batch split over the
     group (:func:`moe_route`); a token's output is its own.
+
+    ``tp`` (:class:`repro_torch.models.parallel.TP`) runs this rank's
+    share of experts split by ``launch/sharding.py::_rule``. The routing
+    (the router's probabilities, top-k, gates, capacity, slots and the
+    aux term) is computed alike on every rank of the group, and the aux
+    enters the loss once. The expert branch (E divides by 16): the rank
+    holds experts [j·E/m, (j+1)·E/m), dispatches and combines only the
+    assignments to them, and its partial (T, d) output is summed over the
+    group; the tokens and the gates enter the region through ``copy_to``,
+    so the router's gradient sums every rank's share. The width branch:
+    the tokens enter through ``copy_to``, and :func:`_experts` joins the
+    split products; the combine runs alike on every rank.
 
     The reference's sharding constraints on the expert buffer
     (``expert_sharding``, ``shard_acts``) have no counterpart on one
@@ -549,20 +587,31 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig, rows=None):
     T = B * S
     rt = moe_route(p, x, cfg, rows)
     xt = x.reshape(T, d)
-    keep, slot = rt["keep"], rt["slot"]
+    keep, slot, gates = rt["keep"], rt["slot"], rt["gate_vals"]
+    cap = rt["cap"]
+    n_loc = p["wi"].shape[0]
+    split = tp is not None and tp.sharded("moe/wi")
+    expert = split and n_loc < cfg.n_experts
+    if expert:
+        lo = tp.index * n_loc
+        flat_e = rt["gate_idx"].reshape(-1)
+        keep = keep & (flat_e >= lo) & (flat_e < lo + n_loc)
+        slot = torch.where(keep, slot - lo * cap, 0)
+        xt, gates = tp.copy_to(xt), tp.copy_to(gates)
+    elif split:
+        xt = tp.copy_to(xt)
     tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
     contrib = torch.where(keep[:, None], xt[tok_idx], 0)
-    buf = torch.zeros((cfg.n_experts * rt["cap"], d), dtype=x.dtype,
+    buf = torch.zeros((n_loc * cap, d), dtype=x.dtype,
                       device=x.device).index_add(0, slot, contrib)
-    ebuf = buf.reshape(cfg.n_experts, rt["cap"], d)
-    h = einsum("ecd,edf->ecf", ebuf, p["wi"])
-    g = einsum("ecd,edf->ecf", ebuf, p["wg"])
-    out_e = einsum("ecf,efd->ecd", F.silu(g) * h, p["wo"])
-    out_e = out_e.reshape(-1, d)
-    gathered = out_e[slot] * rt["gate_vals"].reshape(-1, 1).to(x.dtype)
+    out_e = _experts(p, buf.reshape(n_loc, cap, d),
+                     None if expert else tp).reshape(-1, d)
+    gathered = out_e[slot] * gates.reshape(-1, 1).to(x.dtype)
     gathered = torch.where(keep[:, None], gathered, 0)
     out = torch.zeros((T, d), dtype=x.dtype,
                       device=x.device).index_add(0, tok_idx, gathered)
+    if expert:
+        out = tp.reduce_from(out)
     return out.reshape(B, S, d), rt["aux"]
 
 

@@ -1,5 +1,6 @@
 """Tensor parallelism inside a replica: the dense train path's sharded
-products (the mesh trainer on a "model" axis > 1); and FSDP's context
+products, the MoE's among them (the mesh trainer on a "model" axis >
+1); and FSDP's context
 (:class:`FSDP`, the mesh trainer with ``fsdp_axis``).
 
 The JAX package has no counterpart to this module: it lays each leaf
@@ -11,7 +12,10 @@ model group holds its slice of every sharded leaf
 column-parallel product takes its replicated input through
 :func:`repro_torch.core.comm.copy_to` (its gradient summed over the
 group backward), a row-parallel product sends its partial output through
-:func:`repro_torch.core.comm.reduce_from` (summed forward). Everything
+:func:`repro_torch.core.comm.reduce_from` (summed forward), and an
+output split along a dim leaves through
+:func:`repro_torch.core.comm.gather_from` (the MoE's width branch,
+``models/layers.py::moe``). Everything
 outside those regions is computed alike on every rank of the group, so
 a replicated leaf's gradient, and so its value, is the same on every
 rank bit for bit (every all-reduce hands each rank the same sum).
@@ -36,13 +40,8 @@ NEG_INF = -1e30
 
 def check_family(cfg) -> None:
     """Raise unless ``cfg`` runs with tensor parallelism inside a
-    replica: the dense family without experts. The error names the
-    family and its ROADMAP item."""
-    if cfg.is_moe:
-        raise ValueError(
-            f"{cfg.name}: the MoE family on a 'model' axis > 1 is not run "
-            "(ROADMAP queue A, 'TP inside a replica': the expert dim over "
-            "'model')")
+    replica: the dense family, with or without experts. The error names
+    the family and its ROADMAP item."""
     if cfg.family != "dense":
         raise ValueError(
             f"{cfg.name}: the {cfg.family} family on a 'model' axis > 1 is "

@@ -150,10 +150,10 @@ class Model:
         ``params`` (the vlm's patch rows dropped before the head). Returns
         (nll + aux_loss, {"nll", "aux_loss"}); the aux loss is the MoE
         layers' load-balance term (0 without experts). ``tp``
-        (:class:`repro_torch.models.parallel.TP`, the dense family
-        without experts) takes this rank's shards of a replica split over
-        a "model" axis: the loss is the same scalar on every rank of the
-        model group. ``fsdp`` (:class:`repro_torch.models.parallel.FSDP`,
+        (:class:`repro_torch.models.parallel.TP`, the dense family,
+        with or without experts) takes this rank's shards of a replica
+        split over a "model" axis: the loss is the same scalar on every
+        rank of the model group. ``fsdp`` (:class:`repro_torch.models.parallel.FSDP`,
         every family) takes this rank's FSDP shards, gathered layer by
         layer (``models/stack.py``). ``rows`` (a
         :class:`repro_torch.core.comm.Group`): ``batch`` is this rank's

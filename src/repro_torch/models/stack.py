@@ -109,9 +109,9 @@ def apply_stack_train(params: dict, x, cfg: ArchConfig,
     """The train-mode pass over the stacked layout, in faithful order
     (the JAX package's ``apply_stack(mode="train", grouped=False)``);
     ``aux["enc_out"]`` is the encoder output the ``xattn`` layers attend
-    to; ``tp`` runs this rank's share of the dense kinds' sharded layers
-    (the recurrent and Whisper kinds refuse it here, an MoE FFN in
-    :func:`repro_torch.models.transformer.train`); ``fsdp`` (its ``dims``
+    to; ``tp`` runs this rank's share of the dense kinds' sharded layers,
+    an MoE FFN's experts among them (the recurrent and Whisper kinds
+    refuse it here); ``fsdp`` (its ``dims``
     those of ``params``) gathers each layer's FSDP shards and checkpoints
     the layer (see the module's docstring); ``rows`` spans the MoE's
     batch statistics over a group (``models/layers.py::moe_route``).

@@ -73,15 +73,10 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig,
 def _ffn(p, x, cfg: ArchConfig, tp=None, rows=None):
     """The FFN residual: (x + ffn(norm(x)), its aux loss — 0.01 · the
     MoE's load-balance loss, None for a dense MLP). ``tp`` shards a
-    dense MLP; an MoE FFN refuses it. ``rows``: the group the batch's
+    dense MLP or an MoE FFN's experts. ``rows``: the group the batch's
     rows are split over (the MoE's batch statistics span it)."""
     if "moe" in p:
-        if tp is not None:
-            raise ValueError(
-                f"{cfg.name}: tensor parallelism inside a replica is not "
-                "run for an MoE FFN (ROADMAP queue A, 'TP inside a "
-                "replica': the expert dim over 'model')")
-        out, aux = L.moe(p["moe"], L.rms_norm(x, p["ln2"]), cfg, rows)
+        out, aux = L.moe(p["moe"], L.rms_norm(x, p["ln2"]), cfg, rows, tp)
         return x + out, 0.01 * aux
     return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), tp), None
 

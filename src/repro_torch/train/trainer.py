@@ -40,9 +40,10 @@ reference's draws (``masks=``, ``corrupt_masks=``, ``wire_noise=``,
 ``corrupt_bits=``, ``pack_noise=``, ``late=``).
 
 Tensor parallelism inside a replica (a "model" axis > 1), for the dense
-family without experts: each rank holds its slice of every sharded leaf
-(``launch/sharding.py::shard_replica``; the leaves ``_rule`` keeps whole
-are whole on every rank of the model group) and runs its share of the
+family with or without experts: each rank holds its slice of every
+sharded leaf (``launch/sharding.py::shard_replica``; the leaves ``_rule``
+keeps whole are whole on every rank of the model group) and runs its
+share of the
 forward and backward (``models/parallel.py``, the model group's
 all-reduces through ``core/comm.py``). The exchange runs over the RPS
 axes' group, the ranks that share this rank's model coordinate, on this
@@ -66,7 +67,7 @@ coordinate (the plan over one rank's shapes), and the update runs on the
 shards; the optimizer state and the EF residual are per shard.
 
 Not run here, each refused with a ValueError that names its ROADMAP
-queue A item: tensor parallelism for the MoE, ssm, hybrid, audio and vlm
+queue A item: tensor parallelism for the ssm, hybrid, audio and vlm
 families. Refused by name too: an FSDP axis among the RPS axes (the
 replicas' axis) or absent from the mesh, and an FSDP dim that does not
 divide by its axis.
@@ -175,8 +176,7 @@ def train_plan(cfg: ArchConfig, tcfg: TrainConfig, mesh, replica, *,
     global shapes' model dims; None for the allreduce and none
     aggregators. Any mesh, the production ones included: the static part
     of a setup, which the trainer and the dry-run share (the trainer runs
-    no step on a "model" axis > 1 outside the dense family without
-    experts)."""
+    no step on a "model" axis > 1 outside the dense family)."""
     if not tcfg.aggregator.startswith("rps"):
         return None
     rps_axes = tuple(rps_axes)

@@ -347,8 +347,10 @@ def tp_layers_case(rank: int, mesh, spec: dict) -> dict:
     head and cross-entropy (``spec["vocab"]`` below the padded vocab,
     labels on every shard), the attention (``spec["attn"]``: configs of
     ``ArchConfig`` fields, GQA with whole KV heads and MHA with sharded
-    ones) and the MLP. Returns each one's largest forward and gradient
-    differences (the sharded leaves' gradients gathered)."""
+    ones), the MLP and, for each config of ``spec.get("moe", {})``, an
+    MoE FFN (its output plus its aux term). Returns each one's largest
+    forward and gradient differences (the sharded leaves' gradients
+    gathered)."""
     from repro_torch.launch import sharding
     from repro_torch.models import layers as L
     from repro_torch.models import parallel as P
@@ -441,4 +443,21 @@ def tp_layers_case(rank: int, mesh, spec: dict) -> dict:
         return L.mlp(w, xx, tp), [xx]
 
     out["mlp"] = run(cfg, mlp, ffn)
+    for name, fields in spec.get("moe", {}).items():
+        mcfg = _tp_config(fields)
+        E, d, ff = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
+        xm = randn(B, S, d)
+        moe = {"layers": {"moe_attn": {"moe": {
+            "router": randn(1, d, E, scale=d ** -0.5),
+            "wi": randn(1, E, d, ff, scale=d ** -0.5),
+            "wg": randn(1, E, d, ff, scale=d ** -0.5),
+            "wo": randn(1, E, ff, d, scale=ff ** -0.5)}}}}
+
+        def moe_ffn(p, tp, mcfg=mcfg, xm=xm):
+            xx = xm.clone().requires_grad_(True)
+            w = {k: v[0] for k, v in p["layers"]["moe_attn"]["moe"].items()}
+            y, aux = L.moe(w, xx, mcfg, tp=tp)
+            return y + aux, [xx]
+
+        out["moe-" + name] = run(mcfg, moe, moe_ffn)
     return out

@@ -291,17 +291,24 @@ def test_trainer_options_run(runs, name):
                                   "recurrentgemma-9b", "whisper-large-v3",
                                   "llava-next-mistral-7b", "fsdp"])
 def test_trainer_refuses_tp_and_fsdp(arch):
-    """A "model" axis > 1 outside the dense family without experts (the
-    MoE, ssm, hybrid, audio and vlm families) is refused with a
-    ValueError that names the family and its ROADMAP item; the model's
-    loss refuses such a family's TP context too. FSDP runs
+    """A "model" axis > 1 outside the dense family (the ssm, hybrid,
+    audio and vlm families) is refused with a ValueError that names the
+    family and its ROADMAP item; the model's loss refuses such a family's
+    TP context too. The MoE runs there
+    (``tests/test_torch_trainer_moe_tp.py``): mixtral-8x22b reduced
+    builds its train setup on (2, 2) ("data", "model"), and its loss
+    under the setup's TP context runs on a shape-only mesh's rank (meta
+    tensors), the model group's collectives recorded. FSDP runs
     (``tests/test_torch_trainer_fsdp.py``), but not over the axis that
     holds the replicas: FSDP over "data" with ``rps_axes=("data",)`` is
     refused with a ValueError that names FSDP."""
     from repro_torch.configs import get_config
+    from repro_torch.core import comm
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.models import parallel as P
+    from repro_torch.models.inputs import train_specs
+    from repro_torch.roofline.count import MetaGenerator
     from repro_torch.train.trainer import TrainConfig, make_train_setup
     if arch == "fsdp":
         cfg = get_config("rps-paper-mlp").reduced()
@@ -312,11 +319,24 @@ def test_trainer_refuses_tp_and_fsdp(arch):
                              rps_axes=("data",), fsdp_axis="data")
         return
     cfg = get_config(arch).reduced()
-    model = build_model(cfg, device="cpu")
     mesh = Mesh((2, 2), ("data", "model"))
-    want = (r"the MoE family.*ROADMAP queue A, 'TP inside a replica': the "
-            r"expert dim" if cfg.is_moe else
-            rf"the {cfg.family} family.*ROADMAP queue A, 'TP inside a "
+    if cfg.is_moe:
+        model = build_model(cfg, device="meta")
+        init_state, step, _ = make_train_setup(
+            model, cfg, TrainConfig(), mesh.as_rank(1), rps_axes=("data",))
+        params, _ = init_state(MetaGenerator())
+        assert step.tp.sharded("moe/wi") and step.tp.sharded("moe/wo")
+        layer, = params["layers"].values()
+        assert layer["moe"]["wi"].shape[-1] * 2 == cfg.d_ff
+        with comm.recording() as rec:
+            loss, _ = model.loss(params, train_specs(cfg, 2, 8), step.tp)
+        assert loss.shape == () and loss.device.type == "meta"
+        # the width branch's hidden and output joined a layer (E 4)
+        assert sum(op == "all_gather" and n == 2 for op, _, n in rec) \
+            == 2 * cfg.n_layers
+        return
+    model = build_model(cfg, device="cpu")
+    want = (rf"the {cfg.family} family.*ROADMAP queue A, 'TP inside a "
             rf"replica': the {cfg.family} family's TP")
     with pytest.raises(ValueError, match=want):
         make_train_setup(model, cfg, TrainConfig(), mesh, rps_axes=("data",))

@@ -406,8 +406,10 @@ def test_fsdp_dims_follow_the_rules():
 def test_trainer_fsdp_refusals(case):
     """Each refusal is a ValueError that names its reason: FSDP over the
     replicas' axis, an FSDP axis the mesh lacks or the "model" axis, an
-    FSDP dim that does not divide by its axis, and the MoE on a "model"
-    axis > 1 (the MoE's TP, not FSDP)."""
+    FSDP dim that does not divide by its axis. The MoE on a "model" axis
+    > 1 with FSDP runs: kimi-k2 reduced builds under TP x FSDP on (2, 2)
+    ("data", "model"), its experts split over "model" (E 4: the width
+    branch) and laid over "data" along their other dim."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import sharding
@@ -438,7 +440,16 @@ def test_trainer_fsdp_refusals(case):
                 cfg, device="meta").init_stacked(MetaGenerator()), cfg, mesh)
     else:
         mesh, rps = Mesh((2, 2), ("data", "model")), ()
-        want = r"the MoE family on a 'model' axis > 1 is not run"
+        _, step, _ = make_train_setup(
+            build_model(cfg, device="meta"), cfg,
+            TrainConfig(aggregator="rps_grad"), mesh.as_rank(0),
+            rps_axes=rps, fsdp_axis=fsdp)
+        layer, = step.model_dims["layers"].values()
+        assert layer["moe"] == {"router": None, "wi": 3, "wg": 3, "wo": 3}
+        layer, = step.fsdp_dims["layers"].values()
+        assert layer["moe"] == {"router": None, "wi": 2, "wg": 2, "wo": 2}
+        assert step.tp.size == step.fsdp.group.size == 2
+        return
     model = build_model(cfg, device="meta")
     with pytest.raises(ValueError, match=want):
         make_train_setup(model, cfg, TrainConfig(aggregator="rps_grad"),
