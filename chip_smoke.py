@@ -124,9 +124,10 @@ raises on failure; nothing is caught):
    run's final replicas (and residual) at full width, on the card through
    the kernels and on the CPU through the plain versions, with the same
    masks and rounding noise: bit for bit;
-22. the channel families (benchmarks/channels_bench.py's recipe, uncut,
-   on the ring engine): the quickstart's teacher MLP, n = 16, batch 32,
-   150 steps, lr 0.2, warm-up 10, each family at effective_p 0.1 —
+22. the channel families (benchmarks/channels_bench.py's recipe cut to
+   100 of its 150 steps, on the ring engine): the quickstart's teacher
+   MLP, n = 16, batch 32, lr 0.2, warm-up 10, each family at
+   effective_p 0.1 —
    bernoulli, Gilbert-Elliott bursts of 4 and 16, 4 pods, the straggler
    deadline (bisected) and the netsim trace (web priority bisected) —
    and rps_grad on the 16-burst channel; every final loss < the
@@ -134,8 +135,9 @@ raises on failure; nothing is caught):
    16-burst channel, each family's realised off-owner drop fraction
    within CHANNEL_DRIFT of its effective_p (the trace's: its mean over
    the periods replayed), ring launches = groups x steps;
-23. benchmarks/state_bench.py section 3, uncut: n = 4, Adam, ef, 2
-   buckets, 200 steps, seeds {0, 1, 2}, p in {0.1, 0.2, 0.3}, the f32 /
+23. benchmarks/state_bench.py section 3 at 2 of its 3 seeds: n = 4,
+   Adam, ef, 2 buckets, 200 steps, seeds {0, 1}, p in {0.1, 0.2, 0.3},
+   the f32 /
    int8 wire x f32 / i8 pack, engine auto (the masked-average kernel, once
    per group and step); at every p the i8 pack's loss gap <= the int8
    wire's + 0.02, printed beside BENCH_state.json's CPU rows;
@@ -324,14 +326,14 @@ raises on failure; nothing is caught):
 42. the dry-run (launch/dryrun.py, meta tensors) and the roofline on the
    card's own constants (roofline/analysis.py::HW, the H100 SXM data
    sheet): 42a every architecture x shape on the production meshes
-   (the train rows of the dense architectures counted, one rank's step
-   with TP inside a replica; llama3-405b's and kimi-k2's, FSDP over the
-   16 data ranks too, and mixtral-8x22b's left to
-   tests/test_torch_dryrun.py and tests/test_torch_dryrun_moe.py
-   (DRYRUN_LEFT_OUT); the others layout rows: the exchange plan and
-   state bytes, the counted terms not run, the port running neither TP
-   for the other families nor serving on a mesh) and on one H100 (sim1,
-   counted rows), each ok,
+   (the train rows counted, one rank's step with TP inside a replica;
+   llama3-405b's and kimi-k2's, FSDP over the 16 data ranks too,
+   mixtral-8x22b's and the ssm, hybrid, audio and vlm archs' left to
+   tests/test_torch_dryrun.py, tests/test_torch_dryrun_moe.py and
+   tests/test_torch_dryrun_families.py (DRYRUN_LEFT_OUT); the prefill
+   and decode rows layout rows: the exchange plan and state bytes, the
+   counted terms not run, the port serving on no mesh) and on one H100
+   (sim1, counted rows), each ok,
    layout only or skipped with the
    reference's reason, its table printed (t_compute, t_memory,
    t_collective, bottleneck, HBM a device, fits), and on this machine's
@@ -392,6 +394,22 @@ raises on failure; nothing is caught):
    on one card hold with their gradients), one forward and backward on
    the shards against the unsharded replica's within BF16_TOL; step ms,
    bytes staged and peak memory a rank printed (moe_gates).
+46. (in phase 43's world, its (2, 2) data x model mesh) tensor
+   parallelism for the ssm, hybrid, audio and vlm families at full
+   width cut in depth, bf16, 2 x 128 rows a data rank (FAMILY_TP_RUNS):
+   rwkv6-1.6b at 2 of 24 layers (its projections over "model", 16 heads
+   a rank), recurrentgemma-9b at 3 of 38 (rec, rec, attn: the RG-LRU
+   width split, the local attention's query heads too), whisper-large-v3
+   at 1 encoder and 1 decoder layer (its 20 heads whole, the MLPs and
+   the vocabulary split), llava-next-mistral-7b at 2 of 32 with its 576
+   patch rows before 64 tokens; each one forward and backward on the
+   shards against the unsharded replica's within BF16_TOL (the unsharded
+   pass one rank at a time); rwkv6 and recurrentgemma then 2 steps of
+   rps_model on the ring engine: the losses finite, the whole leaves (the
+   decay LoRA, u, lam among them) the same bits on both model ranks,
+   ring_rank.cu's launches and every collective equal to the dry-run's
+   count of that rank's step x 2; step ms, bytes staged and peak memory
+   a rank printed (family_gates).
 
 The phases' wall seconds are printed on one line before the kernels'
 line.
@@ -1993,10 +2011,14 @@ def rps100m_int8(setup: Rps100mSetup, f32_loss: list, steps: int = 8,
 # phase 22: benchmarks/channels_bench.py's recipe
 CHANNEL_P = 0.1                # every family at this effective_p
 # the largest |realised off-owner drop fraction - effective_p| allowed:
-# ~5 sigma at the 16-burst channel (240 links, mean sojourn 16, 150 steps)
+# ~4 sigma at the 16-burst channel (240 links, mean sojourn 16, over
+# CHANNEL_STEPS steps; ~5 sigma at the bench's 150)
 CHANNEL_DRIFT = 0.04
-# phase 23: benchmarks/state_bench.py section 3
-STATE_STUDY = dict(n=4, steps=200, seeds=(0, 1, 2), ps=(0.1, 0.2, 0.3))
+# phase 22's steps: the bench's 150 cut to pay for phase 46
+CHANNEL_STEPS = 100
+# phase 23: benchmarks/state_bench.py section 3 at seeds 0 and 1 of its
+# three (cut to pay for phase 46)
+STATE_STUDY = dict(n=4, steps=200, seeds=(0, 1), ps=(0.1, 0.2, 0.3))
 # phase 24: rps-100m under every state pack
 PACK_LOAD = dict(optimizer="adam", lr=3e-4, warmup=20, steps=4,
                  channel="ge:p_bad=1.0,burst=8,p=0.1")
@@ -2095,7 +2117,7 @@ def channel_families(n: int = 16) -> list:
             n, netsim.export_trace(lam, prio, cfg)))]
 
 
-def channels_bench(steps: int = 150, n: int = 16) -> dict:
+def channels_bench(steps: int = CHANNEL_STEPS, n: int = 16) -> dict:
     """Phase 22: benchmarks/channels_bench.py on the port's ring engine.
     Each family's run counts its masks' off-owner drops and its ring
     launches (one per exchange group and step)."""
@@ -5116,8 +5138,9 @@ def _tp_deepseek(mesh, rank: int, batches: dict) -> dict:
 
 
 def _tp_rank(rank: int, world: int, masks: list, batches: list,
-             ds_batches: dict, fsdp_in: dict, moe_in: dict) -> dict:
-    """One rank of phases 43, 44 and 45 (cuda:0, gloo)."""
+             ds_batches: dict, fsdp_in: dict, moe_in: dict,
+             family_in: dict) -> dict:
+    """One rank of phases 43, 44, 45 and 46 (cuda:0, gloo)."""
     from repro_torch.launch.mesh import Mesh
     build.load_kernels()
     mesh = Mesh(TP_MESH, ("data", "model"))
@@ -5133,10 +5156,13 @@ def _tp_rank(rank: int, world: int, masks: list, batches: list,
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     moe = _moe_rank(mesh, **moe_in)
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    family = _family_rank(mesh, **family_in)
     return {"rps_100m": rps, "deepseek": ds, "backend": mesh.backend,
             "rps_100m_s": t1 - t0, "deepseek_s": t2 - t1, "fsdp": fsdp,
-            "fsdp_s": t3 - t2, "moe": moe,
-            "moe_s": time.perf_counter() - t3}
+            "fsdp_s": t3 - t2, "moe": moe, "moe_s": t4 - t3,
+            "family": family, "family_s": time.perf_counter() - t4}
 
 
 # ---- phase 44: FSDP on the mesh trainer ------------------------------------
@@ -5424,13 +5450,13 @@ def _moe_tp_config(arch: str) -> ArchConfig:
     return cfg
 
 
-def _moe_against_whole(mesh, cfg: ArchConfig, batch: dict,
-                       seed: int) -> dict:
-    """45a / 45b on one rank: one forward and backward of this data rank's
-    rows on its shards (TP over "model") against the unsharded replica's,
-    compared on this rank's part of every leaf. The unsharded pass runs on
-    one rank at a time: a replica and its gradient at mixtral-8x22b's
-    width take ~11.6 GB."""
+def _shards_against_whole(mesh, cfg: ArchConfig, batch: dict,
+                          seed: int) -> dict:
+    """45a / 45b / 46 on one rank: one forward and backward of this data
+    rank's rows on its shards (TP over "model") against the unsharded
+    replica's, compared on this rank's part of every leaf. The unsharded
+    pass runs on one rank at a time: a replica and its gradient at
+    mixtral-8x22b's width take ~11.6 GB."""
     import torch.distributed as dist
     from repro_torch.launch import sharding
     from repro_torch.models import parallel
@@ -5460,27 +5486,28 @@ def _moe_against_whole(mesh, cfg: ArchConfig, batch: dict,
                 replica_gb=replica_gb)
 
 
-def _moe_tp_tcfg():
-    """Phase 45a's train config: rps_model over "data" on the ring
-    engine."""
+def _tp_ring_tcfg():
+    """Phases 45a's and 46's train config: rps_model over "data" on the
+    ring engine."""
     from repro_torch.train.trainer import TrainConfig
     load = MOE_TP_LOAD
     return TrainConfig(lr=load["lr"], drop_rate=load["p"],
                        aggregator="rps_model", engine="ring")
 
 
-def _moe_trainer(mesh, cfg: ArchConfig, batches: list, masks: list) -> dict:
-    """45a's run on one rank: MOE_TP_LOAD's steps of the mesh trainer from
-    MOE_TP_SEED's replica: losses, step ms, staged bytes, launches, peak
-    memory, records, and the whole leaves compared across the model
-    group."""
+def _tp_trainer(mesh, cfg: ArchConfig, batches: list, masks: list,
+               seed: int) -> dict:
+    """45a's and 46's runs on one rank: a step of the mesh trainer from
+    ``seed``'s replica for each of ``batches``: losses, step ms, staged
+    bytes, launches, peak memory, records, and the whole leaves compared
+    across the model group."""
     from repro_torch.core import comm
     from repro_torch.train.trainer import make_train_setup
     model = build_model(cfg, device="cuda")
-    init_state, step, _ = make_train_setup(model, cfg, _moe_tp_tcfg(), mesh,
+    init_state, step, _ = make_train_setup(model, cfg, _tp_ring_tcfg(), mesh,
                                            rps_axes=("data",))
     g = torch.Generator(device="cuda")
-    g.manual_seed(MOE_TP_SEED)
+    g.manual_seed(seed)
     params, opt_state = init_state(g)
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -5526,14 +5553,14 @@ def _moe_rank(mesh, masks: list, mixtral: list, kimi: dict) -> dict:
     masks = [tuple(x.cuda() for x in pair) for pair in masks]
     cfg = _moe_tp_config("mixtral-8x22b")
     t0 = time.perf_counter()
-    grads = _moe_against_whole(mesh, cfg, rows[0], MOE_TP_SEED)
+    grads = _shards_against_whole(mesh, cfg, rows[0], MOE_TP_SEED)
     torch.cuda.empty_cache()
-    run = _moe_trainer(mesh, cfg, rows, masks)
+    run = _tp_trainer(mesh, cfg, rows, masks, MOE_TP_SEED)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    expert = _moe_against_whole(mesh, _moe_tp_config("kimi-k2-1t-a32b"),
-                                {k: v[d].cuda() for k, v in kimi.items()},
-                                MOE_TP_SEED + 1)
+    expert = _shards_against_whole(
+        mesh, _moe_tp_config("kimi-k2-1t-a32b"),
+        {k: v[d].cuda() for k, v in kimi.items()}, MOE_TP_SEED + 1)
     torch.cuda.empty_cache()
     return {"mixtral": {"grads": grads, "run": run}, "kimi": expert,
             "mixtral_s": t1 - t0, "kimi_s": time.perf_counter() - t1}
@@ -5547,7 +5574,7 @@ def _dryrun_moe_tp(rank: int) -> dict:
     load = MOE_TP_LOAD
     batch = {k: torch.empty((load["batch"], load["seq"]), dtype=torch.int32,
                             device="meta") for k in ("tokens", "labels")}
-    tot = D.count_train_step(_moe_tp_config("mixtral-8x22b"), _moe_tp_tcfg(),
+    tot = D.count_train_step(_moe_tp_config("mixtral-8x22b"), _tp_ring_tcfg(),
                              Mesh(TP_MESH, ("data", "model")), batch,
                              rps_axes=("data",), rank=rank)
     return {"records": tot["records"], "kernels": tot["kernels"],
@@ -5633,6 +5660,184 @@ def moe_gates(ranks: list, dry: dict, card: str) -> dict:
                             for got in ranks)}
 
 
+# ---- phase 46: TP for the ssm, hybrid, audio and vlm families -------------
+
+# each family at full width cut in depth, bf16, on phase 43's (2, 2) data x
+# model mesh: (arch, layers, trained). rwkv6-1.6b at 2 of its 24 layers
+# (0.76 GB a replica; its 32 heads 16 a rank), recurrentgemma-9b at 3 of
+# 38 (rec, rec, attn; 5.5 GB; its RG-LRU width 4,096 split, the attention's
+# 16 query heads too, its 1 KV head whole), whisper-large-v3 at 1 of its 32
+# decoder and 1 of its 32 encoder layers (20 heads: whole; the MLPs and
+# the vocabulary split), llava-next-mistral-7b at 2 of 32 (32 query heads
+# split, 8 KV heads whole); the trained ones take FAMILY_TP_LOAD's steps
+# of rps_model on the ring engine (_tp_ring_tcfg)
+FAMILY_TP_RUNS = (("rwkv6-1.6b", 2, True), ("recurrentgemma-9b", 3, True),
+                  ("whisper-large-v3", 1, False),
+                  ("llava-next-mistral-7b", 2, False))
+# 2 x 128 token rows a data rank (the vlm's: 576 patch rows, then 64
+# tokens; the audio model's 64 frames)
+FAMILY_TP_LOAD = dict(batch=2, seq=128, vlm_tokens=64, steps=2)
+FAMILY_TP_SEED = 4600
+
+
+def _family_tp_config(arch: str, layers: int) -> ArchConfig:
+    """``arch`` at full width cut to ``layers`` decoder layers (and as many
+    encoder layers, where it has an encoder)."""
+    cfg = _full_config(arch, layers)
+    if cfg.enc_layers:
+        cfg = dataclasses.replace(cfg, enc_layers=layers)
+    return cfg
+
+
+def _family_seq(cfg: ArchConfig) -> int:
+    """The sequence a row of FAMILY_TP_LOAD holds (the vlm's patch rows
+    and its tokens)."""
+    load = FAMILY_TP_LOAD
+    return cfg.n_patches + load["vlm_tokens"] if cfg.family == "vlm" \
+        else load["seq"]
+
+
+def _family_rank(mesh, masks: list, runs: dict) -> dict:
+    """Phase 46 on one rank of phase 43's world (its (2, 2) data x model
+    mesh): each family's gradient on the shards against the unsharded
+    replica's, and the trained families' ring steps."""
+    d = mesh.axis_index("data")
+    masks = [tuple(x.cuda() for x in pair) for pair in masks]
+    out = {}
+    for arch, layers, trained in FAMILY_TP_RUNS:
+        t0 = time.perf_counter()
+        cfg = _family_tp_config(arch, layers)
+        rows = [{k: v[d].cuda() for k, v in b.items()} for b in runs[arch]]
+        res = {"grads": _shards_against_whole(mesh, cfg, rows[0],
+                                              FAMILY_TP_SEED)}
+        torch.cuda.empty_cache()
+        if trained:
+            res["run"] = _tp_trainer(mesh, cfg, rows, masks, FAMILY_TP_SEED)
+            torch.cuda.empty_cache()
+        res["wall_s"] = time.perf_counter() - t0
+        out[arch] = res
+    return out
+
+
+def _dryrun_family_tp(rank: int) -> dict:
+    """Phase 46's count of one rank's step of each trained family on the
+    (2, 2) data x model mesh, meta tensors (a worker process)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import Mesh
+    out = {}
+    for arch, layers, trained in FAMILY_TP_RUNS:
+        if not trained:
+            continue
+        cfg = _family_tp_config(arch, layers)
+        batch = inputs_lib.train_specs(cfg, FAMILY_TP_LOAD["batch"],
+                                       _family_seq(cfg))
+        tot = D.count_train_step(cfg, _tp_ring_tcfg(),
+                                 Mesh(TP_MESH, ("data", "model")), batch,
+                                 rps_axes=("data",), rank=rank)
+        out[arch] = {"records": tot["records"], "kernels": tot["kernels"],
+                     "coll_by_op": tot["coll_by_op"], "hbm": tot["hbm"]}
+    return out
+
+
+def family_inputs() -> dict:
+    """Phase 46's masks (2 data ranks) and rows: FAMILY_TP_LOAD's rows a
+    data rank (token ids, the audio model's frames and the vlm's patches,
+    normal x 0.02 in bf16) for each step of a trained family, one such
+    batch for the others."""
+    load = FAMILY_TP_LOAD
+    mg = torch.Generator(device="cuda")
+    mg.manual_seed(FAMILY_TP_SEED + 7)
+    p = _tp_ring_tcfg().drop_rate
+    masks = [tuple(m.cpu() for m in rps_lib.sample_masks(mg, 2, p))
+             for _ in range(load["steps"])]
+    dg = torch.Generator()
+    dg.manual_seed(FAMILY_TP_SEED + 2)
+
+    def batch(cfg):
+        out = {}
+        specs = inputs_lib.train_specs(cfg, load["batch"], _family_seq(cfg))
+        for k, spec in specs.items():
+            shape = (TP_MESH[0],) + tuple(spec.shape)
+            if spec.dtype == torch.int32:
+                out[k] = torch.randint(0, cfg.vocab_size, shape,
+                                       generator=dg, dtype=torch.int32)
+            else:
+                out[k] = (torch.randn(shape, generator=dg) * 0.02).to(
+                    spec.dtype)
+        return out
+
+    runs = {}
+    for arch, layers, trained in FAMILY_TP_RUNS:
+        cfg = _family_tp_config(arch, layers)
+        runs[arch] = [batch(cfg) for _ in range(load["steps"]
+                                                if trained else 1)]
+    return {"masks": masks, "runs": runs}
+
+
+def family_gates(ranks: list, dry: dict, card: str) -> dict:
+    """Phase 46's gates over the ranks' results and its summary line
+    (``dry``: rank -> the dry-run's count of its step of each trained
+    family)."""
+    steps = FAMILY_TP_LOAD["steps"]
+    for r, got in enumerate(ranks):
+        for arch, _, trained in FAMILY_TP_RUNS:
+            res = got["family"][arch]
+            gr = res["grads"]
+            if not (gr["grad_worst_over_tol"] <= 1.0
+                    and gr["loss_err"] <= BF16_TOL
+                    * (1 + abs(gr["loss_whole"]))):
+                raise AssertionError(f"phase 46 {arch} rank {r}: {gr}")
+            if not trained:
+                continue
+            run, d = res["run"], dry[r][arch]
+            want_rec = [tuple(x) for x in d["records"]] * steps
+            if [tuple(x) for x in run["records"]] != want_rec:
+                raise AssertionError(
+                    f"phase 46 {arch} rank {r}: {len(run['records'])} "
+                    f"records, the dry-run's {len(d['records'])} x {steps} "
+                    "differ")
+            hops = d["kernels"].get("ring_rank_hop", {}).get("calls", 0)
+            lands = d["kernels"].get("ring_rank_land", {}).get("calls", 0)
+            if (run["hop_launches"], run["land_launches"]) != \
+                    (hops * steps, lands * steps) or not hops \
+                    or run["other_launches"]:
+                raise AssertionError(
+                    f"phase 46 {arch} rank {r}: launches "
+                    f"{run['hop_launches']} / {run['land_launches']} / "
+                    f"{run['other_launches']}, the dry-run's {hops} / "
+                    f"{lands} x {steps}")
+            if not np.all(np.isfinite(run["loss"])) \
+                    or run["whole_differing"]:
+                raise AssertionError(
+                    f"phase 46 {arch} rank {r}: loss {run['loss']}, "
+                    f"{run['whole_differing']} whole-leaf elements differ "
+                    "across the model group")
+    launches = 0
+    for got in ranks:
+        for res in got["family"].values():
+            if "run" not in res:
+                continue
+            run = res["run"]
+            launches += run["hop_launches"] + run["land_launches"]
+            recs = run.pop("records")
+            run["collectives_per_step"] = {
+                op: sum(1 for o, _, _ in recs if o == op) / steps
+                for op in sorted({o for o, _, _ in recs})}
+    summary = {
+        "mesh": "(2, 2) data x model, 4 ranks on cuda:0, gloo, CUDA "
+                "payloads staged through pinned host buffers",
+        **FAMILY_TP_LOAD,
+        "runs": {arch: {"layers": layers,
+                        "ranks": [got["family"][arch] for got in ranks]}
+                 for arch, layers, _ in FAMILY_TP_RUNS},
+        "dry_run": {arch: {"records_per_step": len(v["records"]),
+                           "bytes_per_step": v["coll_by_op"],
+                           "hbm_gb": v["hbm"] / 1e9}
+                    for arch, v in dry[0].items()}}
+    print(json.dumps({"family_tp": summary, "card": card}), flush=True)
+    return {"launches": launches}
+
+
 def _dryrun_tp(rank: int) -> dict:
     """Phase 43's count of one rank's rps-100m step on the (2, 2) mesh,
     meta tensors (a worker process)."""
@@ -5652,7 +5857,7 @@ def _dryrun_tp(rank: int) -> dict:
 
 def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
               batches: list, dry: dict, fsdp_batches: list,
-              fsdp_dry: dict, moe_dry: dict) -> dict:
+              fsdp_dry: dict, moe_dry: dict, family_dry: dict) -> dict:
     """Phase 43: tensor parallelism inside a replica on the mesh trainer,
     four ranks on the one card over gloo (host-staged, as phases 40-41),
     a (2, 2) ("data", "model") mesh, one world of spawned processes.
@@ -5686,7 +5891,8 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
     Phase 44 (:func:`fsdp_gates`) runs in the same world after 43d, on a
     (2, 2) ("pod", "data") mesh: FSDP over "data", rps_grad over the
     pods on the ring engine; phase 45 (:func:`moe_gates`, the MoE's TP)
-    after it on phase 43's mesh (the module's docstring).
+    and phase 46 (:func:`family_gates`, the other families' TP) after it
+    on phase 43's mesh (the module's docstring).
 
     44a. rps-100m whole (f32, 129.0 M parameters, 103.8 M of them in
          FSDP leaves), batch 32 x seq 128 a data rank (``fsdp_batches``:
@@ -5724,6 +5930,7 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
     t0 = time.perf_counter()
     ranks = run_world(_tp_rank, 4, masks, batches, ds_batches,
                       fsdp_inputs(fsdp_batches), moe_inputs(),
+                      family_inputs(),
                       backend="gloo", device="cuda:0",
                       threads=COLL_THREADS, timeout_s=900)
     world_s = time.perf_counter() - t0
@@ -5780,15 +5987,17 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
     print(json.dumps({"tensor_parallel": summary, "card": card}), flush=True)
     fsdp = fsdp_gates(ranks, fsdp_dry, card)
     moe = moe_gates(ranks, moe_dry, card)
+    family = family_gates(ranks, family_dry, card)
     print(json.dumps({"world_phase_s": {
         k: [got[k] for got in ranks] for k in ("rps_100m_s", "deepseek_s",
-                                               "fsdp_s", "moe_s")}}),
+                                               "fsdp_s", "moe_s",
+                                               "family_s")}}),
           flush=True)
-    lap("43-45")
+    lap("43-46")
     return {"launches": sum(got["rps_100m"]["run"]["hop_launches"]
                             + got["rps_100m"]["run"]["land_launches"]
                             for got in ranks) + fsdp["launches"]
-            + moe["launches"]}
+            + moe["launches"] + family["launches"]}
 
 
 # ---- phase 42: the dry-run and the roofline on the card's own constants ----
@@ -5804,10 +6013,13 @@ DRYRUN_WORKERS = 3
 # each, beside the host-bound phases 16, 17 and 25-31),
 # tests/test_torch_dryrun.py counts them; mixtral-8x22b's (56 layers) and
 # kimi-k2's (61, FSDP x TP), ~15-30 s each, tests/test_torch_dryrun_moe.py
-# counts them
-DRYRUN_LEFT_OUT = tuple((a, m) for a in ("llama3-405b", "mixtral-8x22b",
-                                         "kimi-k2-1t-a32b")
-                        for m in ("16x16", "2x16x16"))
+# counts them; rwkv6-1.6b's, recurrentgemma-9b's, whisper-large-v3's and
+# llava-next-mistral-7b's (~80 s of CPU in all, rwkv6's ~20-26 s each),
+# tests/test_torch_dryrun_families.py counts their 16x16 rows
+DRYRUN_LEFT_OUT = tuple((a, m) for a in (
+    "llama3-405b", "mixtral-8x22b", "kimi-k2-1t-a32b", "rwkv6-1.6b",
+    "recurrentgemma-9b", "whisper-large-v3", "llava-next-mistral-7b")
+    for m in ("16x16", "2x16x16"))
 SHARE_MAX = 1.05               # a share over it: the count is wrong
 # the predicted peak (the count's resident bytes plus its peak of live
 # ones) against torch.cuda.max_memory_allocated, relative
@@ -5900,21 +6112,19 @@ def _dryrun_line(r: dict) -> str:
 
 
 def _counted_on_mesh(arch: str, shape: str) -> bool:
-    """Whether the dry-run counts a production-mesh row: a train row of a
-    dense architecture, with experts or without (TP inside a replica,
-    llama3-405b and kimi-k2 with FSDP too)."""
+    """Whether the dry-run counts a production-mesh row: a train row (TP
+    inside a replica, llama3-405b and kimi-k2 with FSDP too); the port
+    serves on no mesh."""
     from repro_torch.configs import SHAPES
-    return SHAPES[shape].kind == "train" \
-        and get_config(arch).family == "dense"
+    return SHAPES[shape].kind == "train"
 
 
 def dryrun_sweep_check(rows: list) -> dict:
     """42a: every (arch x shape) on the production meshes but
-    DRYRUN_LEFT_OUT's train rows (the train rows of the dense
-    architectures counted, one rank with TP inside a replica; the others
-    layout rows: the port runs neither TP for the other families nor
-    serving on a mesh) and on one H100 (sim1, counted rows), each ok,
-    layout only, or skipped with the reference's reason; the table
+    DRYRUN_LEFT_OUT's train rows (the train rows counted, one rank with
+    TP inside a replica; the prefill and decode rows layout rows: the
+    port serves on no mesh) and on one H100 (sim1, counted rows), each
+    ok, layout only, or skipped with the reference's reason; the table
     printed."""
     bad = []
     for r in rows:
@@ -5931,8 +6141,8 @@ def dryrun_sweep_check(rows: list) -> dict:
     for r in rows:
         print(_dryrun_line(r), flush=True)
     print(f"42a: the train rows of {DRYRUN_LEFT_OUT} are counted by "
-          "tests/test_torch_dryrun.py and tests/test_torch_dryrun_moe.py, "
-          "not here", flush=True)
+          "tests/test_torch_dryrun.py, tests/test_torch_dryrun_moe.py and "
+          "tests/test_torch_dryrun_families.py, not here", flush=True)
     if bad:
         raise AssertionError(f"phase 42a: rows neither ok, layout nor "
                              f"skipped: {bad}")
@@ -6213,9 +6423,9 @@ def profile_decode_step(model, params) -> dict:
 def start_dryrun() -> tuple:
     """Phase 42a's rows and 42c's counts, submitted to DRYRUN_WORKERS
     spawned processes (meta tensors, no card) right after the build,
-    42a's exactness checks and phases 43's, 44's and 45's counts:
-    ``(pool, rows, counts, exact, tp, fsdp, moe)``, futures that phases
-    42-45 collect and the pool that phase 42 shuts down."""
+    42a's exactness checks and phases 43's, 44's, 45's and 46's counts:
+    ``(pool, rows, counts, exact, tp, fsdp, moe, family)``, futures that
+    phases 42-46 collect and the pool that phase 42 shuts down."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.configs import ARCH_IDS, SHAPES
@@ -6229,8 +6439,9 @@ def start_dryrun() -> tuple:
     tp = {r: pool.submit(_dryrun_tp, r) for r in range(4)}
     fsdp = {r: pool.submit(_dryrun_fsdp, r) for r in range(4)}
     moe = {r: pool.submit(_dryrun_moe_tp, r) for r in range(4)}
+    family = {r: pool.submit(_dryrun_family_tp, r) for r in range(4)}
     exact = {c: pool.submit(_dryrun_exact, c) for c in DRYRUN_EXACT_CASES}
-    return pool, rows, counts, exact, tp, fsdp, moe
+    return pool, rows, counts, exact, tp, fsdp, moe, family
 
 
 def dryrun_phases(gen: torch.Generator, card: str, lap: "Laps", coll: dict,
@@ -6459,7 +6670,8 @@ def main(argv=None) -> int:
                    {r: f.result() for r, f in dry_run[4].items()},
                    fsdp_batches,
                    {r: f.result() for r, f in dry_run[5].items()},
-                   {r: f.result() for r, f in dry_run[6].items()})
+                   {r: f.result() for r, f in dry_run[6].items()},
+                   {r: f.result() for r, f in dry_run[7].items()})
     dryrun_phases(gen, card, lap, coll, ring_profile, dry_run)
     lap.report()
     robust_launches = sum(v["masked_avg_launches"]

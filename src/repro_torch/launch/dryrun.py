@@ -23,17 +23,16 @@ Meshes:
 
 - the production meshes (16x16, 2x16x16; ``launch/mesh.py``) give the
   static layout — specs, one rank's shapes, the exchange plan, the state
-  bytes — on every row; their train rows of the dense architectures,
-  with experts or without, are counted too (one rank's step on its
-  shards, its "model" axis of 16 tensor parallelism inside a replica,
-  the model group's collectives recorded), llama3-405b's and kimi-k2's
-  with FSDP over "data" too (its rows over "data", each layer's shards
-  gathered and its gradient reduce-scattered over the 16 data ranks;
-  every layer counted: a train step's peak of live bytes does not grow
-  alike with each layer, so two and three layers do not extend to the
-  whole), and the others
-  report the counted terms as not run: TP for the other families and
-  serving on a mesh, which the port does not run (ROADMAP queue A);
+  bytes — on every row; their train rows, every family's, are counted
+  too (one rank's step on its shards, its "model" axis of 16 tensor
+  parallelism inside a replica, the model group's collectives
+  recorded), llama3-405b's and kimi-k2's with FSDP over "data" too (its
+  rows over "data", each layer's shards gathered and its gradient
+  reduce-scattered over the 16 data ranks; every layer counted: a train
+  step's peak of live bytes does not grow alike with each layer, so two
+  and three layers do not extend to the whole), and the prefill and
+  decode rows report the counted terms as not run: serving on a mesh,
+  which the port does not run (ROADMAP queue A);
 - ``sim1`` / ``sim4`` (``make_sim_mesh(1)`` / ``(4)``: one H100 a
   replica, the collective path's data mesh) count every term: the rows a
   benchmark's cells are sized from.
@@ -152,19 +151,13 @@ def _tree_bytes(*trees) -> int:
                for x in tree_lib.leaves(t) if isinstance(x, torch.Tensor))
 
 
-def _not_run(mesh: Mesh, fsdp_axis: Optional[str],
-             cfg: Optional[ArchConfig] = None) -> Optional[str]:
-    """Why the port cannot run a step on ``mesh`` (None: it can): a train
-    step of ``cfg``, or with ``cfg`` None a serving step (the port serves
-    on no mesh)."""
+def _not_run(mesh: Mesh, fsdp_axis: Optional[str]) -> Optional[str]:
+    """Why the port cannot run a serving step on ``mesh`` (None: it can;
+    the port serves on no mesh). Every train step runs."""
     why = []
     if mesh.shape.get("model", 1) > 1:
-        if cfg is None:
-            why.append("TP inside a replica")
-        elif cfg.family != "dense":
-            why.append(f"TP inside a replica for the {cfg.family} family")
-    if cfg is None and fsdp_axis is not None \
-            and mesh.shape.get(fsdp_axis, 1) > 1:
+        why.append("TP inside a replica")
+    if fsdp_axis is not None and mesh.shape.get(fsdp_axis, 1) > 1:
         why.append("serving with FSDP")
     if not why:
         return None
@@ -222,9 +215,8 @@ def count_train_step(cfg: ArchConfig, tcfg, mesh: Mesh, batch: Dict, *,
 
 def build_train_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh,
                         microbatch: Optional[int] = None):
-    """``(counted totals or None, info)`` of one train step on ``mesh``:
-    ``info`` the reference's keys (the static layout, on any mesh); the
-    count where the port's trainer runs the mesh."""
+    """``(counted totals, info)`` of one train step on ``mesh``: ``info``
+    the reference's keys (the static layout)."""
     from repro_torch.optim import make_optimizer
     from repro_torch.optim import statepack as statepack_lib
     from repro_torch.train.trainer import train_plan
@@ -262,9 +254,6 @@ def build_train_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh,
                 params=stacked, opt_state=opt_shape, ef_state=ef_shape),
             "exchange_plan": plan.describe() if plan is not None else None}
     del stacked, opt_shape, ef_shape
-    why = _not_run(mesh, fsdp_axis, cfg)
-    if why is not None:
-        return None, dict(info, not_run=why)
     # the rank's rows: its worker's, split over "data" under FSDP (the
     # reference's batch_spec)
     batch = shlib.local_batch(

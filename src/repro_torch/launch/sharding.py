@@ -6,8 +6,8 @@ functions: a spec is a tuple with one entry per dim (None, an axis name,
 or a tuple of names), and :func:`model_dims` says which dim of a leaf is
 tensor-parallel — the dim the exchange plan keeps intact
 (``plan.make_plan(model_dims=)``). On the port's trainer, tensor
-parallelism inside a replica ("model" > 1) runs for the dense family
-with or without experts, and FSDP (``fsdp_axis``) for every family:
+parallelism inside a replica ("model" > 1) and FSDP (``fsdp_axis``) run
+for every family:
 :func:`shard_replica` cuts one rank's slice of every leaf along its
 model dim and its FSDP dim, :func:`gather_replica` joins the slices
 back, and :func:`local_model_dims` / :func:`local_fsdp_dims` tell the

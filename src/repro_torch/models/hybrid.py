@@ -18,6 +18,17 @@ XLA route, ``ops.rglru(backend="xla")``: the associative scan that
 autograd differentiates; the CUDA kernel is forward only), the prefill
 (one kernel launch per layer, whose final f32 carry is the decode state)
 and the decode step.
+
+Under tensor parallelism inside a replica (``train(tp=)``,
+:mod:`repro_torch.models.parallel`) the rule
+(``launch/sharding.py::_rule``) splits the recurrent width dr over
+"model": ``wy`` / ``wx`` are column-parallel and the depthwise conv and
+the per-channel RG-LRU run on the rank's dr channels; ``wa`` / ``wi``
+split their output dim, so the conv's output is joined over dr first
+(``parallel.join``), and ``wo`` splits d, so h ⊙ y is joined over dr and
+the output leaves through ``gather_from``. ``lam`` stays whole and
+enters the region through ``copy_to`` before it is cut to the rank's
+channels; the MLP is the dense one's (``layers.mlp(tp=)``).
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as P
 
 CONV_W = 4
 RGLRU_C = 8.0
@@ -71,42 +83,55 @@ def _causal_conv(u: torch.Tensor, conv: torch.Tensor, state=None):
     return out, up[:, -(W - 1):].clone()
 
 
-def _gates(p, u: torch.Tensor):
+def _split(tp, name: str) -> bool:
+    return tp is not None and tp.sharded("rec/" + name)
+
+
+def _gates(p, u: torch.Tensor, tp=None):
     """Returns the f32 decay a = exp(-8·softplus(lam)·r) and the input
-    gate i (u's dtype)."""
-    r = torch.sigmoid(u @ p["wa"])
-    i = torch.sigmoid(u @ p["wi"])
-    log_a = -RGLRU_C * F.softplus(p["lam"]) * r.to(torch.float32)
+    gate i (u's dtype); under ``tp`` with dr split, this rank's channels
+    of both (``u`` this rank's channels too)."""
+    split = _split(tp, "wa")
+    uf = P.join(tp, u, split, split)
+    r = torch.sigmoid(uf @ p["wa"])
+    i = torch.sigmoid(uf @ p["wi"])
+    lam = tp.part(tp.copy_to(p["lam"]), 0) if split else p["lam"]
+    log_a = -RGLRU_C * F.softplus(lam) * r.to(torch.float32)
     return torch.exp(log_a), i
 
 
 def _block(p, xin: torch.Tensor, conv_state=None, rec_state=None,
-           backend: str = "auto"):
+           backend: str = "auto", tp=None):
     """The recurrent block over a sequence (``rec_state`` None: the
     recurrence from a zero carry on ``backend``'s route) or one decode
-    step (from ``rec_state``). Returns (out, new conv state, h_last
-    f32)."""
-    y = F.gelu(xin @ p["wy"], approximate="tanh")
-    u = xin @ p["wx"]
+    step (from ``rec_state``); ``tp`` this rank's share of a sharded
+    block. Returns (out, new conv state, h_last f32)."""
+    split, split_o = _split(tp, "wx"), _split(tp, "wo")
+    xt = tp.copy_to(xin) if split else xin
+    y = F.gelu(xt @ p["wy"], approximate="tanh")
+    u = xt @ p["wx"]
     u, new_conv = _causal_conv(u, p["conv"], conv_state)
-    a, i = _gates(p, u)
+    a, i = _gates(p, u, tp)
     gated = i * u
     if rec_state is None:
         h_seq, h_last = K.rglru(gated, a, backend=backend)
     else:
         h_last = K.rglru_step(gated[:, 0], a[:, 0], rec_state)
         h_seq = h_last[:, None, :]
-    out = (h_seq.to(xin.dtype) * y) @ p["wo"]
+    out = P.join(tp, h_seq.to(xin.dtype) * y, split, split_o) @ p["wo"]
+    if split_o:
+        out = tp.gather_from(out, 2)
     return out, new_conv, h_last
 
 
-def train(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def train(p, x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor:
     """The train-mode layer pass (the reference's ``train``, its rglru on
-    the XLA route). Returns x."""
+    the XLA route); ``tp`` runs this rank's share of a sharded layer.
+    Returns x."""
     xin = L.rms_norm(x, p["ln1"])
-    out, _, _ = _block(p, xin, backend="xla")
+    out, _, _ = _block(p, xin, backend="xla", tp=tp)
     x = x + out
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), tp)
 
 
 def prefill(p, x: torch.Tensor, cfg: ArchConfig):

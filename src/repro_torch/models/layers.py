@@ -543,15 +543,7 @@ def _experts(p, ebuf: torch.Tensor, tp=None) -> torch.Tensor:
     wide_out = tp is not None and tp.sharded("moe/wo")
     h = einsum("ecd,edf->ecf", ebuf, p["wi"])
     g = einsum("ecd,edf->ecf", ebuf, p["wg"])
-    h = F.silu(g) * h
-    if wide_in:
-        # a d-split wo gives each rank a partial gradient of the whole
-        # hidden: the gather's backward sums them (the reduce-scatter);
-        # a whole wo gives every rank the whole gradient
-        join = comm.gather_shard if wide_out else comm.gather_from
-        h = join(h, tp.group, 2)
-    elif wide_out:
-        h = tp.copy_to(h)
+    h = P.join(tp, F.silu(g) * h, wide_in, wide_out)
     out = einsum("ecf,efd->ecd", h, p["wo"])
     if wide_out:
         out = comm.gather_from(out, tp.group, 2)

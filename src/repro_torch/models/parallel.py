@@ -1,24 +1,31 @@
-"""Tensor parallelism inside a replica: the dense train path's sharded
-products, the MoE's among them (the mesh trainer on a "model" axis >
-1); and FSDP's context
-(:class:`FSDP`, the mesh trainer with ``fsdp_axis``).
+"""Tensor parallelism inside a replica: the train path's sharded
+products for every family (the mesh trainer on a "model" axis > 1); and
+FSDP's context (:class:`FSDP`, the mesh trainer with ``fsdp_axis``).
 
 The JAX package has no counterpart to this module: it lays each leaf
 over the "model" mesh axis (``launch/sharding.py``'s rules) and GSPMD
 derives the partitioned forward and backward. Here each rank of the
 model group holds its slice of every sharded leaf
 (``launch/sharding.py::shard_replica``) and the layers
-(``models/layers.py``, ``tp=``) compute their part, Megatron-style: a
-column-parallel product takes its replicated input through
+(``models/layers.py``, ``rwkv6.py``, ``hybrid.py``, ``whisper.py``:
+``tp=``) compute their part, Megatron-style: a column-parallel product
+takes its replicated input through
 :func:`repro_torch.core.comm.copy_to` (its gradient summed over the
 group backward), a row-parallel product sends its partial output through
 :func:`repro_torch.core.comm.reduce_from` (summed forward), and an
 output split along a dim leaves through
-:func:`repro_torch.core.comm.gather_from` (the MoE's width branch,
-``models/layers.py::moe``). Everything
+:func:`repro_torch.core.comm.gather_from`. A product whose weight the
+rule splits along its output dim but whose input arrives split too (the
+MoE's width branch, RWKV-6's ``wo`` / ``cv``, RG-LRU's ``wa`` / ``wi`` /
+``wo``) joins the input with :func:`repro_torch.core.comm.gather_shard`
+(:func:`join`): each rank's output columns give it a partial gradient of
+the whole input, which the backward's reduce-scatter sums. Everything
 outside those regions is computed alike on every rank of the group, so
 a replicated leaf's gradient, and so its value, is the same on every
-rank bit for bit (every all-reduce hands each rank the same sum).
+rank bit for bit (every all-reduce hands each rank the same sum); a
+replicated tensor that a rank's share reads (a whole leaf sliced to the
+rank's channels among them: RWKV-6's decay and bonus, RG-LRU's ``lam``)
+enters the region through ``copy_to``.
 
 :class:`TP` carries the group and which leaves arrive sharded; the
 vocab-parallel embedding (:func:`embed`), head's padding
@@ -38,15 +45,19 @@ from repro_torch.core import comm
 NEG_INF = -1e30
 
 
-def check_family(cfg) -> None:
+def check_family(cfg, size: int) -> None:
     """Raise unless ``cfg`` runs with tensor parallelism inside a
-    replica: the dense family, with or without experts. The error names
-    the family and its ROADMAP item."""
-    if cfg.family != "dense":
+    replica over a model group of ``size`` ranks. Every family runs;
+    refused by name is what the layout rule cannot give a rank whole:
+    an RWKV-6 head split across ranks (the rule splits the time-mix's
+    channels over "model", and a rank's channels must be whole heads)."""
+    if cfg.family == "ssm" and cfg.d_model % 16 == 0 \
+            and cfg.n_heads % size:
         raise ValueError(
-            f"{cfg.name}: the {cfg.family} family on a 'model' axis > 1 is "
-            "not run (ROADMAP queue A, 'TP inside a replica': the "
-            f"{cfg.family} family's TP)")
+            f"{cfg.name}: {cfg.n_heads} RWKV-6 heads over a 'model' axis "
+            f"of {size} split a head across ranks (the rule lays the "
+            "time-mix's channels over 'model'; each rank's channels must "
+            "be whole heads)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +85,15 @@ class TP:
 
     def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
         return comm.reduce_from(x, self.group)
+
+    def gather_from(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return comm.gather_from(x, self.group, dim)
+
+    def part(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous part of ``x``'s ``dim`` (a whole tensor
+        that entered the region through :meth:`copy_to`)."""
+        size = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * size, size)
 
     @classmethod
     def from_dims(cls, group: comm.Group, dims) -> "TP":
@@ -201,3 +221,23 @@ def local_kv(tp: TP, kv: torch.Tensor, n_heads: int) -> torch.Tensor:
     first = tp.index * h_loc
     lo, hi = first // g, (first + h_loc - 1) // g + 1
     return tp.copy_to(kv)[:, :, lo:hi]
+
+
+def join(tp: Optional[TP], h: torch.Tensor, split_in: bool,
+         split_out: bool) -> torch.Tensor:
+    """The input ``h`` (..., k) of a product whose weight (k, m) the rule
+    splits along m where ``split_out``, made whole for it: ``split_in``,
+    ``h`` is this rank's part of k (the last dim), joined over the group
+    by :func:`repro_torch.core.comm.gather_shard` when the product's
+    output columns are split (its gradient partial on every rank, summed
+    by the backward's reduce-scatter) or by
+    :func:`repro_torch.core.comm.gather_from` when they are not (the
+    gradient whole and alike on every rank); not ``split_in``, ``h`` is
+    whole and enters the region through ``copy_to`` when the output is
+    split. ``h`` as it is without ``tp``."""
+    if tp is None:
+        return h
+    if split_in:
+        fn = comm.gather_shard if split_out else comm.gather_from
+        return fn(h, tp.group, h.dim() - 1)
+    return tp.copy_to(h) if split_out else h

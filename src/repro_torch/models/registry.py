@@ -37,8 +37,8 @@ package's stacked layout (``params["layers"]`` a dict of per-kind
 stacks, ``params["enc_layers"]`` = {"enc": stack},
 :func:`repro_torch.models.stack.stack_layers`), so that the exchange's
 blocks fall where the reference's do. ``loss`` runs every family (rwkv
-and rec on the reference's XLA-route recurrences); autograd gives its
-gradients.
+and rec on the reference's XLA-route recurrences), on a replica's
+shards too (``tp``, ``fsdp``); autograd gives its gradients.
 
 The contiguous cache (``paged=False``, ``decode_step``, ``init_cache``)
 serves every family (the dense kinds on the reference's ring-buffer KV
@@ -118,24 +118,25 @@ class Model:
                                                self.enc_kinds)
         return out
 
-    def encode(self, params, frames: torch.Tensor,
-               fsdp=None) -> torch.Tensor:
+    def encode(self, params, frames: torch.Tensor, fsdp=None,
+               tp=None) -> torch.Tensor:
         """The audio encoder over ``frames`` (B, S_src, d), cast to the
         config's dtype, in train mode (both layouts): its output
-        (B, S_src, d). ``fsdp`` as in :meth:`loss`."""
+        (B, S_src, d). ``fsdp`` and ``tp`` as in :meth:`loss` (the
+        output whole and alike on every rank of the model group)."""
         x = frames.to(self.cfg.torch_dtype)
         enc = params["enc_layers"]
         if isinstance(enc, dict):
             return S.apply_stack_train(
-                enc, x, self.cfg, self.enc_kinds,
+                enc, x, self.cfg, self.enc_kinds, tp=tp,
                 fsdp=None if fsdp is None else fsdp.at("enc_layers"))[0]
         return S.apply_stack(enc, x, self.cfg, self.enc_kinds,
                              mode="prefill")[0]
 
-    def _aux(self, params, inputs, fsdp=None) -> dict:
+    def _aux(self, params, inputs, fsdp=None, tp=None) -> dict:
         if self.cfg.family != "audio":
             return {}
-        return {"enc_out": self.encode(params, inputs["frames"], fsdp)}
+        return {"enc_out": self.encode(params, inputs["frames"], fsdp, tp)}
 
     def embed_inputs(self, params, inputs, tp=None) -> torch.Tensor:
         """The token embeddings, after the vlm's patch embeddings (cast to
@@ -150,17 +151,16 @@ class Model:
         ``params`` (the vlm's patch rows dropped before the head). Returns
         (nll + aux_loss, {"nll", "aux_loss"}); the aux loss is the MoE
         layers' load-balance term (0 without experts). ``tp``
-        (:class:`repro_torch.models.parallel.TP`, the dense family,
-        with or without experts) takes this rank's shards of a replica
-        split over a "model" axis: the loss is the same scalar on every
-        rank of the model group. ``fsdp`` (:class:`repro_torch.models.parallel.FSDP`,
+        (:class:`repro_torch.models.parallel.TP`, every family) takes
+        this rank's shards of a replica split over a "model" axis: the
+        loss is the same scalar on every rank of the model group. ``fsdp`` (:class:`repro_torch.models.parallel.FSDP`,
         every family) takes this rank's FSDP shards, gathered layer by
         layer (``models/stack.py``). ``rows`` (a
         :class:`repro_torch.core.comm.Group`): ``batch`` is this rank's
         share of a batch whose rows are split over the group (the MoE's
         batch statistics span it)."""
         if tp is not None:
-            P.check_family(self.cfg)
+            P.check_family(self.cfg, tp.size)
         if fsdp is not None and fsdp.sub("embed") is not None:
             # a leaf outside the stacks is gathered for the whole step
             params = dict(params, embed=fsdp.gather(params["embed"],
@@ -168,7 +168,7 @@ class Model:
         x = self.embed_inputs(params, batch, tp)
         x, aux = S.apply_stack_train(
             params["layers"], x, self.cfg, self.kinds,
-            aux=self._aux(params, batch, fsdp), tp=tp,
+            aux=self._aux(params, batch, fsdp, tp), tp=tp,
             fsdp=None if fsdp is None else fsdp.at("layers"), rows=rows)
         x = x[:, self.prefix_len:]
         logits = L.lm_head(params["embed"], x, self.cfg.vocab_size, tp)

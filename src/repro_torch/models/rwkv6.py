@@ -13,6 +13,18 @@ XLA route, ``ops.rwkv6(backend="xla")``: the chunked scan of scans that
 autograd differentiates; the CUDA kernel is forward only), the prefill
 (one kernel launch per layer, whose final state is the decode cache) and
 the decode step.
+
+Under tensor parallelism inside a replica (``train(tp=)``,
+:mod:`repro_torch.models.parallel`) the rule
+(``launch/sharding.py::_rule``) splits every projection's last dim over
+"model": ``wr`` / ``wk`` / ``wv`` / ``wg`` / ``ck`` are column-parallel
+(the rank's heads of r, k, v, its channels of g, its d_ff columns of the
+channel-mix key), and ``wo`` / ``cr`` / ``cv`` split their output dim,
+so their input is joined over the group first (``parallel.join``) and
+their output leaves through ``gather_from``. The whole leaves (the lerp
+coefficients, the decay LoRA, ``w0``, ``u``) are read alike on every
+rank; the decay and the bonus enter the region through ``copy_to``
+before they are cut to the rank's heads.
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as P
 
 DECAY_LORA = 64
 
@@ -67,28 +80,55 @@ def _decay(p, xw: torch.Tensor) -> torch.Tensor:
         p["w0"].to(f32) + lora.to(f32), -8.0, 4.0)))
 
 
-def _tmix(p, x: torch.Tensor, cfg: ArchConfig, shifted: torch.Tensor):
+def _tmix(p, x: torch.Tensor, cfg: ArchConfig, shifted: torch.Tensor,
+          tp=None):
     """``shifted`` is x_{t-1} along S (or the cached last token when
     decoding). Returns r, k, v, w (B, S, h, ·), u (h, dk) f32 and the
-    gate g (B, S, d)."""
+    gate g (B, S, d); under ``tp`` with the projections split, this
+    rank's heads of each and its channels of g."""
     h = cfg.n_heads
     mu = p["mu"].to(x.dtype)
     xr, xk, xv, xg, xw = (x + mu[i] * (shifted - x) for i in range(5))
+    split = tp is not None and tp.sharded("rwkv/wr")
+    w = _decay(p, xw).to(x.dtype)
+    u = p["u"]
+    if split:
+        h //= tp.size
+        xr, xk, xv, xg = (tp.copy_to(t) for t in (xr, xk, xv, xg))
+        w = tp.part(tp.copy_to(w), 2)
+        u = tp.part(tp.copy_to(u), 0)
     r = _split_heads(xr @ p["wr"], h)
     k = _split_heads(xk @ p["wk"], h)
     v = _split_heads(xv @ p["wv"], h)
     g = F.silu(xg @ p["wg"])
-    w = _split_heads(_decay(p, xw), h).to(x.dtype)
-    u = p["u"].reshape(h, -1)
-    return r, k, v, w, u, g
+    return r, k, v, _split_heads(w, h), u.reshape(h, -1), g
 
 
-def _cmix(p, x: torch.Tensor, shifted: torch.Tensor) -> torch.Tensor:
+def _out(p, y: torch.Tensor, tp=None) -> torch.Tensor:
+    """The time-mix's output projection of y = o ⊙ g (B, S, d, or this
+    rank's channels under ``tp``)."""
+    split_in = tp is not None and tp.sharded("rwkv/wr")
+    split_out = tp is not None and tp.sharded("rwkv/wo")
+    out = P.join(tp, y, split_in, split_out) @ p["wo"]
+    return tp.gather_from(out, 2) if split_out else out
+
+
+def _cmix(p, x: torch.Tensor, shifted: torch.Tensor, tp=None
+          ) -> torch.Tensor:
     mu = p["mu_c"].to(x.dtype)
     xk = x + mu[0] * (shifted - x)
     xr = x + mu[1] * (shifted - x)
-    k = torch.square(F.relu(xk @ p["ck"]))
-    return torch.sigmoid(xr @ p["cr"]) * (k @ p["cv"])
+    split_k = tp is not None and tp.sharded("rwkv/ck")
+    split_v = tp is not None and tp.sharded("rwkv/cv")
+    if split_k:
+        xk = tp.copy_to(xk)
+    k = P.join(tp, torch.square(F.relu(xk @ p["ck"])), split_k, split_v)
+    if split_v:
+        xr = tp.copy_to(xr)
+    # cr and cv split alike (their last dim is d): the rank's columns of
+    # both products, multiplied, then joined once
+    out = torch.sigmoid(xr @ p["cr"]) * (k @ p["cv"])
+    return tp.gather_from(out, 2) if split_v else out
 
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
@@ -96,16 +136,17 @@ def _shift(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def train(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def train(p, x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor:
     """The train-mode layer pass (the reference's ``train``, its rwkv6 on
-    the XLA route). Returns x."""
+    the XLA route); ``tp`` runs this rank's share of a sharded layer (the
+    recurrence over its heads). Returns x."""
     xi = L.rms_norm(x, p["ln1"])
-    r, k, v, w, u, g = _tmix(p, xi, cfg, _shift(xi))
+    r, k, v, w, u, g = _tmix(p, xi, cfg, _shift(xi), tp)
     o, _ = K.rwkv6(r, k, v, w, u, backend="xla")
     B, S = o.shape[:2]
-    x = x + (o.reshape(B, S, -1) * g).to(x.dtype) @ p["wo"]
+    x = x + _out(p, (o.reshape(B, S, -1) * g).to(x.dtype), tp)
     xc = L.rms_norm(x, p["ln2"])
-    return x + _cmix(p, xc, _shift(xc))
+    return x + _cmix(p, xc, _shift(xc), tp)
 
 
 def prefill(p, x: torch.Tensor, cfg: ArchConfig):

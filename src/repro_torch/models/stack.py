@@ -22,7 +22,9 @@ reads layer l's weights as views into the stacked leaves (each leaf
 unbound once, so that its backward stacks the layers' gradients in one
 op); it runs every
 kind (rwkv and rec on the reference's XLA-route recurrences,
-:mod:`repro_torch.kernels.ops`) and sums the MoE layers' aux losses.
+:mod:`repro_torch.kernels.ops`), each with tensor parallelism inside a
+replica too (``tp``, :mod:`repro_torch.models.parallel`), and sums the
+MoE layers' aux losses.
 ``aux`` carries the side inputs of the kinds that read them: the
 encoder output ``enc_out`` for ``xattn``. Under FSDP
 (:class:`repro_torch.models.parallel.FSDP`) each layer whose leaves
@@ -95,11 +97,11 @@ def stack_layers(layers: Sequence[dict], kinds: Sequence[str]) -> dict:
 def _train_layer(kind: str, p, x, cfg: ArchConfig, aux, tp, rows):
     """One layer of the train pass: (x, its aux loss or None)."""
     if kind in RECURRENT:
-        return RECURRENT[kind].train(p, x, cfg), None
+        return RECURRENT[kind].train(p, x, cfg, tp), None
     if kind == "enc":
-        return W.enc_train(p, x, cfg), None
+        return W.enc_train(p, x, cfg, tp), None
     if kind == "xattn":
-        return W.xattn_train(p, x, aux["enc_out"], cfg), None
+        return W.xattn_train(p, x, aux["enc_out"], cfg, tp), None
     return T.train(p, x, cfg, T.window_of(kind), tp, rows)
 
 
@@ -109,20 +111,14 @@ def apply_stack_train(params: dict, x, cfg: ArchConfig,
     """The train-mode pass over the stacked layout, in faithful order
     (the JAX package's ``apply_stack(mode="train", grouped=False)``);
     ``aux["enc_out"]`` is the encoder output the ``xattn`` layers attend
-    to; ``tp`` runs this rank's share of the dense kinds' sharded layers,
-    an MoE FFN's experts among them (the recurrent and Whisper kinds
-    refuse it here); ``fsdp`` (its ``dims``
+    to; ``tp`` runs this rank's share of every kind's sharded layers
+    (the dense kinds' attention, MLP and MoE FFN; rwkv's time-mix and
+    channel-mix, rec's recurrent block, the Whisper kinds' self- and
+    cross-attention); ``fsdp`` (its ``dims``
     those of ``params``) gathers each layer's FSDP shards and checkpoints
     the layer (see the module's docstring); ``rows`` spans the MoE's
     batch statistics over a group (``models/layers.py::moe_route``).
     Returns (x, the summed per-layer aux loss, f32)."""
-    if tp is not None:
-        for kind in kinds:
-            if kind in RECURRENT or kind in W.KINDS:
-                raise ValueError(
-                    f"{cfg.name}: kind {kind!r} under tensor parallelism "
-                    "inside a replica is not run (ROADMAP queue A, 'TP "
-                    "inside a replica')")
     pos = {kind: 0 for kind in params}
     # each stacked leaf split into its layers once: the backward stacks
     # the layers' gradients in one op (a slice a layer would write a

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as P
 
 KINDS = ("enc", "xattn")
 
@@ -33,13 +34,14 @@ def init_enc(gen: torch.Generator, cfg: ArchConfig) -> dict:
             "mlp": L.init_mlp(gen, cfg)}
 
 
-def enc_train(p, x, cfg: ArchConfig):
+def enc_train(p, x, cfg: ArchConfig, tp=None):
     """One encoder layer: bidirectional self-attention (full, or chunked
-    above 2048 frames, unmasked), then the MLP."""
+    above 2048 frames, unmasked), then the MLP; ``tp`` this rank's share
+    of a sharded layer."""
     h, _ = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg,
-                           window=None, causal=False)
+                           window=None, causal=False, tp=tp)
     x = x + h
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), tp)
 
 
 def init_xattn(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -52,30 +54,54 @@ def init_xattn(gen: torch.Generator, cfg: ArchConfig) -> dict:
             "mlp": L.init_mlp(gen, cfg)}
 
 
-def _cross(p, x, k, v):
+def _split(tp) -> bool:
+    """Whether ``tp`` splits the cross-attention's query heads (``wq``
+    and ``wo`` together: the rule shards both by the head count)."""
+    return tp is not None and tp.sharded("xattn/wq")
+
+
+def _cross(p, x, k, v, tp=None):
     """Cross-attention of the stream ``x`` on the encoder's K/V (no RoPE,
-    no mask)."""
-    q = L.einsum("bsd,dhe->bshe", x, p["xattn"]["wq"])
+    no mask); under ``tp``, this rank's query heads on the K/V heads
+    they read, the output's partial sums reduced over the group."""
+    split = _split(tp)
+    q = L.einsum("bsd,dhe->bshe", tp.copy_to(x) if split else x,
+                 p["xattn"]["wq"])
     out = L.full_attention(q, k, v, causal=False, window=None)
-    return L.einsum("bshe,hed->bsd", out, p["xattn"]["wo"])
+    out = L.einsum("bshe,hed->bsd", out, p["xattn"]["wo"])
+    return tp.reduce_from(out) if split else out
 
 
-def enc_kv(p, enc_out):
-    """The layer's cross K/V of the encoder output: (B, S_src, kvh, hd)."""
-    return (L.einsum("bsd,dhe->bshe", enc_out, p["xattn"]["wk"]),
-            L.einsum("bsd,dhe->bshe", enc_out, p["xattn"]["wv"]))
+def enc_kv(p, enc_out, tp=None):
+    """The layer's cross K/V of the encoder output: (B, S_src, kvh, hd);
+    under ``tp`` with the query heads split, the KV heads this rank's
+    query heads read."""
+    if not _split(tp):
+        return (L.einsum("bsd,dhe->bshe", enc_out, p["xattn"]["wk"]),
+                L.einsum("bsd,dhe->bshe", enc_out, p["xattn"]["wv"]))
+    xt = tp.copy_to(enc_out)
+    n_heads = p["xattn"]["wq"].shape[1] * tp.size
+    kv = []
+    for name in ("wk", "wv"):
+        w = p["xattn"][name]
+        if tp.sharded("xattn/" + name):
+            kv.append(L.einsum("bsd,dhe->bshe", xt, w))
+        else:
+            kv.append(P.local_kv(tp, L.einsum("bsd,dhe->bshe", enc_out, w),
+                                 n_heads))
+    return tuple(kv)
 
 
-def _tail(p, x, xk, xv):
+def _tail(p, x, xk, xv, tp=None):
     """The cross-attention and MLP residuals after self-attention."""
-    x = x + _cross(p, L.rms_norm(x, p["lnx"]), xk, xv)
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+    x = x + _cross(p, L.rms_norm(x, p["lnx"]), xk, xv, tp)
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), tp)
 
 
-def xattn_train(p, x, enc_out, cfg: ArchConfig):
+def xattn_train(p, x, enc_out, cfg: ArchConfig, tp=None):
     h, _ = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg,
-                           window=None)
-    return _tail(p, x + h, *enc_kv(p, enc_out))
+                           window=None, tp=tp)
+    return _tail(p, x + h, *enc_kv(p, enc_out, tp), tp)
 
 
 def xattn_prefill(p, x, enc_out, cfg: ArchConfig,

@@ -39,9 +39,9 @@ from generators with the rank folded in. The parity tests inject the
 reference's draws (``masks=``, ``corrupt_masks=``, ``wire_noise=``,
 ``corrupt_bits=``, ``pack_noise=``, ``late=``).
 
-Tensor parallelism inside a replica (a "model" axis > 1), for the dense
-family with or without experts: each rank holds its slice of every
-sharded leaf (``launch/sharding.py::shard_replica``; the leaves ``_rule``
+Tensor parallelism inside a replica (a "model" axis > 1), for every
+family (dense with or without experts, ssm, hybrid, audio, vlm): each
+rank holds its slice of every sharded leaf (``launch/sharding.py::shard_replica``; the leaves ``_rule``
 keeps whole are whole on every rank of the model group) and runs its
 share of the
 forward and backward (``models/parallel.py``, the model group's
@@ -52,8 +52,7 @@ reference's over one device's, and every model shard consumes the same
 masks. The optimizer state and the EF residual are per shard.
 
 FSDP (``fsdp_axis``, the reference's rps_grad layout of llama3-405b and
-kimi-k2), for every family (with a "model" axis > 1, for those that run
-TP): each rank holds its contiguous part, by its index over the FSDP
+kimi-k2), for every family, with a "model" axis > 1 too: each rank holds its contiguous part, by its index over the FSDP
 axis, of every leaf's FSDP dim (``sharding.local_fsdp_dims``; the leaves
 without one stay whole on every rank of the data group). Each layer's
 shards are all-gathered as the layer loop takes it, in a checkpointed
@@ -66,11 +65,10 @@ shards over the RPS axes with the same masks on every data and model
 coordinate (the plan over one rank's shapes), and the update runs on the
 shards; the optimizer state and the EF residual are per shard.
 
-Not run here, each refused with a ValueError that names its ROADMAP
-queue A item: tensor parallelism for the ssm, hybrid, audio and vlm
-families. Refused by name too: an FSDP axis among the RPS axes (the
-replicas' axis) or absent from the mesh, and an FSDP dim that does not
-divide by its axis.
+Refused by name, each with a ValueError: an RWKV-6 head split across
+the model group (``models/parallel.py::check_family``), an FSDP axis
+among the RPS axes (the replicas' axis) or absent from the mesh, and an
+FSDP or model dim that does not divide by its axis.
 """
 from __future__ import annotations
 
@@ -175,8 +173,7 @@ def train_plan(cfg: ArchConfig, tcfg: TrainConfig, mesh, replica, *,
     axes divided out, :func:`local_shapes`), its TP buckets from the
     global shapes' model dims; None for the allreduce and none
     aggregators. Any mesh, the production ones included: the static part
-    of a setup, which the trainer and the dry-run share (the trainer runs
-    no step on a "model" axis > 1 outside the dense family)."""
+    of a setup, which the trainer and the dry-run share."""
     if not tcfg.aggregator.startswith("rps"):
         return None
     rps_axes = tuple(rps_axes)
@@ -256,7 +253,7 @@ def make_train_setup(model: Model, cfg: ArchConfig, tcfg: TrainConfig, mesh,
                 "axis twice)")
     tp_size = mesh.shape.get("model", 1)
     if tp_size > 1:
-        parallel_lib.check_family(cfg)
+        parallel_lib.check_family(cfg, tp_size)
     codec = wire_lib.make_codec(wire_lib.config_wire(tcfg.wire,
                                                      tcfg.exchange_dtype))
     if tcfg.engine == "ring" and not codec.quantized:

@@ -341,6 +341,43 @@ def fsdp_roundtrip_case(rank: int, mesh, spec: dict) -> dict:
     return {"equal": bool(equal), "both": both, "fsdp_only": fsdp_only}
 
 
+def _vs_whole(mesh, cfg, full, fn) -> dict:
+    """``fn(params, tp)`` -> (output, inputs to differentiate) on the full
+    weights ``full`` (a tree at its global shapes) and on this rank's
+    shards of them over ``mesh``'s "model" axis: the largest forward and
+    gradient differences (the shards' gradients gathered back), the
+    output's and the gradients' scales and the names the context
+    shards."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import parallel as P
+    dims = sharding.local_model_dims(full, cfg, mesh)
+    tp = P.TP.from_dims(mesh.group(("model",)), dims)
+    res = []
+    for params, ctx in ((full, None), (sharding.shard_replica(
+            full, cfg, mesh), tp)):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_lib.leaves(params)]
+        p = tree_lib.unflatten(tree_lib.flatten(params)[1], leaves)
+        y, xs = fn(p, ctx)
+        gy = torch.ones_like(y) if y.dim() == 0 else torch.cos(y)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves + xs, torch.autograd.grad(
+                     y, leaves + xs, gy, allow_unused=True))]
+        res.append((y, grads[:len(leaves)], grads[len(leaves):]))
+    (y0, g0, gx0), (y1, g1, gx1) = res
+    g1 = tree_lib.leaves(sharding.gather_replica(
+        tree_lib.unflatten(tree_lib.flatten(full)[1], list(g1)),
+        dims, mesh))
+    fwd = float((y0 - y1).detach().abs().max())
+    grad = max(float((a - b).abs().max())
+               for a, b in zip(list(g0) + list(gx0), list(g1) + list(gx1)))
+    return {"fwd": fwd, "grad": grad,
+            "scale": float(y0.detach().abs().max()),
+            "grad_scale": max(float(a.abs().max())
+                              for a in list(g0) + list(gx0)),
+            "sharded": sorted(tp.dims)}
+
+
 def tp_layers_case(rank: int, mesh, spec: dict) -> dict:
     """The sharded layers against ``tp=None`` on the full weights, on
     every rank of a (data, model) mesh: the vocab-parallel embedding, the
@@ -351,41 +388,8 @@ def tp_layers_case(rank: int, mesh, spec: dict) -> dict:
     MoE FFN (its output plus its aux term). Returns each one's largest
     forward and gradient differences (the sharded leaves' gradients
     gathered)."""
-    from repro_torch.launch import sharding
     from repro_torch.models import layers as L
-    from repro_torch.models import parallel as P
-    group = mesh.group(("model",))
     out = {}
-
-    def run(cfg, full, fn):
-        """``fn(params, tp)`` -> (output, inputs to differentiate) on the
-        full weights and on this rank's shards; the gradients of the
-        shards gathered back."""
-        dims = sharding.local_model_dims(full, cfg, mesh)
-        tp = P.TP.from_dims(group, dims)
-        res = []
-        for params, ctx in ((full, None), (sharding.shard_replica(
-                full, cfg, mesh), tp)):
-            leaves = [p.detach().requires_grad_(True)
-                      for p in tree_lib.leaves(params)]
-            p = tree_lib.unflatten(tree_lib.flatten(params)[1], leaves)
-            y, xs = fn(p, ctx)
-            gy = torch.ones_like(y) if y.dim() == 0 else torch.cos(y)
-            grads = [torch.zeros_like(t) if g is None else g
-                     for t, g in zip(leaves + xs, torch.autograd.grad(
-                         y, leaves + xs, gy, allow_unused=True))]
-            res.append((y, grads[:len(leaves)], grads[len(leaves):]))
-        (y0, g0, gx0), (y1, g1, gx1) = res
-        g1 = tree_lib.leaves(sharding.gather_replica(
-            tree_lib.unflatten(tree_lib.flatten(full)[1], list(g1)),
-            dims, mesh))
-        fwd = float((y0 - y1).detach().abs().max())
-        grad = max(float((a - b).abs().max())
-                   for a, b in zip(list(g0) + list(gx0), list(g1) + list(gx1)))
-        return {"fwd": fwd, "grad": grad,
-                "scale": float(y0.detach().abs().max()),
-                "sharded": sorted(tp.dims)}
-
     gen = torch.Generator()
     gen.manual_seed(spec["seed"])
 
@@ -410,8 +414,8 @@ def tp_layers_case(rank: int, mesh, spec: dict) -> dict:
         lg = L.lm_head(p["embed"], xx, cfg.vocab_size, tp)
         return L.softmax_xent(lg, tokens, tp=tp), [xx]
 
-    out["embed"] = run(cfg, embed, emb)
-    out["xent"] = run(cfg, embed, head)
+    out["embed"] = _vs_whole(mesh, cfg, embed, emb)
+    out["xent"] = _vs_whole(mesh, cfg, embed, head)
     for name, fields in spec["attn"].items():
         acfg = _tp_config(fields)
         h, kv, hd, d = acfg.n_heads, acfg.n_kv_heads, acfg.hd, acfg.d_model
@@ -430,7 +434,7 @@ def tp_layers_case(rank: int, mesh, spec: dict) -> dict:
                                    blocked=True, tp=tp)
             return y, [xx]
 
-        out["attn-" + name] = run(acfg, attn, att)
+        out["attn-" + name] = _vs_whole(mesh, acfg, attn, att)
     d, ff = cfg.d_model, cfg.d_ff
     mlp = {"layers": {"attn": {"mlp": {
         "wi": randn(1, d, ff, scale=d ** -0.5),
@@ -442,7 +446,7 @@ def tp_layers_case(rank: int, mesh, spec: dict) -> dict:
         w = {k: v[0] for k, v in p["layers"]["attn"]["mlp"].items()}
         return L.mlp(w, xx, tp), [xx]
 
-    out["mlp"] = run(cfg, mlp, ffn)
+    out["mlp"] = _vs_whole(mesh, cfg, mlp, ffn)
     for name, fields in spec.get("moe", {}).items():
         mcfg = _tp_config(fields)
         E, d, ff = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
@@ -459,5 +463,38 @@ def tp_layers_case(rank: int, mesh, spec: dict) -> dict:
             y, aux = L.moe(w, xx, mcfg, tp=tp)
             return y + aux, [xx]
 
-        out["moe-" + name] = run(mcfg, moe, moe_ffn)
+        out["moe-" + name] = _vs_whole(mesh, mcfg, moe, moe_ffn)
+    return out
+
+
+def tp_kinds_case(rank: int, mesh, spec: dict) -> dict:
+    """One layer of each kind of ``spec["kinds"]`` ({label: (config
+    fields, kind)}: rwkv, rec, a dense kind, enc, xattn) through
+    ``models/stack.py``'s train pass with ``tp`` against ``tp=None`` on
+    the full weights (the layer's weights drawn by the port's init, a
+    leading layer dim of 1 for the rules), on every rank of a (data,
+    model) mesh: the input and, for xattn, the encoder output
+    differentiated too. Returns each one's differences as
+    :func:`tp_layers_case`'s."""
+    from repro_torch.models import stack as St
+    gen = torch.Generator()
+    gen.manual_seed(spec["seed"])
+    out = {}
+    for label, (fields, kind) in spec["kinds"].items():
+        cfg = _tp_config(fields)
+        layer = St.init_stack(gen, cfg, [kind])[0]
+        full = {"layers": {kind: tree_lib.map(lambda t: t[None], layer)}}
+        x = torch.randn((spec["B"], spec["S"], cfg.d_model), generator=gen)
+        enc = torch.randn((spec["B"], spec["S"] // 2, cfg.d_model),
+                          generator=gen)
+
+        def fn(p, tp, cfg=cfg, kind=kind, x=x, enc=enc):
+            xx = x.clone().requires_grad_(True)
+            ee = enc.clone().requires_grad_(True)
+            w = tree_lib.map(lambda t: t[0], p["layers"][kind])
+            y, _ = St._train_layer(kind, w, xx, cfg, {"enc_out": ee}, tp,
+                                   None)
+            return y, [xx] + ([ee] if kind == "xattn" else [])
+
+        out[label] = _vs_whole(mesh, cfg, full, fn)
     return out

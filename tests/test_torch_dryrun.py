@@ -52,6 +52,10 @@ FSDP_ROWS = [(a, m) for a in ARCH_IDS for m in MESHES
 # their layout alone (the count replaced by None)
 MOE_ROWS = [(a, m) for a in ARCH_IDS for m in MESHES
             if get_config(a).is_moe]
+# the ssm, hybrid, audio and vlm train rows, counted on 16x16 by
+# tests/test_torch_dryrun_families.py: here their layout alone
+FAMILY_ROWS = [(a, m) for a in ARCH_IDS for m in MESHES
+               if get_config(a).family != "dense"]
 
 
 def _spec_items(tree, path=()):
@@ -218,7 +222,8 @@ def runs(tmp_path_factory):
                     continue
                 with mock.patch.object(D, "count_train_step",
                                        return_value=None) \
-                        if (arch, name) in MOE_ROWS else nullcontext():
+                        if (arch, name) in MOE_ROWS + FAMILY_ROWS \
+                        else nullcontext():
                     layouts[(arch, name)] = D.build_train_counted(
                         get_config(arch), SHAPES["train_4k"], mesh)
         for arch, shape, name in CACHE_CASES:
@@ -253,28 +258,21 @@ def caches(runs):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_train_layout_equals_reference(ref, layouts, arch, mesh):
     """n_rps, microbatch, aggregator, state pack, state bytes and the
-    exchange plan's describe(); the counted terms of the dense
-    architectures counted (one rank's step with TP inside a replica on a
-    "model" axis of 16, llama3-405b's and kimi-k2's with FSDP over the 16
-    data ranks too; the MoE rows, mixtral-8x22b's and kimi-k2's, are
-    counted by tests/test_torch_dryrun_moe.py and here not "layout
-    only"), the others' not run, their family's TP the only reason."""
+    exchange plan's describe(); every row's counted terms run, none
+    "layout only" (one rank's step with TP inside a replica on a "model"
+    axis of 16, llama3-405b's and kimi-k2's with FSDP over the 16 data
+    ranks too): the dense architectures' counted here, the MoE rows'
+    (mixtral-8x22b's and kimi-k2's) by tests/test_torch_dryrun_moe.py
+    and the other families' by tests/test_torch_dryrun_families.py."""
     totals, info = layouts[(arch, mesh)]
     want = ref["layout"][(arch, mesh)]
-    cfg = get_config(arch)
-    if cfg.family == "dense":
-        assert "not_run" not in info
-        if (arch, mesh) in MOE_ROWS:
-            assert totals is None
-        else:
-            assert totals["flops"] > 0 and any(
-                op == "all_reduce" and n == 16
-                for op, _, n in totals["records"])
-    else:
+    assert "not_run" not in info
+    if (arch, mesh) in MOE_ROWS + FAMILY_ROWS:
         assert totals is None
-        assert info["not_run"] == (
-            "layout only: the counted terms are not run (ROADMAP A: TP "
-            f"inside a replica for the {cfg.family} family)")
+    else:
+        assert totals["flops"] > 0 and any(
+            op == "all_reduce" and n == 16
+            for op, _, n in totals["records"])
     for key in ("n_rps", "microbatch", "aggregator", "state_pack",
                 "state_bytes", "exchange_plan"):
         assert info[key] == want[key], key
@@ -344,8 +342,9 @@ def test_reference_counts_the_microbatch_scan_once(ref):
 
 def test_cli_rows(tmp_path):
     """``main`` with the reference's flags (``--no-probes`` accepted): a
-    counted row on sim1 with its roofline, a layout row on 16x16, a
-    skipped row, and the JSON written."""
+    counted row on sim1 with its roofline, a layout row on 16x16 (a
+    serving row: the port serves on no mesh), a skipped row, and the
+    JSON written."""
     out = tmp_path / "rows.json"
     rows = D.main(["--arch", "gemma3-1b", "--shape", "decode_32k",
                    "--mesh", "sim1", "--no-probes", "--out", str(out)])
@@ -357,9 +356,10 @@ def test_cli_rows(tmp_path):
     assert rl["chips"] == 1 and rl["bottleneck"] == "memory"
     assert rl["t_memory"] == rl["bytes_hbm"] / 3.35e12
     assert rl["fits"] == (rl["hbm_per_device"] <= 80e9)
-    layout = D.run_one("rwkv6-1.6b", "train_4k", verbose=False)
-    assert layout["status"].startswith("layout only")
-    assert layout["info"]["exchange_plan"]["n"] == 16
+    layout = D.run_one("rwkv6-1.6b", "decode_32k", verbose=False)
+    assert layout["status"] == ("layout only: the counted terms are not "
+                                "run (ROADMAP A: TP inside a replica)")
+    assert layout["info"]["cache_seq"] == 32_768
     assert not get_config("deepseek-7b").runs_shape(SHAPES["long_500k"])
     skipped = D.run_one("deepseek-7b", "long_500k", verbose=False,
                         mesh="sim1")

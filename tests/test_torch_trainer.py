@@ -291,14 +291,17 @@ def test_trainer_options_run(runs, name):
                                   "recurrentgemma-9b", "whisper-large-v3",
                                   "llava-next-mistral-7b", "fsdp"])
 def test_trainer_refuses_tp_and_fsdp(arch):
-    """A "model" axis > 1 outside the dense family (the ssm, hybrid,
-    audio and vlm families) is refused with a ValueError that names the
-    family and its ROADMAP item; the model's loss refuses such a family's
-    TP context too. The MoE runs there
-    (``tests/test_torch_trainer_moe_tp.py``): mixtral-8x22b reduced
-    builds its train setup on (2, 2) ("data", "model"), and its loss
-    under the setup's TP context runs on a shape-only mesh's rank (meta
-    tensors), the model group's collectives recorded. FSDP runs
+    """A "model" axis > 1 runs every family: each arch reduced builds its
+    train setup on (2, 2) ("data", "model"), and its loss under the
+    setup's TP context runs on a shape-only mesh's rank (meta tensors),
+    the model group's collectives recorded: mixtral-8x22b's MoE width
+    branch joins its hidden and output (``tests/test_torch_trainer_moe_tp.py``),
+    rwkv6's time-mix and channel-mix join their inputs and outputs (4 a
+    layer) and recurrentgemma's rec layers 3 a layer; whisper's and
+    llava-next's 4 heads stay whole (the rule splits 16), so their
+    joins are none (``tests/test_torch_trainer_families_tp.py``). Refused
+    with a ValueError naming it is what the rule cannot lay out: RWKV-6's
+    4 heads over a "model" axis of 8. FSDP runs
     (``tests/test_torch_trainer_fsdp.py``), but not over the axis that
     holds the replicas: FSDP over "data" with ``rps_axes=("data",)`` is
     refused with a ValueError that names FSDP."""
@@ -320,26 +323,30 @@ def test_trainer_refuses_tp_and_fsdp(arch):
         return
     cfg = get_config(arch).reduced()
     mesh = Mesh((2, 2), ("data", "model"))
+    model = build_model(cfg, device="meta")
+    init_state, step, _ = make_train_setup(
+        model, cfg, TrainConfig(), mesh.as_rank(1), rps_axes=("data",))
+    params, _ = init_state(MetaGenerator())
+    with comm.recording() as rec:
+        loss, _ = model.loss(params, train_specs(cfg, 2, 24), step.tp)
+    assert loss.shape == () and loss.device.type == "meta"
+    joins = sum(op == "all_gather" and n == 2 for op, _, n in rec)
     if cfg.is_moe:
-        model = build_model(cfg, device="meta")
-        init_state, step, _ = make_train_setup(
-            model, cfg, TrainConfig(), mesh.as_rank(1), rps_axes=("data",))
-        params, _ = init_state(MetaGenerator())
         assert step.tp.sharded("moe/wi") and step.tp.sharded("moe/wo")
         layer, = params["layers"].values()
         assert layer["moe"]["wi"].shape[-1] * 2 == cfg.d_ff
-        with comm.recording() as rec:
-            loss, _ = model.loss(params, train_specs(cfg, 2, 8), step.tp)
-        assert loss.shape == () and loss.device.type == "meta"
         # the width branch's hidden and output joined a layer (E 4)
-        assert sum(op == "all_gather" and n == 2 for op, _, n in rec) \
-            == 2 * cfg.n_layers
+        assert joins == 2 * cfg.n_layers
         return
-    model = build_model(cfg, device="cpu")
-    want = (rf"the {cfg.family} family.*ROADMAP queue A, 'TP inside a "
-            rf"replica': the {cfg.family} family's TP")
-    with pytest.raises(ValueError, match=want):
-        make_train_setup(model, cfg, TrainConfig(), mesh, rps_axes=("data",))
-    tp = P.TP(mesh.as_rank(0).group(("model",)), {})
-    with pytest.raises(ValueError, match=want):
-        model.loss({}, {}, tp=tp)
+    assert step.tp.sharded("mlp/wi" if cfg.family != "ssm" else "rwkv/ck")
+    per_layer = {"ssm": 4, "hybrid": 3}.get(cfg.family, 0)
+    assert joins == per_layer * sum(k in ("rwkv", "rec")
+                                    for k in model.kinds)
+    if cfg.family == "ssm":
+        wide = Mesh((1, 8), ("data", "model"))
+        with pytest.raises(ValueError, match="split a head across ranks"):
+            make_train_setup(build_model(cfg, device="cpu"), cfg,
+                             TrainConfig(), wide, rps_axes=("data",))
+        with pytest.raises(ValueError, match="split a head across ranks"):
+            model.loss(params, train_specs(cfg, 2, 24),
+                       P.TP(wide.as_rank(0).group(("model",)), {}))
