@@ -86,7 +86,8 @@ raises on failure; nothing is caught):
    engine (the masked-average kernel, once per exchange group and step)
    within 1e-4 of the ring run;
 16. the training launcher's defaults (rps-paper-mlp, bf16, char-LM,
-   n = 16, batch 32, seq 64, 200 steps) with --engine ring;
+   n = 16, batch 32, seq 64) with --engine ring, LAUNCHER_STEPS of its
+   200 steps;
 17. rps-100m (12 layers, d 768, 12 / 4 KV heads, d_ff 3072, vocab 16384,
    f32) at the example's paper scale: n = 16, batch 32, seq 128, 24
    steps on the ring kernel (launches = exchange groups x steps); step
@@ -330,9 +331,10 @@ raises on failure; nothing is caught):
    llama3-405b's and kimi-k2's, FSDP over the 16 data ranks too,
    mixtral-8x22b's and the ssm, hybrid, audio and vlm archs' left to
    tests/test_torch_dryrun.py, tests/test_torch_dryrun_moe.py and
-   tests/test_torch_dryrun_families.py (DRYRUN_LEFT_OUT); the prefill
-   and decode rows layout rows: the exchange plan and state bytes, the
-   counted terms not run, the port serving on no mesh) and on one H100
+   tests/test_torch_dryrun_families.py (DRYRUN_LEFT_OUT); the dense
+   family's prefill and decode rows counted, one rank's serving step on
+   its shards, the other families' layout rows: the counted terms not
+   run) and on one H100
    (sim1, counted rows), each ok,
    layout only or skipped with the
    reference's reason, its table printed (t_compute, t_memory,
@@ -409,7 +411,26 @@ raises on failure; nothing is caught):
    decay LoRA, u, lam among them) the same bits on both model ranks,
    ring_rank.cu's launches and every collective equal to the dry-run's
    count of that rank's step x 2; step ms, bytes staged and peak memory
-   a rank printed (family_gates).
+   a rank printed (family_gates);
+47. (in phase 43's world, its (2, 2) data x model mesh) serving on a
+   mesh for the dense family (serve/mesh.py: TP inside a replica, FSDP
+   over "data" where the config serves with it, the batch's rows over
+   "data"; SERVE_MESH_RUNS, bf16): gemma3-1b whole (its 4 heads whole,
+   d_ff and vocab split), deepseek-7b at 2 layers, mixtral-8x22b at 1 of
+   56 (the width branch, FSDP) and kimi-k2's widths at 1 layer with 16
+   of its 384 experts (the expert branch, FSDP); a prefill of 2 x 512
+   prompts a data rank, then 16 decode steps (mixtral 2, kimi-k2 4) of
+   fed tokens; each rank's logits at the prefill and at every step
+   held to its rows of the unsharded step's on the whole batch (run
+   after the world, on the card, from the same seed): their relative
+   norm a row within SERVE_MESH_NOISE times the unsharded bf16 step's
+   own distance from an f32 copy of the same weights (at gemma3-1b's 26
+   layers bf16 alone puts the logits 3.7-4.6 x BF16_TOL off
+   elementwise), its
+   collectives equal to the dry-run's count of its prefill and its
+   decode step x steps, no kernel launched; prefill ms, decode ms a
+   step, bytes staged a step and the peak a rank printed beside the
+   card (serve_mesh_gates).
 
 The phases' wall seconds are printed on one line before the kernels'
 line.
@@ -1464,12 +1485,18 @@ def quickstart(groups: int, steps: int = 150, n: int = 16) -> dict:
     return out
 
 
+# phase 16's steps, of the launcher's default 200: cut to pay for phase
+# 47's time within the smoke's limit (the loss still falls by then)
+LAUNCHER_STEPS = 60
+
+
 def launcher_default() -> dict:
     """Phase 16: ``python -m repro_torch.launch.train`` at its defaults
-    (rps-paper-mlp, n = 16, batch 32, seq 64, 200 steps, lr 0.05, warmup
-    10, p = 0.1) on the ring engine."""
+    (rps-paper-mlp, n = 16, batch 32, seq 64, lr 0.05, warmup 10, p =
+    0.1) on the ring engine, LAUNCHER_STEPS steps."""
     reset_counts()
-    h = train_launcher.main(["--engine", "ring"])
+    h = train_launcher.main(["--engine", "ring", "--steps",
+                             str(LAUNCHER_STEPS)])
     launches = RG.ring_round.launches
     floor = CharLMTask(vocab=256, seq_len=64).entropy_floor()
     losses = h["loss"]
@@ -5139,8 +5166,8 @@ def _tp_deepseek(mesh, rank: int, batches: dict) -> dict:
 
 def _tp_rank(rank: int, world: int, masks: list, batches: list,
              ds_batches: dict, fsdp_in: dict, moe_in: dict,
-             family_in: dict) -> dict:
-    """One rank of phases 43, 44, 45 and 46 (cuda:0, gloo)."""
+             family_in: dict, serve_in: dict) -> dict:
+    """One rank of phases 43, 44, 45, 46 and 47 (cuda:0, gloo)."""
     from repro_torch.launch.mesh import Mesh
     build.load_kernels()
     mesh = Mesh(TP_MESH, ("data", "model"))
@@ -5159,10 +5186,14 @@ def _tp_rank(rank: int, world: int, masks: list, batches: list,
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
     family = _family_rank(mesh, **family_in)
+    torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    serve = _serve_mesh_rank(mesh, **serve_in)
     return {"rps_100m": rps, "deepseek": ds, "backend": mesh.backend,
             "rps_100m_s": t1 - t0, "deepseek_s": t2 - t1, "fsdp": fsdp,
             "fsdp_s": t3 - t2, "moe": moe, "moe_s": t4 - t3,
-            "family": family, "family_s": time.perf_counter() - t4}
+            "family": family, "family_s": t5 - t4, "serve_mesh": serve,
+            "serve_mesh_s": time.perf_counter() - t5}
 
 
 # ---- phase 44: FSDP on the mesh trainer ------------------------------------
@@ -5838,6 +5869,270 @@ def family_gates(ranks: list, dry: dict, card: str) -> dict:
     return {"launches": launches}
 
 
+# ---- phase 47: serving on a mesh for the dense family ----------------------
+
+# (arch, layers (None: whole), decode steps): gemma3-1b whole (its 4 heads
+# whole on both model ranks, its d_ff and vocab split), deepseek-7b at 2 of
+# 30 layers (every rule shards), mixtral-8x22b at 1 of 56 (the width
+# branch, with the full config's serving FSDP over "data") and kimi-k2's
+# widths at 1 layer with 16 of its 384 experts (the expert branch, FSDP);
+# bf16, on phase 43's (2, 2) data x model mesh
+SERVE_MESH_RUNS = (("gemma3-1b", None, 16), ("deepseek-7b", 2, 16),
+                   ("mixtral-8x22b", 1, 2), ("kimi-k2-1t-a32b", 1, 4))
+# 2 prompts of 512 tokens a data rank: the batch (4, 512) split over "data"
+SERVE_MESH_LOAD = dict(batch=4, prompt=512)
+SERVE_MESH_SEED = 4700
+
+
+def _serve_mesh_config(arch: str, layers: Optional[int]) -> ArchConfig:
+    """``arch`` cut to ``layers`` (kimi-k2 to KIMI_TP_EXPERTS experts),
+    serving with FSDP where the full config does (``serve_fsdp`` reads
+    the cut config's size: its shard strategy is set to FSDP)."""
+    from repro_torch.serve.mesh import serve_fsdp
+    cfg = _full_config(arch, layers)
+    if arch.startswith("kimi"):
+        cfg = dataclasses.replace(cfg, n_experts=KIMI_TP_EXPERTS)
+    if serve_fsdp(get_config(arch)) is not None:
+        cfg = dataclasses.replace(cfg, shard_strategy="fsdp")
+    return cfg
+
+
+def _serve_mesh_rank(mesh, runs: dict) -> dict:
+    """Phase 47 on one rank of phase 43's world: each run's prefill of the
+    batch and its decode steps on this rank's shards and rows
+    (``serve/mesh.py``): its logits, the collectives, prefill ms, decode
+    ms a step, bytes staged a step and the rank's peak."""
+    from repro_torch.core import comm
+    from repro_torch.serve.mesh import make_serve
+    out = {}
+    for arch, layers, steps in SERVE_MESH_RUNS:
+        t0 = time.perf_counter()
+        cfg = _serve_mesh_config(arch, layers)
+        model = build_model(cfg, device="cuda")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SERVE_MESH_SEED)
+        full = model.init(g)
+        serve = make_serve(model, mesh)
+        shards = serve.shard(full)
+        replica_gb = _gb(full)
+        del full
+        torch.cuda.empty_cache()
+        tokens = runs[arch]["tokens"].cuda()
+        steps_tok = runs[arch]["steps"].cuda()
+        max_len = tokens.shape[1] + steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        comm.reset_stats()
+        res = {"shards_gb": _gb(shards), "replica_gb": replica_gb,
+               "fsdp": serve.fsdp is not None,
+               "sharded": sorted(serve.tp.dims), "rows": serve.local_rows(
+                   tokens.shape[0])}
+        with torch.no_grad():
+            with comm.recording() as rec:
+                t1 = time.perf_counter()
+                lg, cache = serve.prefill_step(shards, {"tokens": tokens},
+                                               max_len)
+                torch.cuda.synchronize()
+                res["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+            res["prefill_records"] = list(rec)
+            res["prefill_staged_bytes"] = comm.STATS["staged_bytes"]
+            logits = [lg.float().cpu().numpy()]
+            comm.reset_stats()
+            ms = []
+            with comm.recording() as rec:
+                for t in range(steps):
+                    t1 = time.perf_counter()
+                    lg, cache = serve.decode_step(
+                        shards, cache, {"token": steps_tok[t][:, None]},
+                        tokens.shape[1] + t)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t1) * 1e3)
+                    logits.append(lg.float().cpu().numpy())
+            res["decode_records"] = list(rec)
+        res.update(decode_ms=ms,
+                   staged_bytes_per_step=comm.STATS["staged_bytes"] / steps,
+                   transfers_per_step=comm.STATS["transfers"] / steps,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   cache_gb=_gb(cache), logits=logits,
+                   kernel_launches=_launches_now(),
+                   wall_s=time.perf_counter() - t0)
+        del shards, cache, serve
+        torch.cuda.empty_cache()
+        out[arch] = res
+    return out
+
+
+def _launches_now() -> int:
+    return (K.masked_avg_grid.launches + K.tp_combine.launches
+            + RK.rwkv6.launches + GK.rglru.launches + RG.ring_round.launches
+            + RG.ring_round_enc.launches + RG.ring_rank_hop.launches
+            + RG.ring_rank_land.launches)
+
+
+def _dryrun_serve_mesh(rank: int) -> dict:
+    """Phase 47's count of one rank's prefill and decode step of each run
+    on the (2, 2) data x model mesh, meta tensors (a worker process)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(TP_MESH, ("data", "model"))
+    load = SERVE_MESH_LOAD
+    out = {}
+    for arch, layers, steps in SERVE_MESH_RUNS:
+        cfg = _serve_mesh_config(arch, layers)
+        pre = D.count_serve_step(cfg, "prefill", load["batch"],
+                                 load["prompt"], mesh, rank)
+        dec = D.count_serve_step(cfg, "decode", load["batch"],
+                                 load["prompt"] + steps, mesh, rank)
+        out[arch] = {"prefill_records": pre["records"],
+                     "decode_records": dec["records"],
+                     "prefill_hbm": pre["hbm"], "decode_hbm": dec["hbm"],
+                     "prefill_coll": pre["coll_by_op"],
+                     "decode_coll": dec["coll_by_op"]}
+    return out
+
+
+def serve_mesh_inputs() -> dict:
+    """Phase 47's token ids: each run's (4, 512) prompts and its decode
+    steps' (steps, 4) tokens (fed, not sampled: the sharded and the
+    unsharded steps read the same ones)."""
+    load = SERVE_MESH_LOAD
+    dg = torch.Generator()
+    dg.manual_seed(SERVE_MESH_SEED + 2)
+    runs = {}
+    for arch, layers, steps in SERVE_MESH_RUNS:
+        vocab = _serve_mesh_config(arch, layers).vocab_size
+        runs[arch] = {
+            "tokens": torch.randint(0, vocab, (load["batch"], load["prompt"]),
+                                    generator=dg, dtype=torch.int32),
+            "steps": torch.randint(0, vocab, (steps, load["batch"]),
+                                   generator=dg, dtype=torch.int32)}
+    return {"runs": runs}
+
+
+# the sharded bf16 step's logits may differ from the unsharded bf16 step's
+# by at most this many times the unsharded step's own rounding (its
+# distance from the same weights in f32), in relative norm a row: at
+# gemma3-1b's 26 layers that rounding alone is 1.8 % of the logits' norm
+# and 3.7-4.6 x BF16_TOL elementwise (on an H100), so an elementwise
+# BF16_TOL sits below bf16's own noise there
+SERVE_MESH_NOISE = 2.0
+
+
+def _row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest relative norm of a row's difference."""
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+
+
+def _elem_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst |got - want| / (BF16_TOL (1 + |want|))."""
+    return float(((got - want).abs() / (BF16_TOL * (1 + want.abs())))
+                 .max())
+
+
+def _whole_logits(cfg: ArchConfig, params, tokens, steps_tok) -> list:
+    """The unsharded prefill's and decode steps' logits (f32, on the
+    host) of the whole batch."""
+    model = build_model(cfg, device="cuda")
+    max_len = tokens.shape[1] + steps_tok.shape[0]
+    with torch.no_grad():
+        lg, cache = model.prefill(params, {"tokens": tokens}, max_len)
+        out = [lg.float().cpu()]
+        for t in range(steps_tok.shape[0]):
+            lg, cache = model.decode_step(
+                params, cache, {"token": steps_tok[t][:, None]},
+                tokens.shape[1] + t)
+            out.append(lg.float().cpu())
+    return out
+
+
+def serve_mesh_gates(ranks: list, inputs: dict, dry: dict,
+                     card: str) -> dict:
+    """Phase 47's gates over the ranks' results and its summary line
+    (``dry``: rank -> the dry-run's count of its steps): each run's
+    unsharded prefill and decode steps on the whole batch (here, on the
+    card, from the same seed's replica), in bf16 and on an f32 copy of
+    the same weights; each rank's logits within SERVE_MESH_NOISE times
+    the unsharded bf16 step's rounding (its distance from the f32 copy's)
+    of its rows of the unsharded bf16 step's, relative norm a row (the
+    elementwise error over BF16_TOL printed beside); each rank's
+    collectives equal to the dry-run's count of its prefill and its
+    decode step x steps; no kernel launched (the path is plain torch, as
+    the reference's XLA)."""
+    summary = {}
+    for arch, layers, steps in SERVE_MESH_RUNS:
+        cfg = _serve_mesh_config(arch, layers)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SERVE_MESH_SEED)
+        full = build_model(cfg, device="cuda").init(g)
+        tokens = inputs["runs"][arch]["tokens"].cuda()
+        steps_tok = inputs["runs"][arch]["steps"].cuda()
+        t0 = time.perf_counter()
+        want = _whole_logits(cfg, full, tokens, steps_tok)
+        whole_s = time.perf_counter() - t0
+        full = tree_lib.map(lambda x: x.float(), full)
+        want32 = _whole_logits(dataclasses.replace(cfg, dtype="float32"),
+                               full, tokens, steps_tok)
+        del full
+        torch.cuda.empty_cache()
+        worst, elem = [], []
+        for r, got in enumerate(ranks):
+            res = got["serve_mesh"][arch]
+            lo, hi = res.pop("rows")
+            ratios, elems = [], []
+            for a, b, b32 in zip(res.pop("logits"), want, want32):
+                a, b, b32 = torch.from_numpy(a), b[lo:hi], b32[lo:hi]
+                # (an f32 config has no rounding: 1e-6, f32's noise)
+                ratios.append(_row_err(a, b) / max(_row_err(b, b32), 1e-6))
+                elems.append(_elem_err(a, b))
+            if not all(np.isfinite(ratios)) \
+                    or max(ratios) > SERVE_MESH_NOISE:
+                raise AssertionError(
+                    f"phase 47 {arch} rank {r}: the logits differ from the "
+                    f"unsharded step's by {ratios} x its bf16 rounding")
+            worst.append(max(ratios))
+            elem.append(max(elems))
+            d = dry[r][arch]
+            if [tuple(x) for x in res["prefill_records"]] != \
+                    [tuple(x) for x in d["prefill_records"]]:
+                raise AssertionError(
+                    f"phase 47 {arch} rank {r}: the prefill's "
+                    f"{len(res['prefill_records'])} records differ from the "
+                    f"dry-run's {len(d['prefill_records'])}")
+            if [tuple(x) for x in res["decode_records"]] != \
+                    [tuple(x) for x in d["decode_records"]] * steps:
+                raise AssertionError(
+                    f"phase 47 {arch} rank {r}: {len(res['decode_records'])}"
+                    f" decode records, the dry-run's "
+                    f"{len(d['decode_records'])} x {steps} differ")
+            if res["kernel_launches"]:
+                raise AssertionError(f"phase 47 {arch} rank {r}: "
+                                     f"{res['kernel_launches']} kernel "
+                                     "launches on a plain-torch path")
+            for key in ("prefill", "decode"):
+                recs = res.pop(f"{key}_records")
+                res[f"{key}_collectives"] = {
+                    op: sum(1 for o, _, _ in recs if o == op)
+                    for op in sorted({o for o, _, _ in recs})}
+        summary[arch] = {
+            "layers": cfg.n_layers, "decode_steps": steps,
+            "worst_over_bf16_rounding": worst,
+            "worst_elementwise_over_bf16_tol": elem,
+            "whole_bf16_over_bf16_tol": max(
+                _elem_err(b, b32) for b, b32 in zip(want, want32)),
+            "whole_bf16_row_err": max(_row_err(b, b32)
+                                      for b, b32 in zip(want, want32)),
+            "whole_s": whole_s,
+            "ranks": [got["serve_mesh"][arch] for got in ranks],
+            "dry_run": {k: dry[0][arch][k] for k in (
+                "prefill_hbm", "decode_hbm", "prefill_coll", "decode_coll")}}
+    print(json.dumps({"serve_mesh": {
+        "mesh": "(2, 2) data x model, 4 ranks on cuda:0, gloo, CUDA "
+                "payloads staged through pinned host buffers",
+        **SERVE_MESH_LOAD, "runs": summary}, "card": card}), flush=True)
+    return summary
+
+
 def _dryrun_tp(rank: int) -> dict:
     """Phase 43's count of one rank's rps-100m step on the (2, 2) mesh,
     meta tensors (a worker process)."""
@@ -5857,7 +6152,8 @@ def _dryrun_tp(rank: int) -> dict:
 
 def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
               batches: list, dry: dict, fsdp_batches: list,
-              fsdp_dry: dict, moe_dry: dict, family_dry: dict) -> dict:
+              fsdp_dry: dict, moe_dry: dict, family_dry: dict,
+              serve_dry: dict) -> dict:
     """Phase 43: tensor parallelism inside a replica on the mesh trainer,
     four ranks on the one card over gloo (host-staged, as phases 40-41),
     a (2, 2) ("data", "model") mesh, one world of spawned processes.
@@ -5927,10 +6223,11 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
     ds_batches = {k: torch.randint(0, cfg.vocab_size, shape, generator=dg,
                                    dtype=torch.int32)
                   for k in ("tokens", "labels")}
+    serve_in = serve_mesh_inputs()
     t0 = time.perf_counter()
     ranks = run_world(_tp_rank, 4, masks, batches, ds_batches,
                       fsdp_inputs(fsdp_batches), moe_inputs(),
-                      family_inputs(),
+                      family_inputs(), serve_in,
                       backend="gloo", device="cuda:0",
                       threads=COLL_THREADS, timeout_s=900)
     world_s = time.perf_counter() - t0
@@ -5988,12 +6285,15 @@ def tp_phases(gen: torch.Generator, card: str, lap: "Laps",
     fsdp = fsdp_gates(ranks, fsdp_dry, card)
     moe = moe_gates(ranks, moe_dry, card)
     family = family_gates(ranks, family_dry, card)
+    lap("43-46")
+    serve_mesh_gates(ranks, serve_in, serve_dry, card)
     print(json.dumps({"world_phase_s": {
         k: [got[k] for got in ranks] for k in ("rps_100m_s", "deepseek_s",
                                                "fsdp_s", "moe_s",
-                                               "family_s")}}),
+                                               "family_s",
+                                               "serve_mesh_s")}}),
           flush=True)
-    lap("43-46")
+    lap("47")
     return {"launches": sum(got["rps_100m"]["run"]["hop_launches"]
                             + got["rps_100m"]["run"]["land_launches"]
                             for got in ranks) + fsdp["launches"]
@@ -6113,19 +6413,20 @@ def _dryrun_line(r: dict) -> str:
 
 def _counted_on_mesh(arch: str, shape: str) -> bool:
     """Whether the dry-run counts a production-mesh row: a train row (TP
-    inside a replica, llama3-405b and kimi-k2 with FSDP too); the port
-    serves on no mesh."""
+    inside a replica, llama3-405b and kimi-k2 with FSDP too), and the
+    dense family's prefill and decode rows (serving on a mesh)."""
     from repro_torch.configs import SHAPES
-    return SHAPES[shape].kind == "train"
+    return SHAPES[shape].kind == "train" \
+        or get_config(arch).family == "dense"
 
 
 def dryrun_sweep_check(rows: list) -> dict:
     """42a: every (arch x shape) on the production meshes but
     DRYRUN_LEFT_OUT's train rows (the train rows counted, one rank with
-    TP inside a replica; the prefill and decode rows layout rows: the
-    port serves on no mesh) and on one H100 (sim1, counted rows), each
-    ok, layout only, or skipped with the reference's reason; the table
-    printed."""
+    TP inside a replica; the dense family's prefill and decode rows
+    counted, one rank's serving step on a mesh; the other families'
+    layout rows) and on one H100 (sim1, counted rows), each ok, layout
+    only, or skipped with the reference's reason; the table printed."""
     bad = []
     for r in rows:
         st = str(r["status"])
@@ -6440,8 +6741,9 @@ def start_dryrun() -> tuple:
     fsdp = {r: pool.submit(_dryrun_fsdp, r) for r in range(4)}
     moe = {r: pool.submit(_dryrun_moe_tp, r) for r in range(4)}
     family = {r: pool.submit(_dryrun_family_tp, r) for r in range(4)}
+    serve = {r: pool.submit(_dryrun_serve_mesh, r) for r in range(4)}
     exact = {c: pool.submit(_dryrun_exact, c) for c in DRYRUN_EXACT_CASES}
-    return pool, rows, counts, exact, tp, fsdp, moe, family
+    return pool, rows, counts, exact, tp, fsdp, moe, family, serve
 
 
 def dryrun_phases(gen: torch.Generator, card: str, lap: "Laps", coll: dict,
@@ -6671,7 +6973,8 @@ def main(argv=None) -> int:
                    fsdp_batches,
                    {r: f.result() for r, f in dry_run[5].items()},
                    {r: f.result() for r, f in dry_run[6].items()},
-                   {r: f.result() for r, f in dry_run[7].items()})
+                   {r: f.result() for r, f in dry_run[7].items()},
+                   {r: f.result() for r, f in dry_run[8].items()})
     dryrun_phases(gen, card, lap, coll, ring_profile, dry_run)
     lap.report()
     robust_launches = sum(v["masked_avg_launches"]

@@ -30,9 +30,13 @@ Meshes:
   rows over "data", each layer's shards gathered and its gradient
   reduce-scattered over the 16 data ranks; every layer counted: a train
   step's peak of live bytes does not grow alike with each layer, so two
-  and three layers do not extend to the whole), and the prefill and
-  decode rows report the counted terms as not run: serving on a mesh,
-  which the port does not run (ROADMAP queue A);
+  and three layers do not extend to the whole); the dense family's
+  prefill and decode rows are counted as one rank's serving step on its
+  shards (``serve/mesh.py``: TP over "model", FSDP over "data" where
+  the config serves with it, the batch's rows over the data axes;
+  :func:`count_serve_step`, extended by :func:`by_periods`), and the
+  other families' report the counted terms as not run (their serving
+  on a mesh is ROADMAP queue A's next item);
 - ``sim1`` / ``sim4`` (``make_sim_mesh(1)`` / ``(4)``: one H100 a
   replica, the collective path's data mesh) count every term: the rows a
   benchmark's cells are sized from.
@@ -65,6 +69,9 @@ from repro_torch.models.inputs import train_specs
 from repro_torch.models.stack import stack_layers
 from repro_torch.roofline import HW, analyze
 from repro_torch.roofline.count import Counter, MetaGenerator
+from repro_torch.serve import mesh as serve_mesh
+
+_serve_fsdp = serve_mesh.serve_fsdp
 
 DROP_RATE = 0.1          # the paper's headline tolerance
 
@@ -129,14 +136,6 @@ def _cache_spec_tree(cache_shape, cfg: ArchConfig, mesh: Mesh, data_axes):
     return shlib._map_with_path(spec, cache_shape)
 
 
-def _serve_fsdp(cfg: ArchConfig) -> Optional[str]:
-    """Serving param sharding: FSDP over data when the bf16 params exceed
-    a 16-way-TP HBM budget."""
-    if cfg.shard_strategy == "fsdp":
-        return "data"
-    return "data" if cfg.param_count() * 2 / 16 > 8e9 else None
-
-
 def model_flops_global(cfg: ArchConfig, shape: ShapeConfig) -> float:
     n_active = cfg.param_count(active_only=True)
     if shape.kind == "train":
@@ -151,18 +150,23 @@ def _tree_bytes(*trees) -> int:
                for x in tree_lib.leaves(t) if isinstance(x, torch.Tensor))
 
 
-def _not_run(mesh: Mesh, fsdp_axis: Optional[str]) -> Optional[str]:
-    """Why the port cannot run a serving step on ``mesh`` (None: it can;
-    the port serves on no mesh). Every train step runs."""
-    why = []
-    if mesh.shape.get("model", 1) > 1:
-        why.append("TP inside a replica")
-    if fsdp_axis is not None and mesh.shape.get(fsdp_axis, 1) > 1:
-        why.append("serving with FSDP")
-    if not why:
+def _on_mesh(mesh: Mesh, fsdp_axis: Optional[str]) -> bool:
+    """Whether a serving step on ``mesh`` is split: a "model" axis > 1,
+    or FSDP over an axis > 1 (else each rank serves the whole batch on
+    the whole replica, as on ``sim1`` / ``sim4``)."""
+    return mesh.shape.get("model", 1) > 1 or (
+        fsdp_axis is not None and mesh.shape.get(fsdp_axis, 1) > 1)
+
+
+def _not_run(cfg: ArchConfig, mesh: Mesh,
+             fsdp_axis: Optional[str]) -> Optional[str]:
+    """Why the port does not run a serving step of ``cfg`` on ``mesh``
+    (None: it runs). Serving on a mesh runs the dense family
+    (``serve/mesh.py``); every train step runs."""
+    if not _on_mesh(mesh, fsdp_axis) or cfg.family == "dense":
         return None
     return ("layout only: the counted terms are not run (ROADMAP A: "
-            + ", ".join(why) + ")")
+            f"serving on a mesh for the {cfg.family} family)")
 
 
 def _meta_model(cfg: ArchConfig):
@@ -267,18 +271,25 @@ def build_train_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh,
 def build_decode_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh):
     """``(counted totals or None, info)`` of one decode step against a
     cache of ``shape.seq_len`` rows (the reference's ``cache_seq``);
-    ``info["cache_specs"]``: the layer-stacked cache's layout."""
+    ``info["cache_specs"]``: the layer-stacked cache's layout (the
+    reference's); ``info["rank_cache"]``: one rank's cache shapes on a
+    mesh, a layer's {"k", "v"} (the KV heads its query heads read)."""
     model = _meta_model(cfg)
     B, S = shape.global_batch, shape.seq_len
     cache = model.init_cache(B, S)
-    data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     info = {"cache_seq": S,
             "cache_specs": _cache_spec_tree(stack_layers(cache, model.kinds),
-                                            cfg, mesh, data_axes)}
-    why = _not_run(mesh, _serve_fsdp(cfg))
+                                            cfg, mesh,
+                                            serve_mesh.data_axes(mesh))}
+    why = _not_run(cfg, mesh, _serve_fsdp(cfg))
     if why is not None:
         return None, dict(info, not_run=why)
-    return count_decode(cfg, B, S), info
+    if not _on_mesh(mesh, _serve_fsdp(cfg)):
+        return count_decode(cfg, B, S), info
+    serve = serve_mesh.make_serve(model, mesh.as_rank(0))
+    info["rank_cache"] = [tree_lib.map(lambda x: tuple(x.shape), c)
+                          for c in serve.init_cache(B, S)]
+    return count_serve(cfg, "decode", B, S, mesh), info
 
 
 def _decode_whole(cfg: ArchConfig, B: int, S: int) -> dict:
@@ -303,10 +314,13 @@ def count_decode(cfg: ArchConfig, B: int, S: int) -> dict:
 def build_prefill_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh):
     """``(counted totals or None, {})`` of one prefill of the global
     batch."""
-    why = _not_run(mesh, _serve_fsdp(cfg))
+    B, S = shape.global_batch, shape.seq_len
+    why = _not_run(cfg, mesh, _serve_fsdp(cfg))
     if why is not None:
         return None, {"not_run": why}
-    return count_prefill(cfg, shape.global_batch, shape.seq_len), {}
+    if not _on_mesh(mesh, _serve_fsdp(cfg)):
+        return count_prefill(cfg, B, S), {}
+    return count_serve(cfg, "prefill", B, S, mesh), {}
 
 
 def _prefill_whole(cfg: ArchConfig, B: int, S: int) -> dict:
@@ -327,6 +341,44 @@ def count_prefill(cfg: ArchConfig, B: int, S: int) -> dict:
     return by_periods(cfg, lambda c: _prefill_whole(c, B, S))
 
 
+def count_serve_step(cfg: ArchConfig, kind: str, B: int, S: int,
+                     mesh: Mesh, rank: int = 0) -> dict:
+    """One rank's serving step on ``mesh`` (``serve/mesh.py``; the mesh
+    needs no world: its ``as_rank`` view answers for ``rank``), every
+    layer counted on meta tensors on the rank's shards: a prefill of the
+    (B, S) batch (its rows; the cache of S rows made) or a decode step of
+    B lanes at position S − 1 against a cache of S rows. The totals of
+    :meth:`Counter.totals` with the step's collective ``records``."""
+    model = _meta_model(cfg)
+    serve = serve_mesh.make_serve(model, mesh.as_rank(rank))
+    shards = serve.shard(model.init(MetaGenerator()))
+    if kind == "prefill":
+        specs = train_specs(cfg, B, S)
+        specs.pop("labels")
+        args = (shards, specs)
+        resident = _tree_bytes(shards, serve.local_inputs(specs))
+        step = serve.prefill_step
+    else:
+        cache = serve.init_cache(B, S)
+        tok = {"token": torch.empty((B, 1), dtype=torch.int32,
+                                    device="meta")}
+        args = (shards, cache, tok, S - 1)
+        resident = _tree_bytes(shards, cache, serve.local_inputs(tok))
+        step = serve.decode_step
+    with torch.no_grad(), Counter(resident=resident) as c:
+        out = step(*args)
+    del out
+    return dict(c.totals(), records=c.records)
+
+
+def count_serve(cfg: ArchConfig, kind: str, B: int, S: int,
+                mesh: Mesh) -> dict:
+    """Rank 0's serving step on ``mesh`` (:func:`count_serve_step`),
+    counted by :func:`by_periods`; the ``records`` only where every layer
+    was counted."""
+    return by_periods(cfg, lambda c: count_serve_step(c, kind, B, S, mesh))
+
+
 def _period(kinds) -> int:
     """The shortest period of a stack's sequence of layer kinds."""
     n = len(kinds)
@@ -337,7 +389,8 @@ def _period(kinds) -> int:
 def _extend(a, b, k: int):
     """``a + k (b − a)`` over the numbers of two totals alike in keys."""
     if isinstance(a, dict):
-        return {key: _extend(a[key], b[key], k) for key in a}
+        return {key: _extend(a[key], b[key], k) for key in a
+                if key != "records"}
     return a + k * (b - a)
 
 

@@ -296,12 +296,13 @@ def _tp_attn(tp) -> bool:
     return tp is not None and tp.sharded("attn/wq")
 
 
-def attention_qkv(p, x, *, cfg: ArchConfig, tp=None):
-    """The full-sequence projections with RoPE at positions 0..S-1:
-    q (B, S, h, hd), k and v (B, S, kvh, hd). Under ``tp`` with the heads
-    sharded: this rank's query heads and the KV heads they read (its own
-    slice of a sharded ``wk`` / ``wv``, else the whole projection's
-    heads, :func:`repro_torch.models.parallel.local_kv`)."""
+def attention_qkv(p, x, *, cfg: ArchConfig, tp=None, positions=None):
+    """The projections with RoPE at ``positions`` (default 0..S-1, the
+    full sequence): q (B, S, h, hd), k and v (B, S, kvh, hd). Under
+    ``tp`` with the heads sharded: this rank's query heads and the KV
+    heads they read (its own slice of a sharded ``wk`` / ``wv``, else the
+    whole projection's heads,
+    :func:`repro_torch.models.parallel.local_kv`)."""
     if _tp_attn(tp):
         xt = tp.copy_to(x)
         q = einsum("bsd,dhe->bshe", xt, p["wq"])
@@ -317,7 +318,8 @@ def attention_qkv(p, x, *, cfg: ArchConfig, tp=None):
         q = einsum("bsd,dhe->bshe", x, p["wq"])
         k = einsum("bsd,dhe->bshe", x, p["wk"])
         v = einsum("bsd,dhe->bshe", x, p["wv"])
-    positions = torch.arange(q.shape[1], device=x.device)
+    if positions is None:
+        positions = torch.arange(q.shape[1], device=x.device)
     return (rope(q, positions, cfg.rope_theta), rope(k, positions,
                                                      cfg.rope_theta), v)
 
@@ -345,20 +347,20 @@ def attention_fwd(p, x, *, cfg: ArchConfig, window: Optional[int],
 
 
 def attention_decode(p, x, k_cache, v_cache, pos: int, *, cfg: ArchConfig,
-                     window: Optional[int] = None, ring: bool = False):
+                     window: Optional[int] = None, ring: bool = False,
+                     tp=None):
     """One-step decode against the contiguous cache (all requests at one
     position ``pos``): writes the new token's K/V at slot ``pos % C``
     with ``ring``, else at slot ``pos`` (clamped to the last slot, as the
     reference's ``dynamic_update_slice`` clamps), then attends. The
     caches are written **in place** (the JAX package returns updated
-    copies and its decode step donates the cache). Returns
+    copies and its decode step donates the cache). Under ``tp`` with the
+    heads sharded the rank attends with its query heads against a cache
+    of the KV heads they read (:func:`attention_qkv`) and the output
+    projection's partial sums are reduced over the group. Returns
     (out, k_cache, v_cache)."""
-    q = einsum("bsd,dhe->bshe", x, p["wq"])
-    k = einsum("bsd,dhe->bshe", x, p["wk"])
-    v = einsum("bsd,dhe->bshe", x, p["wv"])
     positions = torch.full((1,), pos, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = attention_qkv(p, x, cfg=cfg, tp=tp, positions=positions)
     C = k_cache.shape[1]
     slot = pos % C if ring else min(pos, C - 1)
     k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
@@ -366,6 +368,8 @@ def attention_decode(p, x, k_cache, v_cache, pos: int, *, cfg: ArchConfig,
     out = decode_attention(q, k_cache, v_cache, pos, window=window,
                            ring=ring)
     out = einsum("bshe,hed->bsd", out, p["wo"])
+    if _tp_attn(tp):
+        out = tp.reduce_from(out)
     return out, k_cache, v_cache
 
 
@@ -637,6 +641,17 @@ def lm_head(p, x, vocab_size: Optional[int] = None,
     if vocab_size is not None and vocab_size < V:
         pad = torch.arange(V, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, NEG_INF)
+    return logits
+
+
+def lm_head_whole(p, x, vocab_size: Optional[int] = None,
+                  tp=None) -> torch.Tensor:
+    """:func:`lm_head`'s logits whole on every rank: under ``tp`` with the
+    head sharded, the ranks' columns gathered over the group (the
+    reference's serving steps return replicated logits)."""
+    logits = lm_head(p, x, vocab_size, tp)
+    if tp is not None and tp.sharded("embed/head"):
+        logits = tp.gather_from(logits, logits.dim() - 1)
     return logits
 
 

@@ -103,8 +103,9 @@ class TP:
         flat: Dict[str, Optional[int]] = {}
 
         def walk(t, path):
-            if isinstance(t, dict):
-                for k, v in t.items():
+            if isinstance(t, (dict, list, tuple)):
+                items = t.items() if isinstance(t, dict) else enumerate(t)
+                for k, v in items:
                     walk(v, path + (str(k),))
                 return
             name = "/".join(path[-2:])
@@ -206,20 +207,26 @@ def softmax_xent(tp: TP, logits_local: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
-def local_kv(tp: TP, kv: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """The KV heads this rank's query heads read, of a whole (B, S, kvh,
-    hd) projection (GQA whose KV heads the rule keeps whole): query head
-    i reads KV head i // (h / kvh), and the rank holds query heads [j·h/n,
-    (j+1)·h/n). The projection enters the region here, so the heads'
-    gradients from every rank are summed into it."""
-    kvh = kv.shape[2]
-    g = n_heads // kvh
+def kv_range(tp: TP, n_kv: int, n_heads: int):
+    """The KV heads [lo, hi) this rank's query heads read: query head i
+    reads KV head i // (h / kvh), and the rank holds query heads
+    [j·h/n, (j+1)·h/n). A sharded ``wk`` / ``wv`` gives the rank just
+    these heads; a whole one is cut to them (:func:`local_kv`)."""
+    g = n_heads // n_kv
     h_loc = n_heads // tp.size
     if h_loc % g and g % h_loc:
-        raise ValueError(f"{n_heads} query heads over {kvh} KV heads: "
+        raise ValueError(f"{n_heads} query heads over {n_kv} KV heads: "
                          f"{h_loc} a rank straddle a KV head's group of {g}")
     first = tp.index * h_loc
-    lo, hi = first // g, (first + h_loc - 1) // g + 1
+    return first // g, (first + h_loc - 1) // g + 1
+
+
+def local_kv(tp: TP, kv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The KV heads this rank's query heads read (:func:`kv_range`), of a
+    whole (B, S, kvh, hd) projection (GQA whose KV heads the rule keeps
+    whole). The projection enters the region here, so the heads'
+    gradients from every rank are summed into it."""
+    lo, hi = kv_range(tp, kv.shape[2], n_heads)
     return tp.copy_to(kv)[:, :, lo:hi]
 
 

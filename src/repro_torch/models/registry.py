@@ -11,10 +11,11 @@ work on plain parameter dicts:
   init(gen)                                   -> params
   init_stacked(gen)                           -> train-layout params
   loss(train-layout params, batch)            -> (loss, metrics)
-  prefill(params, inputs, max_len=None, paged=False)
+  prefill(params, inputs, max_len=None, paged=False[, tp, fsdp, rows])
                                               -> (last_logits, cache)
-  decode_step(params, cache, {"token": (B,1)}, pos) -> (logits, cache)
-  init_cache(batch_size, max_len)             -> cache
+  decode_step(params, cache, {"token": (B,1)}, pos[, tp, fsdp, rows])
+                                              -> (logits, cache)
+  init_cache(batch_size, max_len[, tp])       -> cache
   decode_paged(params, pool, {"token": (B,1)}, pos, bt, page=...)
                                               -> (logits, pool)
   init_paged(n_slots)                         -> pool
@@ -42,7 +43,8 @@ shards too (``tp``, ``fsdp``); autograd gives its gradients.
 
 The contiguous cache (``paged=False``, ``decode_step``, ``init_cache``)
 serves every family (the dense kinds on the reference's ring-buffer KV
-cache); the paged pool serves the dense kinds (not the vlm and audio
+cache), the dense family on a mesh too (``tp``, ``fsdp``, ``rows``;
+``serve/mesh.py``); the paged pool serves the dense kinds (not the vlm and audio
 families: the reference has no continuous path for them).
 """
 from __future__ import annotations
@@ -161,10 +163,7 @@ class Model:
         batch statistics span it)."""
         if tp is not None:
             P.check_family(self.cfg, tp.size)
-        if fsdp is not None and fsdp.sub("embed") is not None:
-            # a leaf outside the stacks is gathered for the whole step
-            params = dict(params, embed=fsdp.gather(params["embed"],
-                                                    fsdp.dims["embed"]))
+        params = _gather_embed(params, fsdp)
         x = self.embed_inputs(params, batch, tp)
         x, aux = S.apply_stack_train(
             params["layers"], x, self.cfg, self.kinds,
@@ -175,7 +174,17 @@ class Model:
         nll = L.softmax_xent(logits, batch["labels"], tp=tp)
         return nll + aux, {"nll": nll, "aux_loss": aux}
 
-    def prefill(self, params, inputs, max_len=None, paged: bool = False):
+    def _check_mesh(self, tp, fsdp) -> None:
+        """Raise unless this family serves on a mesh (the dense family)
+        or no mesh is asked for."""
+        if (tp is not None or fsdp is not None) \
+                and self.cfg.family != "dense":
+            raise ValueError(
+                f"{self.cfg.name}: serving on a mesh for the "
+                f"{self.cfg.family} family is not ported (ROADMAP A)")
+
+    def prefill(self, params, inputs, max_len=None, paged: bool = False,
+                tp=None, fsdp=None, rows=None):
         """Prompt pass over ``inputs`` ({"tokens"}, with the vlm's
         "patches" or the audio model's "frames"). Returns the last
         position's logits (B, vocab) and the per-layer cache: with
@@ -183,34 +192,60 @@ class Model:
         pool), else the contiguous decode cache (dense: the last
         ``window`` K/V rows, or all rows padded to ``max_len`` for a
         global layer; xattn: that and the cross K/V; rwkv: final state
-        and token shifts; rec: conv state and f32 carry)."""
-        x = self.embed_inputs(params, inputs)
+        and token shifts; rec: conv state and f32 carry).
+
+        On a mesh (the dense family; ``serve/mesh.py`` builds the
+        contexts): ``tp`` (:class:`repro_torch.models.parallel.TP`) runs
+        this rank's shards of a replica split over a "model" axis, its
+        cache the KV heads its query heads read, the logits whole on every
+        rank of the model group; ``fsdp``
+        (:class:`repro_torch.models.parallel.FSDP`, its dims those of
+        ``params`` with a leading layer dim of 1 a layer's leaf) gathers
+        each layer's shards over the data group for the layer; ``rows``
+        (a :class:`repro_torch.core.comm.Group`): ``inputs`` is this
+        rank's share of a batch whose rows are split over the group (the
+        MoE's batch statistics span it). ``tp=None`` and ``fsdp=None``
+        is the one-device pass."""
+        self._check_mesh(tp, fsdp)
+        params = _gather_embed(params, fsdp)
+        x = self.embed_inputs(params, inputs, tp)
         x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
                                  mode="prefill", paged=paged,
                                  max_len=max_len,
-                                 aux=self._aux(params, inputs))
+                                 aux=self._aux(params, inputs), tp=tp,
+                                 fsdp=None if fsdp is None
+                                 else fsdp.at("layers"), rows=rows)
         vocab = self.cfg.vocab_size
-        last = L.lm_head(params["embed"], x[:, -1:], vocab)[:, 0, :vocab]
+        last = L.lm_head_whole(params["embed"], x[:, -1:], vocab,
+                               tp)[:, 0, :vocab]
         return last, cache
 
-    def decode_step(self, params, cache, inputs, pos):
+    def decode_step(self, params, cache, inputs, pos, tp=None, fsdp=None,
+                    rows=None):
         """One decode step against the contiguous cache at ``pos`` (the
         new token's position, the same for every request). Returns
         (logits (B, vocab), new cache); the K/V caches are written in
         place (the reference donates them). The audio model's cross K/V
-        come from the cache."""
-        x = L.embed(params["embed"], inputs["token"])
+        come from the cache. ``tp``, ``fsdp`` and ``rows`` as in
+        :meth:`prefill`."""
+        self._check_mesh(tp, fsdp)
+        params = _gather_embed(params, fsdp)
+        x = L.embed(params["embed"], inputs["token"], tp)
         x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
-                                 mode="decode", cache=cache, pos=pos)
+                                 mode="decode", cache=cache, pos=pos, tp=tp,
+                                 fsdp=None if fsdp is None
+                                 else fsdp.at("layers"), rows=rows)
         vocab = self.cfg.vocab_size
-        logits = L.lm_head(params["embed"], x, vocab)[:, 0, :vocab]
+        logits = L.lm_head_whole(params["embed"], x, vocab, tp)[:, 0, :vocab]
         return logits, cache
 
-    def init_cache(self, batch_size: int, max_len: int) -> list:
-        """Empty contiguous decode cache (``max_len`` as in
-        :meth:`prefill`)."""
+    def init_cache(self, batch_size: int, max_len: int, tp=None) -> list:
+        """Empty contiguous decode cache of ``batch_size`` rows (a rank's
+        rows on a mesh) (``max_len`` as in :meth:`prefill`; ``tp``: the
+        KV heads this rank's query heads read)."""
+        self._check_mesh(tp, None)
         return S.init_cache(self.cfg, self.kinds, batch_size, max_len,
-                            self.device)
+                            self.device, tp)
 
     def decode_paged(self, params, pool, inputs, pos, bt, *, page: int,
                      masks=None, tp=None):
@@ -232,6 +267,15 @@ class Model:
 
     def init_paged(self, n_slots: int) -> list:
         return S.init_paged(self.cfg, self.kinds, n_slots, self.device)
+
+
+def _gather_embed(params, fsdp):
+    """``params`` with the FSDP shards of the leaves outside the stacks
+    gathered for the whole step (none under the reference's rules)."""
+    if fsdp is None or fsdp.sub("embed") is None:
+        return params
+    return dict(params, embed=fsdp.gather(params["embed"],
+                                          fsdp.dims["embed"]))
 
 
 def build_model(cfg: ArchConfig, *, device="cuda") -> Model:

@@ -148,9 +148,18 @@ def apply_stack_train(params: dict, x, cfg: ArchConfig,
     return x, aux_loss
 
 
+def _serve_layer(fsdp, i: int, p):
+    """Layer ``i``'s weights for a serving pass: its FSDP shards gathered
+    over the data group (``fsdp.dims["layers"][i]``: the dims of the
+    layer's leaves with a leading layer dim of 1), else ``p``."""
+    dims = None if fsdp is None else fsdp.sub(i)
+    return p if dims is None else fsdp.gather(p, dims, lead=1)
+
+
 def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
                 mode: str, cache=None, pos=None, paged=None,
-                max_len: Optional[int] = None, aux: Optional[dict] = None):
+                max_len: Optional[int] = None, aux: Optional[dict] = None,
+                tp=None, fsdp=None, rows=None):
     """Run every layer in faithful order (``aux["enc_out"]``: the encoder
     output that ``xattn`` prefills attend to; its decode reads the cross
     K/V from the cache).
@@ -164,10 +173,18 @@ def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
                   K/V written in place;
     decode_paged: one step against the paged pool; returns (x, pool),
                   the pool written in place.
+
+    On a mesh (prefill and decode, the dense kinds only): ``tp`` runs this
+    rank's share of each layer (its caches hold the KV heads its query
+    heads read); ``fsdp`` (its ``dims`` those of ``params`` with a
+    leading layer dim of 1 a leaf) gathers each layer's shards over the
+    data group before the layer and drops them after it (no checkpoint:
+    the pass has no gradient); ``rows`` spans the MoE's batch statistics
+    over the group the batch's rows are split over.
     """
     if mode == "prefill":
         caches = []
-        for p, kind in zip(params, kinds):
+        for i, (p, kind) in enumerate(zip(params, kinds)):
             if kind in RECURRENT:
                 x, c = RECURRENT[kind].prefill(p, x, cfg)
             elif kind == "enc":
@@ -176,13 +193,16 @@ def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
                 x, c = W.xattn_prefill(p, x, aux["enc_out"], cfg,
                                        max_len=max_len)
             else:
-                x, c = T.prefill(p, x, cfg, T.window_of(kind),
-                                 paged=bool(paged), max_len=max_len)
+                full = _serve_layer(fsdp, i, p)
+                x, c = T.prefill(full, x, cfg, T.window_of(kind),
+                                 paged=bool(paged), max_len=max_len, tp=tp,
+                                 rows=rows)
+                del full
             caches.append(c)
         return x, caches
     if mode == "decode":
         caches = []
-        for p, kind, cache_l in zip(params, kinds, cache):
+        for i, (p, kind, cache_l) in enumerate(zip(params, kinds, cache)):
             if kind in RECURRENT:
                 x, c = RECURRENT[kind].decode(p, x, cache_l, cfg)
             elif kind == "xattn":
@@ -190,7 +210,10 @@ def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
             elif kind == "enc":
                 raise ValueError("kind 'enc' never decodes")
             else:
-                x, c = T.decode(p, x, cache_l, pos, cfg, T.window_of(kind))
+                full = _serve_layer(fsdp, i, p)
+                x, c = T.decode(full, x, cache_l, pos, cfg,
+                                T.window_of(kind), tp, rows)
+                del full
             caches.append(c)
         return x, caches
     if mode == "decode_paged":
@@ -203,8 +226,9 @@ def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
 
 
 def init_cache(cfg: ArchConfig, kinds: Sequence[str], batch: int,
-               max_len: int, device) -> list:
-    """Per-layer empty contiguous decode caches."""
+               max_len: int, device, tp=None) -> list:
+    """Per-layer empty contiguous decode caches (``tp``: the dense kinds'
+    KV heads this rank's query heads read)."""
     out = []
     for kind in kinds:
         if kind in RECURRENT:
@@ -215,7 +239,7 @@ def init_cache(cfg: ArchConfig, kinds: Sequence[str], batch: int,
             out.append({})
         else:
             out.append(T.cache_spec(cfg, batch, max_len, T.window_of(kind),
-                                    device))
+                                    device, tp))
     return out
 
 

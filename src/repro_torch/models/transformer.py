@@ -7,11 +7,16 @@ paged pool (every position's K/V) or the contiguous cache; the
 contiguous decode step; the paged decode step with the tensor-parallel
 hooks. Train and prefill take the reference's attention routes with
 ``blocked=True`` (blocked local above 2·window, chunked above 2048
-tokens). A layer with ``tp`` set sends its attention output projection
-through the drop-masked exchange at collective site ``2·layer``, and a
-dense MLP's at ``2·layer + 1``; an MoE FFN keeps the dense expert path,
-as the reference's does (expert dispatch is an all-to-all, not an
-RS+AG). The MoE FFN adds ``0.01 · aux`` to the train-mode loss.
+tokens). The train pass, the prefill and the contiguous decode run a
+replica's shards on a mesh too (``tp``, a
+:class:`repro_torch.models.parallel.TP`: tensor parallelism inside a
+replica, exact). A paged decode layer with ``tp`` set (a
+``serve.tp.TPContext``: the lossy TP) sends its attention output
+projection through the drop-masked exchange at collective site
+``2·layer``, and a dense MLP's at ``2·layer + 1``; an MoE FFN keeps the
+dense expert path, as the reference's does (expert dispatch is an
+all-to-all, not an RS+AG). The MoE FFN adds ``0.01 · aux`` to the
+train-mode loss.
 
 The contiguous cache is the reference's: a windowed layer keeps a ring
 buffer of its last ``window`` rows (all S rows when S < window) and
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as P
 
 
 def window_of(kind_name: str) -> Optional[int]:
@@ -93,17 +99,20 @@ def train(p, x, cfg: ArchConfig, window: Optional[int], tp=None,
 
 
 def prefill(p, x, cfg: ArchConfig, window: Optional[int], *,
-            paged: bool = False, max_len: Optional[int] = None):
+            paged: bool = False, max_len: Optional[int] = None, tp=None,
+            rows=None):
     """Full-sequence layer pass. Returns (x, {"k", "v"}).
 
     ``paged``: every position kept; the engine scatters rows [0, S) into
     the request's slots and the decode mask applies the window. Else the
     contiguous decode cache: a windowed layer keeps its last ``window``
     rows (the ring buffer), a global layer is zero-padded to ``max_len``
-    rows so that decode writes land at slot == position."""
+    rows so that decode writes land at slot == position. ``tp`` and
+    ``rows`` as in :func:`train`: under ``tp`` the cache holds the KV
+    heads this rank's query heads read."""
     h, (k, v) = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"]),
-                                cfg=cfg, window=window, blocked=True)
-    x, _ = _ffn(p, x + h, cfg)
+                                cfg=cfg, window=window, blocked=True, tp=tp)
+    x, _ = _ffn(p, x + h, cfg, tp, rows)
     if paged:
         return x, {"k": k, "v": v}
     if window is not None:
@@ -115,23 +124,30 @@ def prefill(p, x, cfg: ArchConfig, window: Optional[int], *,
 
 
 def decode(p, x, cache_l: dict, pos: int, cfg: ArchConfig,
-           window: Optional[int]):
+           window: Optional[int], tp=None, rows=None):
     """One decode step of one layer against its contiguous cache (a ring
     buffer when ``window`` is set); the cache is written in place and
-    returned."""
+    returned. ``tp`` and ``rows`` as in :func:`prefill`."""
     h, k, v = L.attention_decode(p["attn"], L.rms_norm(x, p["ln1"]),
                                  cache_l["k"], cache_l["v"], pos, cfg=cfg,
-                                 window=window, ring=window is not None)
-    x, _ = _ffn(p, x + h, cfg)
+                                 window=window, ring=window is not None,
+                                 tp=tp)
+    x, _ = _ffn(p, x + h, cfg, tp, rows)
     return x, {"k": k, "v": v}
 
 
 def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
-               window: Optional[int], device) -> dict:
+               window: Optional[int], device, tp=None) -> dict:
     """One layer's empty contiguous cache: ``min(window, max_len)`` ring
-    slots for a windowed layer, ``max_len`` slots for a global one."""
+    slots for a windowed layer, ``max_len`` slots for a global one; under
+    ``tp`` with the heads sharded, the KV heads this rank's query heads
+    read (:func:`repro_torch.models.parallel.kv_range`)."""
     C = min(window, max_len) if window is not None else max_len
-    shape = (batch, C, cfg.n_kv_heads, cfg.hd)
+    kvh = cfg.n_kv_heads
+    if L._tp_attn(tp):
+        lo, hi = P.kv_range(tp, kvh, cfg.n_heads)
+        kvh = hi - lo
+    shape = (batch, C, kvh, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 

@@ -498,3 +498,59 @@ def tp_kinds_case(rank: int, mesh, spec: dict) -> dict:
 
         out[label] = _vs_whole(mesh, cfg, full, fn)
     return out
+
+
+# ---- serving on a mesh -------------------------------------------------------
+
+def serve_mesh_case(rank: int, mesh, spec: dict) -> dict:
+    """The port's mesh serving steps (``serve/mesh.py``) on the config
+    ``spec["cfg"]`` from the reference's replica ``spec["p1"]``: a
+    prefill of the prompts ``spec["tokens"]`` (B, P) with a decode cache
+    of ``spec["max_len"]`` rows, then one decode step a row of
+    ``spec["steps"]`` (T, B) at positions P, P + 1, …; beside each, the
+    unsharded step (``tp=None``, ``fsdp=None``) on the same rows. Returns
+    this rank's rows, its logits, the unsharded logits, its final cache,
+    the KV heads it holds and the collectives of the prefill and of the
+    first decode step."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core import comm
+    from repro_torch.models import build_model
+    from repro_torch.models import parallel as P
+    from repro_torch.serve.mesh import make_serve
+    cfg = _tp_config(spec["cfg"])
+    model = build_model(cfg, device="cpu")
+    full = params_from_jax(spec["p1"], cfg, "cpu")
+    serve = make_serve(model, mesh)
+    shards = serve.shard(full)
+    tokens = t_(spec["tokens"])
+    B, Pn = tokens.shape
+    S = spec["max_len"]
+    lo, hi = serve.local_rows(B)
+    rows = serve.rows(B)
+    out = {"rows": (lo, hi), "logits": [], "whole": [], "records": []}
+    with torch.no_grad():
+        with comm.recording() as rec:
+            lg, cache = serve.prefill_step(shards, {"tokens": tokens}, S)
+        out["records"].append(list(rec))
+        lw, cache_w = model.prefill(full, {"tokens": tokens[lo:hi]}, S,
+                                    rows=rows)
+        out["logits"].append(np_(lg))
+        out["whole"].append(np_(lw))
+        for t, step in enumerate(spec["steps"]):
+            tok = {"token": t_(step[:, None])}
+            with comm.recording() as rec:
+                lg, cache = serve.decode_step(shards, cache, tok, Pn + t)
+            if t == 0:
+                out["records"].append(list(rec))
+            lw, cache_w = model.decode_step(
+                full, cache_w, {"token": tok["token"][lo:hi]}, Pn + t,
+                rows=rows)
+            out["logits"].append(np_(lg))
+            out["whole"].append(np_(lw))
+    out["cache"] = [np_(c) for c in cache]
+    out["kv"] = (0, cfg.n_kv_heads)
+    if serve.tp is not None and serve.tp.sharded("attn/wq"):
+        out["kv"] = P.kv_range(serve.tp, cfg.n_kv_heads, cfg.n_heads)
+    out["fsdp"] = serve.fsdp is not None
+    out["sharded"] = sorted(serve.tp.dims) if serve.tp is not None else []
+    return out
