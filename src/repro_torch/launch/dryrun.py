@@ -30,13 +30,11 @@ Meshes:
   rows over "data", each layer's shards gathered and its gradient
   reduce-scattered over the 16 data ranks; every layer counted: a train
   step's peak of live bytes does not grow alike with each layer, so two
-  and three layers do not extend to the whole); the dense family's
-  prefill and decode rows are counted as one rank's serving step on its
-  shards (``serve/mesh.py``: TP over "model", FSDP over "data" where
-  the config serves with it, the batch's rows over the data axes;
-  :func:`count_serve_step`, extended by :func:`by_periods`), and the
-  other families' report the counted terms as not run (their serving
-  on a mesh is ROADMAP queue A's next item);
+  and three layers do not extend to the whole); every family's prefill
+  and decode rows are counted as one rank's serving step on its shards
+  (``serve/mesh.py``: TP over "model", FSDP over "data" where the
+  config serves with it, the batch's rows over the data axes;
+  :func:`count_serve_step`, extended by :func:`by_periods`);
 - ``sim1`` / ``sim4`` (``make_sim_mesh(1)`` / ``(4)``: one H100 a
   replica, the collective path's data mesh) count every term: the rows a
   benchmark's cells are sized from.
@@ -158,17 +156,6 @@ def _on_mesh(mesh: Mesh, fsdp_axis: Optional[str]) -> bool:
         fsdp_axis is not None and mesh.shape.get(fsdp_axis, 1) > 1)
 
 
-def _not_run(cfg: ArchConfig, mesh: Mesh,
-             fsdp_axis: Optional[str]) -> Optional[str]:
-    """Why the port does not run a serving step of ``cfg`` on ``mesh``
-    (None: it runs). Serving on a mesh runs the dense family
-    (``serve/mesh.py``); every train step runs."""
-    if not _on_mesh(mesh, fsdp_axis) or cfg.family == "dense":
-        return None
-    return ("layout only: the counted terms are not run (ROADMAP A: "
-            f"serving on a mesh for the {cfg.family} family)")
-
-
 def _meta_model(cfg: ArchConfig):
     return build_model(cfg, device="meta")
 
@@ -269,11 +256,13 @@ def build_train_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh,
 
 
 def build_decode_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh):
-    """``(counted totals or None, info)`` of one decode step against a
-    cache of ``shape.seq_len`` rows (the reference's ``cache_seq``);
+    """``(counted totals, info)`` of one decode step against a cache of
+    ``shape.seq_len`` rows (the reference's ``cache_seq``);
     ``info["cache_specs"]``: the layer-stacked cache's layout (the
     reference's); ``info["rank_cache"]``: one rank's cache shapes on a
-    mesh, a layer's {"k", "v"} (the KV heads its query heads read)."""
+    mesh, a layer's leaves as its share of the layer leaves them (a
+    K/V leaf the KV heads its query heads read, rwkv's state its heads,
+    rec's states its dr channels; ``serve/mesh.py``)."""
     model = _meta_model(cfg)
     B, S = shape.global_batch, shape.seq_len
     cache = model.init_cache(B, S)
@@ -281,9 +270,6 @@ def build_decode_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh):
             "cache_specs": _cache_spec_tree(stack_layers(cache, model.kinds),
                                             cfg, mesh,
                                             serve_mesh.data_axes(mesh))}
-    why = _not_run(cfg, mesh, _serve_fsdp(cfg))
-    if why is not None:
-        return None, dict(info, not_run=why)
     if not _on_mesh(mesh, _serve_fsdp(cfg)):
         return count_decode(cfg, B, S), info
     serve = serve_mesh.make_serve(model, mesh.as_rank(0))
@@ -312,12 +298,8 @@ def count_decode(cfg: ArchConfig, B: int, S: int) -> dict:
 
 
 def build_prefill_counted(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh):
-    """``(counted totals or None, {})`` of one prefill of the global
-    batch."""
+    """``(counted totals, {})`` of one prefill of the global batch."""
     B, S = shape.global_batch, shape.seq_len
-    why = _not_run(cfg, mesh, _serve_fsdp(cfg))
-    if why is not None:
-        return None, {"not_run": why}
     if not _on_mesh(mesh, _serve_fsdp(cfg)):
         return count_prefill(cfg, B, S), {}
     return count_serve(cfg, "prefill", B, S, mesh), {}
@@ -470,18 +452,15 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
     with span("dryrun.count"):
         totals, info = builder_for(shape)(cfg, shape, m)
     t_count = time.time() - t0
+    report = analyze(arch, shape_name, mesh_desc, m.size, totals,
+                     model_flops_global(cfg, shape), hw=hw)
     out = {"arch": arch, "shape": shape_name, "mesh": mesh_desc,
-           "status": "ok" if totals is not None else info["not_run"],
-           "compile_s": round(t_count, 1), "info": info}
-    report = None
-    if totals is not None:
-        report = analyze(arch, shape_name, mesh_desc, m.size, totals,
-                         model_flops_global(cfg, shape), hw=hw)
-        out["memory_analysis"] = {
-            "args_gb": (totals["hbm"] - totals["peak_live"]) / 1e9,
-            "temp_gb": totals["peak_live"] / 1e9,
-            "output_gb": 0.0, "alias_gb": 0.0}
-        out["roofline"] = dataclasses.asdict(report)
+           "status": "ok", "compile_s": round(t_count, 1), "info": info,
+           "memory_analysis": {
+               "args_gb": (totals["hbm"] - totals["peak_live"]) / 1e9,
+               "temp_gb": totals["peak_live"] / 1e9,
+               "output_gb": 0.0, "alias_gb": 0.0},
+           "roofline": dataclasses.asdict(report)}
     if verbose and info.get("state_bytes"):
         sb = info["state_bytes"]
         comps = ", ".join(f"{k}={v/1e9:.2f}GB" for k, v in sb.items()
@@ -497,7 +476,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
               f"model_packets={ep['model_packets']}, "
               f"wire={ep['wire']}/{ep['recovery']}, "
               f"rs_bytes_ratio={ep['rs_bytes_ratio']:.2f})")
-    if verbose and report is not None:
+    if verbose:
         print(f"[{arch} × {shape_name} × {mesh_desc}] count {t_count:.1f}s"
               f" | hbm/dev {report.hbm_per_device/1e9:.2f} GB"
               f" (fits={report.fits})"
@@ -506,8 +485,6 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
               f" | t_coll {report.t_collective*1e3:.2f} ms"
               f" -> {report.bottleneck}"
               f" | useful {report.useful_ratio:.2f}")
-    elif verbose:
-        print(f"[{arch} × {shape_name} × {mesh_desc}] {out['status']}")
     return out
 
 
@@ -598,12 +575,9 @@ def main(argv=None):
         if args.telemetry_dir:
             print("telemetry ->", args.telemetry_dir)
     n_ok = sum(r.get("status") == "ok" for r in results)
-    n_layout = sum(str(r.get("status")).startswith("layout only")
-                   for r in results)
     n_skip = sum("skipped" in str(r.get("status")) for r in results)
-    print(f"== {n_ok} ok, {n_layout} layout only, {n_skip} skipped, "
-          f"{len(results) - n_ok - n_layout - n_skip} failed / "
-          f"{len(results)} total ==")
+    print(f"== {n_ok} ok, {n_skip} skipped, "
+          f"{len(results) - n_ok - n_skip} failed / {len(results)} total ==")
     return results
 
 

@@ -19,7 +19,8 @@ autograd differentiates; the CUDA kernel is forward only), the prefill
 (one kernel launch per layer, whose final f32 carry is the decode state)
 and the decode step.
 
-Under tensor parallelism inside a replica (``train(tp=)``,
+Under tensor parallelism inside a replica (``train(tp=)``, and
+``prefill`` / ``decode`` / ``cache_spec`` on a serving mesh,
 :mod:`repro_torch.models.parallel`) the rule
 (``launch/sharding.py::_rule``) splits the recurrent width dr over
 "model": ``wy`` / ``wx`` are column-parallel and the depthwise conv and
@@ -134,29 +135,37 @@ def train(p, x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor:
     return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), tp)
 
 
-def prefill(p, x: torch.Tensor, cfg: ArchConfig):
+def prefill(p, x: torch.Tensor, cfg: ArchConfig, tp=None):
     """Full-sequence layer pass. Returns (x, {"conv": (B, W-1, dr),
-    "h": (B, dr) f32}); ``h`` is the kernel's final carry."""
+    "h": (B, dr) f32}); ``h`` is the kernel's final carry. ``tp`` runs
+    this rank's share of a sharded layer, as :func:`train` does: the
+    kernel takes the rank's dr channels, and the conv state and the
+    carry hold them."""
     xin = L.rms_norm(x, p["ln1"])
-    out, conv_state, h_last = _block(p, xin)
+    out, conv_state, h_last = _block(p, xin, tp=tp)
     x = x + out
-    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), tp)
     return x, {"conv": conv_state, "h": h_last}
 
 
-def decode(p, x: torch.Tensor, cache_l: dict, cfg: ArchConfig):
+def decode(p, x: torch.Tensor, cache_l: dict, cfg: ArchConfig, tp=None):
     """One decode step of one layer; x: (B, 1, d). Returns (x, new
-    cache) — the caller's cache is not modified."""
+    cache) — the caller's cache is not modified. ``tp`` as in
+    :func:`prefill`."""
     xin = L.rms_norm(x, p["ln1"])
-    out, conv_state, h_last = _block(p, xin, cache_l["conv"], cache_l["h"])
+    out, conv_state, h_last = _block(p, xin, cache_l["conv"], cache_l["h"],
+                                     tp=tp)
     x = x + out
-    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), tp)
     return x, {"conv": conv_state, "h": h_last}
 
 
-def cache_spec(cfg: ArchConfig, batch: int, device) -> dict:
-    """One layer's empty decode cache."""
+def cache_spec(cfg: ArchConfig, batch: int, device, tp=None) -> dict:
+    """One layer's empty decode cache; under ``tp`` with dr split, this
+    rank's channels."""
     dr = cfg.d_state or cfg.d_model
+    if _split(tp, "wx"):
+        dr //= tp.size
     return {"conv": torch.zeros((batch, CONV_W - 1, dr),
                                 dtype=cfg.torch_dtype, device=device),
             "h": torch.zeros((batch, dr), dtype=torch.float32,

@@ -43,8 +43,8 @@ shards too (``tp``, ``fsdp``); autograd gives its gradients.
 
 The contiguous cache (``paged=False``, ``decode_step``, ``init_cache``)
 serves every family (the dense kinds on the reference's ring-buffer KV
-cache), the dense family on a mesh too (``tp``, ``fsdp``, ``rows``;
-``serve/mesh.py``); the paged pool serves the dense kinds (not the vlm and audio
+cache), on a mesh too (``tp``, ``fsdp``, ``rows``; ``serve/mesh.py``);
+the paged pool serves the dense kinds (not the vlm and audio
 families: the reference has no continuous path for them).
 """
 from __future__ import annotations
@@ -125,15 +125,16 @@ class Model:
         """The audio encoder over ``frames`` (B, S_src, d), cast to the
         config's dtype, in train mode (both layouts): its output
         (B, S_src, d). ``fsdp`` and ``tp`` as in :meth:`loss` (the
-        output whole and alike on every rank of the model group)."""
+        train layout) or :meth:`prefill` (the serving layout); the output
+        whole and alike on every rank of the model group."""
         x = frames.to(self.cfg.torch_dtype)
         enc = params["enc_layers"]
+        fsdp = None if fsdp is None else fsdp.at("enc_layers")
         if isinstance(enc, dict):
-            return S.apply_stack_train(
-                enc, x, self.cfg, self.enc_kinds, tp=tp,
-                fsdp=None if fsdp is None else fsdp.at("enc_layers"))[0]
+            return S.apply_stack_train(enc, x, self.cfg, self.enc_kinds,
+                                       tp=tp, fsdp=fsdp)[0]
         return S.apply_stack(enc, x, self.cfg, self.enc_kinds,
-                             mode="prefill")[0]
+                             mode="prefill", tp=tp, fsdp=fsdp)[0]
 
     def _aux(self, params, inputs, fsdp=None, tp=None) -> dict:
         if self.cfg.family != "audio":
@@ -174,14 +175,12 @@ class Model:
         nll = L.softmax_xent(logits, batch["labels"], tp=tp)
         return nll + aux, {"nll": nll, "aux_loss": aux}
 
-    def _check_mesh(self, tp, fsdp) -> None:
-        """Raise unless this family serves on a mesh (the dense family)
-        or no mesh is asked for."""
-        if (tp is not None or fsdp is not None) \
-                and self.cfg.family != "dense":
-            raise ValueError(
-                f"{self.cfg.name}: serving on a mesh for the "
-                f"{self.cfg.family} family is not ported (ROADMAP A)")
+    def _check_mesh(self, tp) -> None:
+        """Raise where the layout splits what a rank must hold whole
+        (:func:`repro_torch.models.parallel.check_family`: an RWKV-6
+        head); every family serves on a mesh."""
+        if tp is not None:
+            P.check_family(self.cfg, tp.size)
 
     def prefill(self, params, inputs, max_len=None, paged: bool = False,
                 tp=None, fsdp=None, rows=None):
@@ -194,11 +193,12 @@ class Model:
         global layer; xattn: that and the cross K/V; rwkv: final state
         and token shifts; rec: conv state and f32 carry).
 
-        On a mesh (the dense family; ``serve/mesh.py`` builds the
+        On a mesh (every family; ``serve/mesh.py`` builds the
         contexts): ``tp`` (:class:`repro_torch.models.parallel.TP`) runs
-        this rank's shards of a replica split over a "model" axis, its
-        cache the KV heads its query heads read, the logits whole on every
-        rank of the model group; ``fsdp``
+        this rank's shards of a replica split over a "model" axis (the
+        audio model's encoder too), its cache the KV heads its query
+        heads read, rwkv's state its heads, rec's states its dr channels,
+        the logits whole on every rank of the model group; ``fsdp``
         (:class:`repro_torch.models.parallel.FSDP`, its dims those of
         ``params`` with a leading layer dim of 1 a layer's leaf) gathers
         each layer's shards over the data group for the layer; ``rows``
@@ -206,13 +206,14 @@ class Model:
         rank's share of a batch whose rows are split over the group (the
         MoE's batch statistics span it). ``tp=None`` and ``fsdp=None``
         is the one-device pass."""
-        self._check_mesh(tp, fsdp)
+        self._check_mesh(tp)
         params = _gather_embed(params, fsdp)
         x = self.embed_inputs(params, inputs, tp)
         x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
                                  mode="prefill", paged=paged,
                                  max_len=max_len,
-                                 aux=self._aux(params, inputs), tp=tp,
+                                 aux=self._aux(params, inputs, fsdp, tp),
+                                 tp=tp,
                                  fsdp=None if fsdp is None
                                  else fsdp.at("layers"), rows=rows)
         vocab = self.cfg.vocab_size
@@ -228,7 +229,7 @@ class Model:
         place (the reference donates them). The audio model's cross K/V
         come from the cache. ``tp``, ``fsdp`` and ``rows`` as in
         :meth:`prefill`."""
-        self._check_mesh(tp, fsdp)
+        self._check_mesh(tp)
         params = _gather_embed(params, fsdp)
         x = L.embed(params["embed"], inputs["token"], tp)
         x, cache = S.apply_stack(params["layers"], x, self.cfg, self.kinds,
@@ -241,9 +242,9 @@ class Model:
 
     def init_cache(self, batch_size: int, max_len: int, tp=None) -> list:
         """Empty contiguous decode cache of ``batch_size`` rows (a rank's
-        rows on a mesh) (``max_len`` as in :meth:`prefill`; ``tp``: the
-        KV heads this rank's query heads read)."""
-        self._check_mesh(tp, None)
+        rows on a mesh) (``max_len`` as in :meth:`prefill`; ``tp``: this
+        rank's share, as its prefill leaves it)."""
+        self._check_mesh(tp)
         return S.init_cache(self.cfg, self.kinds, batch_size, max_len,
                             self.device, tp)
 

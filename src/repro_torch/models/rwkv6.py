@@ -14,7 +14,8 @@ autograd differentiates; the CUDA kernel is forward only), the prefill
 (one kernel launch per layer, whose final state is the decode cache) and
 the decode step.
 
-Under tensor parallelism inside a replica (``train(tp=)``,
+Under tensor parallelism inside a replica (``train(tp=)``, and
+``prefill`` / ``decode`` / ``cache_spec`` on a serving mesh,
 :mod:`repro_torch.models.parallel`) the rule
 (``launch/sharding.py::_rule``) splits every projection's last dim over
 "model": ``wr`` / ``wk`` / ``wv`` / ``wg`` / ``ck`` are column-parallel
@@ -149,42 +150,52 @@ def train(p, x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor:
     return x + _cmix(p, xc, _shift(xc), tp)
 
 
-def prefill(p, x: torch.Tensor, cfg: ArchConfig):
+def prefill(p, x: torch.Tensor, cfg: ArchConfig, tp=None):
     """Full-sequence layer pass. Returns (x, cache) with the cache
     {"state": (B, h, dk, dv) f32, "shift_t", "shift_c": (B, d)}. The
     state is the recurrence's final state, which the kernel writes
     beside its output (the JAX package folds the sequence a second time
-    to get it; the two agree, tests/test_torch_rwkv6.py)."""
+    to get it; the two agree, tests/test_torch_rwkv6.py). ``tp`` runs
+    this rank's share of a sharded layer, as :func:`train` does: the
+    kernel takes the rank's heads, the state holds them (B, h/n, dk, dv),
+    and the token shifts stay whole rows (the lerp reads the whole
+    normed input)."""
     xi = L.rms_norm(x, p["ln1"])
-    r, k, v, w, u, g = _tmix(p, xi, cfg, _shift(xi))
-    o, state = K.rwkv6(r, k, v, w, u)
+    r, k, v, w, u, g = _tmix(p, xi, cfg, _shift(xi), tp)
+    # a rank's decay is a slice of the whole one's channels: laid out
+    # afresh for the kernel, which reads its inputs densely
+    o, state = K.rwkv6(r, k, v, w.contiguous(), u)
     B, S = o.shape[:2]
-    x = x + (o.reshape(B, S, -1) * g).to(x.dtype) @ p["wo"]
+    x = x + _out(p, (o.reshape(B, S, -1) * g).to(x.dtype), tp)
     xc = L.rms_norm(x, p["ln2"])
-    x = x + _cmix(p, xc, _shift(xc))
+    x = x + _cmix(p, xc, _shift(xc), tp)
     return x, {"state": state, "shift_t": xi[:, -1], "shift_c": xc[:, -1]}
 
 
-def decode(p, x: torch.Tensor, cache_l: dict, cfg: ArchConfig):
+def decode(p, x: torch.Tensor, cache_l: dict, cfg: ArchConfig, tp=None):
     """One decode step of one layer; x: (B, 1, d). Returns (x, new
-    cache) — the caller's cache is not modified."""
+    cache) — the caller's cache is not modified. ``tp`` as in
+    :func:`prefill` (the cache's state the rank's heads)."""
     xi = L.rms_norm(x, p["ln1"])
     prev_t = cache_l["shift_t"][:, None, :].to(xi.dtype)
-    r, k, v, w, u, g = _tmix(p, xi, cfg, prev_t)
+    r, k, v, w, u, g = _tmix(p, xi, cfg, prev_t, tp)
     o, state = K.rwkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u,
                             cache_l["state"])
     o = o.reshape(o.shape[0], 1, -1)                          # (B, 1, d)
-    x = x + (o * g).to(x.dtype) @ p["wo"]
+    x = x + _out(p, (o * g).to(x.dtype), tp)
     xc = L.rms_norm(x, p["ln2"])
     prev_c = cache_l["shift_c"][:, None, :].to(xc.dtype)
-    x = x + _cmix(p, xc, prev_c)
+    x = x + _cmix(p, xc, prev_c, tp)
     return x, {"state": state, "shift_t": xi[:, 0], "shift_c": xc[:, 0]}
 
 
-def cache_spec(cfg: ArchConfig, batch: int, device) -> dict:
-    """One layer's empty decode cache."""
+def cache_spec(cfg: ArchConfig, batch: int, device, tp=None) -> dict:
+    """One layer's empty decode cache; under ``tp`` with the time-mix
+    split, the state of this rank's heads."""
     h = cfg.n_heads
     dk = cfg.d_model // h
+    if tp is not None and tp.sharded("rwkv/wr"):
+        h //= tp.size
     dt = cfg.torch_dtype
     return {"state": torch.zeros((batch, h, dk, dk), dtype=torch.float32,
                                  device=device),

@@ -150,8 +150,9 @@ def apply_stack_train(params: dict, x, cfg: ArchConfig,
 
 def _serve_layer(fsdp, i: int, p):
     """Layer ``i``'s weights for a serving pass: its FSDP shards gathered
-    over the data group (``fsdp.dims["layers"][i]``: the dims of the
-    layer's leaves with a leading layer dim of 1), else ``p``."""
+    over the data group (``fsdp.dims[i]``, ``fsdp`` the stack's context:
+    the dims of the layer's leaves with a leading layer dim of 1), else
+    ``p``."""
     dims = None if fsdp is None else fsdp.sub(i)
     return p if dims is None else fsdp.gather(p, dims, lead=1)
 
@@ -174,9 +175,10 @@ def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
     decode_paged: one step against the paged pool; returns (x, pool),
                   the pool written in place.
 
-    On a mesh (prefill and decode, the dense kinds only): ``tp`` runs this
-    rank's share of each layer (its caches hold the KV heads its query
-    heads read); ``fsdp`` (its ``dims`` those of ``params`` with a
+    On a mesh (prefill and decode, every kind): ``tp`` runs this rank's
+    share of each layer (its caches hold the KV heads its query heads
+    read, rwkv's state its heads, rec's states its dr channels);
+    ``fsdp`` (its ``dims`` those of ``params`` with a
     leading layer dim of 1 a leaf) gathers each layer's shards over the
     data group before the layer and drops them after it (no checkpoint:
     the pass has no gradient); ``rows`` spans the MoE's batch statistics
@@ -185,35 +187,35 @@ def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
     if mode == "prefill":
         caches = []
         for i, (p, kind) in enumerate(zip(params, kinds)):
+            full = _serve_layer(fsdp, i, p)
             if kind in RECURRENT:
-                x, c = RECURRENT[kind].prefill(p, x, cfg)
+                x, c = RECURRENT[kind].prefill(full, x, cfg, tp)
             elif kind == "enc":
-                x, c = W.enc_train(p, x, cfg), {}
+                x, c = W.enc_train(full, x, cfg, tp), {}
             elif kind == "xattn":
-                x, c = W.xattn_prefill(p, x, aux["enc_out"], cfg,
-                                       max_len=max_len)
+                x, c = W.xattn_prefill(full, x, aux["enc_out"], cfg,
+                                       max_len=max_len, tp=tp)
             else:
-                full = _serve_layer(fsdp, i, p)
                 x, c = T.prefill(full, x, cfg, T.window_of(kind),
                                  paged=bool(paged), max_len=max_len, tp=tp,
                                  rows=rows)
-                del full
+            del full
             caches.append(c)
         return x, caches
     if mode == "decode":
         caches = []
         for i, (p, kind, cache_l) in enumerate(zip(params, kinds, cache)):
-            if kind in RECURRENT:
-                x, c = RECURRENT[kind].decode(p, x, cache_l, cfg)
-            elif kind == "xattn":
-                x, c = W.xattn_decode(p, x, cache_l, pos, cfg)
-            elif kind == "enc":
+            if kind == "enc":
                 raise ValueError("kind 'enc' never decodes")
+            full = _serve_layer(fsdp, i, p)
+            if kind in RECURRENT:
+                x, c = RECURRENT[kind].decode(full, x, cache_l, cfg, tp)
+            elif kind == "xattn":
+                x, c = W.xattn_decode(full, x, cache_l, pos, cfg, tp)
             else:
-                full = _serve_layer(fsdp, i, p)
                 x, c = T.decode(full, x, cache_l, pos, cfg,
                                 T.window_of(kind), tp, rows)
-                del full
+            del full
             caches.append(c)
         return x, caches
     if mode == "decode_paged":
@@ -227,14 +229,15 @@ def apply_stack(params: list, x, cfg: ArchConfig, kinds: Sequence[str], *,
 
 def init_cache(cfg: ArchConfig, kinds: Sequence[str], batch: int,
                max_len: int, device, tp=None) -> list:
-    """Per-layer empty contiguous decode caches (``tp``: the dense kinds'
-    KV heads this rank's query heads read)."""
+    """Per-layer empty contiguous decode caches (``tp``: a rank's share,
+    as each kind's prefill leaves it — the KV heads its query heads
+    read, rwkv's heads, rec's dr channels)."""
     out = []
     for kind in kinds:
         if kind in RECURRENT:
-            out.append(RECURRENT[kind].cache_spec(cfg, batch, device))
+            out.append(RECURRENT[kind].cache_spec(cfg, batch, device, tp))
         elif kind == "xattn":
-            out.append(W.xattn_cache_spec(cfg, batch, max_len, device))
+            out.append(W.xattn_cache_spec(cfg, batch, max_len, device, tp))
         elif kind == "enc":
             out.append({})
         else:

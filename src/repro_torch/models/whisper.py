@@ -10,7 +10,8 @@ there; the encoder never decodes. The products are plain ``einsum`` and
 the attention the plain routes of :mod:`repro_torch.models.layers`, as
 the reference computes them outside any Pallas kernel. Neither kind has
 a paged form (the reference's neither): they serve on the contiguous
-cache only.
+cache only, on a serving mesh too (``tp``: each rank its share of the
+attention and the MLP, as in training).
 """
 from __future__ import annotations
 
@@ -105,35 +106,48 @@ def xattn_train(p, x, enc_out, cfg: ArchConfig, tp=None):
 
 
 def xattn_prefill(p, x, enc_out, cfg: ArchConfig,
-                  max_len: Optional[int] = None):
+                  max_len: Optional[int] = None, tp=None):
     """Returns (x, {"k", "v", "xk", "xv"}): the self K/V padded to
     ``max_len`` rows (decode writes slot == position, as a global dense
-    layer's), and the cross K/V computed once."""
+    layer's), and the cross K/V computed once. Under ``tp``, this rank's
+    share of a sharded layer (as :func:`xattn_train`): both caches hold
+    the KV heads its query heads read."""
     h, (k, v) = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"]),
-                                cfg=cfg, window=None)
-    xk, xv = enc_kv(p, enc_out)
-    x = _tail(p, x + h, xk, xv)
+                                cfg=cfg, window=None, tp=tp)
+    xk, xv = enc_kv(p, enc_out, tp)
+    x = _tail(p, x + h, xk, xv, tp)
     if max_len is not None and max_len > k.shape[1]:
         pad = (0, 0, 0, 0, 0, max_len - k.shape[1])
         k, v = F.pad(k, pad), F.pad(v, pad)
     return x, {"k": k, "v": v, "xk": xk, "xv": xv}
 
 
-def xattn_decode(p, x, cache_l: dict, pos: int, cfg: ArchConfig):
+def xattn_decode(p, x, cache_l: dict, pos: int, cfg: ArchConfig, tp=None):
     """One decode step against the contiguous cache: the self K/V written
-    in place at slot ``pos``, the cross K/V read as prefill stored them."""
+    in place at slot ``pos``, the cross K/V read as prefill stored them;
+    ``tp`` as in :func:`xattn_prefill`."""
     h, k, v = L.attention_decode(p["attn"], L.rms_norm(x, p["ln1"]),
-                                 cache_l["k"], cache_l["v"], pos, cfg=cfg)
-    x = _tail(p, x + h, cache_l["xk"], cache_l["xv"])
+                                 cache_l["k"], cache_l["v"], pos, cfg=cfg,
+                                 tp=tp)
+    x = _tail(p, x + h, cache_l["xk"], cache_l["xv"], tp)
     return x, {**cache_l, "k": k, "v": v}
 
 
 def xattn_cache_spec(cfg: ArchConfig, batch: int, max_len: int,
-                     device) -> dict:
+                     device, tp=None) -> dict:
     """One decoder layer's empty cache: ``max_len`` self K/V rows and
-    ``max_len // enc_frames_ratio`` cross rows."""
-    kv = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    xs = (batch, max_len // cfg.enc_frames_ratio, cfg.n_kv_heads, cfg.hd)
+    ``max_len // enc_frames_ratio`` cross rows; under ``tp`` with the
+    heads split, the KV heads this rank's query heads read
+    (:func:`repro_torch.models.parallel.kv_range`)."""
+    kvh = xkvh = cfg.n_kv_heads
+    if L._tp_attn(tp):
+        lo, hi = P.kv_range(tp, kvh, cfg.n_heads)
+        kvh = hi - lo
+    if _split(tp):
+        lo, hi = P.kv_range(tp, xkvh, cfg.n_heads)
+        xkvh = hi - lo
+    kv = (batch, max_len, kvh, cfg.hd)
+    xs = (batch, max_len // cfg.enc_frames_ratio, xkvh, cfg.hd)
     z = lambda s: torch.zeros(s, dtype=cfg.torch_dtype,   # noqa: E731
                               device=device)
     return {"k": z(kv), "v": z(kv), "xk": z(xs), "xv": z(xs)}

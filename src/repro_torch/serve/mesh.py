@@ -1,5 +1,6 @@
 """Serving on a mesh: one rank's prefill and decode steps on its shards of
-a replica (the dense family, with and without experts).
+a replica, for every family (dense with and without experts, ssm,
+hybrid, audio, vlm).
 
 The counterpart is the JAX package's dry-run serving layout
 (``src/repro/launch/dryrun.py:195–280``: ``_cache_spec_tree``,
@@ -18,16 +19,20 @@ layer's FSDP shards gathered over "data" for the layer
 (:class:`repro_torch.models.parallel.FSDP`), the MoE's batch statistics
 over the rows' group, the logits gathered whole on every rank.
 
-One departure by design: the reference lays the K/V cache's last
-dimension that divides by "model" over it (``hd`` for a K/V leaf); a
-rank here holds the KV heads its query heads read (Megatron's layout),
-so with fewer KV heads than model ranks a head is held on several ranks
-(ROADMAP C).
+One departure by design: the reference lays each cache leaf's last
+dimension that divides by "model" over it (``hd`` for a K/V leaf,
+``dv`` for RWKV-6's state, ``d`` for its token shifts, ``dr`` for the
+RG-LRU's states); a rank here holds what its share of the layer
+computes: the KV heads its query heads read (Megatron's layout, so with
+fewer KV heads than model ranks a head is held on several ranks),
+RWKV-6's state of its heads beside whole token shifts, the RG-LRU's
+states of its dr channels (ROADMAP C). The values are the same.
 
 The layout rules read a leading layer dim (``launch/sharding.py``), so
-the serving tree (one dict a layer) is laid out with a leading dim of 1
-on each layer's leaves (:func:`lead1`): a layer's dims are those of the
-stacked layout, and its FSDP shards gather with ``lead=1``.
+the serving tree (one dict a layer, in ``params["layers"]`` and the
+audio model's ``params["enc_layers"]``) is laid out with a leading dim
+of 1 on each layer's leaves (:func:`lead1`): a layer's dims are those of
+the stacked layout, and its FSDP shards gather with ``lead=1``.
 """
 from __future__ import annotations
 
@@ -58,11 +63,32 @@ def data_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
+STACKS = ("layers", "enc_layers")      # the serving tree's layer lists
+
+
 def lead1(params) -> dict:
     """The serving tree with a leading dim of 1 on each layer's leaves
-    (views), the shapes the layout rules read."""
-    return dict(params, layers=[tree_lib.map(lambda t: t[None], layer)
-                                for layer in params["layers"]])
+    (views) of every stack, the shapes the layout rules read."""
+    return dict(params, **{k: [tree_lib.map(lambda t: t[None], layer)
+                               for layer in params[k]]
+                           for k in STACKS if k in params})
+
+
+def _drop_lead(params) -> dict:
+    """:func:`lead1` undone."""
+    return dict(params, **{k: [tree_lib.map(lambda t: t[0], layer)
+                               for layer in params[k]]
+                           for k in STACKS if k in params})
+
+
+def _by_kind(tree, model) -> dict:
+    """A tree of the serving layout with each stack's layers keyed by
+    their kinds (every layer of a kind is laid out alike): the names
+    :class:`repro_torch.models.parallel.TP` reads ("rwkv/wr",
+    "attn/wq", …)."""
+    kinds = {"layers": model.kinds, "enc_layers": model.enc_kinds}
+    return dict(tree, **{k: dict(zip(kinds[k], tree[k]))
+                         for k in STACKS if k in tree})
 
 
 def param_specs(params_shape, cfg: ArchConfig) -> Any:
@@ -94,10 +120,8 @@ class MeshServe:
         """This rank's shards of a serving replica (one dict a layer, at
         its global shapes): ``sharding.shard_replica`` on :func:`lead1`'s
         view, the leading dim dropped again."""
-        cut = shlib.shard_replica(lead1(params), self.cfg, self.mesh,
-                                  self.fsdp_axis)
-        return dict(cut, layers=[tree_lib.map(lambda t: t[0], layer)
-                                 for layer in cut["layers"]])
+        return _drop_lead(shlib.shard_replica(lead1(params), self.cfg,
+                                              self.mesh, self.fsdp_axis))
 
     def split(self, B: int) -> bool:
         """Whether a batch of ``B`` rows is split over the data axes (the
@@ -118,7 +142,8 @@ class MeshServe:
         return lo, lo + per
 
     def local_inputs(self, inputs: dict) -> dict:
-        """This rank's rows of every input (B leading)."""
+        """This rank's rows of every input (B leading: the tokens, the
+        audio model's frames, the vlm's patches)."""
         B = next(iter(inputs.values())).shape[0]
         lo, hi = self.local_rows(B)
         return {k: v[lo:hi] for k, v in inputs.items()}
@@ -130,7 +155,7 @@ class MeshServe:
 
     def init_cache(self, B: int, max_len: int) -> list:
         """This rank's empty decode cache for a batch of ``B`` rows: its
-        rows, the KV heads its query heads read."""
+        rows, its share of each layer's (``Model.init_cache(tp=)``)."""
         lo, hi = self.local_rows(B)
         return self.model.init_cache(hi - lo, max_len, tp=self.tp)
 
@@ -169,8 +194,8 @@ def make_serve(model, mesh) -> MeshServe:
     replica = lead1(meta.init(MetaGenerator()))
     tp = fsdp = None
     if mesh.shape.get(shlib.MODEL, 1) > 1:
-        tp = P.TP.from_dims(mesh.group((shlib.MODEL,)),
-                            shlib.local_model_dims(replica, cfg, mesh))
+        tp = P.TP.from_dims(mesh.group((shlib.MODEL,)), _by_kind(
+            shlib.local_model_dims(replica, cfg, mesh), model))
     if fsdp_axis is not None:
         fsdp = P.FSDP(mesh.group((fsdp_axis,)), shlib.local_fsdp_dims(
             replica, cfg, mesh, fsdp_axis))

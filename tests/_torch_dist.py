@@ -505,13 +505,16 @@ def tp_kinds_case(rank: int, mesh, spec: dict) -> dict:
 def serve_mesh_case(rank: int, mesh, spec: dict) -> dict:
     """The port's mesh serving steps (``serve/mesh.py``) on the config
     ``spec["cfg"]`` from the reference's replica ``spec["p1"]``: a
-    prefill of the prompts ``spec["tokens"]`` (B, P) with a decode cache
-    of ``spec["max_len"]`` rows, then one decode step a row of
-    ``spec["steps"]`` (T, B) at positions P, P + 1, …; beside each, the
-    unsharded step (``tp=None``, ``fsdp=None``) on the same rows. Returns
-    this rank's rows, its logits, the unsharded logits, its final cache,
-    the KV heads it holds and the collectives of the prefill and of the
-    first decode step."""
+    prefill of the prompts ``spec["tokens"]`` (B, P) (with the audio
+    model's ``spec["frames"]`` or the vlm's ``spec["patches"]`` where
+    given) with a decode cache of ``spec["max_len"]`` rows, then one
+    decode step a row of ``spec["steps"]`` (T, B) at positions P', P' +
+    1, … (P' the prompt's rows, the vlm's patch rows among them); beside
+    each, the unsharded step (``tp=None``, ``fsdp=None``) on the same
+    rows. Returns this rank's rows, its logits, the unsharded logits,
+    its final cache, the KV heads it holds, its index and size over
+    "model", the names the context shards and the collectives of the
+    prefill and of the first decode step."""
     from repro_torch.convert import params_from_jax
     from repro_torch.core import comm
     from repro_torch.models import build_model
@@ -522,17 +525,20 @@ def serve_mesh_case(rank: int, mesh, spec: dict) -> dict:
     full = params_from_jax(spec["p1"], cfg, "cpu")
     serve = make_serve(model, mesh)
     shards = serve.shard(full)
-    tokens = t_(spec["tokens"])
-    B, Pn = tokens.shape
+    inputs = {k: t_(spec[k]) for k in ("tokens", "frames", "patches")
+              if k in spec}
+    B = inputs["tokens"].shape[0]
+    Pn = inputs["tokens"].shape[1] + model.prefix_len
     S = spec["max_len"]
     lo, hi = serve.local_rows(B)
     rows = serve.rows(B)
     out = {"rows": (lo, hi), "logits": [], "whole": [], "records": []}
     with torch.no_grad():
         with comm.recording() as rec:
-            lg, cache = serve.prefill_step(shards, {"tokens": tokens}, S)
+            lg, cache = serve.prefill_step(shards, inputs, S)
         out["records"].append(list(rec))
-        lw, cache_w = model.prefill(full, {"tokens": tokens[lo:hi]}, S,
+        lw, cache_w = model.prefill(full, {k: v[lo:hi]
+                                           for k, v in inputs.items()}, S,
                                     rows=rows)
         out["logits"].append(np_(lg))
         out["whole"].append(np_(lw))
@@ -551,6 +557,8 @@ def serve_mesh_case(rank: int, mesh, spec: dict) -> dict:
     out["kv"] = (0, cfg.n_kv_heads)
     if serve.tp is not None and serve.tp.sharded("attn/wq"):
         out["kv"] = P.kv_range(serve.tp, cfg.n_kv_heads, cfg.n_heads)
+    out["model"] = ((serve.tp.index, serve.tp.size) if serve.tp is not None
+                    else (0, 1))
     out["fsdp"] = serve.fsdp is not None
     out["sharded"] = sorted(serve.tp.dims) if serve.tp is not None else []
     return out

@@ -70,8 +70,8 @@ def _spec_items(tree, path=()):
 def _cache_rows(arch, shape, mesh):
     """The port's decode row, its count left out (the dense family's
     serving rows are counted by tests/test_torch_dryrun_serve.py): its
-    totals (None), why it is not run (None where it runs) and the
-    layer-stacked cache's {path: (shape, spec)}."""
+    totals (None), its info and the layer-stacked cache's {path: (shape,
+    spec)}."""
     from repro_torch.models.stack import stack_layers
     cfg = get_config(arch)
     with mock.patch.object(D, "count_serve", return_value=None):
@@ -83,8 +83,7 @@ def _cache_rows(arch, shape, mesh):
                          model.kinds)
     shapes = {p: tuple(t.shape) for p, t in _spec_items(cache).items()}
     specs = _spec_items(info["cache_specs"])
-    return totals, info.get("not_run"), {p: (shapes[p], specs[p])
-                                         for p in shapes}
+    return totals, info, {p: (shapes[p], specs[p]) for p in shapes}
 
 
 # the reference's setup of a train_4k step without the lowering, and its
@@ -288,19 +287,14 @@ def test_train_layout_equals_reference(ref, layouts, arch, mesh):
 @pytest.mark.parametrize("arch,shape,mesh", CACHE_CASES)
 def test_cache_spec_trees_equal_reference(ref, caches, arch, shape, mesh):
     """The layer-stacked decode cache's shapes and spec tree; the counted
-    terms run for the dense family (serving on a mesh; counted by
-    tests/test_torch_dryrun_serve.py, left out here) and not for the
-    others."""
-    totals, not_run, got = caches[(arch, shape, mesh)]
+    terms run for every family (serving on a mesh; counted by
+    tests/test_torch_dryrun_serve.py, left out here): no "layout only",
+    one rank's cache a layer beside the reference's layout."""
+    totals, info, got = caches[(arch, shape, mesh)]
     assert got == ref["cache"][(arch, shape, mesh)]
     assert totals is None
-    family = get_config(arch).family
-    if family == "dense":
-        assert not_run is None
-    else:
-        assert not_run == ("layout only: the counted terms are not run "
-                           f"(ROADMAP A: serving on a mesh for the "
-                           f"{family} family)")
+    assert "not_run" not in info
+    assert len(info["rank_cache"]) == get_config(arch).n_layers
 
 
 def test_helpers_equal_reference(ref):
@@ -355,9 +349,9 @@ def test_reference_counts_the_microbatch_scan_once(ref):
 
 def test_cli_rows(tmp_path):
     """``main`` with the reference's flags (``--no-probes`` accepted): a
-    counted row on sim1 with its roofline, a layout row on 16x16 (an ssm
-    serving row: the port serves the dense family on a mesh), a skipped
-    row, and the JSON written."""
+    counted row on sim1 with its roofline, a counted ssm serving row on
+    16x16 (one rank's decode step on a mesh), a skipped row, and the JSON
+    written."""
     out = tmp_path / "rows.json"
     rows = D.main(["--arch", "gemma3-1b", "--shape", "decode_32k",
                    "--mesh", "sim1", "--no-probes", "--out", str(out)])
@@ -369,11 +363,10 @@ def test_cli_rows(tmp_path):
     assert rl["chips"] == 1 and rl["bottleneck"] == "memory"
     assert rl["t_memory"] == rl["bytes_hbm"] / 3.35e12
     assert rl["fits"] == (rl["hbm_per_device"] <= 80e9)
-    layout = D.run_one("rwkv6-1.6b", "decode_32k", verbose=False)
-    assert layout["status"] == ("layout only: the counted terms are not "
-                                "run (ROADMAP A: serving on a mesh for the "
-                                "ssm family)")
-    assert layout["info"]["cache_seq"] == 32_768
+    ssm = D.run_one("rwkv6-1.6b", "decode_32k", verbose=False)
+    assert ssm["status"] == "ok" and "not_run" not in ssm["info"]
+    assert len(ssm["info"]["rank_cache"]) == 24
+    assert ssm["info"]["cache_seq"] == 32_768
     assert not get_config("deepseek-7b").runs_shape(SHAPES["long_500k"])
     skipped = D.run_one("deepseek-7b", "long_500k", verbose=False,
                         mesh="sim1")
